@@ -1,0 +1,31 @@
+"""Plain-PyTorch engine: params, state, generation, physics, transition,
+fused day rollout and the batched env."""
+
+from smart_nanogrid_gym_tpu.core.config import NanogridConfig, PenaltyMode
+
+from .env import SmartNanogridTorch
+from .generate import draw_uniforms, generate_schedule
+from .params import NanogridParams, broadcast_params, make_params
+from .rollout import build_day_tables, fused_day_rollout
+from .state import DaySchedule, EnvState, StepInfo
+from .transition import StepResult, observe, reset, step
+
+__all__ = [
+    "NanogridConfig",
+    "PenaltyMode",
+    "SmartNanogridTorch",
+    "NanogridParams",
+    "make_params",
+    "broadcast_params",
+    "DaySchedule",
+    "EnvState",
+    "StepInfo",
+    "StepResult",
+    "observe",
+    "reset",
+    "step",
+    "draw_uniforms",
+    "generate_schedule",
+    "build_day_tables",
+    "fused_day_rollout",
+]

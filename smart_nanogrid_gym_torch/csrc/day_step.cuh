@@ -1,0 +1,618 @@
+// Day-step bodies of the fused generation + closed-loop kernels (K5-K8).
+//
+// Replaces the Pallas TPU kernels of smart_nanogrid_gym_tpu/ops/:
+//   K7 pallas_gen_rollout.py::pallas_gen_rbc_day            -> gen_rbc_day_kernel<C, Explicit>
+//   K8 pallas_gen_rollout.py::pallas_gen_rbc_multiday       -> gen_rbc_multiday_kernel<C>
+//   K5 pallas_gen_policy_rollout.py::pallas_gen_policy_day  -> gen_policy_day_kernel<C>
+//   K6 pallas_gen_policy_rollout.py::pallas_gen_policy_multiday -> gen_policy_multiday_kernel<C>
+//
+// Design: one thread per env runs the whole day; the per-charger carries live
+// in registers, the price/radiation/solar traces and (for K5/K6) the actor
+// weights in shared memory, read by every thread of the block at the same
+// address (broadcast).  Nothing of the schedule ever reaches device memory.
+// The RBC kernels are bound by instruction issue (K8 by the Philox draws, 10
+// rounds per 4 uniforms); the actor kernels by the three FMA-loop products,
+// 24 x (H*F + H*H + A*H) multiply-adds per env-day.  The tail of the batch is
+// guarded, so any batch size works.
+//
+// Parity with the plain twins (ops/gen_rollout.py, ops/gen_policy_rollout.py)
+// rests on the same f32 operations in the same order: every constant is the
+// f32 value of the Python expression the Pallas body uses, sums over chargers
+// and over the day run in index order, the build uses --fmad=false (no FMA
+// contraction) and IEEE division.
+//
+// Random numbers (K8/K6): Philox4x32-10 keyed by (seed, global env index),
+// counter (day, t, draw kind, charger group of 4); uniforms are (x >> 8)*2^-24.
+// The day's PV-shift draw uses counter (day, T, 0, 0).  ops/philox.py is the twin.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace ngk {
+
+// reference constants (charger.py:20-23, central_management_system.py:35,
+// penaliser.py:7,79,177-181, accountant.py:6,35, charging_station.py:214,257-269)
+constexpr float kMaxPEff = static_cast<float>(22.0 * 0.95);
+constexpr float kBattMaxPEff = static_cast<float>(44.0 * 0.95);
+constexpr float kBattCap = 80.0f;
+constexpr float kBattDod = 0.15f;
+constexpr float kBattInit = 0.5f;
+constexpr float kMargin = 0.05f;
+constexpr float kGain = 10.0f;
+constexpr float kWBatt = 0.8f;
+constexpr float kWVeh = 1.0f;
+constexpr float kGridW = 0.75f;
+constexpr float kSell = 0.8f;
+constexpr float kArrival = 0.6f;
+constexpr float kSocLow = 0.1f;
+constexpr float kSocSpan = 0.8f;
+constexpr float kCapLow = 15.0f;
+constexpr float kCapSpan = 105.0f;
+constexpr float kDefaultCap = 40.0f;
+constexpr float kSoon = static_cast<float>(24.0 * 0.16667);  // RBC: departure/24 < 0.16667
+
+// Static configuration: the flags of NanogridConfig the step body branches on.
+template <int N_, bool PV_, bool BATT_, int PMODE_, bool DIFF_CAPS_, bool REQ_SOC_, int H1_, int H2_>
+struct Cfg {
+  static constexpr int N = N_;
+  static constexpr bool PV = PV_;
+  static constexpr bool BATT = BATT_;
+  static constexpr int PMODE = PMODE_;  // 0 no_penalty, 1 on_departure, 2 sparse, 3 dense
+  static constexpr bool DIFF_CAPS = DIFF_CAPS_;
+  static constexpr bool REQ_SOC = REQ_SOC_;
+  static constexpr int H1 = H1_;
+  static constexpr int H2 = H2_;
+  static constexpr int F = (1 + (PV ? 1 : 0)) * 4 + 2 * N + (BATT ? 1 : 0);  // obs_dim, lookahead 3
+  static constexpr int A = N + (BATT ? 1 : 0);
+  // actor block in shared memory: W1 (H1,F) b1 W2 (H2,H1) b2 W3 (A,H2) b3 low high
+  static constexpr int WEIGHTS = H1 * F + H1 + H2 * H1 + H2 + A * H2 + 3 * A;
+};
+
+// Runtime step constants: steps per day, departure offsets 4h/10h/1h in steps, dt.
+struct Dims {
+  int T, k4, k10, k1;
+  float dt;
+};
+
+// ---------------------------------------------------------------- Philox ---
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+__device__ __forceinline__ float to_uniform(uint32_t x) {
+  return static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
+}
+
+// Uniforms from an explicit block u (T, 5, N, B), the generate_schedule(uniforms=...) contract.
+template <int N>
+struct ExplicitDraws {
+  const float* u;
+  int64_t B, b;
+  __device__ void draw(int t, int kind, float (&out)[N]) const {
+#pragma unroll
+    for (int n = 0; n < N; ++n) out[n] = u[(static_cast<int64_t>(t * 5 + kind) * N + n) * B + b];
+  }
+};
+
+// Uniforms from Philox, keyed by (seed, env), counter (day, t, kind, group).
+template <int N>
+struct PhiloxDraws {
+  uint2 key;
+  uint32_t day;
+  __device__ void draw(int t, int kind, float (&out)[N]) const {
+#pragma unroll
+    for (int g = 0; g < (N + 3) / 4; ++g) {
+      const uint4 r = philox4x32_10(make_uint4(day, static_cast<uint32_t>(t), static_cast<uint32_t>(kind),
+                                               static_cast<uint32_t>(g)), key);
+      const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * g + i < N) out[4 * g + i] = to_uniform(w[i]);
+    }
+  }
+  __device__ float pv_shift(int T) const {
+    const uint4 r = philox4x32_10(make_uint4(day, static_cast<uint32_t>(T), 0u, 0u), key);
+    return floorf(to_uniform(r.x) * 181.0f) / 100.0f;
+  }
+};
+
+// ------------------------------------------------------------ day carry ---
+
+template <class C>
+struct Carry {
+  // generation (charging_station.py:200-279)
+  float present[C::N], dep[C::N], cap[C::N], req[C::N];
+  // rollout: previously written SoC column, previous departure column, trailing-observe mask
+  float prev_col[C::N], prev_depcol[C::N], pmask[C::N], prev_capcol[C::N], prev_reqcol[C::N];
+
+  __device__ void clear() {
+#pragma unroll
+    for (int n = 0; n < C::N; ++n) {
+      present[n] = dep[n] = cap[n] = req[n] = 0.0f;
+      prev_col[n] = prev_depcol[n] = pmask[n] = prev_capcol[n] = prev_reqcol[n] = 0.0f;
+    }
+  }
+};
+
+// The schedule column of one charger at step t (_generate_column).
+struct Column {
+  bool arrives, occupied;
+  float occ_f, cap, cap_col, req, req_col, soc_t, dep, dep_col, mask_col;
+};
+
+// Draws of step t: only the kinds the recurrence reads (the others are never used).
+template <class C>
+struct StepDraws {
+  float arr[C::N], soc[C::N], cap[C::N], req[C::N], dep[C::N];
+  int low, high;
+
+  template <class Src>
+  __device__ void fill(const Src& src, int t, const Dims& d) {
+    low = t + d.k4;
+    high = min(t + d.k10, d.T + d.k1);
+    src.draw(t, 0, arr);
+    src.draw(t, 1, soc);
+    if (C::DIFF_CAPS) src.draw(t, 2, cap);
+    if (C::REQ_SOC) src.draw(t, 3, req);
+    if (low < high) {
+      src.draw(t, 4, dep);
+    } else {  // no-draw branch: the departure is `low`
+#pragma unroll
+      for (int n = 0; n < C::N; ++n) dep[n] = 0.0f;
+    }
+  }
+};
+
+template <class C>
+__device__ __forceinline__ Column generate_column(int t, int n, const StepDraws<C>& u, const Carry<C>& c) {
+  Column k;
+  k.arrives = (c.present[n] == 0.0f) && (u.arr[n] > kArrival);
+  k.soc_t = kSocLow + kSocSpan * u.soc[n];
+  const float dep_new = (u.low >= u.high)
+                            ? static_cast<float>(u.low)
+                            : static_cast<float>(u.low) + floorf(u.dep[n] * static_cast<float>(u.high - u.low));
+  const float present = fmaxf(c.present[n], k.arrives ? 1.0f : 0.0f);
+  k.dep = k.arrives ? dep_new : c.dep[n];
+  k.occupied = (present > 0.0f) && (static_cast<float>(t) < k.dep);
+  k.occ_f = k.occupied ? 1.0f : 0.0f;
+  if (C::DIFF_CAPS) {
+    const float cap_new = kCapLow + floorf(u.cap[n] * kCapSpan);
+    k.cap = k.arrives ? cap_new : c.cap[n];
+    k.cap_col = k.occupied ? k.cap : 0.0f;
+  } else {
+    k.cap = 0.0f;
+    k.cap_col = k.occ_f * kDefaultCap;
+  }
+  if (C::REQ_SOC) {
+    const float soc_prime = fminf(k.soc_t + 0.1f, 1.0f);
+    const float req_new = soc_prime + (1.0f - soc_prime) * u.req[n];
+    k.req = k.arrives ? req_new : c.req[n];
+    k.req_col = k.occupied ? k.req : 0.0f;
+  } else {
+    k.req = 0.0f;
+    k.req_col = k.occ_f;
+  }
+  k.dep_col = k.occupied ? k.dep - static_cast<float>(t) : 0.0f;
+  if (C::PMODE == 0) {
+    k.mask_col = 0.0f;
+  } else if (C::PMODE == 1) {
+    k.mask_col = (k.occupied && k.dep == static_cast<float>(t + 1)) ? 1.0f : 0.0f;
+  } else if (C::PMODE == 2) {
+    k.mask_col = (k.occupied && k.dep <= static_cast<float>(t + 3)) ? 1.0f : 0.0f;
+  } else {
+    k.mask_col = k.occ_f;
+  }
+  return k;
+}
+
+// Insufficiency penalty of charger n from the previous step's carry (Q2 reads).
+template <class C>
+__device__ __forceinline__ float vehicle_penalty(int n, float pmask, const Carry<C>& c) {
+  const float req_p = C::REQ_SOC ? c.prev_reqcol[n] : c.present[n];
+  const bool insufficient = c.prev_col[n] < req_p - kMargin * req_p;
+  const float gap = (req_p - c.prev_col[n]) * kGain;
+  return (pmask > 0.0f && insufficient) ? gap * gap : 0.0f;
+}
+
+// Generation-carry update of charger n (prev_col is written after the physics).
+template <class C>
+__device__ __forceinline__ void advance_carry(int n, const Column& k, Carry<C>& c) {
+  c.present[n] = k.occ_f;
+  c.dep[n] = k.dep;
+  if (C::DIFF_CAPS) c.cap[n] = k.cap;
+  if (C::REQ_SOC) c.req[n] = k.req;
+  c.prev_depcol[n] = k.dep_col;
+  c.pmask[n] = k.mask_col;
+  if (C::DIFF_CAPS) c.prev_capcol[n] = k.cap_col;
+  if (C::REQ_SOC) c.prev_reqcol[n] = k.req_col;
+}
+
+// ------------------------------------------------------------- RBC step ---
+
+// One RBC step (_gen_rbc_step): returns the charging power; pen[n] the
+// per-charger vehicle penalty.
+template <class C, class Src>
+__device__ float rbc_step(int t, const Dims& d, const Src& src, Carry<C>& c, const float* rad_norm,
+                          float pv_shift, float (&pen)[C::N]) {
+  StepDraws<C> u;
+  u.fill(src, t, d);
+  const int o = t > 0 ? t - 1 : 0;
+  float fallback = 0.0f;
+  if (C::PV) fallback = (rad_norm[o] * pv_shift + rad_norm[o + 1] * pv_shift) * 0.5f;
+
+  float charging = 0.0f;
+#pragma unroll
+  for (int n = 0; n < C::N; ++n) {
+    const Column k = generate_column<C>(t, n, u, c);
+    const float pmask = t == 0 ? k.mask_col : c.pmask[n];
+    const float dep_o = t == 0 ? k.dep_col : c.prev_depcol[n];
+    const float a = (dep_o == 0.0f) ? 0.0f : ((dep_o < kSoon) ? 1.0f : fallback);
+
+    const float soc_eff = k.arrives ? k.soc_t : c.prev_col[n];
+    const float p_raw = a * kMaxPEff;
+    float safe_cap = kDefaultCap;
+    if (C::DIFF_CAPS) {
+      const float cap_eff = k.arrives ? k.cap_col : c.prev_capcol[n];
+      safe_cap = cap_eff > 0.0f ? cap_eff : 1.0f;
+    }
+    const float calc = soc_eff + (p_raw * d.dt) / safe_cap;
+    const float power = (k.occupied && a > 0.0f) ? p_raw : 0.0f;
+    const float soc_new = a > 0.0f ? fminf(calc, 1.0f) : soc_eff;
+
+    pen[n] = vehicle_penalty<C>(n, pmask, c);
+    advance_carry<C>(n, k, c);
+    c.prev_col[n] = k.occupied ? soc_new : 0.0f;
+    charging = n == 0 ? power : charging + power;
+  }
+  return charging;
+}
+
+// Reward of one RBC step without the vehicle penalty (_day_rewards).
+template <class C>
+__device__ __forceinline__ float rbc_reward(float charging, float solar_t, float price_t, float pv_shift,
+                                            float dod_pen, float dt) {
+  const float grid_power = C::PV ? charging - solar_t * pv_shift : charging;
+  const float ge = grid_power * dt;
+  const float g_cost = ge < 0.0f ? ge * (kSell * price_t) : ge * price_t;
+  return kGridW * fabsf(g_cost) + kWBatt * dod_pen;  // the cost; the caller negates
+}
+
+template <class C>
+__device__ __forceinline__ float idle_dod_penalty(float batt_soc) {
+  if (!C::BATT) return 0.0f;
+  const float gap = (kBattDod - batt_soc) * kGain;
+  return batt_soc < kBattDod ? gap * gap : 0.0f;
+}
+
+__device__ __forceinline__ float dense(const float* w, const float* x, int in) {
+  float acc = w[0] * x[0];
+  for (int k = 1; k < in; ++k) acc = acc + w[k] * x[k];
+  return acc;
+}
+
+// ---------------------------------------------------------- policy step ---
+
+// Shared-memory views of the actor block (layout of Cfg::WEIGHTS).
+template <class C>
+struct Actor {
+  const float *w1, *b1, *w2, *b2, *w3, *b3, *low, *high;
+  __device__ explicit Actor(const float* s) {
+    w1 = s;
+    b1 = w1 + C::H1 * C::F;
+    w2 = b1 + C::H1;
+    b2 = w2 + C::H2 * C::H1;
+    w3 = b2 + C::H2;
+    b3 = w3 + C::A * C::H2;
+    low = b3 + C::A;
+    high = low + C::A;
+  }
+};
+
+struct PolicyRows {
+  float flows, p_used, dod;
+};
+
+// One actor step (_gen_policy_step + _gen_policy_physics): observation, the
+// deterministic 64-64 tanh actor clipped to the box, bidirectional physics.
+template <class C, class Src>
+__device__ PolicyRows policy_step(int t, const Dims& d, const Src& src, Carry<C>& c, float& batt_soc,
+                                  const float* rad_norm, const float* price_norm, float pv_shift,
+                                  const Actor<C>& w, float (&act)[C::A], float (&pen)[C::N]) {
+  constexpr int N = C::N;
+  StepDraws<C> u;
+  u.fill(src, t, d);
+  const int o = t > 0 ? t - 1 : 0;
+
+  // ---- observation (F,) and the per-charger state the physics needs ----
+  float obs[C::F];
+  int base = 0;
+  if (C::PV) {
+    obs[0] = rad_norm[o] * pv_shift;
+    obs[1] = price_norm[o];
+#pragma unroll
+    for (int i = 1; i < 4; ++i) obs[1 + i] = rad_norm[o + i] * pv_shift;
+#pragma unroll
+    for (int i = 1; i < 4; ++i) obs[4 + i] = price_norm[o + i];
+    base = 8;
+  } else {
+    obs[0] = price_norm[o];
+#pragma unroll
+    for (int i = 1; i < 4; ++i) obs[i] = price_norm[o + i];
+    base = 4;
+  }
+  bool occupied[N];
+  float soc_eff[N], cap_eff[N], safe_cap[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const Column k = generate_column<C>(t, n, u, c);
+    const float pmask = t == 0 ? k.mask_col : c.pmask[n];
+    obs[base + n] = t == 0 ? (k.arrives ? k.soc_t : 0.0f) : c.prev_col[n];
+    obs[base + N + n] = (t == 0 ? k.dep_col : c.prev_depcol[n]) / 24.0f;
+    occupied[n] = k.occupied;
+    soc_eff[n] = k.arrives ? k.soc_t : c.prev_col[n];
+    if (C::DIFF_CAPS) {
+      cap_eff[n] = k.arrives ? k.cap_col : c.prev_capcol[n];
+      safe_cap[n] = cap_eff[n] > 0.0f ? cap_eff[n] : 1.0f;
+    } else {
+      cap_eff[n] = k.occ_f * kDefaultCap;
+      safe_cap[n] = kDefaultCap;
+    }
+    pen[n] = vehicle_penalty<C>(n, pmask, c);
+    advance_carry<C>(n, k, c);
+  }
+  if (C::BATT) obs[base + 2 * N] = batt_soc;
+
+  // ---- actor: three products as FMA-free multiply-add loops ----
+  float h1[C::H1], h2[C::H2];
+  for (int j = 0; j < C::H1; ++j) h1[j] = tanhf(dense(w.w1 + j * C::F, obs, C::F) + w.b1[j]);
+  for (int j = 0; j < C::H2; ++j) h2[j] = tanhf(dense(w.w2 + j * C::H1, h1, C::H1) + w.b2[j]);
+#pragma unroll
+  for (int i = 0; i < C::A; ++i)
+    act[i] = fminf(fmaxf(dense(w.w3 + i * C::H2, h2, C::H2) + w.b3[i], w.low[i]), w.high[i]);
+
+  // ---- charger physics, both branches (inverted discharge flag quirk) ----
+  float charging = 0.0f, discharging = 0.0f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const float a = act[n];
+    const float p_raw = a * kMaxPEff;
+    const float calc = soc_eff[n] + (p_raw * d.dt) / safe_cap[n];
+    const float p_dis = calc >= 0.0f ? -(soc_eff[n] * cap_eff[n]) / d.dt : p_raw;
+    float power = a > 0.0f ? p_raw : (a < 0.0f ? p_dis : 0.0f);
+    power = occupied[n] ? power : 0.0f;
+    const float soc_new = a > 0.0f ? fminf(calc, 1.0f) : (a < 0.0f ? fmaxf(calc, 0.0f) : soc_eff[n]);
+    c.prev_col[n] = occupied[n] ? soc_new : 0.0f;
+    const float pos = power > 0.0f ? power : 0.0f;
+    const float neg = power < 0.0f ? power : 0.0f;
+    charging = n == 0 ? pos : charging + pos;
+    discharging = n == 0 ? neg : discharging + neg;
+  }
+
+  PolicyRows rows;
+  rows.flows = charging + discharging;
+  rows.p_used = 0.0f;
+  rows.dod = 0.0f;
+  if (C::BATT) {
+    const float ba = act[N];
+    const float p_calc = ba * kBattMaxPEff;
+    const float b_calc = batt_soc + (p_calc * d.dt) / kBattCap;
+    const float p_b_dis = b_calc < 0.0f ? -(batt_soc * kBattCap) / d.dt : p_calc;
+    batt_soc = ba > 0.0f ? fminf(b_calc, 1.0f) : (ba < 0.0f ? fmaxf(b_calc, 0.0f) : batt_soc);
+    rows.p_used = ba > 0.0f ? p_calc : (ba < 0.0f ? p_b_dis : 0.0f);
+    const float gap = (kBattDod - batt_soc) * kGain;
+    rows.dod = batt_soc < kBattDod ? gap * gap : 0.0f;
+  }
+  return rows;
+}
+
+// Cost of one actor step without the vehicle penalty (_policy_day_rewards).
+template <class C>
+__device__ __forceinline__ float policy_cost(const PolicyRows& r, float solar_t, float price_t, float pv_shift,
+                                             float dt) {
+  const float remaining = C::PV ? r.flows - solar_t * pv_shift : r.flows;
+  const float grid_power = C::BATT ? remaining + r.p_used : remaining;
+  const float ge = grid_power * dt;
+  const float g_cost = ge < 0.0f ? ge * (kSell * price_t) : ge * price_t;
+  return kGridW * fabsf(g_cost) + kWBatt * r.dod;
+}
+
+// --------------------------------------------------------------- kernels ---
+
+// Shared traces: rad_norm (S), price_norm (P, policy only), price (T), solar (T).
+struct SharedTraces {
+  float *rad_norm, *price_norm, *price, *solar;
+};
+
+__device__ __forceinline__ SharedTraces load_traces(float* smem, const float* rad_norm, int S,
+                                                    const float* price_norm, int P, const float* price,
+                                                    const float* solar, int T) {
+  SharedTraces s;
+  s.rad_norm = smem;
+  s.price_norm = s.rad_norm + S;
+  s.price = s.price_norm + P;
+  s.solar = s.price + T;
+  for (int i = threadIdx.x; i < S; i += blockDim.x) s.rad_norm[i] = rad_norm[i];
+  for (int i = threadIdx.x; i < P; i += blockDim.x) s.price_norm[i] = price_norm[i];
+  for (int i = threadIdx.x; i < T; i += blockDim.x) {
+    s.price[i] = price[i];
+    s.solar[i] = solar[i];
+  }
+  return s;
+}
+
+__device__ __forceinline__ void load_block(float* dst, const float* src, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
+// K7: rewards (T, B) and soc_final (N, B) of one explicit-uniform RBC day.
+template <class C>
+__global__ void gen_rbc_day_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
+                                   const float* __restrict__ solar, const float* __restrict__ u,
+                                   const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                                   float* __restrict__ rewards, float* __restrict__ soc_final, int B, Dims d) {
+  extern __shared__ float smem[];
+  const SharedTraces s = load_traces(smem, rad_norm, S, nullptr, 0, price, solar, d.T);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  const ExplicitDraws<C::N> src{u, B, b};
+  const float pv = pv_shift[b];
+  const float dod = idle_dod_penalty<C>(batt_soc[b]);
+  Carry<C> c;
+  c.clear();
+  float pen[C::N];
+#pragma unroll 1
+  for (int t = 0; t < d.T; ++t) {
+    const float charging = rbc_step<C>(t, d, src, c, s.rad_norm, pv, pen);
+    float pen_sum = pen[0];
+#pragma unroll
+    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
+    const float cost = rbc_reward<C>(charging, s.solar[t], s.price[t], pv, dod, d.dt) + kWVeh * pen_sum;
+    rewards[static_cast<int64_t>(t) * B + b] = -cost;
+  }
+#pragma unroll
+  for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = c.prev_col[n];
+}
+
+// K8: num_days Philox RBC days per env; stats (2, B) = sum and sum of squares of day returns.
+template <class C>
+__global__ void gen_rbc_multiday_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
+                                        const float* __restrict__ solar, uint32_t seed, int num_days,
+                                        float* __restrict__ stats, int B, Dims d) {
+  extern __shared__ float smem[];
+  const SharedTraces s = load_traces(smem, rad_norm, S, nullptr, 0, price, solar, d.T);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  const float dod = idle_dod_penalty<C>(kBattInit);
+  float rew_total = 0.0f, sq_total = 0.0f;
+  Carry<C> c;
+  float pen[C::N], pen_acc[C::N];
+#pragma unroll 1
+  for (int day = 0; day < num_days; ++day) {
+    const PhiloxDraws<C::N> src{make_uint2(seed, static_cast<uint32_t>(b)), static_cast<uint32_t>(day)};
+    const float pv = src.pv_shift(d.T);
+    c.clear();
+#pragma unroll
+    for (int n = 0; n < C::N; ++n) pen_acc[n] = 0.0f;
+    float day_sum = 0.0f;
+  #pragma unroll 1
+  for (int t = 0; t < d.T; ++t) {
+      const float charging = rbc_step<C>(t, d, src, c, s.rad_norm, pv, pen);
+#pragma unroll
+      for (int n = 0; n < C::N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
+      const float reward = -rbc_reward<C>(charging, s.solar[t], s.price[t], pv, dod, d.dt);
+      day_sum = t == 0 ? reward : day_sum + reward;
+    }
+    float pen_total = pen_acc[0];
+#pragma unroll
+    for (int n = 1; n < C::N; ++n) pen_total = pen_total + pen_acc[n];
+    const float day_return = day_sum - kWVeh * pen_total;
+    rew_total = rew_total + day_return;
+    sq_total = sq_total + day_return * day_return;
+  }
+  stats[b] = rew_total;
+  stats[static_cast<int64_t>(B) + b] = sq_total;
+}
+
+// K5: one explicit-uniform actor day; rewards (T, B), actions (T, A, B),
+// soc_final (N, B), batt_final (B).
+template <class C>
+__global__ void gen_policy_day_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                                      const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                                      const float* __restrict__ u, const float* __restrict__ batt_soc,
+                                      const float* __restrict__ pv_shift, const float* __restrict__ weights,
+                                      float* __restrict__ rewards, float* __restrict__ actions,
+                                      float* __restrict__ soc_final, float* __restrict__ batt_final, int B,
+                                      Dims d) {
+  extern __shared__ float smem[];
+  load_block(smem, weights, C::WEIGHTS);
+  const SharedTraces s = load_traces(smem + C::WEIGHTS, rad_norm, S, price_norm, P, price, solar, d.T);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  const Actor<C> w(smem);
+  const ExplicitDraws<C::N> src{u, B, b};
+  const float pv = pv_shift[b];
+  float batt = batt_soc[b];
+  Carry<C> c;
+  c.clear();
+  float act[C::A], pen[C::N];
+#pragma unroll 1
+  for (int t = 0; t < d.T; ++t) {
+    const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, w, act, pen);
+#pragma unroll
+    for (int i = 0; i < C::A; ++i) actions[(static_cast<int64_t>(t) * C::A + i) * B + b] = act[i];
+    float pen_sum = pen[0];
+#pragma unroll
+    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
+    const float cost = policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt) + kWVeh * pen_sum;
+    rewards[static_cast<int64_t>(t) * B + b] = -cost;
+  }
+#pragma unroll
+  for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = c.prev_col[n];
+  batt_final[b] = batt;
+}
+
+// K6: num_days Philox actor days per env, battery carried across days;
+// stats (3, B) = sum and sum of squares of day returns, final battery SoC.
+template <class C>
+__global__ void gen_policy_multiday_kernel(const float* __restrict__ price, const float* __restrict__ price_norm,
+                                           int P, const float* __restrict__ rad_norm, int S,
+                                           const float* __restrict__ solar, uint32_t seed, int num_days,
+                                           const float* __restrict__ weights, float* __restrict__ stats, int B,
+                                           Dims d) {
+  extern __shared__ float smem[];
+  load_block(smem, weights, C::WEIGHTS);
+  const SharedTraces s = load_traces(smem + C::WEIGHTS, rad_norm, S, price_norm, P, price, solar, d.T);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  const Actor<C> w(smem);
+  float batt = kBattInit;
+  float rew_total = 0.0f, sq_total = 0.0f;
+  Carry<C> c;
+  float act[C::A], pen[C::N], pen_acc[C::N];
+#pragma unroll 1
+  for (int day = 0; day < num_days; ++day) {
+    const PhiloxDraws<C::N> src{make_uint2(seed, static_cast<uint32_t>(b)), static_cast<uint32_t>(day)};
+    const float pv = src.pv_shift(d.T);
+    c.clear();
+#pragma unroll
+    for (int n = 0; n < C::N; ++n) pen_acc[n] = 0.0f;
+    float day_sum = 0.0f;
+  #pragma unroll 1
+  for (int t = 0; t < d.T; ++t) {
+      const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, w, act, pen);
+#pragma unroll
+      for (int n = 0; n < C::N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
+      const float reward = -policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt);
+      day_sum = t == 0 ? reward : day_sum + reward;
+    }
+    float pen_total = pen_acc[0];
+#pragma unroll
+    for (int n = 1; n < C::N; ++n) pen_total = pen_total + pen_acc[n];
+    const float day_return = day_sum - kWVeh * pen_total;
+    rew_total = rew_total + day_return;
+    sq_total = sq_total + day_return * day_return;
+  }
+  stats[b] = rew_total;
+  stats[static_cast<int64_t>(B) + b] = sq_total;
+  stats[2 * static_cast<int64_t>(B) + b] = batt;
+}
+
+}  // namespace ngk

@@ -1,0 +1,82 @@
+// C entry points of the day kernels (K5-K8) for one static configuration.
+//
+// The configuration comes from -D flags (ops/_build.py builds one shared
+// library per configuration at first use):
+//   NG_N charger count, NG_PV, NG_BATT, NG_PMODE (0-3), NG_DIFF_CAPS,
+//   NG_REQ_SOC, NG_H1/NG_H2 actor hidden sizes.
+// Every entry point launches on the given stream, does not synchronise, and
+// returns cudaGetLastError() so the caller can raise on a refused launch.
+#include "day_step.cuh"
+
+#if !defined(NG_N) || !defined(NG_PV) || !defined(NG_BATT) || !defined(NG_PMODE) || \
+    !defined(NG_DIFF_CAPS) || !defined(NG_REQ_SOC) || !defined(NG_H1) || !defined(NG_H2)
+#error "build with -DNG_N= -DNG_PV= -DNG_BATT= -DNG_PMODE= -DNG_DIFF_CAPS= -DNG_REQ_SOC= -DNG_H1= -DNG_H2="
+#endif
+
+namespace {
+
+using C = ngk::Cfg<NG_N, NG_PV != 0, NG_BATT != 0, NG_PMODE, NG_DIFF_CAPS != 0, NG_REQ_SOC != 0, NG_H1, NG_H2>;
+constexpr int kThreads = 128;
+
+inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
+
+inline ngk::Dims dims(int T, int k4, int k10, int k1, float dt) { return ngk::Dims{T, k4, k10, k1, dt}; }
+
+template <class Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  if (bytes > 48 * 1024) {
+    return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(bytes)));
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int ngk_weights_size() { return C::WEIGHTS; }
+
+int ngk_gen_rbc_day(const float* price, const float* rad_norm, int S, const float* solar, const float* u,
+                    const float* batt_soc, const float* pv_shift, float* rewards, float* soc_final, int B, int T,
+                    int k4, int k10, int k1, float dt, void* stream) {
+  const size_t smem = static_cast<size_t>(S + 2 * T) * sizeof(float);
+  ngk::gen_rbc_day_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      price, rad_norm, S, solar, u, batt_soc, pv_shift, rewards, soc_final, B, dims(T, k4, k10, k1, dt));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ngk_gen_rbc_multiday(const float* price, const float* rad_norm, int S, const float* solar, unsigned int seed,
+                         int num_days, float* stats, int B, int T, int k4, int k10, int k1, float dt,
+                         void* stream) {
+  const size_t smem = static_cast<size_t>(S + 2 * T) * sizeof(float);
+  ngk::gen_rbc_multiday_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      price, rad_norm, S, solar, seed, num_days, stats, B, dims(T, k4, k10, k1, dt));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ngk_gen_policy_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
+                       const float* solar, const float* u, const float* batt_soc, const float* pv_shift,
+                       const float* weights, float* rewards, float* actions, float* soc_final, float* batt_final,
+                       int B, int T, int k4, int k10, int k1, float dt, void* stream) {
+  const size_t smem = static_cast<size_t>(C::WEIGHTS + S + P + 2 * T) * sizeof(float);
+  const int err = set_smem(ngk::gen_policy_day_kernel<C>, smem);
+  if (err != 0) return err;
+  ngk::gen_policy_day_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      price, price_norm, P, rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final,
+      batt_final, B, dims(T, k4, k10, k1, dt));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ngk_gen_policy_multiday(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
+                            const float* solar, unsigned int seed, int num_days, const float* weights,
+                            float* stats, int B, int T, int k4, int k10, int k1, float dt, void* stream) {
+  const size_t smem = static_cast<size_t>(C::WEIGHTS + S + P + 2 * T) * sizeof(float);
+  const int err = set_smem(ngk::gen_policy_multiday_kernel<C>, smem);
+  if (err != 0) return err;
+  ngk::gen_policy_multiday_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      price, price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats, B, dims(T, k4, k10, k1, dt));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,163 @@
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
+
+``nvcc`` compiles ``csrc/kernels.cu`` into a shared library with a plain C
+interface, one library per static configuration (charger count, config
+flags, actor hidden sizes), at first use, for ``sm_90a``.  Libraries land in
+``build/torch_kernels/`` at the root of the checkout, named by the
+configuration and a digest of the sources and flags, so an edited source
+rebuilds.  They are loaded with ``ctypes``; every launch goes on PyTorch's
+current stream and its ``cudaGetLastError()`` is checked.
+
+``launch_counts`` counts the launches of each kernel by name: a wrapper adds
+one where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("day_step.cuh", "kernels.cu")
+# --fmad=false: no FMA contraction, so the kernels round like their twins;
+# IEEE division stays on (no --use_fast_math).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+DEFAULT_HIDDEN = (64, 64)
+
+launch_counts: Counter = Counter()
+
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_SIGNATURES = {
+    "ngk_weights_size": (),
+    "ngk_gen_rbc_day": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "ngk_gen_rbc_multiday": (_P, _P, _I, _P, _U, _I, _P, _I, _I, _I, _I, _I, _F, _P),
+    "ngk_gen_policy_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _F, _P),
+    "ngk_gen_policy_multiday": (_P, _P, _I, _P, _I, _P, _U, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+}
+_LIBRARIES: dict[Path, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+
+
+def config_flags(config: NanogridConfig, hidden: tuple[int, int] = DEFAULT_HIDDEN) -> dict[str, int]:
+    """The static configuration a library is built for."""
+    return {
+        "NG_N": config.num_chargers,
+        "NG_PV": int(config.pv_system),
+        "NG_BATT": int(config.battery_system),
+        "NG_PMODE": int(config.penalty_mode),
+        "NG_DIFF_CAPS": int(config.different_battery_capacities),
+        "NG_REQ_SOC": int(config.requested_state_of_charge),
+        "NG_H1": int(hidden[0]),
+        "NG_H2": int(hidden[1]),
+    }
+
+
+def _nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            candidates.append(os.path.join(root, "bin", "nvcc"))
+    for path in candidates:
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (CUDA_HOME or PATH)")
+
+
+def library_path(flags: dict[str, int]) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update((CSRC / name).read_bytes())
+    tag = "_".join(f"{k[3:].lower()}{v}" for k, v in flags.items())
+    return BUILD_DIR / f"libngk_{tag}_{digest.hexdigest()[:12]}.so"
+
+
+def compile_library(flags: dict[str, int]) -> tuple[Path, float]:
+    """Compile the library for ``flags`` unless it exists; returns its path and
+    the seconds spent compiling.  The ptxas report goes to ``<lib>.log``."""
+    path = library_path(flags)
+    if path.exists():
+        return path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()),
+           "-o", str(tmp), str(CSRC / "kernels.cu")]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {flags}:\n{proc.stderr[-4000:]}")
+    os.replace(tmp, path)
+    return path, seconds
+
+
+def build(flag_sets: list[dict[str, int]]) -> list[tuple[Path, float]]:
+    """Compile several configurations concurrently (one nvcc process each)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(flag_sets))) as pool:
+        return list(pool.map(compile_library, flag_sets))
+
+
+def library(config: NanogridConfig, device: torch.device,
+            hidden: tuple[int, int] = DEFAULT_HIDDEN) -> ctypes.CDLL:
+    """The loaded kernel library for ``config``, built first if needed."""
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernels need a CUDA device, got {device}")
+    path, _ = compile_library(config_flags(config, hidden))
+    lib = _LIBRARIES.get(path)
+    if lib is None:
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LIBRARIES[path] = lib
+    return lib
+
+
+def check_f32(t: torch.Tensor, name: str) -> torch.Tensor:
+    """A kernel operand: f32, contiguous, on a CUDA device."""
+    if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 CUDA tensor, got "
+                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    return t
+
+
+def day_dims(config: NanogridConfig) -> tuple[int, int, int, int, float]:
+    """Runtime step constants: T, k4, k10, k1, dt."""
+    dt = config.time_interval
+    return config.steps_per_day, int(4 / dt), int(10 / dt), int(1 / dt), dt
+
+
+def launch(name: str, fn, *args, device: torch.device) -> None:
+    """Call the C entry point ``fn`` on the current stream of ``device`` and
+    raise if the launch was refused; counts one launch of ``name``."""
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.device != device:
+            raise ValueError(f"{name}: operand on {a.device}, kernel on {device}")
+    c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*c_args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    launch_counts[name] += 1

@@ -1,0 +1,337 @@
+"""Fused day generation + deterministic actor closed loop: kernels K5 and K6
+with their twins.
+
+Replaces ``smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py`` with
+``actor="ppo"`` and f32 operands:
+
+- :func:`gen_policy_day` (K5, ``pallas_gen_policy_day``): one day per env from
+  an explicit uniform block, the PPO actor's mean (64-64 tanh torso) clipped
+  to the action box, bidirectional charger and BESS physics (v2x included);
+  returns ``rewards (T, B)``, ``actions (T, A, B)``, ``soc_final (N, B)`` and
+  ``batt_final (B,)``;
+- :func:`gen_policy_multiday` (K6, ``pallas_gen_policy_multiday``):
+  ``num_days`` Philox days per env in one launch with the battery carried
+  across days; returns ``stats (3, B)``: Σ day return, Σ (day return)², final
+  battery SoC.
+
+The DDPG actor and the bf16 operand option of the JAX kernels are not ported
+yet.  The twins mirror the Pallas step body; the actor's products run as
+multiply-add loops in input order, the order the CUDA kernels use.
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, NamedTuple
+
+import torch
+
+from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+
+from ..core.params import NanogridParams
+from . import _build
+from .gen_rollout import (
+    BATT_INIT_SOC,
+    F32,
+    GRID_W,
+    MAX_P,
+    EFF,
+    SELL,
+    W_BATT,
+    W_VEH,
+    BATT_DOD,
+    GAIN,
+    DEFAULT_CAP,
+    Traces,
+    div,
+    fresh_carry,
+    generate_column,
+    kernel_device,
+    kernel_traces,
+    next_carry,
+    pv_shift_from_uniform,
+    step_kwargs,
+    sum_rows,
+    vehicle_penalty,
+)
+from .param_guard import check_baked_params
+from .philox import day_uniforms
+
+if TYPE_CHECKING:
+    from ..solvers.networks import ActorCritic
+
+B_CAP, B_MAXP, B_EFF = 80.0, 44.0, 0.95
+
+
+class ActorWeights(NamedTuple):
+    """The actor torso in the kernels' layout (f32): ``w (out, in)``, ``b (out, 1)``."""
+
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    w3: torch.Tensor
+    b3: torch.Tensor
+    low: torch.Tensor   # (A, 1)
+    high: torch.Tensor  # (A, 1)
+
+    def packed(self) -> torch.Tensor:
+        """One contiguous block in the order ``csrc/day_step.cuh`` reads it."""
+        return torch.cat([x.reshape(-1) for x in self]).contiguous()
+
+
+def actor_weights(config: NanogridConfig, net: ActorCritic, device: torch.device) -> ActorWeights:
+    """The ``pi`` torso of ``net`` and the action bounds as f32 on ``device``."""
+    pi = net.pi
+    if pi.num_layers != 3:
+        raise ValueError("the actor kernels take a torso of two hidden layers")
+    if net.obs_dim != config.obs_dim or net.action_dim != config.num_actions:
+        raise ValueError(f"actor is {net.obs_dim}->{net.action_dim}, config needs "
+                         f"{config.obs_dim}->{config.num_actions}")
+
+    def t(x):
+        return x.detach().to(device=device, dtype=F32).contiguous()
+
+    layers = [getattr(pi, f"Dense_{i}") for i in range(3)]
+    low, high = config.action_bounds()
+    return ActorWeights(
+        t(layers[0].weight), t(layers[0].bias)[:, None],
+        t(layers[1].weight), t(layers[1].bias)[:, None],
+        t(layers[2].weight), t(layers[2].bias)[:, None],
+        torch.as_tensor(low, device=device)[:, None], torch.as_tensor(high, device=device)[:, None],
+    )
+
+
+def _dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``w @ x + b`` as a multiply-add loop over the input in index order."""
+    acc = w[:, 0:1] * x[0:1]
+    for k in range(1, w.shape[1]):
+        acc = acc + w[:, k:k + 1] * x[k:k + 1]
+    return acc + b
+
+
+def actor_mean(w: ActorWeights, obs: torch.Tensor) -> torch.Tensor:
+    """Deterministic action ``(A, B)`` for observations ``(F, B)``."""
+    h1 = torch.tanh(_dense(w.w1, w.b1, obs))
+    h2 = torch.tanh(_dense(w.w2, w.b2, h1))
+    return torch.clamp(_dense(w.w3, w.b3, h2), w.low, w.high)
+
+
+def gen_policy_step(t, u5, c, batt_soc, traces: Traces, pv_shift, weights: ActorWeights, *,
+                    T, N, dt, pv, batt, penalty_mode, diff_caps, req_soc, k4, k10, k1):
+    """One step (``_gen_policy_step`` + ``_gen_policy_physics``,
+    pallas_gen_policy_rollout.py:63-277): generate column t, run the actor on
+    the step-(t-1) observation, apply the physics.  Returns ``(rows, actions
+    (A, B), carry, batt_soc)``; ``rows`` holds the ``(B,)`` inputs of the cost
+    (``flows``, ``p_used``, ``dod``) and the per-charger penalty ``pen (N, B)``."""
+    cols, gen = generate_column(t, u5, c, T=T, penalty_mode=penalty_mode, diff_caps=diff_caps,
+                                req_soc=req_soc, k4=k4, k10=k10, k1=k1)
+    arrives, occupied = cols["arrives"], cols["occupied"]
+    zero = torch.zeros((), dtype=F32, device=pv_shift.device)
+
+    if t == 0:  # reset's observation: generated column 0, reset-time check set
+        pmask, dep_o = cols["mask_col"], cols["dep_col"]
+        soc_rows = torch.where(arrives, cols["soc_t"], zero)
+    else:
+        pmask, dep_o, soc_rows = c["pmask"], c["prev_depcol"], c["prev_col"]
+
+    o = max(t - 1, 0)
+    B = pv_shift.shape[0]
+    price_norm, rad_norm = traces.price_norm, traces.rad_norm
+    if pv:
+        rows = [rad_norm[o] * pv_shift, price_norm[o].expand(B)]
+        rows += [rad_norm[o + i] * pv_shift for i in range(1, 4)]
+        rows += [price_norm[o + i].expand(B) for i in range(1, 4)]
+    else:
+        rows = [price_norm[o + i].expand(B) for i in range(4)]
+    parts = [torch.stack(rows), soc_rows, div(dep_o, 24.0)]
+    if batt:
+        parts.append(batt_soc[None])
+    actions = actor_mean(weights, torch.cat(parts))
+
+    # ---- charger physics, both branches (inverted discharge flag quirk) ----
+    ch_act = actions[:N]
+    soc_eff = torch.where(arrives, cols["soc_t"], c["prev_col"])
+    p_raw = ch_act * (MAX_P * EFF)
+    if diff_caps:
+        cap_eff = torch.where(arrives, cols["cap_col"], c["prev_capcol"])
+        calc = soc_eff + (p_raw * dt) / torch.where(cap_eff > 0, cap_eff, torch.ones_like(cap_eff))
+    else:
+        cap_eff = cols["occ_f"] * DEFAULT_CAP
+        calc = soc_eff + div(p_raw * dt, DEFAULT_CAP)
+    p_dis = torch.where(calc >= 0.0, div(-(soc_eff * cap_eff), dt), p_raw)
+    is_pos, is_neg = ch_act > 0, ch_act < 0
+    power = torch.where(is_pos, p_raw, torch.where(is_neg, p_dis, zero))
+    soc_new = torch.where(is_pos, torch.clamp(calc, max=1.0),
+                          torch.where(is_neg, torch.clamp(calc, min=0.0), soc_eff))
+    power = torch.where(occupied, power, zero)
+    new_col = torch.where(occupied, soc_new, zero)
+    charging = sum_rows(torch.where(power > 0, power, zero))
+    discharging = sum_rows(torch.where(power < 0, power, zero))
+
+    out = {"flows": charging + discharging, "pen": vehicle_penalty(c, pmask, req_soc)}
+    if batt:
+        ba = actions[N]
+        p_calc = ba * (B_MAXP * B_EFF)
+        b_calc = batt_soc + div(p_calc * dt, B_CAP)
+        p_b_dis = torch.where(b_calc < 0.0, div(-(batt_soc * B_CAP), dt), p_calc)
+        b_pos, b_neg = ba > 0, ba < 0
+        batt_soc = torch.where(b_pos, torch.clamp(b_calc, max=1.0),
+                               torch.where(b_neg, torch.clamp(b_calc, min=0.0), batt_soc))
+        out["p_used"] = torch.where(b_pos, p_calc, torch.where(b_neg, p_b_dis, zero))
+        gap = (BATT_DOD - batt_soc) * GAIN
+        out["dod"] = torch.where(batt_soc < BATT_DOD, gap * gap, zero)
+    return out, actions, next_carry(gen, cols, new_col, diff_caps, req_soc), batt_soc
+
+
+def policy_day_costs(rows, price_col, solar_col, pv_shift, *, dt, pv, batt):
+    """Grid cost of every step without the vehicle penalty
+    (``_policy_day_rewards``); ``rows`` holds ``(T, B)`` stacks."""
+    remaining = rows["flows"] - solar_col * pv_shift if pv else rows["flows"]
+    grid_power = remaining + rows["p_used"] if batt else remaining
+    grid_energy = grid_power * dt
+    g_cost = torch.where(grid_energy < 0, grid_energy * (SELL * price_col), grid_energy * price_col)
+    return GRID_W * torch.abs(g_cost) + W_BATT * (rows["dod"] if batt else 0.0)
+
+
+def _packed(weights: ActorWeights, lib) -> torch.Tensor:
+    """The actor block, checked against the layout the library was built for."""
+    block = weights.packed()
+    if block.numel() != lib.ngk_weights_size():
+        raise ValueError(f"actor block has {block.numel()} floats, the kernel library "
+                         f"expects {lib.ngk_weights_size()}")
+    return block
+
+
+def _policy_kwargs(config: NanogridConfig) -> dict:
+    return dict(N=config.num_chargers, batt=config.battery_system, **step_kwargs(config))
+
+
+def _stack(rows_list, key):
+    return torch.stack([r[key] for r in rows_list])
+
+
+def _check_policy_config(config: NanogridConfig, params: NanogridParams, kernel: str, **guard):
+    check_baked_params(config, params, kernel, generation=True, **guard)
+    if config.lookahead != 3:
+        raise ValueError(f"{kernel} bakes the reference 3-step observation lookahead; "
+                         "use the plain engine for other lookaheads")
+
+
+# --------------------------------------------------------------------- K5 ---
+
+def gen_policy_day_plain(config, traces: Traces, weights: ActorWeights, uniforms, pv_shift, batt_soc):
+    """Plain twin of K5 on f32 tensors."""
+    T = config.steps_per_day
+    kw = _policy_kwargs(config)
+    B = pv_shift.shape[0]
+    carry = fresh_carry(kw["N"], B, pv_shift.device, kw["diff_caps"], kw["req_soc"])
+    rows_list, actions = [], []
+    for t in range(T):
+        rows, act, carry, batt_soc = gen_policy_step(
+            t, uniforms[t].unbind(0), carry, batt_soc, traces, pv_shift, weights, T=T, **kw)
+        rows["pen"] = sum_rows(rows["pen"])
+        rows_list.append(rows)
+        actions.append(act)
+    stacked = {k: _stack(rows_list, k) for k in rows_list[0]}
+    cost = policy_day_costs(stacked, traces.price[:T, None], traces.solar[:T, None], pv_shift,
+                            dt=kw["dt"], pv=kw["pv"], batt=kw["batt"])
+    rewards = -(cost + W_VEH * stacked["pen"])
+    return rewards, torch.stack(actions), carry["prev_col"], batt_soc
+
+
+def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCritic,
+                   uniforms: torch.Tensor, pv_shift: torch.Tensor,
+                   batt_soc: torch.Tensor | None = None):
+    """Generate a fresh day per env and roll the deterministic PPO actor over it (K5).
+
+    ``uniforms (T, 5, N, B)``, ``pv_shift (B,)``, ``batt_soc (B,)`` (0.5 when
+    omitted).  Returns ``(rewards (T, B), actions (T, A, B), soc_final (N, B),
+    batt_final (B,))``.
+    """
+    _check_policy_config(config, params, "gen_policy_day")
+    T, N, A = config.steps_per_day, config.num_chargers, config.num_actions
+    B = pv_shift.shape[0]
+    if tuple(uniforms.shape) != (T, 5, N, B):
+        raise ValueError(f"uniforms must be ({T}, 5, {N}, {B}), got {tuple(uniforms.shape)}")
+    device = uniforms.device
+    if batt_soc is None:
+        batt_soc = params.batt_init_soc.reshape(-1)[0].to(device=device, dtype=F32).expand(B)
+    traces = kernel_traces(params, device)
+    weights = actor_weights(config, net, device)
+    if not kernel_device(uniforms):
+        return gen_policy_day_plain(config, traces, weights, uniforms.to(F32), pv_shift.to(F32),
+                                    batt_soc.to(F32))
+
+    u = _build.check_f32(uniforms, "uniforms")
+    pv = _build.check_f32(pv_shift, "pv_shift")
+    batt = _build.check_f32(batt_soc.contiguous(), "batt_soc")
+    rewards = torch.empty((T, B), dtype=F32, device=device)
+    actions = torch.empty((T, A, B), dtype=F32, device=device)
+    soc_final = torch.empty((N, B), dtype=F32, device=device)
+    batt_final = torch.empty((B,), dtype=F32, device=device)
+    lib = _build.library(config, device, net.hidden)
+    _build.launch(
+        "gen_policy_day", lib.ngk_gen_policy_day,
+        traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
+        traces.rad_norm.numel(), traces.solar, u, batt, pv, _packed(weights, lib),
+        rewards, actions, soc_final, batt_final, B, *_build.day_dims(config), device=device,
+    )
+    return rewards, actions, soc_final, batt_final
+
+
+# --------------------------------------------------------------------- K6 ---
+
+def gen_policy_multiday_plain(config, traces: Traces, weights: ActorWeights, num_days: int,
+                              seed: int, batch: int):
+    """Plain twin of K6: ``stats (3, batch)``, same Philox draws as the kernel."""
+    T = config.steps_per_day
+    kw = _policy_kwargs(config)
+    N = kw["N"]
+    device = traces.price.device
+    batt_soc = torch.full((batch,), BATT_INIT_SOC, dtype=F32, device=device)
+    rew_total = torch.zeros(batch, dtype=F32, device=device)
+    sq_total = torch.zeros(batch, dtype=F32, device=device)
+    for day in range(num_days):
+        u, u_pv = day_uniforms(seed, day, batch, T, N, device)
+        pv_shift = pv_shift_from_uniform(u_pv)
+        carry = fresh_carry(N, batch, device, kw["diff_caps"], kw["req_soc"])
+        pen_acc = torch.zeros((N, batch), dtype=F32, device=device)
+        rows_list = []
+        for t in range(T):
+            rows, _, carry, batt_soc = gen_policy_step(
+                t, u[t].unbind(0), carry, batt_soc, traces, pv_shift, weights, T=T, **kw)
+            pen_acc = pen_acc + rows.pop("pen")
+            rows_list.append(rows)
+        stacked = {k: _stack(rows_list, k) for k in rows_list[0]}
+        rewards = -policy_day_costs(stacked, traces.price[:T, None], traces.solar[:T, None],
+                                    pv_shift, dt=kw["dt"], pv=kw["pv"], batt=kw["batt"])
+        day_return = sum_rows(rewards) - W_VEH * sum_rows(pen_acc)
+        rew_total = rew_total + day_return
+        sq_total = sq_total + day_return * day_return
+    return torch.stack([rew_total, sq_total, batt_soc])
+
+
+def gen_policy_multiday(config: NanogridConfig, params: NanogridParams, net: ActorCritic,
+                        num_days: int, seed: int, batch: int):
+    """``num_days`` fresh actor-driven days × ``batch`` envs in one launch (K6).
+
+    Runs on the device of ``params``; the battery starts at 0.5 and carries
+    across days.  Returns ``stats (3, batch)``: Σ day return, Σ (day return)²,
+    final battery SoC.
+    """
+    _check_policy_config(config, params, "gen_policy_multiday", battery_init=True)
+    device = params.device
+    traces = kernel_traces(params, device)
+    weights = actor_weights(config, net, device)
+    if not kernel_device(params.price):
+        return gen_policy_multiday_plain(config, traces, weights, num_days, seed, batch)
+
+    stats = torch.empty((3, batch), dtype=F32, device=device)
+    lib = _build.library(config, device, net.hidden)
+    _build.launch(
+        "gen_policy_multiday", lib.ngk_gen_policy_multiday,
+        traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
+        traces.rad_norm.numel(), traces.solar, seed & 0xFFFFFFFF, num_days, _packed(weights, lib),
+        stats, batch, *_build.day_dims(config), device=device,
+    )
+    return stats

@@ -1,0 +1,95 @@
+"""Policy evaluation (port of ``solvers/evaluator.py:33-132``).
+
+- :func:`evaluate_policies_same_days` scores several policies on identical
+  days (the reference evaluator's paired design) on the plain engine.  The
+  days are generated from ``seed`` or given explicitly as initial states.
+- :func:`evaluate_policy_at_scale` runs the deterministic PPO actor over
+  ``num_days × batch`` fresh days in one launch of kernel K6 (its plain twin
+  on CPU params).
+
+``predict_single_day`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+
+from ..core.generate import generate_schedule
+from ..core.params import NanogridParams
+from ..core.state import EnvState
+from ..core.transition import reset, step
+from ..ops.gen_policy_rollout import gen_policy_multiday
+from ..ops.param_guard import check_baked_params
+from .networks import ActorCritic
+
+
+def evaluate_policies_same_days(
+    config: NanogridConfig,
+    params: NanogridParams,
+    policies: dict[str, Callable[[torch.Tensor], torch.Tensor]],
+    num_days: int = 100,
+    seed: int = 0,
+    *,
+    states0: EnvState | None = None,
+    obs0: torch.Tensor | None = None,
+) -> dict[str, np.ndarray]:
+    """Per-day returns ``(num_days,)`` of each policy on the same days.
+
+    ``policies`` maps a name to ``policy(obs (B, F)) -> actions (B, A)``.
+    Without ``states0``/``obs0`` the days are generated on the params' device
+    from a ``torch.Generator`` seeded with ``seed``; with them (one env per
+    day, for example days built by the JAX package), those days are used.
+    """
+    if (states0 is None) != (obs0 is None):
+        raise ValueError("pass both states0 and obs0, or neither")
+    if states0 is not None and (states0.t.shape[0] != num_days or obs0.shape[0] != num_days):
+        raise ValueError(f"states0 and obs0 must hold num_days={num_days} envs, got "
+                         f"{states0.t.shape[0]} and {obs0.shape[0]}")
+    if states0 is None:
+        gen = torch.Generator(device=params.device).manual_seed(seed)
+        schedule = generate_schedule(config, params, generator=gen, batch=num_days)
+        states0, obs0 = reset(config, params, schedule, generator=gen)
+
+    results = {}
+    with torch.no_grad():
+        for name, policy in policies.items():
+            state, obs = states0, obs0
+            total = None
+            for _ in range(config.steps_per_day):
+                res = step(config, params, state, policy(obs), next_pv_shift=state.pv_shift)
+                state, obs = res.state, res.obs
+                total = res.reward if total is None else total + res.reward
+            results[name] = total.cpu().numpy()
+    return results
+
+
+def evaluate_policy_at_scale(
+    config: NanogridConfig,
+    params: NanogridParams,
+    net: ActorCritic,
+    num_days: int = 10_000,
+    batch: int = 4096,
+    seed: int = 0,
+) -> dict[str, float]:
+    """Deterministic-actor evaluation over ``num_days × batch`` fresh days in
+    one launch of kernel K6, on the device of ``params``.
+
+    Returns ``{"mean_day_return", "std_day_return", "total_days"}``.
+    """
+    check_baked_params(config, params, "evaluate_policy_at_scale",
+                       generation=True, battery_init=True)
+    stats = gen_policy_multiday(config, params, net, num_days, seed, batch).double()
+    total = float(num_days * batch)
+    mean = float(stats[0].sum()) / total
+    var = float(stats[1].sum()) / total - mean * mean
+    return {
+        "mean_day_return": mean,
+        "std_day_return": math.sqrt(max(var, 0.0)),
+        "total_days": int(total),
+    }

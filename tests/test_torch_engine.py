@@ -1,0 +1,182 @@
+"""The PyTorch port's plain engine against the JAX package, in float64.
+
+Same numpy inputs go to both packages: uniform blocks, actions, initial
+states built by JAX and converted.  ``generate_schedule`` must agree bit for
+bit; physics, transition chains and the fused day rollout at 1e-12, the
+tolerance tests/test_rollout_fused.py uses for engine against engine.
+"""
+
+import functools
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from smart_nanogrid_gym_tpu.core import NanogridConfig, make_params as jax_make_params
+from smart_nanogrid_gym_tpu.core import physics as jax_physics
+from smart_nanogrid_gym_tpu.core.generate import generate_schedule as jax_generate
+from smart_nanogrid_gym_tpu.core.rollout import fused_day_rollout as jax_fused
+from smart_nanogrid_gym_tpu.core.transition import reset as jax_reset, step as jax_step
+from smart_nanogrid_gym_tpu.solvers.networks import ActorCritic as FlaxActorCritic
+from smart_nanogrid_gym_tpu.solvers.rbc import make_rbc_policy_fn as jax_rbc_fn
+
+from smart_nanogrid_gym_torch.core import physics
+from smart_nanogrid_gym_torch.core.generate import generate_schedule
+from smart_nanogrid_gym_torch.core.params import make_params
+from smart_nanogrid_gym_torch.core.rollout import fused_day_rollout
+from smart_nanogrid_gym_torch.core.transition import step
+from smart_nanogrid_gym_torch.solvers.networks import actor_critic_from_flax, make_actor_policy_fn
+from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
+
+from torch_parity import params_to_torch, state_to_torch, to_numpy, to_torch
+
+F64 = torch.float64
+TOL = dict(rtol=1e-12, atol=1e-12)
+
+
+def _bparams(config, batch):
+    params = jax_make_params(config, dtype=jnp.float64)
+    return jax.tree.map(lambda x: jnp.broadcast_to(x, (batch,) + x.shape), params)
+
+
+def _jax_states(config, batch, seed):
+    bparams = _bparams(config, batch)
+    keys = jax.random.split(jax.random.PRNGKey(seed), batch)
+    states, obs = jax.vmap(functools.partial(jax_reset, config))(bparams, keys, None, None)
+    return bparams, states, obs
+
+
+@pytest.mark.parametrize("config", [
+    NanogridConfig(num_chargers=8),
+    NanogridConfig(num_chargers=5, different_battery_capacities=False,
+                   requested_state_of_charge=True),
+    NanogridConfig(num_chargers=4, pv_system=False, battery_system=False, time_interval=2.0),
+], ids=["b-pv-1h", "reqsoc-fixedcap", "basic-2h"])
+def test_generate_schedule_bitwise(config):
+    B = 32
+    u = np.random.default_rng(0).random((B, config.steps_per_day, 5, config.num_chargers))
+    params = jax_make_params(config, dtype=jnp.float64)
+    ref = jax.vmap(lambda uu: jax_generate(None, config, params, uniforms=uu))(jnp.asarray(u))
+    got = generate_schedule(config, make_params(config, F64, "cpu"), torch.from_numpy(u))
+    for name, r, g in zip(ref._fields, ref, got):
+        np.testing.assert_array_equal(to_numpy(g), np.asarray(r), err_msg=name)
+
+
+def test_physics_matches_on_every_branch():
+    rng = np.random.default_rng(1)
+    n = 4096
+    actions = rng.choice([-1.0, -0.3, 0.0, 0.4, 1.0], n) * rng.random(n)
+    actions[::7] = 0.0
+    occupied = rng.random(n) < 0.7
+    soc = rng.random(n)
+    soc[::11] = 0.0
+    cap = rng.choice([0.0, 15.0, 40.0, 119.0], n)
+    mask = (rng.random(n) < 0.9).astype(np.float64)
+    args_j = [jnp.asarray(x) for x in (actions, occupied, soc, cap, mask)]
+    args_t = [torch.from_numpy(x) for x in (actions, occupied, soc, cap, mask)]
+    consts = (22.0, 0.95, 100.0)
+    for dt in (1.0, 2.0, 0.25):
+        ref = jax_physics.charger_step(*args_j, *map(jnp.float64, consts), dt)
+        got = physics.charger_step(*args_t, *(torch.tensor(c, dtype=F64) for c in consts), dt)
+        for name, r, g in zip(ref._fields, ref, got):
+            np.testing.assert_allclose(to_numpy(g), np.asarray(r), **TOL, err_msg=name)
+
+        demand = rng.normal(0, 30, n)
+        batt = np.concatenate([rng.random(n - 2), [0.0, 1.0]])
+        ref = jax_physics.battery_step(jnp.asarray(actions), jnp.asarray(demand), jnp.asarray(batt),
+                                       80.0, 44.0, 0.95, dt)
+        got = physics.battery_step(torch.from_numpy(actions), torch.from_numpy(demand),
+                                   torch.from_numpy(batt), torch.tensor(80.0, dtype=F64),
+                                   torch.tensor(44.0, dtype=F64), torch.tensor(0.95, dtype=F64), dt)
+        for name, r, g in zip(ref._fields, ref, got):
+            np.testing.assert_allclose(to_numpy(g), np.asarray(r), **TOL, err_msg=name)
+
+    req = rng.random((n // 8, 8))
+    soc2 = rng.random((n // 8, 8))
+    pmask = (rng.random((n // 8, 8)) < 0.5).astype(np.float64)
+    ref = jax_physics.vehicle_insufficiency_penalty(jnp.asarray(pmask), jnp.asarray(soc2),
+                                                    jnp.asarray(req), 0.05, 10.0)
+    got = physics.vehicle_insufficiency_penalty(torch.from_numpy(pmask), torch.from_numpy(soc2),
+                                                torch.from_numpy(req), 0.05, 10.0)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(ref), **TOL)
+    ref = jax_physics.battery_dod_penalty(jnp.asarray(soc), 0.15, 10.0)
+    got = physics.battery_dod_penalty(torch.from_numpy(soc), torch.tensor(0.15, dtype=F64), 10.0)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(ref), **TOL)
+    energy = rng.normal(0, 20, n)
+    price = rng.random(n)
+    ref = jax_physics.grid_energy_cost(jnp.asarray(energy), jnp.asarray(price), 0.8)
+    got = physics.grid_energy_cost(torch.from_numpy(energy), torch.from_numpy(price), 0.8)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(ref), **TOL)
+
+
+CHAIN_CONFIGS = [
+    NanogridConfig(num_chargers=4, pv_system=pv, battery_system=pv, penalty_mode=mode,
+                   time_interval=dt)
+    for pv in (True, False)
+    for mode in ("sparse", "dense", "on_departure", "no_penalty")
+    for dt in (1.0, 2.0)
+]
+
+
+@pytest.mark.parametrize("config", CHAIN_CONFIGS,
+                         ids=lambda c: f"{c.variant_name}-{c.penalty_mode.name.lower()}-{c.time_interval:g}h")
+def test_step_chain_matches_jax(config):
+    """48 steps without a reset: the chain crosses day ends (pmask lag, PV-shift
+    redraw, battery carry) and the (t-1) mod L reads."""
+    B = 8
+    bparams, jstate, jobs = _jax_states(config, B, seed=2)
+    state, params = state_to_torch(jstate), params_to_torch(bparams)
+    low, high = config.action_bounds()
+    rng = np.random.default_rng(3)
+    jstep = jax.jit(jax.vmap(functools.partial(jax_step, config)))
+    for _ in range(48):
+        a = rng.uniform(low, high, (B, config.num_actions))
+        a[rng.random(a.shape) < 0.15] = 0.0
+        ref = jstep(bparams, jstate, jnp.asarray(a))
+        got = step(config, params, state, torch.from_numpy(a),
+                   next_pv_shift=to_torch(ref.state.pv_shift))
+        np.testing.assert_allclose(to_numpy(got.obs), np.asarray(ref.obs), **TOL)
+        np.testing.assert_allclose(to_numpy(got.reward), np.asarray(ref.reward), **TOL)
+        np.testing.assert_array_equal(to_numpy(got.done), np.asarray(ref.done))
+        jstate, state = ref.state, got.state
+    for name in ("soc", "batt_soc", "batt_init_soc", "pv_shift", "pmask", "t", "day"):
+        np.testing.assert_allclose(to_numpy(getattr(state, name)), np.asarray(getattr(jstate, name)),
+                                   **TOL, err_msg=name)
+    for name, r, g in zip(ref.info._fields, ref.info, got.info):
+        np.testing.assert_allclose(to_numpy(g), np.asarray(r), **TOL, err_msg=name)
+
+
+def _flax_actor_f64(config, seed):
+    net = FlaxActorCritic(action_dim=config.num_actions)
+    params = net.init(jax.random.PRNGKey(seed), jnp.zeros((1, config.obs_dim), jnp.float32))
+    return net, jax.tree.map(lambda x: np.asarray(x, np.float64), params)
+
+
+@pytest.mark.parametrize("policy", ["rbc", "ppo"])
+def test_fused_day_rollout_matches_jax(policy):
+    config = NanogridConfig(num_chargers=4, penalty_mode="sparse")
+    B = 16
+    bparams, jstate, _ = _jax_states(config, B, seed=4)
+    if policy == "rbc":
+        jax_policy, torch_policy = jax_rbc_fn(config), make_rbc_policy_fn(config)
+    else:
+        net, flax_params = _flax_actor_f64(config, 5)
+        low, high = (jnp.asarray(b, jnp.float64) for b in config.action_bounds())
+        jax_policy = lambda o: jnp.clip(net.apply(flax_params, o)[0], low, high)
+        torch_policy = make_actor_policy_fn(config, actor_critic_from_flax(flax_params))
+    ref_state, (ref_obs, ref_rew, ref_done, ref_info) = jax_fused(
+        config, bparams, jstate, lambda o, k: jax_policy(o), jax.random.PRNGKey(6),
+        collect_info=True)
+    state, (obs, rew, done, info) = fused_day_rollout(
+        config, params_to_torch(bparams), state_to_torch(jstate), torch_policy,
+        collect_info=True, next_pv_shift=to_torch(ref_state.pv_shift))
+    np.testing.assert_allclose(to_numpy(rew), np.asarray(ref_rew), **TOL)
+    np.testing.assert_allclose(to_numpy(obs), np.asarray(ref_obs), **TOL)
+    np.testing.assert_array_equal(to_numpy(done), np.asarray(ref_done))
+    for name, r, g in zip(ref_info._fields, ref_info, info):
+        np.testing.assert_allclose(to_numpy(g), np.asarray(r), **TOL, err_msg=name)
+    for name in ("soc", "batt_soc", "pmask", "day"):
+        np.testing.assert_allclose(to_numpy(getattr(state, name)),
+                                   np.asarray(getattr(ref_state, name)), **TOL, err_msg=name)

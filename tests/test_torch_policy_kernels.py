@@ -1,0 +1,101 @@
+"""Kernel twins K5 and K6 of the PyTorch port (``ops/gen_policy_rollout.py``),
+with the JAX package as the reference.
+
+K5's twin is held against ``pallas_gen_policy_day`` in interpret mode on the
+same numpy uniforms, PV shifts and (bias-shifted) actor weights, at the
+tolerance tests/test_pallas.py uses.  K6 draws in-kernel Philox numbers: its
+twin is held against K5's twin fed the same draws, with the battery carried
+from one day to the next.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from smart_nanogrid_gym_tpu.core import NanogridConfig, make_params as jax_make_params
+from smart_nanogrid_gym_tpu.ops.pallas_gen_policy_rollout import pallas_gen_policy_day
+
+from smart_nanogrid_gym_torch.core.generate import generate_schedule
+from smart_nanogrid_gym_torch.core.params import make_params
+from smart_nanogrid_gym_torch.core.rollout import fused_day_rollout
+from smart_nanogrid_gym_torch.core.transition import reset
+from smart_nanogrid_gym_torch.ops import gen_policy_day
+from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
+    actor_weights,
+    gen_policy_day_plain,
+    gen_policy_multiday_plain,
+)
+from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces, pv_shift_from_uniform
+from smart_nanogrid_gym_torch.ops.philox import day_uniforms
+from smart_nanogrid_gym_torch.solvers.networks import actor_critic_from_flax, make_actor_policy_fn
+
+from torch_parity import kernel_inputs, shifted_flax_actor
+
+B = 128
+
+POLICY_CONFIGS = {
+    "b-pv": NanogridConfig(num_chargers=8, pv_system=True, battery_system=True),
+    "v2x-b-pv": NanogridConfig(num_chargers=8, pv_system=True, battery_system=True,
+                               vehicle_to_everything=True),
+    "v2x": NanogridConfig(num_chargers=4, pv_system=False, battery_system=False,
+                          vehicle_to_everything=True, penalty_mode="dense"),
+}
+
+
+@pytest.mark.parametrize("name", list(POLICY_CONFIGS))
+def test_policy_day_twin_matches_pallas(name):
+    config = POLICY_CONFIGS[name]
+    u, pv = kernel_inputs(config, 11, B)
+    flax_params = shifted_flax_actor(config, 13)
+    with jax.enable_x64(False):
+        params = jax_make_params(config, dtype=jnp.float32)
+        rew_ref, act_ref, soc_ref, batt_ref = pallas_gen_policy_day(
+            config, params, flax_params, jnp.asarray(u), jnp.asarray(pv), interpret=True)
+    net = actor_critic_from_flax(flax_params)
+    rew, act, soc, batt = gen_policy_day(config, make_params(config, torch.float32, "cpu"), net,
+                                         torch.from_numpy(u), torch.from_numpy(pv))
+    np.testing.assert_allclose(rew.numpy(), np.asarray(rew_ref), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(batt.numpy(), np.asarray(batt_ref), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(act.numpy(), np.asarray(act_ref), rtol=2e-4, atol=2e-4)
+    assert soc.shape == (config.num_chargers, B) and np.isfinite(soc.numpy()).all()
+
+
+@pytest.mark.parametrize("name", list(POLICY_CONFIGS))
+def test_policy_day_twin_matches_plain_engine(name):
+    """K5's twin against the port's own engine with the same actor as an
+    ``nn.Module`` (its products go through ``nn.Linear``), in f32."""
+    config = POLICY_CONFIGS[name]
+    u, pv = kernel_inputs(config, 17, 64)
+    params = make_params(config, torch.float32, "cpu")
+    net = actor_critic_from_flax(shifted_flax_actor(config, 19))
+    schedule = generate_schedule(config, params, torch.from_numpy(u).permute(3, 0, 1, 2))
+    state, _ = reset(config, params, schedule, pv_shift=torch.from_numpy(pv))
+    final, (_, rewards, _) = fused_day_rollout(config, params, state,
+                                               make_actor_policy_fn(config, net),
+                                               next_pv_shift=state.pv_shift)
+    rew, _, soc, batt = gen_policy_day(config, params, net, torch.from_numpy(u), torch.from_numpy(pv))
+    np.testing.assert_allclose(rew.numpy(), rewards.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(soc.numpy(), final.soc[..., config.steps_per_day - 1].T.numpy(),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(batt.numpy(), final.batt_soc.numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_policy_multiday_twin_equals_explicit_days():
+    config = NanogridConfig(num_chargers=4, pv_system=True, battery_system=True)
+    traces = kernel_traces(make_params(config, torch.float32, "cpu"), torch.device("cpu"))
+    weights = actor_weights(config, actor_critic_from_flax(shifted_flax_actor(config, 21)),
+                            torch.device("cpu"))
+    stats = gen_policy_multiday_plain(config, traces, weights, num_days=2, seed=4, batch=64)
+    batt = torch.full((64,), 0.5)
+    returns = []
+    for day in range(2):
+        u, u_pv = day_uniforms(4, day, 64, 24, 4, "cpu")
+        rew, _, _, batt = gen_policy_day_plain(config, traces, weights, u,
+                                               pv_shift_from_uniform(u_pv), batt)
+        returns.append(rew.sum(0, dtype=torch.float64))
+    days = torch.stack(returns)
+    np.testing.assert_allclose(stats[0].double().numpy(), days.sum(0).numpy(), rtol=1e-5)
+    np.testing.assert_allclose(stats[1].double().numpy(), (days ** 2).sum(0).numpy(), rtol=1e-5)
+    np.testing.assert_array_equal(stats[2].numpy(), batt.numpy())

@@ -1,0 +1,140 @@
+"""Parity helpers for the PyTorch port's tests: build JAX inputs on the CPU,
+convert them to the port's tensor containers and back, and restore the
+committed PPO artifact.
+
+Kept outside ``smart_nanogrid_gym_torch`` so that the port itself never
+imports JAX, flax or orbax.  Run as a script to (re)write the artifact's
+numpy copy: ``PYTHONPATH=. python tests/torch_parity.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from smart_nanogrid_gym_torch.core.params import NanogridParams
+from smart_nanogrid_gym_torch.core.state import DaySchedule, EnvState
+from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARTIFACT_DIR = os.path.join(REPO, "artifacts", "PPO-b-pv-bounded-sparse-4ch-1h")
+ARTIFACT_STEP = 108_134_400
+ARTIFACT_NPZ = os.path.join(ARTIFACT_DIR, f"{ARTIFACT_STEP}.npz")
+
+
+def to_torch(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def to_numpy(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def params_to_torch(params) -> NanogridParams:
+    return NanogridParams(*(to_torch(x) for x in params))
+
+
+def schedule_to_torch(schedule) -> DaySchedule:
+    return DaySchedule(*(to_torch(x) for x in schedule))
+
+
+def state_to_torch(state) -> EnvState:
+    """A batched JAX ``EnvState`` (leaves ``(B, ...)``) as the port's state;
+    the JAX PRNG key has no counterpart."""
+    return EnvState(
+        t=to_torch(state.t).to(torch.int64),
+        soc=to_torch(state.soc),
+        schedule=schedule_to_torch(state.schedule),
+        batt_soc=to_torch(state.batt_soc),
+        batt_init_soc=to_torch(state.batt_init_soc),
+        pv_shift=to_torch(state.pv_shift),
+        pmask=to_torch(state.pmask),
+        day=to_torch(state.day).to(torch.int64),
+    )
+
+
+def artifact_config() -> NanogridConfig:
+    with open(os.path.join(ARTIFACT_DIR, "config.json")) as fp:
+        meta = json.load(fp)
+    return NanogridConfig(
+        num_chargers=meta["num_chargers"],
+        pv_system=meta["pv_system"],
+        battery_system=meta["battery_system"],
+        vehicle_to_everything=meta["vehicle_to_everything"],
+        penalty_mode=meta["penalty_mode"],
+        time_interval=meta["time_interval"],
+    )
+
+
+def restore_artifact():
+    """The artifact's flax params as stored (f32), restored through the JAX package."""
+    import jax
+    import jax.numpy as jnp
+
+    from smart_nanogrid_gym_tpu.core import make_params
+    from smart_nanogrid_gym_tpu.solvers.ppo import PPOLearner
+    from smart_nanogrid_gym_tpu.utils.checkpoint import restore_checkpoint
+
+    config = artifact_config()
+    with jax.enable_x64(False):
+        learner = PPOLearner(config)
+        template = learner.init(jax.random.PRNGKey(0), make_params(config, dtype=jnp.float32),
+                                batch_size=1).params
+        return restore_checkpoint(ARTIFACT_DIR, ARTIFACT_STEP, template)
+
+
+def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """``{"a": {"b": x}}`` -> ``{"a/b": x}`` with numpy leaves."""
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, dict) or hasattr(value, "items"):
+            out.update(flatten(value, path))
+        else:
+            out[path] = np.asarray(value)
+    return out
+
+
+def write_artifact_npz(path: str = ARTIFACT_NPZ) -> str:
+    np.savez(path, **flatten(restore_artifact()))
+    return path
+
+
+def kernel_inputs(config, seed: int, batch: int = 128):
+    """Numpy uniforms ``(T, 5, N, B)`` and PV shifts ``(B,)`` in f32, the inputs
+    of the explicit-uniform kernels."""
+    rng = np.random.default_rng(seed)
+    u = rng.random((config.steps_per_day, 5, config.num_chargers, batch)).astype(np.float32)
+    pv = (rng.integers(0, 181, batch) / 100.0).astype(np.float32)
+    return u, pv
+
+
+def shifted_flax_actor(config, seed: int):
+    """Fresh flax ActorCritic params with the action-mean biases pushed off the
+    0 branch boundaries (as tests/test_pallas.py does); with v2x, chargers
+    alternate charge and discharge so both branches run."""
+    import jax
+    import jax.numpy as jnp
+
+    from smart_nanogrid_gym_tpu.solvers.networks import ActorCritic as FlaxActorCritic
+
+    net = FlaxActorCritic(action_dim=config.num_actions)
+    params = net.init(jax.random.PRNGKey(seed), jnp.zeros((1, config.obs_dim), jnp.float32))
+    if config.vehicle_to_everything:
+        ch_bias = np.where(np.arange(config.num_chargers) % 2 == 0, 0.5, -0.4)
+    else:
+        ch_bias = np.full(config.num_chargers, 0.5)
+    bias = np.concatenate([ch_bias, [-0.3]] if config.battery_system else [ch_bias]).astype(np.float32)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: jnp.asarray(bias)
+        if "Dense_2" in str(path) and "pi" in str(path) and "bias" in str(path) else x,
+        params,
+    )
+    return jax.tree.map(np.asarray, params)
+
+
+if __name__ == "__main__":
+    print(write_artifact_npz())
