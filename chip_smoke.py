@@ -1,19 +1,29 @@
-"""Drive the PyTorch port's generated-day evaluation path once on a CUDA card.
+"""Drive the PyTorch port's evaluation and PPO training paths once on a CUDA card.
 
 Run from the root of the repository, on a machine with one NVIDIA card and
 the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels K5-K8 from ``smart_nanogrid_gym_torch/csrc``
-with nvcc, holds each against its plain-PyTorch twin on the card, drives the
-evaluation path through its user entry points (paired explicit-day
-evaluation, the RBC multiday bench run, ``evaluate_policy_at_scale`` with the
-committed PPO artifact), checks that every kernel of the path launched and
-that the multiday statistics agree with the plain engine, and times each
-kernel against its twin.  Any failure raises and exits non-zero.  The last
-lines are the card (``nvidia-smi`` name and power limit), one JSON object
-with the kernels, and ``{"ok": true, "device": ...}``.
+It builds the hand-written kernels K1-K8 from ``smart_nanogrid_gym_torch/csrc``
+with nvcc (one process per library, all at once), holds each against its
+plain-PyTorch twin on the card, and drives two paths through their user
+entry points, each with the launch counts set to 0 just before it and read
+just after:
+
+- evaluation (K5-K8): paired explicit-day evaluation, the RBC multiday bench
+  run, ``evaluate_policy_at_scale`` with the committed PPO artifact;
+- training (K1-K4): ``PPOLearner(collect_impl="kernel", sweep_impl="kernel")``
+  for 50 updates at B=4096 on the 8-charger bench config (K2 + K3), two
+  updates of the ``env`` minibatch scheme (K4), the trained stochastic policy
+  on explicit days against the RBC (K1), and the trained actor scored by
+  ``evaluate_policy_at_scale`` (K6).
+
+It checks the launch counts, the statistics of the in-kernel draws against
+the plain engine, that training raises the mean day return, and times each
+kernel against its twin and its bound.  Any failure raises and exits
+non-zero.  The last lines are the card (``nvidia-smi`` name and power
+limit), one JSON object with the kernels, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -30,14 +40,27 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT_NPZ = os.path.join(ROOT, "artifacts", "PPO-b-pv-bounded-sparse-4ch-1h", "108134400.npz")
-SOURCE = "smart_nanogrid_gym_torch/csrc/day_step.cuh"
+DAY_SOURCE = "smart_nanogrid_gym_torch/csrc/day_step.cuh"
+SWEEP_SOURCE = "smart_nanogrid_gym_torch/csrc/ppo_sweep.cuh"
 REPLACES = {
     "gen_rbc_day": "smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py:511",
     "gen_rbc_multiday": "smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py:580",
     "gen_policy_day": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:439",
     "gen_policy_multiday": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:522",
 }
+TRAIN_REPLACES = {
+    "ppo_collect_day": "smart_nanogrid_gym_tpu/ops/pallas_collect.py:497",
+    "ppo_collect_day_seeded": "smart_nanogrid_gym_tpu/ops/pallas_collect.py:535",
+    "ppo_sweep_streamed": "smart_nanogrid_gym_tpu/ops/pallas_ppo_sweep.py:473",
+    "ppo_sweep": "smart_nanogrid_gym_tpu/ops/pallas_ppo_sweep.py:375",
+}
 BENCH_BATCH = 4096
+TRAIN_UPDATES = 50
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+PHILOX_OPS = 100  # 10 rounds x (2 mul, 2 mulhi, 4 xor, 2 key adds) per 4 words
 
 
 def check(ok: bool, message: str) -> None:
@@ -112,6 +135,310 @@ def mean_std(stats: torch.Tensor, n: int) -> tuple[float, float]:
     return mean, math.sqrt(max(float(s[1].sum()) / n - mean * mean, 0.0))
 
 
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time in ms for moving ``n_bytes`` and doing ``n_ops`` f32
+    operations (integer Philox operations counted at the same rate, which
+    can only make the bound smaller), and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mlp_flops(F: int, A: int, H1: int, H2: int) -> int:
+    """Multiply-adds (2 operations each) of a 2-hidden-layer torso's forward."""
+    return 2 * (H1 * F + H2 * H1 + A * H2)
+
+
+def philox_calls_per_day(config) -> int:
+    """Philox blocks one env-day of generation draws: arrival and SoC
+    always, capacity and requested SoC when configured, departure on the
+    steps whose window is open, plus the PV-shift draw."""
+    T, N = config.steps_per_day, config.num_chargers
+    k4, k10, k1 = int(4 / config.time_interval), int(10 / config.time_interval), int(1 / config.time_interval)
+    kinds = 2 + int(config.different_battery_capacities) + int(config.requested_state_of_charge)
+    dep_steps = sum(1 for t in range(T) if t + k4 < min(t + k10, T + k1))
+    return ((N + 3) // 4) * (kinds * T + dep_steps) + 1
+
+
+def collect_twin_checks(cfg, params, leaves, u, pv, device, errors):
+    """Phase 8: K1 and K2 element for element against their twins at full
+    width (B=4096); returns the explicit normals and batteries used."""
+    from smart_nanogrid_gym_torch.ops.collect import (
+        collect_weights, ppo_collect_day, ppo_collect_day_plain, ppo_collect_day_seeded,
+        ppo_collect_day_seeded_plain)
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    normals = torch.randn((cfg.steps_per_day, cfg.num_actions, BENCH_BATCH), generator=gen, device=device)
+    batt = torch.rand(BENCH_BATCH, generator=gen, device=device)
+    traces, weights = kernel_traces(params, device), collect_weights(cfg, leaves, device)
+    names = ("obs", "act_raw", "logp", "value", "rewards", "batt")
+    for name, got, want in (
+            ("K1 ppo_collect_day", ppo_collect_day(cfg, params, leaves, u, normals, pv, batt),
+             ppo_collect_day_plain(cfg, traces, weights, u, normals, pv, batt)),
+            ("K2 ppo_collect_day_seeded", ppo_collect_day_seeded(cfg, params, leaves, 2024, batt, BENCH_BATCH),
+             ppo_collect_day_seeded_plain(cfg, traces, weights, 2024, batt, BENCH_BATCH))):
+        print(f"phase 8 {name} (8ch b-pv, B={BENCH_BATCH}, 64x64) max |d| per output: "
+              + ", ".join(f"{n} {float((g - w).abs().max()):.3e}" for n, g, w in zip(names, got, want)))
+        key = "ppo_collect_day" if name.startswith("K1") else "ppo_collect_day_seeded"
+        errors[key] = compare(f"phase 8 {name}", got, want, rtol=2e-4, atol=2e-4)
+    return normals, batt
+
+
+def k2_statistics(cfg, params, leaves, device):
+    """Phase 9: K2's day returns against the plain engine with the same
+    stochastic actor (z=6, median of 3 draws), and K2's action noise
+    recovered as (a_raw - mean) / std against N(0, 1)."""
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch
+    from smart_nanogrid_gym_torch.ops.collect import ppo_collect_day_seeded
+    from smart_nanogrid_gym_torch.solvers.ppo import apply_actor_critic
+
+    days = 4
+    batt = torch.full((BENCH_BATCH,), 0.5, device=device)
+    low, high = (torch.as_tensor(b, device=device) for b in cfg.action_bounds())
+    env = SmartNanogridTorch(cfg)
+
+    def k2_draw(attempt):
+        rets = [ppo_collect_day_seeded(cfg, params, leaves, 7000 + 10 * attempt + d, batt, BENCH_BATCH)[4]
+                .sum(0).double() for d in range(days)]
+        r = torch.cat(rets)
+        return float(r.mean()), float(r.std(unbiased=False))
+
+    def plain_draw(attempt):
+        gen = torch.Generator(device=device).manual_seed(500 + attempt)
+
+        def policy(ob):
+            mean, log_std, _ = apply_actor_critic(leaves, ob)
+            noise = torch.randn(mean.shape, generator=gen, device=device)
+            return torch.clamp(mean + torch.exp(log_std) * noise, low, high)
+
+        rets = []
+        with torch.no_grad():
+            for _ in range(days):
+                state, obs = env.reset_batch(params, BENCH_BATCH, gen, batt_soc=batt)
+                _, _, (_, rewards, _, _) = env.rollout_day(params, state, policy, obs, gen)
+                rets.append(rewards.sum(0).double())
+        r = torch.cat(rets)
+        return float(r.mean()), float(r.std(unbiased=False))
+
+    n = days * BENCH_BATCH
+    stats_match("phase 9 K2 vs plain engine (fresh days, stochastic actor)", k2_draw, plain_draw, n, n)
+    obs, act, *_ = ppo_collect_day_seeded(cfg, params, leaves, 99, batt, BENCH_BATCH)
+    with torch.no_grad():
+        mean, log_std, _ = apply_actor_critic(leaves, obs.permute(0, 2, 1))
+        z = ((act.permute(0, 2, 1) - mean) / torch.exp(log_std)).double()
+    m, sd, count = float(z.mean()), float(z.std()), z.numel()
+    print(f"phase 9 K2 recovered normals: mean {m:.5f} std {sd:.5f} over {count} draws "
+          f"(bounds {6 / math.sqrt(count):.5f}, {6 * math.sqrt(0.5 / count):.5f})")
+    check(abs(m) < 6 / math.sqrt(count) and abs(sd - 1.0) < 6 * math.sqrt(0.5 / count),
+          "K2's action noise is not standard normal")
+
+
+def update_inputs(learner, cfg, params, state):
+    """One update's sweep inputs from a K2 collection: the featlane
+    trajectory with GAE, the block permutation, and the env scheme's
+    gathered minibatches."""
+    from smart_nanogrid_gym_torch.ops.collect import ppo_collect_day_seeded
+    from smart_nanogrid_gym_torch.ops.ppo_sweep import normalise_centred
+
+    B, T = BENCH_BATCH, cfg.steps_per_day
+    num_mb, slab, n_bl = learner.kernel_layout(B)
+    seed, perms = learner.draw_kernel(torch.Generator().manual_seed(4), n_bl)
+    obs, act, logp, val, rew, _ = ppo_collect_day_seeded(cfg, params, state.params, seed, state.batt_soc, B)
+    dones = torch.zeros((T, B), dtype=torch.bool, device=rew.device)
+    dones[-1] = True
+    adv, ret = learner._gae(rew, val, dones, torch.zeros(B, device=rew.device))
+    E = learner.ppo.num_epochs
+    G, M = E * num_mb, (B // num_mb) * T
+    featlane = (obs, act, logp, adv, ret, perms.reshape(G, n_bl // num_mb), slab)
+    env_perm = torch.stack([torch.randperm(B, generator=torch.Generator().manual_seed(e)) for e in range(E)])
+    idx = env_perm.to(rew.device)
+    env_major = (obs.permute(2, 0, 1), act.permute(2, 0, 1), logp.T, adv.T, ret.T)
+    obs_g, act_g, logp_g, adv_g, ret_g = (x[idx].reshape((G, M) + x.shape[2:]).contiguous() for x in env_major)
+    mean, std = normalise_centred(adv_g)
+    gathered = (obs_g, act_g, logp_g, (adv_g - mean[:, None]) / (std[:, None] + 1e-8), ret_g)
+    return featlane, gathered
+
+
+def sweep_twin_checks(learner, featlane, gathered, state, errors):
+    """Phase 10: K3 (featlane) and K4, one full update (G=40) at full
+    width, against their twins; a K3 rerun is bit-identical."""
+    from smart_nanogrid_gym_torch.ops.ppo_sweep import (
+        ppo_sweep, ppo_sweep_plain, ppo_sweep_streamed, ppo_sweep_streamed_plain)
+
+    hp = learner._hypers()
+    *data, block_perm, slab = featlane
+
+    def flat(out):
+        params, adam, metrics = out
+        return list(params) + list(adam.mu) + list(adam.nu) + [metrics]
+
+    got = ppo_sweep_streamed(state.params, state.opt_state, *data, block_perm, slab, hp, data_layout="featlane")
+    want = ppo_sweep_streamed_plain(state.params, state.opt_state, *data, block_perm, slab, hp, "featlane")
+    errors["ppo_sweep_streamed"] = compare("phase 10 K3 ppo_sweep_streamed (featlane, G=40, B=4096)",
+                                           flat(got), flat(want), rtol=1e-4, atol=1e-6)
+    again = ppo_sweep_streamed(state.params, state.opt_state, *data, block_perm, slab, hp, data_layout="featlane")
+    check(all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))), "K3 rerun is not bit-identical")
+    print("phase 10 K3 rerun: bit-identical (params, mu, nu, metrics)")
+    got = ppo_sweep(state.params, state.opt_state, *gathered, hp)
+    want = ppo_sweep_plain(state.params, state.opt_state, zip(*gathered), hp)
+    errors["ppo_sweep"] = compare("phase 10 K4 ppo_sweep (env scheme, G=40, M=24576)",
+                                  flat(got), flat(want), rtol=1e-4, atol=1e-6)
+
+
+def training_main_path(cfg, params, u, pv, device, card):
+    """Phase 11, the training path through the entry points a user calls,
+    with the launch counts set to 0 before it and read after it."""
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.collect import ppo_collect_day
+    from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day
+    from smart_nanogrid_gym_torch.solvers.evaluator import evaluate_policy_at_scale
+    from smart_nanogrid_gym_torch.solvers.networks import actor_critic_from_leaves
+    from smart_nanogrid_gym_torch.solvers.ppo import PPOConfig, PPOLearner
+
+    learner = PPOLearner(cfg, PPOConfig(collect_impl="kernel", sweep_impl="kernel"), device=device)
+    state = learner.init(0, params, BENCH_BATCH)
+    initial_actor = actor_critic_from_leaves(state.params)
+    train_many = learner.build_train_many(TRAIN_UPDATES)
+    G = learner.ppo.num_epochs * learner.ppo.num_minibatches
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = train_many(state, params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    print(f"phase 11 train: {TRAIN_UPDATES} updates x B={BENCH_BATCH} (G={G}) in {seconds:.4f} s = "
+          f"{seconds / TRAIN_UPDATES * 1e3:.3f} ms/update on {card}; launches {counts}")
+    check(counts == {"ppo_collect_day_seeded": TRAIN_UPDATES, "ppo_sweep_streamed": 2 * G * TRAIN_UPDATES},
+          f"launch counts {counts} are not 1 collection + {2 * G} sweep launches per update")
+    returns = metrics.mean_return.double().cpu()
+    check(bool(torch.isfinite(returns).all()), "non-finite mean return")
+    first, last = float(returns[0]), float(returns[-5:].mean())
+    print(f"phase 11 mean day return: first update {first:.4f}, mean of the last 5 {last:.4f}; "
+          f"policy loss {float(metrics.policy_loss[-1]):.5f}, value loss {float(metrics.value_loss[-1]):.3f}, "
+          f"approx KL {float(metrics.approx_kl[-1]):.6f}, entropy {float(metrics.entropy[-1]):.4f}")
+    check(last > first, "training did not raise the mean day return")
+
+    # the env minibatch scheme after a plain collection runs K4
+    env_learner = PPOLearner(cfg, PPOConfig(sweep_impl="kernel", minibatch_scheme="env"), device=device)
+    env_state, env_metrics = env_learner.build_train_many(2)(state._replace(update_step=0), params)
+    check(bool(torch.isfinite(env_metrics.mean_return).all()), "env-scheme update: non-finite return")
+    # the trained stochastic policy on explicit days against the RBC on the same days (K1, K7)
+    gen = torch.Generator(device=device).manual_seed(11)
+    normals = torch.randn((cfg.steps_per_day, cfg.num_actions, BENCH_BATCH), generator=gen, device=device)
+    batt = torch.full((BENCH_BATCH,), 0.5, device=device)
+    ppo_rewards = ppo_collect_day(cfg, params, state.params, u, normals, pv, batt)[4]
+    rbc_rewards, _ = gen_rbc_day(cfg, params, u, pv)
+    check(bool(torch.isfinite(ppo_rewards).all()), "K1: non-finite rewards")
+    print(f"phase 11 paired explicit days (B={BENCH_BATCH}): trained stochastic policy "
+          f"{float(ppo_rewards.sum(0).mean()):.4f}, rbc {float(rbc_rewards.sum(0).mean()):.4f}")
+    # the trained actor scored at scale (K6)
+    trained = evaluate_policy_at_scale(cfg, params, actor_critic_from_leaves(state.params), num_days=64,
+                                       batch=BENCH_BATCH, seed=3)
+    untrained = evaluate_policy_at_scale(cfg, params, initial_actor, num_days=64, batch=BENCH_BATCH, seed=3)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    print(f"phase 11 evaluate_policy_at_scale (K6, 64 days x {BENCH_BATCH}): trained "
+          f"{trained['mean_day_return']:.4f}, initial {untrained['mean_day_return']:.4f}")
+    check(math.isfinite(trained["mean_day_return"]), "K6 score of the trained actor is not finite")
+    print(f"training path launches: {launches}")
+    for name in TRAIN_REPLACES:
+        check(launches.get(name, 0) >= 1, f"kernel {name} was not launched on the training path")
+    return learner, state, launches
+
+
+def training_timings(learner, cfg, params, state, featlane, gathered, u, pv, normals, batt, card, times):
+    """Phase 12: each training kernel and its twin at the main path's shape,
+    and one update's phases (collection, GAE, sweep) by CUDA events."""
+    from smart_nanogrid_gym_torch.ops.collect import (
+        collect_weights, ppo_collect_day, ppo_collect_day_plain, ppo_collect_day_seeded,
+        ppo_collect_day_seeded_plain)
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+    from smart_nanogrid_gym_torch.ops.ppo_sweep import (
+        ppo_sweep, ppo_sweep_plain, ppo_sweep_streamed, ppo_sweep_streamed_plain)
+
+    device = batt.device
+    traces, weights = kernel_traces(params, device), collect_weights(cfg, state.params, device)
+    hp = learner._hypers()
+    *data, block_perm, slab = featlane
+    p, o = state.params, state.opt_state
+    cases = {
+        "ppo_collect_day": (f"B={BENCH_BATCH}, 1 day, 8ch b-pv, 64x64",
+                            lambda: ppo_collect_day(cfg, params, p, u, normals, pv, batt),
+                            lambda: ppo_collect_day_plain(cfg, traces, weights, u, normals, pv, batt), 20),
+        "ppo_collect_day_seeded": (f"B={BENCH_BATCH}, 1 day, 8ch b-pv, 64x64",
+                                   lambda: ppo_collect_day_seeded(cfg, params, p, 5, batt, BENCH_BATCH),
+                                   lambda: ppo_collect_day_seeded_plain(cfg, traces, weights, 5, batt,
+                                                                        BENCH_BATCH), 20),
+        "ppo_sweep_streamed": ("G=40 x M=24576, featlane, F=25 A=9 64x64",
+                               lambda: ppo_sweep_streamed(p, o, *data, block_perm, slab, hp),
+                               lambda: ppo_sweep_streamed_plain(p, o, *data, block_perm, slab, hp), 3),
+        "ppo_sweep": ("G=40 x M=24576, gathered, F=25 A=9 64x64",
+                      lambda: ppo_sweep(p, o, *gathered, hp),
+                      lambda: ppo_sweep_plain(p, o, zip(*gathered), hp), 3),
+    }
+    for name, (shape, kernel, plain, repeats) in cases.items():
+        times[name] = (shape, cuda_ms(kernel, repeats), cuda_ms(plain, 1))
+        print(f"phase 12 {name} ({shape}): kernel {times[name][1]:.4f} ms, "
+              f"plain twin {times[name][2]:.4f} ms on {card}")
+
+    # one update's phases, as _kernel_step runs them
+    num_mb, slab, n_bl = learner.kernel_layout(BENCH_BATCH)
+    T = cfg.steps_per_day
+    dones = torch.zeros((T, BENCH_BATCH), dtype=torch.bool, device=device)
+    dones[-1] = True
+    gen = torch.Generator().manual_seed(12)
+    sums, reps = [0.0, 0.0, 0.0], 5
+    for rep in range(reps + 1):
+        seed, perms = learner.draw_kernel(gen, n_bl)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        obs, act, logp, val, rew, _ = ppo_collect_day_seeded(cfg, params, p, seed, state.batt_soc, BENCH_BATCH,
+                                                             check_params=False)
+        ev[1].record()
+        adv, ret = learner._gae(rew, val, dones, torch.zeros(BENCH_BATCH, device=device))
+        ev[2].record()
+        ppo_sweep_streamed(p, o, obs, act, logp, adv, ret, perms.reshape(-1, n_bl // num_mb), slab, hp)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if rep > 0:  # the first pass warms up
+            for i in range(3):
+                sums[i] += ev[i].elapsed_time(ev[i + 1]) / reps
+    print(f"phase 12 one update (B={BENCH_BATCH}, G=40): collection {sums[0]:.4f} ms, GAE {sums[1]:.4f} ms, "
+          f"sweep {sums[2]:.4f} ms (CUDA events, mean of {reps}) on {card}")
+
+
+def bounds(rbc_cfg, art_cfg, timing_days):
+    """The least time of each kernel at the shape phase 7/12 times it."""
+    B, T = BENCH_BATCH, rbc_cfg.steps_per_day
+    out = {}
+    N8, A8, F8 = rbc_cfg.num_chargers, rbc_cfg.num_actions, rbc_cfg.obs_dim
+    N4, A4, F4 = art_cfg.num_chargers, art_cfg.num_actions, art_cfg.obs_dim
+    actor8, critic8 = mlp_flops(F8, A8, 64, 64), mlp_flops(F8, 1, 64, 64)
+    actor4 = mlp_flops(F4, A4, 64, 64)
+    # K7: explicit uniforms in, rewards and final SoC out; the physics is not counted
+    out["gen_rbc_day"] = bound(4 * (T * 5 * N8 * B + 2 * B + T * B + N8 * B), 0)
+    out["gen_rbc_multiday"] = bound(4 * 2 * B, PHILOX_OPS * philox_calls_per_day(rbc_cfg) * timing_days * B)
+    out["gen_policy_day"] = bound(4 * (T * 5 * N4 * B + 2 * B + T * B + T * A4 * B + N4 * B + B),
+                                  actor4 * T * B)
+    out["gen_policy_multiday"] = bound(4 * 3 * B, (actor4 * T + PHILOX_OPS * philox_calls_per_day(art_cfg))
+                                       * timing_days * B)
+    traj = 4 * (T * F8 * B + T * A8 * B + 3 * T * B + B)
+    out["ppo_collect_day"] = bound(4 * (T * 5 * N8 * B + T * A8 * B + 2 * B) + traj, (actor8 + critic8) * T * B)
+    normal_calls = 2 * ((A8 + 3) // 4) * T
+    out["ppo_collect_day_seeded"] = bound(4 * B + traj, (actor8 + critic8) * T * B + PHILOX_OPS *
+                                          (philox_calls_per_day(rbc_cfg) + normal_calls + 1) * B)
+    # the sweep: forward of both torsos, and the backward's weight and input gradients
+    bwd = lambda F, A: 2 * (64 * F + 2 * 64 * 64 + 2 * A * 64)  # noqa: E731
+    per_sample = actor8 + critic8 + bwd(F8, A8) + bwd(F8, 1)
+    P = 2 * (64 * F8 + 64 + 64 * 64 + 64) + A8 * 64 + A8 + 64 + 1 + A8
+    G, M = 40, (B // 4) * T
+    state_bytes = 4 * 3 * P * 2 + 4 * 4 * G
+    out["ppo_sweep_streamed"] = bound(4 * T * B * (F8 + A8 + 3) + state_bytes, per_sample * G * M)
+    out["ppo_sweep"] = bound(4 * G * M * (F8 + A8 + 3) + state_bytes, per_sample * G * M)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -147,13 +474,16 @@ def main() -> None:
 
     # ---- phase 1: build every kernel from the sources ----
     t0 = time.perf_counter()
-    built = _build.build([_build.config_flags(c) for c in (rbc_cfg, art_cfg)])
+    built = _build.build([_build.config_flags(c) for c in (rbc_cfg, art_cfg)]
+                         + [_build.sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64)])
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall; "
           + ", ".join(f"{p.name} {s:.2f} s" for p, s in built))
     for path, _ in built:
         with open(path.with_suffix(".log")) as fp:
             for line in fp:
-                if "registers" in line or "spill" in line:
+                if "Compiling entry function" in line:
+                    print("  ptxas:", line.split("'")[1] if "'" in line else line.strip())
+                elif "registers" in line or "spill" in line:
                     print("  ptxas:", line.strip())
 
     # ---- phase 2: K7 against its twin, bench config, B=4096 ----
@@ -198,7 +528,18 @@ def main() -> None:
         rtol=2e-4, atol=1e-2)
     torch.cuda.synchronize()
 
-    # ---- the main path, through the entry points a user calls ----
+    # ---- phases 8-10: the training kernels K1-K4 against their twins, and K2's draws ----
+    from smart_nanogrid_gym_torch.solvers.ppo import PPOConfig, PPOLearner
+
+    learner0 = PPOLearner(rbc_cfg, PPOConfig(collect_impl="kernel", sweep_impl="kernel"), device=device)
+    state0 = learner0.init(7, rbc_params, BENCH_BATCH)
+    normals, batt_k1 = collect_twin_checks(rbc_cfg, rbc_params, state0.params, u, pv, device, errors)
+    k2_statistics(rbc_cfg, rbc_params, state0.params, device)
+    featlane, gathered = update_inputs(learner0, rbc_cfg, rbc_params, state0)
+    sweep_twin_checks(learner0, featlane, gathered, state0, errors)
+    torch.cuda.synchronize()
+
+    # ---- the evaluation path, through the entry points a user calls ----
     _build.reset_launch_counts()
     # paired evaluation of the RBC and the artifact on the same explicit days (K7, K5)
     rbc_rewards, _ = gen_rbc_day(art_cfg, art_params, u4, pv4)
@@ -296,6 +637,9 @@ def main() -> None:
     stats_match("phase 6 K6 vs plain engine (artifact, 4096 x 256 days, battery carried)",
                 k6_draw, k6_oracle, k6_days * BENCH_BATCH, k6_days * BENCH_BATCH)
 
+    # ---- phase 11: the training path ----
+    learner, trained_state, train_launches = training_main_path(rbc_cfg, rbc_params, u, pv, device, card)
+
     # ---- phase 7: each kernel and its twin, timed on the card ----
     timing_days = 20
     cases = {
@@ -321,15 +665,23 @@ def main() -> None:
         print(f"phase 7 {name} ({shape}): kernel {times[name][1]:.4f} ms, "
               f"plain twin {times[name][2]:.4f} ms on {card}")
 
+    training_timings(learner, rbc_cfg, rbc_params, trained_state, featlane, gathered, u, pv, normals,
+                     batt_k1, card, times)
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
     check(not jax_modules, f"the port loaded JAX modules: {jax_modules[:5]}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-        "launches": launches[name], "max_abs_err": errors[name], "ms": times[name][1],
-        "plain_ms": times[name][2], "shape": times[name][0],
-    } for name in REPLACES]
+    least = bounds(rbc_cfg, art_cfg, timing_days)
+    kernels = []
+    for name, replaces in {**TRAIN_REPLACES, **REPLACES}.items():
+        count = train_launches[name] if name in TRAIN_REPLACES else launches[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SWEEP_SOURCE if "sweep" in name else DAY_SOURCE,
+            "replaces": replaces, "launches": count, "max_abs_err": errors[name], "ms": times[name][1],
+            "plain_ms": times[name][2], "bound_ms": least[name][0], "bound_by": least[name][1],
+            "library_ms": None, "shape": times[name][0],
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Plain-PyTorch engine: params, state, generation, physics, transition,
 fused day rollout and the batched env."""
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig, PenaltyMode
+from .config import NanogridConfig, PenaltyMode
 
 from .env import SmartNanogridTorch
 from .generate import draw_uniforms, generate_schedule

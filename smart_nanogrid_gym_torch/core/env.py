@@ -11,7 +11,7 @@ from typing import Callable
 
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+from .config import NanogridConfig
 
 from .generate import generate_schedule
 from .params import NanogridParams, broadcast_params, make_params
@@ -26,7 +26,8 @@ class SmartNanogridTorch:
     def __init__(self, config: NanogridConfig | None = None, **kwargs):
         self.config = config or NanogridConfig(**kwargs)
 
-    def default_params(self, dtype: torch.dtype, device: torch.device | str) -> NanogridParams:
+    def default_params(self, dtype: torch.dtype = torch.float32,
+                       device: torch.device | str = "cuda") -> NanogridParams:
         return make_params(self.config, dtype, device)
 
     def broadcast_params(self, params: NanogridParams, batch: int) -> NanogridParams:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+from .config import NanogridConfig
 
 from .params import NanogridParams, broadcast_params
 from .state import DaySchedule

@@ -1,7 +1,7 @@
 """Array-valued environment parameters as a tensor container.
 
 Port of ``smart_nanogrid_gym_tpu/core/params.py``: the same fields, built from
-the same shared numpy price and solar tables, as torch tensors of one dtype on
+the port's copy of the numpy price and solar tables, as torch tensors of one dtype on
 one device.  Leaves are unbatched (scalars, ``(P,)`` tables, ``(N,)`` charger
 mask) as :func:`make_params` builds them, or carry a leading env axis after
 :func:`broadcast_params`; the engine accepts both.
@@ -14,8 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from smart_nanogrid_gym_tpu.core import prices, solar
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+from . import prices, solar
+from .config import NanogridConfig
 
 
 class NanogridParams(NamedTuple):
@@ -62,11 +62,12 @@ class NanogridParams(NamedTuple):
 
 def make_params(
     config: NanogridConfig,
-    dtype: torch.dtype,
-    device: torch.device | str,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cuda",
     irradiance_path: str | None = None,
 ) -> NanogridParams:
-    """Default parameters with the reference constants (params.py:67-109)."""
+    """Default parameters with the reference constants (params.py:67-109), on
+    the card unless ``device`` says otherwise."""
     price_table, price_max = prices.build_price_table(config.price_model, config.price_table_len)
     if config.pv_system:
         irr, solar_power, max_rad = solar.build_solar_tables(

@@ -13,7 +13,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+from .config import NanogridConfig
 
 from . import physics
 from .params import NanogridParams, broadcast_params
@@ -103,15 +103,22 @@ def fused_day_rollout(
     obs0: torch.Tensor | None = None,
     next_pv_shift: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    policy_aux: bool = False,
+    policy_xs: torch.Tensor | None = None,
 ):
     """Roll exactly one day from day start (``state.t == 0``) for every env.
 
     ``policy_fn(obs (B, F)) -> actions (B, A)``.  Returns ``(next_state,
-    (obs, reward, done[, info]))`` stacked time-major.  The day-end PV shift
-    is ``next_pv_shift`` or drawn from ``generator``; the schedule and the
-    battery carry over (SURVEY.md Q8).  ``obs0`` is the observation the first
-    step acts on (the reset observation when omitted; continuation runs pass
-    the previous day's trailing observation).
+    (obs, reward, done[, info][, aux]))`` stacked time-major.  The day-end PV
+    shift is ``next_pv_shift`` or drawn from ``generator``; the schedule and
+    the battery carry over (SURVEY.md Q8).  ``obs0`` is the observation the
+    first step acts on (the reset observation when omitted; continuation runs
+    pass the previous day's trailing observation).
+
+    ``policy_xs`` (leading axis T) feeds the policy a per-step input, called
+    as ``policy_fn(obs, policy_xs[t])``: how the PPO learner injects its action
+    noise.  With ``policy_aux`` the policy returns ``(actions, aux)``, a tuple
+    of tensors, and the stacked ``aux`` ends the trajectory (rollout.py:141-153).
     """
     T, N, dt = config.steps_per_day, config.num_chargers, config.time_interval
     B = state.t.shape[0]
@@ -132,9 +139,13 @@ def fused_day_rollout(
     obs = obs0 if obs0 is not None else _assemble_obs(
         config, tables, 0, state.soc[..., 0], tables.dep_obs[0], batt_soc, pv_shift)
 
-    obs_traj, rewards, dones, cols, infos = [], [], [], [], []
+    obs_traj, rewards, dones, cols, infos, auxs = [], [], [], [], [], []
     for t in range(T):
-        actions = policy_fn(obs).to(dtype)
+        out = policy_fn(obs) if policy_xs is None else policy_fn(obs, policy_xs[t])
+        if policy_aux:
+            out, aux = out
+            auxs.append(aux)
+        actions = out.to(dtype)
         charger_actions = actions[:, :N]
         battery_action = actions[:, -1] if config.battery_system else torch.zeros(B, dtype=dtype, device=device)
 
@@ -228,4 +239,6 @@ def fused_day_rollout(
     traj = (torch.stack(obs_traj), torch.stack(rewards), torch.stack(dones))
     if collect_info:
         traj = traj + (StepInfo(*(torch.stack(f) for f in zip(*infos))),)
+    if policy_aux:
+        traj = traj + (tuple(torch.stack(f) for f in zip(*auxs)),)
     return next_state, traj

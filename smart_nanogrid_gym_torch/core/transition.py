@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig, PenaltyMode
+from .config import NanogridConfig, PenaltyMode
 
 from . import physics
 from .params import NanogridParams, broadcast_params

@@ -1,10 +1,12 @@
-// Day-step bodies of the fused generation + closed-loop kernels (K5-K8).
+// Day-step bodies of the fused generation + closed-loop kernels (K1, K2, K5-K8).
 //
 // Replaces the Pallas TPU kernels of smart_nanogrid_gym_tpu/ops/:
 //   K7 pallas_gen_rollout.py::pallas_gen_rbc_day            -> gen_rbc_day_kernel<C, Explicit>
 //   K8 pallas_gen_rollout.py::pallas_gen_rbc_multiday       -> gen_rbc_multiday_kernel<C>
 //   K5 pallas_gen_policy_rollout.py::pallas_gen_policy_day  -> gen_policy_day_kernel<C>
 //   K6 pallas_gen_policy_rollout.py::pallas_gen_policy_multiday -> gen_policy_multiday_kernel<C>
+//   K1 pallas_collect.py::pallas_ppo_collect_day            -> ppo_collect_day_kernel<C, false>
+//   K2 pallas_collect.py::pallas_ppo_collect_day_seeded     -> ppo_collect_day_kernel<C, true>
 //
 // Design: one thread per env runs the whole day; the per-charger carries live
 // in registers, the price/radiation/solar traces and (for K5/K6) the actor
@@ -23,7 +25,17 @@
 //
 // Random numbers (K8/K6): Philox4x32-10 keyed by (seed, global env index),
 // counter (day, t, draw kind, charger group of 4); uniforms are (x >> 8)*2^-24.
-// The day's PV-shift draw uses counter (day, T, 0, 0).  ops/philox.py is the twin.
+// The day's PV-shift draw uses counter (day, T, 0, 0).  K2 draws day 0 of its
+// seed with two kinds of its own for the action normals (5, 6: Box-Muller of
+// two uniforms) and one for the PV shift (7).  ops/philox.py is the twin.
+//
+// The collection kernel (K1/K2) is K5's step body with the stochastic
+// actor-critic in place of the deterministic actor (the Policy parameter of
+// policy_step, the counterpart of the JAX policy_override): both 64-64 tanh
+// torsos, one after the other in the same hidden arrays, the Gaussian
+// log-prob, and the trajectory writes, coalesced across envs in the (T, ., B)
+// layout.  It is bound by the two torsos' multiply-adds, about 2.4e4 flops
+// per env-step; its 14.5 MB of writes at B=4096 take a tenth of that time.
 #pragma once
 
 #include <cstdint>
@@ -67,6 +79,9 @@ struct Cfg {
   static constexpr int A = N + (BATT ? 1 : 0);
   // actor block in shared memory: W1 (H1,F) b1 W2 (H2,H1) b2 W3 (A,H2) b3 low high
   static constexpr int WEIGHTS = H1 * F + H1 + H2 * H1 + H2 + A * H2 + 3 * A;
+  // critic block: W1 (H1,F) b1 W2 (H2,H1) b2 W3 (1,H2) b3; then log_std (A)
+  static constexpr int VF_WEIGHTS = H1 * F + H1 + H2 * H1 + H2 + H2 + 1;
+  static constexpr int COLLECT_WEIGHTS = WEIGHTS + VF_WEIGHTS + A;
 };
 
 // Runtime step constants: steps per day, departure offsets 4h/10h/1h in steps, dt.
@@ -125,6 +140,54 @@ struct PhiloxDraws {
     return floorf(to_uniform(r.x) * 181.0f) / 100.0f;
   }
 };
+
+constexpr uint32_t kKindNormalU1 = 5u, kKindNormalU2 = 6u, kKindPvShift = 7u;
+constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979323846);  // f32(2*pi)
+constexpr float kLog2Pi = 1.8378770664093453f;                             // f32(log(2*pi))
+
+// Standard normals from two 24-bit uniforms (pallas_collect.py:262-268):
+// 1 - u1 lies in (0, 1], so the log is finite.
+__device__ __forceinline__ float box_muller(float u1, float u2) {
+  return sqrtf(-2.0f * logf(1.0f - u1)) * cosf(kTwoPi * u2);
+}
+
+// Action normals n (T, A, B) given explicitly (K1).
+template <int A>
+struct ExplicitNormals {
+  const float* n;
+  int64_t B, b;
+  __device__ void draw(int t, float (&out)[A]) const {
+#pragma unroll
+    for (int a = 0; a < A; ++a) out[a] = n[(static_cast<int64_t>(t) * A + a) * B + b];
+  }
+};
+
+// Action normals from Philox (K2): action a = 4g + i takes word i of counters
+// (0, t, 5, g) and (0, t, 6, g).
+template <int A>
+struct PhiloxNormals {
+  uint2 key;
+  __device__ void draw(int t, float (&out)[A]) const {
+#pragma unroll
+    for (int g = 0; g < (A + 3) / 4; ++g) {
+      const uint4 r1 = philox4x32_10(make_uint4(0u, static_cast<uint32_t>(t), kKindNormalU1,
+                                                static_cast<uint32_t>(g)), key);
+      const uint4 r2 = philox4x32_10(make_uint4(0u, static_cast<uint32_t>(t), kKindNormalU2,
+                                                static_cast<uint32_t>(g)), key);
+      const uint32_t w1[4] = {r1.x, r1.y, r1.z, r1.w};
+      const uint32_t w2[4] = {r2.x, r2.y, r2.z, r2.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * g + i < A) out[4 * g + i] = box_muller(to_uniform(w1[i]), to_uniform(w2[i]));
+    }
+  }
+};
+
+// The fresh day's PV shift of K2: word 0 of counter (0, 0, 7, 0).
+__device__ __forceinline__ float collect_pv_shift(uint2 key) {
+  const uint4 r = philox4x32_10(make_uint4(0u, 0u, kKindPvShift, 0u), key);
+  return floorf(to_uniform(r.x) * 181.0f) / 100.0f;
+}
 
 // ------------------------------------------------------------ day carry ---
 
@@ -318,16 +381,90 @@ struct Actor {
   }
 };
 
+// Shared-memory views of the critic block (layout of Cfg::VF_WEIGHTS).
+template <class C>
+struct Critic {
+  const float *w1, *b1, *w2, *b2, *w3, *b3;
+  __device__ explicit Critic(const float* s) {
+    w1 = s;
+    b1 = w1 + C::H1 * C::F;
+    w2 = b1 + C::H1;
+    b2 = w2 + C::H2 * C::H1;
+    w3 = b2 + C::H2;
+    b3 = w3 + C::H2;
+  }
+};
+
+// The hidden layers of a 64-64 tanh torso: three FMA-free multiply-add loops.
+template <class C>
+__device__ __forceinline__ void torso(const float* w1, const float* b1, const float* w2, const float* b2,
+                                      const float (&obs)[C::F], float (&h1)[C::H1], float (&h2)[C::H2]) {
+  for (int j = 0; j < C::H1; ++j) h1[j] = tanhf(dense(w1 + j * C::F, obs, C::F) + b1[j]);
+  for (int j = 0; j < C::H2; ++j) h2[j] = tanhf(dense(w2 + j * C::H1, h1, C::H1) + b2[j]);
+}
+
+// The deterministic actor of K5/K6: the mean clipped to the action box.
+template <class C>
+struct MeanActor {
+  Actor<C> w;
+  __device__ void operator()(int, const float (&obs)[C::F], float (&act)[C::A]) const {
+    float h1[C::H1], h2[C::H2];
+    torso<C>(w.w1, w.b1, w.w2, w.b2, obs, h1, h2);
+#pragma unroll
+    for (int i = 0; i < C::A; ++i)
+      act[i] = fminf(fmaxf(dense(w.w3 + i * C::H2, h2, C::H2) + w.b3[i], w.low[i]), w.high[i]);
+  }
+};
+
+// The stochastic actor-critic of K1/K2 (_collect_policy, pallas_collect.py:85-116):
+// a_raw = mean + exp(log_std) * normal; writes obs, a_raw, logp and value of
+// step t for env b, and hands the env the action clipped to the box.
+template <class C, class Noise>
+struct CollectActor {
+  Actor<C> pi;
+  Critic<C> vf;
+  const float* log_std;
+  Noise noise;
+  float *obs_out, *act_out, *logp_out, *val_out;
+  int64_t B, b;
+
+  __device__ void operator()(int t, const float (&obs)[C::F], float (&act)[C::A]) const {
+    float h1[C::H1], h2[C::H2], mean[C::A], normal[C::A];
+    torso<C>(pi.w1, pi.b1, pi.w2, pi.b2, obs, h1, h2);
+#pragma unroll
+    for (int i = 0; i < C::A; ++i) mean[i] = dense(pi.w3 + i * C::H2, h2, C::H2) + pi.b3[i];
+    torso<C>(vf.w1, vf.b1, vf.w2, vf.b2, obs, h1, h2);
+    const float value = dense(vf.w3, h2, C::H2) + vf.b3[0];
+    noise.draw(t, normal);
+    float logp = 0.0f;
+#pragma unroll
+    for (int i = 0; i < C::A; ++i) {
+      const float sd = expf(log_std[i]);
+      const float a_raw = mean[i] + sd * normal[i];
+      const float diff = a_raw - mean[i];
+      const float var = sd * sd;
+      const float term = -0.5f * (diff * diff / var + 2.0f * log_std[i] + kLog2Pi);
+      logp = i == 0 ? term : logp + term;
+      act_out[(static_cast<int64_t>(t) * C::A + i) * B + b] = a_raw;
+      act[i] = fminf(fmaxf(a_raw, pi.low[i]), pi.high[i]);
+    }
+#pragma unroll
+    for (int f = 0; f < C::F; ++f) obs_out[(static_cast<int64_t>(t) * C::F + f) * B + b] = obs[f];
+    logp_out[static_cast<int64_t>(t) * B + b] = logp;
+    val_out[static_cast<int64_t>(t) * B + b] = value;
+  }
+};
+
 struct PolicyRows {
   float flows, p_used, dod;
 };
 
 // One actor step (_gen_policy_step + _gen_policy_physics): observation, the
-// deterministic 64-64 tanh actor clipped to the box, bidirectional physics.
-template <class C, class Src>
+// policy (obs -> action clipped to the box), bidirectional physics.
+template <class C, class Src, class Policy>
 __device__ PolicyRows policy_step(int t, const Dims& d, const Src& src, Carry<C>& c, float& batt_soc,
                                   const float* rad_norm, const float* price_norm, float pv_shift,
-                                  const Actor<C>& w, float (&act)[C::A], float (&pen)[C::N]) {
+                                  const Policy& policy, float (&act)[C::A], float (&pen)[C::N]) {
   constexpr int N = C::N;
   StepDraws<C> u;
   u.fill(src, t, d);
@@ -372,13 +509,7 @@ __device__ PolicyRows policy_step(int t, const Dims& d, const Src& src, Carry<C>
   }
   if (C::BATT) obs[base + 2 * N] = batt_soc;
 
-  // ---- actor: three products as FMA-free multiply-add loops ----
-  float h1[C::H1], h2[C::H2];
-  for (int j = 0; j < C::H1; ++j) h1[j] = tanhf(dense(w.w1 + j * C::F, obs, C::F) + w.b1[j]);
-  for (int j = 0; j < C::H2; ++j) h2[j] = tanhf(dense(w.w2 + j * C::H1, h1, C::H1) + w.b2[j]);
-#pragma unroll
-  for (int i = 0; i < C::A; ++i)
-    act[i] = fminf(fmaxf(dense(w.w3 + i * C::H2, h2, C::H2) + w.b3[i], w.low[i]), w.high[i]);
+  policy(t, obs, act);
 
   // ---- charger physics, both branches (inverted discharge flag quirk) ----
   float charging = 0.0f, discharging = 0.0f;
@@ -544,7 +675,7 @@ __global__ void gen_policy_day_kernel(const float* __restrict__ price, const flo
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 
-  const Actor<C> w(smem);
+  const MeanActor<C> policy{Actor<C>(smem)};
   const ExplicitDraws<C::N> src{u, B, b};
   const float pv = pv_shift[b];
   float batt = batt_soc[b];
@@ -553,7 +684,7 @@ __global__ void gen_policy_day_kernel(const float* __restrict__ price, const flo
   float act[C::A], pen[C::N];
 #pragma unroll 1
   for (int t = 0; t < d.T; ++t) {
-    const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, w, act, pen);
+    const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
 #pragma unroll
     for (int i = 0; i < C::A; ++i) actions[(static_cast<int64_t>(t) * C::A + i) * B + b] = act[i];
     float pen_sum = pen[0];
@@ -582,7 +713,7 @@ __global__ void gen_policy_multiday_kernel(const float* __restrict__ price, cons
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 
-  const Actor<C> w(smem);
+  const MeanActor<C> policy{Actor<C>(smem)};
   float batt = kBattInit;
   float rew_total = 0.0f, sq_total = 0.0f;
   Carry<C> c;
@@ -597,7 +728,7 @@ __global__ void gen_policy_multiday_kernel(const float* __restrict__ price, cons
     float day_sum = 0.0f;
   #pragma unroll 1
   for (int t = 0; t < d.T; ++t) {
-      const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, w, act, pen);
+      const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
 #pragma unroll
       for (int n = 0; n < C::N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
       const float reward = -policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt);
@@ -613,6 +744,60 @@ __global__ void gen_policy_multiday_kernel(const float* __restrict__ price, cons
   stats[b] = rew_total;
   stats[static_cast<int64_t>(B) + b] = sq_total;
   stats[2 * static_cast<int64_t>(B) + b] = batt;
+}
+
+// One collection day of env b under the stochastic actor-critic (K1/K2).
+template <class C, class Src, class Noise>
+__device__ void collect_day(const Dims& d, const Src& src, const Noise& noise, float pv, float batt,
+                            const SharedTraces& s, const float* smem, float* obs_out, float* act_out,
+                            float* logp_out, float* val_out, float* rew_out, float* batt_out, int64_t B,
+                            int64_t b) {
+  const CollectActor<C, Noise> policy{Actor<C>(smem), Critic<C>(smem + C::WEIGHTS),
+                                      smem + C::WEIGHTS + C::VF_WEIGHTS, noise,
+                                      obs_out, act_out, logp_out, val_out, B, b};
+  Carry<C> c;
+  c.clear();
+  float act[C::A], pen[C::N];
+#pragma unroll 1
+  for (int t = 0; t < d.T; ++t) {
+    const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
+    float pen_sum = pen[0];
+#pragma unroll
+    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
+    const float cost = policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt) + kWVeh * pen_sum;
+    rew_out[static_cast<int64_t>(t) * B + b] = -cost;
+  }
+  batt_out[b] = batt;
+}
+
+// K1 (SEEDED false): explicit uniforms u (T, 5, N, B), normals (T, A, B) and
+// pv_shift (B,).  K2 (SEEDED true): every draw from Philox keyed by (seed, b).
+// Outputs obs (T, F, B), act_raw (T, A, B), logp/value/rewards (T, B), batt (B).
+template <class C, bool SEEDED>
+__global__ void ppo_collect_day_kernel(const float* __restrict__ price, const float* __restrict__ price_norm,
+                                       int P, const float* __restrict__ rad_norm, int S,
+                                       const float* __restrict__ solar, const float* __restrict__ u,
+                                       const float* __restrict__ normals, uint32_t seed,
+                                       const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                                       const float* __restrict__ weights, float* __restrict__ obs_out,
+                                       float* __restrict__ act_out, float* __restrict__ logp_out,
+                                       float* __restrict__ val_out, float* __restrict__ rew_out,
+                                       float* __restrict__ batt_out, int B, Dims d) {
+  extern __shared__ float smem[];
+  load_block(smem, weights, C::COLLECT_WEIGHTS);
+  const SharedTraces s = load_traces(smem + C::COLLECT_WEIGHTS, rad_norm, S, price_norm, P, price, solar, d.T);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  if constexpr (SEEDED) {
+    const uint2 key = make_uint2(seed, static_cast<uint32_t>(b));
+    collect_day<C>(d, PhiloxDraws<C::N>{key, 0u}, PhiloxNormals<C::A>{key}, collect_pv_shift(key), batt_soc[b],
+                   s, smem, obs_out, act_out, logp_out, val_out, rew_out, batt_out, B, b);
+  } else {
+    collect_day<C>(d, ExplicitDraws<C::N>{u, B, b}, ExplicitNormals<C::A>{normals, B, b}, pv_shift[b],
+                   batt_soc[b], s, smem, obs_out, act_out, logp_out, val_out, rew_out, batt_out, B, b);
+  }
 }
 
 }  // namespace ngk

@@ -1,4 +1,4 @@
-// C entry points of the day kernels (K5-K8) for one static configuration.
+// C entry points of the day kernels (K1, K2, K5-K8) for one static configuration.
 //
 // The configuration comes from -D flags (ops/_build.py builds one shared
 // library per configuration at first use):
@@ -17,8 +17,12 @@ namespace {
 
 using C = ngk::Cfg<NG_N, NG_PV != 0, NG_BATT != 0, NG_PMODE, NG_DIFF_CAPS != 0, NG_REQ_SOC != 0, NG_H1, NG_H2>;
 constexpr int kThreads = 128;
+// The collection kernel keeps one warp per block, so that a batch of 4096
+// envs spreads over 128 SMs (each thread runs a whole day, so a block's
+// shared-memory pipe serves few warps).
+constexpr int kCollectThreads = 32;
 
-inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
+inline dim3 grid_for(int B, int threads = kThreads) { return dim3((B + threads - 1) / threads); }
 
 inline ngk::Dims dims(int T, int k4, int k10, int k1, float dt) { return ngk::Dims{T, k4, k10, k1, dt}; }
 
@@ -36,6 +40,8 @@ int set_smem(Kernel kernel, size_t bytes) {
 extern "C" {
 
 int ngk_weights_size() { return C::WEIGHTS; }
+
+int ngk_collect_weights_size() { return C::COLLECT_WEIGHTS; }
 
 int ngk_gen_rbc_day(const float* price, const float* rad_norm, int S, const float* solar, const float* u,
                     const float* batt_soc, const float* pv_shift, float* rewards, float* soc_final, int B, int T,
@@ -76,6 +82,35 @@ int ngk_gen_policy_multiday(const float* price, const float* price_norm, int P, 
   if (err != 0) return err;
   ngk::gen_policy_multiday_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       price, price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats, B, dims(T, k4, k10, k1, dt));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ngk_ppo_collect_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
+                        const float* solar, const float* u, const float* normals, const float* batt_soc,
+                        const float* pv_shift, const float* weights, float* obs, float* act, float* logp,
+                        float* value, float* rewards, float* batt_final, int B, int T, int k4, int k10, int k1,
+                        float dt, void* stream) {
+  const size_t smem = static_cast<size_t>(C::COLLECT_WEIGHTS + S + P + 2 * T) * sizeof(float);
+  const int err = set_smem(ngk::ppo_collect_day_kernel<C, false>, smem);
+  if (err != 0) return err;
+  ngk::ppo_collect_day_kernel<C, false>
+      <<<grid_for(B, kCollectThreads), kCollectThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          price, price_norm, P, rad_norm, S, solar, u, normals, 0u, batt_soc, pv_shift, weights, obs, act, logp,
+          value, rewards, batt_final, B, dims(T, k4, k10, k1, dt));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ngk_ppo_collect_day_seeded(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
+                               const float* solar, unsigned int seed, const float* batt_soc, const float* weights,
+                               float* obs, float* act, float* logp, float* value, float* rewards,
+                               float* batt_final, int B, int T, int k4, int k10, int k1, float dt, void* stream) {
+  const size_t smem = static_cast<size_t>(C::COLLECT_WEIGHTS + S + P + 2 * T) * sizeof(float);
+  const int err = set_smem(ngk::ppo_collect_day_kernel<C, true>, smem);
+  if (err != 0) return err;
+  ngk::ppo_collect_day_kernel<C, true>
+      <<<grid_for(B, kCollectThreads), kCollectThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          price, price_norm, P, rad_norm, S, solar, nullptr, nullptr, seed, batt_soc, nullptr, weights, obs, act,
+          logp, value, rewards, batt_final, B, dims(T, k4, k10, k1, dt));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,9 +2,11 @@
 a CUDA library is compiled at the first launch that needs it."""
 
 from ._build import launch_counts, reset_launch_counts
+from .collect import ppo_collect_day, ppo_collect_day_seeded
 from .gen_policy_rollout import gen_policy_day, gen_policy_multiday
 from .gen_rollout import gen_rbc_day, gen_rbc_multiday
 from .param_guard import check_baked_params
+from .ppo_sweep import SweepHypers, ppo_sweep, ppo_sweep_streamed
 
 __all__ = [
     "launch_counts",
@@ -13,5 +15,10 @@ __all__ = [
     "gen_rbc_multiday",
     "gen_policy_day",
     "gen_policy_multiday",
+    "ppo_collect_day",
+    "ppo_collect_day_seeded",
+    "ppo_sweep",
+    "ppo_sweep_streamed",
+    "SweepHypers",
     "check_baked_params",
 ]

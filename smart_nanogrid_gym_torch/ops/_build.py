@@ -1,12 +1,13 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles ``csrc/kernels.cu`` into a shared library with a plain C
-interface, one library per static configuration (charger count, config
-flags, actor hidden sizes), at first use, for ``sm_90a``.  Libraries land in
-``build/torch_kernels/`` at the root of the checkout, named by the
-configuration and a digest of the sources and flags, so an edited source
-rebuilds.  They are loaded with ``ctypes``; every launch goes on PyTorch's
-current stream and its ``cudaGetLastError()`` is checked.
+``nvcc`` compiles each entry source of ``csrc/`` into a shared library with a
+plain C interface, at first use, for ``sm_90a``: ``kernels.cu`` (the day
+kernels K1, K2, K5-K8) once per static configuration (charger count, config
+flags, actor hidden sizes), ``sweep.cu`` (the update sweep K3/K4) once per
+network shape.  Libraries land in ``build/torch_kernels/`` at the root of the
+checkout, named by the flags and a digest of the sources and nvcc flags, so
+an edited source rebuilds.  They are loaded with ``ctypes``; every launch goes
+on PyTorch's current stream and its ``cudaGetLastError()`` is checked.
 
 ``launch_counts`` counts the launches of each kernel by name: a wrapper adds
 one where it launches its kernel, and nowhere else.
@@ -26,11 +27,11 @@ from pathlib import Path
 
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+from ..core.config import NanogridConfig
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("day_step.cuh", "kernels.cu")
+SOURCES = ("day_step.cuh", "kernels.cu", "ppo_sweep.cuh", "sweep.cu")
 # --fmad=false: no FMA contraction, so the kernels round like their twins;
 # IEEE division stays on (no --use_fast_math).
 NVCC_FLAGS = (
@@ -42,14 +43,26 @@ DEFAULT_HIDDEN = (64, 64)
 launch_counts: Counter = Counter()
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_SIGNATURES = {
+_DAY_SIGNATURES = {
     "ngk_weights_size": (),
+    "ngk_collect_weights_size": (),
     "ngk_gen_rbc_day": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_rbc_multiday": (_P, _P, _I, _P, _U, _I, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_policy_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_policy_multiday": (_P, _P, _I, _P, _I, _P, _U, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "ngk_ppo_collect_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _F, _P),
+    "ngk_ppo_collect_day_seeded": (_P, _P, _I, _P, _I, _P, _U, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _F, _P),
 }
+_SWEEP_SIGNATURES = {
+    "ngk_sweep_params_size": (),
+    "ngk_ppo_grad_partial": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
+                             _F, _F, _F, _F, _P),
+    "ngk_ppo_adam_update": (_P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+}
+_ENTRIES = {"kernels.cu": _DAY_SIGNATURES, "sweep.cu": _SWEEP_SIGNATURES}
 _LIBRARIES: dict[Path, ctypes.CDLL] = {}
 
 
@@ -82,24 +95,35 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (CUDA_HOME or PATH)")
 
 
+def sweep_flags(F: int, A: int, H1: int, H2: int) -> dict[str, int]:
+    """The network shape a sweep library is built for."""
+    return {"NG_F": int(F), "NG_A": int(A), "NG_H1": int(H1), "NG_H2": int(H2)}
+
+
+def _source(flags: dict[str, int]) -> str:
+    return "sweep.cu" if "NG_F" in flags else "kernels.cu"
+
+
 def library_path(flags: dict[str, int]) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
     tag = "_".join(f"{k[3:].lower()}{v}" for k, v in flags.items())
-    return BUILD_DIR / f"libngk_{tag}_{digest.hexdigest()[:12]}.so"
+    stem = Path(_source(flags)).stem
+    return BUILD_DIR / f"libngk_{stem}_{tag}_{digest.hexdigest()[:12]}.so"
 
 
 def compile_library(flags: dict[str, int]) -> tuple[Path, float]:
-    """Compile the library for ``flags`` unless it exists; returns its path and
-    the seconds spent compiling.  The ptxas report goes to ``<lib>.log``."""
+    """Compile the library for ``flags`` (a day configuration or a sweep
+    shape) unless it exists; returns its path and the seconds spent
+    compiling.  The ptxas report goes to ``<lib>.log``."""
     path = library_path(flags)
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()),
-           "-o", str(tmp), str(CSRC / "kernels.cu")]
+           "-o", str(tmp), str(CSRC / _source(flags))]
     start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - start
@@ -112,26 +136,35 @@ def compile_library(flags: dict[str, int]) -> tuple[Path, float]:
 
 
 def build(flag_sets: list[dict[str, int]]) -> list[tuple[Path, float]]:
-    """Compile several configurations concurrently (one nvcc process each)."""
+    """Compile several libraries concurrently (one nvcc process each)."""
     with ThreadPoolExecutor(max_workers=max(1, len(flag_sets))) as pool:
         return list(pool.map(compile_library, flag_sets))
 
 
-def library(config: NanogridConfig, device: torch.device,
-            hidden: tuple[int, int] = DEFAULT_HIDDEN) -> ctypes.CDLL:
-    """The loaded kernel library for ``config``, built first if needed."""
+def _load(flags: dict[str, int], device: torch.device) -> ctypes.CDLL:
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels need a CUDA device, got {device}")
-    path, _ = compile_library(config_flags(config, hidden))
+    path, _ = compile_library(flags)
     lib = _LIBRARIES.get(path)
     if lib is None:
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in _ENTRIES[_source(flags)].items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
         _LIBRARIES[path] = lib
     return lib
+
+
+def library(config: NanogridConfig, device: torch.device,
+            hidden: tuple[int, int] = DEFAULT_HIDDEN) -> ctypes.CDLL:
+    """The loaded day-kernel library for ``config``, built first if needed."""
+    return _load(config_flags(config, hidden), device)
+
+
+def sweep_library(F: int, A: int, H1: int, H2: int, device: torch.device) -> ctypes.CDLL:
+    """The loaded sweep library for the network shape, built first if needed."""
+    return _load(sweep_flags(F, A, H1, H2), device)
 
 
 def check_f32(t: torch.Tensor, name: str) -> torch.Tensor:

@@ -21,12 +21,12 @@ multiply-add loops in input order, the order the CUDA kernels use.
 
 from __future__ import annotations
 
+import functools
 from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
-
+from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
 from . import _build
 from .gen_rollout import (
@@ -101,7 +101,7 @@ def actor_weights(config: NanogridConfig, net: ActorCritic, device: torch.device
     )
 
 
-def _dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``w @ x + b`` as a multiply-add loop over the input in index order."""
     acc = w[:, 0:1] * x[0:1]
     for k in range(1, w.shape[1]):
@@ -111,18 +111,20 @@ def _dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def actor_mean(w: ActorWeights, obs: torch.Tensor) -> torch.Tensor:
     """Deterministic action ``(A, B)`` for observations ``(F, B)``."""
-    h1 = torch.tanh(_dense(w.w1, w.b1, obs))
-    h2 = torch.tanh(_dense(w.w2, w.b2, h1))
-    return torch.clamp(_dense(w.w3, w.b3, h2), w.low, w.high)
+    h1 = torch.tanh(dense(w.w1, w.b1, obs))
+    h2 = torch.tanh(dense(w.w2, w.b2, h1))
+    return torch.clamp(dense(w.w3, w.b3, h2), w.low, w.high)
 
 
-def gen_policy_step(t, u5, c, batt_soc, traces: Traces, pv_shift, weights: ActorWeights, *,
+def gen_policy_step(t, u5, c, batt_soc, traces: Traces, pv_shift, policy, *,
                     T, N, dt, pv, batt, penalty_mode, diff_caps, req_soc, k4, k10, k1):
     """One step (``_gen_policy_step`` + ``_gen_policy_physics``,
-    pallas_gen_policy_rollout.py:63-277): generate column t, run the actor on
-    the step-(t-1) observation, apply the physics.  Returns ``(rows, actions
-    (A, B), carry, batt_soc)``; ``rows`` holds the ``(B,)`` inputs of the cost
-    (``flows``, ``p_used``, ``dod``) and the per-charger penalty ``pen (N, B)``."""
+    pallas_gen_policy_rollout.py:63-277): generate column t, run ``policy``
+    (``obs (F, B) -> clipped actions (A, B)``, the counterpart of the JAX
+    ``policy_override``) on the step-(t-1) observation, apply the physics.
+    Returns ``(rows, actions (A, B), carry, batt_soc)``; ``rows`` holds the
+    ``(B,)`` inputs of the cost (``flows``, ``p_used``, ``dod``) and the
+    per-charger penalty ``pen (N, B)``."""
     cols, gen = generate_column(t, u5, c, T=T, penalty_mode=penalty_mode, diff_caps=diff_caps,
                                 req_soc=req_soc, k4=k4, k10=k10, k1=k1)
     arrives, occupied = cols["arrives"], cols["occupied"]
@@ -146,7 +148,7 @@ def gen_policy_step(t, u5, c, batt_soc, traces: Traces, pv_shift, weights: Actor
     parts = [torch.stack(rows), soc_rows, div(dep_o, 24.0)]
     if batt:
         parts.append(batt_soc[None])
-    actions = actor_mean(weights, torch.cat(parts))
+    actions = policy(torch.cat(parts))
 
     # ---- charger physics, both branches (inverted discharge flag quirk) ----
     ch_act = actions[:N]
@@ -202,7 +204,7 @@ def _packed(weights: ActorWeights, lib) -> torch.Tensor:
     return block
 
 
-def _policy_kwargs(config: NanogridConfig) -> dict:
+def policy_kwargs(config: NanogridConfig) -> dict:
     return dict(N=config.num_chargers, batt=config.battery_system, **step_kwargs(config))
 
 
@@ -210,7 +212,7 @@ def _stack(rows_list, key):
     return torch.stack([r[key] for r in rows_list])
 
 
-def _check_policy_config(config: NanogridConfig, params: NanogridParams, kernel: str, **guard):
+def check_policy_config(config: NanogridConfig, params: NanogridParams, kernel: str, **guard):
     check_baked_params(config, params, kernel, generation=True, **guard)
     if config.lookahead != 3:
         raise ValueError(f"{kernel} bakes the reference 3-step observation lookahead; "
@@ -222,13 +224,14 @@ def _check_policy_config(config: NanogridConfig, params: NanogridParams, kernel:
 def gen_policy_day_plain(config, traces: Traces, weights: ActorWeights, uniforms, pv_shift, batt_soc):
     """Plain twin of K5 on f32 tensors."""
     T = config.steps_per_day
-    kw = _policy_kwargs(config)
+    kw = policy_kwargs(config)
     B = pv_shift.shape[0]
     carry = fresh_carry(kw["N"], B, pv_shift.device, kw["diff_caps"], kw["req_soc"])
+    policy = functools.partial(actor_mean, weights)
     rows_list, actions = [], []
     for t in range(T):
         rows, act, carry, batt_soc = gen_policy_step(
-            t, uniforms[t].unbind(0), carry, batt_soc, traces, pv_shift, weights, T=T, **kw)
+            t, uniforms[t].unbind(0), carry, batt_soc, traces, pv_shift, policy, T=T, **kw)
         rows["pen"] = sum_rows(rows["pen"])
         rows_list.append(rows)
         actions.append(act)
@@ -248,7 +251,7 @@ def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCri
     omitted).  Returns ``(rewards (T, B), actions (T, A, B), soc_final (N, B),
     batt_final (B,))``.
     """
-    _check_policy_config(config, params, "gen_policy_day")
+    check_policy_config(config, params, "gen_policy_day")
     T, N, A = config.steps_per_day, config.num_chargers, config.num_actions
     B = pv_shift.shape[0]
     if tuple(uniforms.shape) != (T, 5, N, B):
@@ -285,10 +288,11 @@ def gen_policy_multiday_plain(config, traces: Traces, weights: ActorWeights, num
                               seed: int, batch: int):
     """Plain twin of K6: ``stats (3, batch)``, same Philox draws as the kernel."""
     T = config.steps_per_day
-    kw = _policy_kwargs(config)
+    kw = policy_kwargs(config)
     N = kw["N"]
     device = traces.price.device
     batt_soc = torch.full((batch,), BATT_INIT_SOC, dtype=F32, device=device)
+    policy = functools.partial(actor_mean, weights)
     rew_total = torch.zeros(batch, dtype=F32, device=device)
     sq_total = torch.zeros(batch, dtype=F32, device=device)
     for day in range(num_days):
@@ -299,7 +303,7 @@ def gen_policy_multiday_plain(config, traces: Traces, weights: ActorWeights, num
         rows_list = []
         for t in range(T):
             rows, _, carry, batt_soc = gen_policy_step(
-                t, u[t].unbind(0), carry, batt_soc, traces, pv_shift, weights, T=T, **kw)
+                t, u[t].unbind(0), carry, batt_soc, traces, pv_shift, policy, T=T, **kw)
             pen_acc = pen_acc + rows.pop("pen")
             rows_list.append(rows)
         stacked = {k: _stack(rows_list, k) for k in rows_list[0]}
@@ -319,7 +323,7 @@ def gen_policy_multiday(config: NanogridConfig, params: NanogridParams, net: Act
     across days.  Returns ``stats (3, batch)``: Σ day return, Σ (day return)²,
     final battery SoC.
     """
-    _check_policy_config(config, params, "gen_policy_multiday", battery_init=True)
+    check_policy_config(config, params, "gen_policy_multiday", battery_init=True)
     device = params.device
     traces = kernel_traces(params, device)
     weights = actor_weights(config, net, device)

@@ -23,8 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig, PenaltyMode
-
+from ..core.config import NanogridConfig, PenaltyMode
 from ..core.params import NanogridParams
 from . import _build
 from .param_guard import check_baked_params

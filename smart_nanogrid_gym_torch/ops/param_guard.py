@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
-
+from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
 
 PHYSICS_CONSTANTS = {

@@ -12,6 +12,20 @@ Draw layout, for env ``b`` and day ``d`` (4 chargers per Philox block):
 - ``u[t, k, n] = word(n % 4) of philox((d, t, k, n // 4), (seed, b))``;
 - the day's PV-shift draw is ``word 0 of philox((d, T, 0, 0), (seed, b))``.
 
+The collection kernel K2 draws one day per launch (``d = 0``; every update
+passes a fresh seed) with the same generation draws, and two more kinds of
+its own, so that they never overlap the generation draws (kinds 0-4):
+
+- the action normals: ``n[t, a]`` is Box-Muller of ``u1`` = word ``a % 4`` of
+  ``philox((0, t, 5, a // 4))`` and ``u2`` = the same word of
+  ``philox((0, t, 6, a // 4))``: ``sqrt(-2 log(1 - u1)) · cos(2π u2)``, where
+  ``1 - u1 ∈ (0, 1]`` guards the log (pallas_collect.py:262-268);
+- the fresh day's PV shift ``⌊U · 181⌋ / 100`` (pallas_collect.py:276), ``U``
+  = word 0 of ``philox((0, 0, 7, 0))``.
+
+Unlike the JAX kernel's ``seed + program_id`` streams
+(pallas_collect.py:255), two seeds never share a stream.
+
 A 32-bit word ``x`` becomes the uniform ``(x >> 8) · 2⁻²⁴`` in ``[0, 1)``,
 exact in f32.  The arithmetic runs in int64 with the 32x32-bit products split
 into 16-bit limbs, so every value is exact on any device.
@@ -19,12 +33,15 @@ into 16-bit limbs, so every value is exact on any device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M0, M1 = 0xD2511F53, 0xCD9E8D57
 W0, W1 = 0x9E3779B9, 0xBB67AE85
 MASK32 = 0xFFFFFFFF
 _INV24 = 1.0 / (1 << 24)
+KIND_NORMAL_U1, KIND_NORMAL_U2, KIND_PV_SHIFT = 5, 6, 7
+TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -79,3 +96,31 @@ def day_uniforms(seed: int, day: int, batch: int, steps: int, num_chargers: int,
     zero = torch.zeros((), **i64)
     pv_word = philox4x32_10((d, torch.full((), steps, **i64), zero, zero), key)[0]
     return to_uniform(u), to_uniform(pv_word.expand(batch))
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Standard normals from two f32 uniforms in [0, 1), as K2 computes them."""
+    return torch.sqrt(-2.0 * torch.log(1.0 - u1)) * torch.cos(TWO_PI_F32 * u2)
+
+
+def collect_draws(seed: int, batch: int, steps: int, num_chargers: int, num_actions: int,
+                  device: torch.device | str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's draws for envs ``0..batch-1``: ``(u (T, 5, N, B), normals (T, A, B),
+    u_pv (B,))`` as f32, the inputs K1 takes (``u_pv`` before the PV-shift
+    map ``⌊U · 181⌋ / 100``)."""
+    u, _ = day_uniforms(seed, 0, batch, steps, num_chargers, device)
+    groups = (num_actions + 3) // 4
+    i64 = dict(dtype=torch.int64, device=device)
+    key = (torch.full((), seed & MASK32, **i64), torch.arange(batch, **i64))
+    zero = torch.zeros((), **i64)
+    t = torch.arange(steps, **i64).view(steps, 1, 1)
+    g = torch.arange(groups, **i64).view(1, groups, 1)
+
+    def words(kind):  # (T, G*4, B) -> (T, A, B), action a = 4g + word
+        w = philox4x32_10((zero, t, torch.full((), kind, **i64), g), key)
+        w = torch.stack([x.expand(steps, groups, batch) for x in w], dim=2)
+        return to_uniform(w.reshape(steps, groups * 4, batch)[:, :num_actions])
+
+    normals = box_muller(words(KIND_NORMAL_U1), words(KIND_NORMAL_U2))
+    pv_word = philox4x32_10((zero, zero, torch.full((), KIND_PV_SHIFT, **i64), zero), key)[0]
+    return u, normals, to_uniform(pv_word)

@@ -18,8 +18,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
-
+from ..core.config import NanogridConfig
 from ..core.generate import generate_schedule
 from ..core.params import NanogridParams
 from ..core.state import EnvState

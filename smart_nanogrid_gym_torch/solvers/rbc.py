@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+from ..core.config import NanogridConfig
 
 DEPARTURE_SOON_THRESHOLD = 0.16667  # 4h/24 (reference solvers/RBC/rbc.py:14)
 

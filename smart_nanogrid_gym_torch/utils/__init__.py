@@ -1,3 +1,3 @@
-from .weights import load_actor_critic_npz
+from .weights import load_actor_critic_npz, ppo_state_from_jax, ppo_state_to_jax
 
-__all__ = ["load_actor_critic_npz"]
+__all__ = ["load_actor_critic_npz", "ppo_state_from_jax", "ppo_state_to_jax"]

@@ -1,16 +1,28 @@
-"""Trained weights as plain numpy archives.
+"""Trained weights and learner state as plain numpy.
 
 The JAX package checkpoints through orbax, which the port does not depend
 on.  A committed artifact is therefore also stored as ``<step>.npz`` beside
 its orbax directory, with one entry per flax leaf under a ``/``-joined path
 (``params/pi/Dense_0/kernel``).
+
+:func:`ppo_state_from_jax` carries a JAX ``PPOLearner``'s parameters and
+optimizer state, given as numpy arrays, into the port's learner state:
+the 13 leaves of :func:`..solvers.networks.actor_critic_leaves` and an
+:class:`..ops.ppo_sweep.AdamState`.  :func:`ppo_state_to_jax` goes back, so
+that tests compare trained parameters leaf by leaf.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import Mapping, Sequence
 
+import numpy as np
+import torch
+
+from ..ops.ppo_sweep import AdamState
 from ..solvers.networks import ActorCritic, actor_critic_from_flax
+
+_NETS = ("pi", "vf")
 
 
 def unflatten(flat: dict[str, np.ndarray]) -> dict:
@@ -30,3 +42,62 @@ def load_actor_critic_npz(path: str) -> ActorCritic:
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     return actor_critic_from_flax(unflatten(flat))
+
+
+def leaves_from_flax(tree: Mapping, device: torch.device | str = "cpu") -> list[torch.Tensor]:
+    """ActorCritic flax params (``{"params": …}`` or the inner dict, numpy
+    leaves) as the 13 learner leaves; a flax ``kernel (in, out)`` becomes a
+    ``weight (out, in)``."""
+    p = tree["params"] if "params" in tree else tree
+    leaves = []
+    for name in _NETS:
+        for i in range(3):
+            dense = p[name][f"Dense_{i}"]
+            leaves.append(torch.from_numpy(np.array(dense["kernel"]).T.copy()))
+            leaves.append(torch.from_numpy(np.array(dense["bias"])))
+    leaves.append(torch.from_numpy(np.array(p["log_std"])))
+    return [x.to(device) for x in leaves]
+
+
+def leaves_to_flax(leaves: Sequence[torch.Tensor]) -> dict:
+    """The inverse of :func:`leaves_from_flax`: ``{"params": …}`` with numpy leaves."""
+    arrays = [x.detach().cpu().numpy() for x in leaves]
+    p: dict = {"log_std": arrays[12]}
+    for n, name in enumerate(_NETS):
+        p[name] = {f"Dense_{i}": {"kernel": arrays[6 * n + 2 * i].T.copy(),
+                                  "bias": arrays[6 * n + 2 * i + 1]} for i in range(3)}
+    return {"params": p}
+
+
+def find_adam_state(opt_state):
+    """The first node of an optax chain state with ``count``, ``mu`` and ``nu``
+    (``ScaleByAdamState``), searched depth first through tuples, as
+    ``solvers/ppo.py:132-155`` of the JAX package finds it; None if absent."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)) and not hasattr(opt_state, "shape"):
+        for sub in opt_state:
+            found = find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def ppo_state_from_jax(params_tree: Mapping, opt_state,
+                       device: torch.device | str = "cpu") -> tuple[list[torch.Tensor], AdamState]:
+    """A JAX ``PPOLearner``'s ``params`` and ``opt_state`` (numpy leaves, for
+    example ``jax.tree.map(np.asarray, state)``) as the port's learner leaves
+    and Adam state."""
+    adam = find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam state (count, mu, nu)")
+    return (leaves_from_flax(params_tree, device),
+            AdamState(int(np.asarray(adam.count)), leaves_from_flax(adam.mu, device),
+                      leaves_from_flax(adam.nu, device)))
+
+
+def ppo_state_to_jax(leaves: Sequence[torch.Tensor], adam: AdamState) -> tuple[dict, dict]:
+    """The inverse of :func:`ppo_state_from_jax`: ``(params, {"count", "mu",
+    "nu"})`` as flax-shaped numpy trees."""
+    return leaves_to_flax(leaves), {"count": np.int32(adam.count),
+                                    "mu": leaves_to_flax(adam.mu), "nu": leaves_to_flax(adam.nu)}

@@ -1,4 +1,4 @@
-"""The CUDA kernels K5-K8 of the PyTorch port against their plain twins.
+"""The CUDA kernels K1-K8 of the PyTorch port against their plain twins.
 
 Marked ``cuda``: each test skips without a CUDA device (and needs ``nvcc``
 to build the kernels at first use).  The file imports no JAX, so it also
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+from smart_nanogrid_gym_torch.core.config import NanogridConfig
 from smart_nanogrid_gym_torch.core.params import make_params
 from smart_nanogrid_gym_torch.ops import (
     gen_policy_day,
@@ -19,8 +19,20 @@ from smart_nanogrid_gym_torch.ops import (
     gen_rbc_day,
     gen_rbc_multiday,
     launch_counts,
+    ppo_collect_day,
+    ppo_collect_day_seeded,
+    ppo_sweep,
+    ppo_sweep_streamed,
     reset_launch_counts,
 )
+from smart_nanogrid_gym_torch.ops.collect import (
+    collect_weights,
+    ppo_collect_day_plain,
+    ppo_collect_day_seeded_plain,
+)
+from smart_nanogrid_gym_torch.ops.ppo_sweep import SweepHypers, ppo_sweep_plain, zeros_adam
+from smart_nanogrid_gym_torch.solvers.networks import actor_critic_leaves
+from smart_nanogrid_gym_torch.solvers.ppo import PPOConfig, PPOLearner
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
     actor_weights,
     gen_policy_day_plain,
@@ -124,3 +136,91 @@ def test_kernel_rejects_wrong_operands(cuda):
     u, pv = _inputs(config, 1, 64, cuda)
     with pytest.raises(ValueError, match="float32"):
         gen_rbc_day(config, params, u.double(), pv)
+
+
+COLLECT_CONFIGS = {
+    "b-pv-8ch": NanogridConfig(num_chargers=8, pv_system=True, battery_system=True),
+    "basic-4ch-dense": NanogridConfig(num_chargers=4, pv_system=False, battery_system=False,
+                                      penalty_mode="dense", requested_state_of_charge=True),
+}
+HYPERS = SweepHypers(lr=3e-4, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, max_grad_norm=0.5)
+
+
+def _leaves(config, seed, device):
+    return [x.detach() for x in actor_critic_leaves(shifted_actor(config, seed, device))]
+
+
+@pytest.mark.parametrize("name", list(COLLECT_CONFIGS))
+def test_collect_kernels_match_twins(cuda, name):
+    config = COLLECT_CONFIGS[name]
+    params = make_params(config, torch.float32, cuda)
+    traces = kernel_traces(params, cuda)
+    leaves = _leaves(config, 21, cuda)
+    weights = collect_weights(config, leaves, cuda)
+    u, pv = _inputs(config, 7, 300, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    normals = torch.randn((config.steps_per_day, config.num_actions, 300), generator=gen, device=cuda)
+    batt = torch.rand(300, generator=gen, device=cuda)
+    reset_launch_counts()
+    out = ppo_collect_day(config, params, leaves, u, normals, pv, batt)
+    want = ppo_collect_day_plain(config, traces, weights, u, normals, pv, batt)
+    for got, ref in zip(out, want):
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+    out = ppo_collect_day_seeded(config, params, leaves, 99, batt, 300)
+    want = ppo_collect_day_seeded_plain(config, traces, weights, 99, batt, 300)
+    for got, ref in zip(out, want):
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+    assert launch_counts["ppo_collect_day"] == 1 and launch_counts["ppo_collect_day_seeded"] == 1
+
+
+def _sweep_data(shape, F, A, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    return rnd(*shape, F), 0.5 * rnd(*shape, A), -8.5 + 0.3 * rnd(*shape), rnd(*shape), rnd(*shape)
+
+
+def test_sweep_kernels_match_twin(cuda):
+    """K4 on a ragged minibatch (M = 300), K3 in both layouts, G = 4 steps:
+    rtol 1e-4 / atol 1e-6 (the JAX full-sweep bar); a K3 rerun is bit-identical."""
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    F, A = config.obs_dim, config.num_actions
+    leaves = _leaves(config, 5, cuda)
+    adam = zeros_adam(leaves)
+    reset_launch_counts()
+    obs, act, logp, adv, ret = _sweep_data((4, 300), F, A, cuda, 1)
+    got = ppo_sweep(leaves, adam, obs, act, logp, adv, ret, HYPERS)
+    want = ppo_sweep_plain(leaves, adam, zip(obs, act, logp, adv, ret), HYPERS)
+    for g, w in zip(got[0] + got[1].mu + got[1].nu + [got[2]], want[0] + want[1].mu + want[1].nu + [want[2]]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    assert launch_counts["ppo_sweep"] == 8
+
+    T, B, granule = 6, 128, 32
+    featlane = _sweep_data((T, B), F, A, cuda, 2)
+    featlane = (featlane[0].permute(0, 2, 1).contiguous(), featlane[1].permute(0, 2, 1).contiguous()) + featlane[2:]
+    sample = _sweep_data((T * B,), F, A, cuda, 3)
+    block_perm = torch.stack([torch.randperm(T * B // granule, generator=torch.Generator().manual_seed(g))[:6]
+                              for g in range(4)])
+    for layout, data in (("featlane", featlane), ("sample", sample)):
+        got = ppo_sweep_streamed(leaves, adam, *data, block_perm, granule, HYPERS, data_layout=layout)
+        cpu = [x.cpu() for x in data]
+        want = ppo_sweep_streamed([x.cpu() for x in leaves], zeros_adam([x.cpu() for x in leaves]), *cpu,
+                                  block_perm, granule, HYPERS, data_layout=layout)
+        for g, w in zip(got[0] + got[1].mu + got[1].nu + [got[2]], want[0] + want[1].mu + want[1].nu + [want[2]]):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-6)
+        again = ppo_sweep_streamed(leaves, adam, *data, block_perm, granule, HYPERS, data_layout=layout)
+        for g, a in zip(got[0] + [got[2]], again[0] + [again[2]]):
+            assert torch.equal(g, a)
+
+
+def test_kernel_learner_launches_one_collection_and_two_per_step(cuda):
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    params = make_params(config, torch.float32, cuda)
+    learner = PPOLearner(config, PPOConfig(num_epochs=2, num_minibatches=4, collect_impl="kernel",
+                                           sweep_impl="kernel"), device=cuda)
+    state = learner.init(0, params, 256)
+    step = learner.build_train_step()
+    reset_launch_counts()
+    state, metrics = step(state, params)
+    torch.cuda.synchronize()
+    assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "ppo_sweep_streamed": 2 * 8}
+    assert all(bool(torch.isfinite(x)) for x in metrics)

@@ -1,9 +1,17 @@
-"""The port runs without JAX: importing it and rolling a day on the CPU
-leaves ``jax`` out of ``sys.modules``."""
+"""The port runs without JAX or the JAX package: importing it, rolling a
+day and running one PPO training update on the CPU leave ``jax`` and
+``smart_nanogrid_gym_tpu`` out of ``sys.modules``, and no file of the port
+imports them.  The port's copies of the JAX-free tables equal the JAX
+package's."""
 
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -14,7 +22,8 @@ import smart_nanogrid_gym_torch
 from smart_nanogrid_gym_torch.core import NanogridConfig, SmartNanogridTorch
 from smart_nanogrid_gym_torch.ops import gen_policy_multiday, gen_rbc_day, gen_rbc_multiday
 from smart_nanogrid_gym_torch.solvers import (
-    ActorCritic, evaluate_policies_same_days, evaluate_policy_at_scale, make_rbc_policy_fn)
+    ActorCritic, PPOConfig, PPOLearner, evaluate_policies_same_days, evaluate_policy_at_scale,
+    make_rbc_policy_fn)
 from smart_nanogrid_gym_torch.utils import load_actor_critic_npz
 
 config = NanogridConfig(num_chargers=4)
@@ -27,7 +36,12 @@ assert rewards.shape == (24, 8) and bool(torch.isfinite(rewards).all())
 gen_rbc_multiday(config, params, 1, 0, 8)
 net = ActorCritic(config.obs_dim, config.num_actions)
 assert evaluate_policy_at_scale(config, params, net, 1, 8)["total_days"] == 8
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")]
+learner = PPOLearner(config, PPOConfig(num_epochs=1, num_minibatches=2, collect_impl="kernel",
+                                       sweep_impl="kernel"), device="cpu")
+state, metrics = learner.build_train_step()(learner.init(0, params, 128), params)
+assert state.update_step == 1 and bool(torch.isfinite(metrics.mean_return))
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "smart_nanogrid_gym_tpu")]
 assert not loaded, loaded
 print("ok")
 """
@@ -39,3 +53,32 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+IMPORT = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax|smart_nanogrid_gym_tpu)\b", re.M)
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    files = sorted(Path(REPO, "smart_nanogrid_gym_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    offenders = [str(f.relative_to(REPO)) for f in files if IMPORT.search(f.read_text())]
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize("price_model", [0, 1, 2])
+def test_port_tables_equal_the_jax_package_tables(price_model):
+    from smart_nanogrid_gym_tpu.core import config as jax_config, prices as jax_prices, solar as jax_solar
+    from smart_nanogrid_gym_torch.core import config, prices, solar
+
+    np.testing.assert_array_equal(prices.build_price_table(price_model, 48)[0],
+                                  jax_prices.build_price_table(price_model, 48)[0])
+    assert prices.build_price_table(price_model, 48)[1] == jax_prices.build_price_table(price_model, 48)[1]
+    for dt in (1.0, 0.5, 2.0):
+        steps = int(24 / dt)
+        for got, want in zip(solar.build_solar_tables(dt, steps), jax_solar.build_solar_tables(dt, steps)):
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    for kw in ({}, {"num_chargers": 4, "pv_system": False}, {"vehicle_to_everything": True}):
+        a, b = config.NanogridConfig(**kw), jax_config.NanogridConfig(**kw)
+        assert (a.obs_dim, a.num_actions, a.steps_per_day, a.table_len) == \
+            (b.obs_dim, b.num_actions, b.steps_per_day, b.table_len)
+        np.testing.assert_array_equal(np.asarray(a.action_bounds()), np.asarray(b.action_bounds()))
+    assert Path(solar.__file__).parent.parent == Path(REPO, "smart_nanogrid_gym_torch")

@@ -17,7 +17,7 @@ import torch
 
 from smart_nanogrid_gym_torch.core.params import NanogridParams
 from smart_nanogrid_gym_torch.core.state import DaySchedule, EnvState
-from smart_nanogrid_gym_tpu.core.config import NanogridConfig
+from smart_nanogrid_gym_torch.core.config import NanogridConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT_DIR = os.path.join(REPO, "artifacts", "PPO-b-pv-bounded-sparse-4ch-1h")
