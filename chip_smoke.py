@@ -1,13 +1,13 @@
-"""Drive the PyTorch port's evaluation and PPO training paths once on a CUDA card.
+"""Drive the PyTorch port's evaluation, PPO and DDPG training paths once on a CUDA card.
 
 Run from the root of the repository, on a machine with one NVIDIA card and
 the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels K1-K8 from ``smart_nanogrid_gym_torch/csrc``
+It builds the hand-written kernels K1-K10 from ``smart_nanogrid_gym_torch/csrc``
 with nvcc (one process per library, all at once), holds each against its
-plain-PyTorch twin on the card, and drives two paths through their user
+plain-PyTorch twin on the card, and drives four paths through their user
 entry points, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -17,7 +17,14 @@ just after:
   for 50 updates at B=4096 on the 8-charger bench config (K2 + K3), two
   updates of the ``env`` minibatch scheme (K4), the trained stochastic policy
   on explicit days against the RBC (K1), and the trained actor scored by
-  ``evaluate_policy_at_scale`` (K6).
+  ``evaluate_policy_at_scale`` (K6);
+- DDPG evaluation (K5/K6 ``actor="ddpg"``): the committed DDPG artifact on
+  paired explicit days against the RBC, and ``evaluate_policy_at_scale(
+  algorithm="ddpg")``;
+- DDPG training (K9, K10): ``DDPGLearner(collect_impl="kernel",
+  sweep_impl="kernel")`` for 50 updates at B=4096 on the bench config, the
+  trained actor with zero noise on explicit days (K9 explicit), and a
+  learning run on the artifact's 4-charger config scored by K6.
 
 It checks the launch counts, the statistics of the in-kernel draws against
 the plain engine, that training raises the mean day return, and times each
@@ -40,8 +47,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT_NPZ = os.path.join(ROOT, "artifacts", "PPO-b-pv-bounded-sparse-4ch-1h", "108134400.npz")
+DDPG_ARTIFACT_NPZ = os.path.join(ROOT, "artifacts", "DDPG-b-pv-bounded-sparse-4ch-1h", "49152000.npz")
 DAY_SOURCE = "smart_nanogrid_gym_torch/csrc/day_step.cuh"
 SWEEP_SOURCE = "smart_nanogrid_gym_torch/csrc/ppo_sweep.cuh"
+DDPG_SWEEP_SOURCE = "smart_nanogrid_gym_torch/csrc/ddpg_sweep.cuh"
 REPLACES = {
     "gen_rbc_day": "smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py:511",
     "gen_rbc_multiday": "smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py:580",
@@ -54,8 +63,19 @@ TRAIN_REPLACES = {
     "ppo_sweep_streamed": "smart_nanogrid_gym_tpu/ops/pallas_ppo_sweep.py:473",
     "ppo_sweep": "smart_nanogrid_gym_tpu/ops/pallas_ppo_sweep.py:375",
 }
+DDPG_REPLACES = {
+    "gen_policy_day_ddpg": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:439",
+    "gen_policy_multiday_ddpg": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:522",
+}
+DDPG_TRAIN_REPLACES = {
+    "ddpg_collect_day": "smart_nanogrid_gym_tpu/ops/pallas_collect.py:424",
+    "ddpg_collect_day_seeded": "smart_nanogrid_gym_tpu/ops/pallas_collect.py:461",
+    "ddpg_sweep": "smart_nanogrid_gym_tpu/ops/pallas_ddpg_sweep.py:235",
+}
 BENCH_BATCH = 4096
 TRAIN_UPDATES = 50
+DDPG_LEARN_UPDATES = 150  # the 4-charger learning run, scored against its initial actor
+DDPG_HIDDEN = (400, 300)
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -408,7 +428,338 @@ def training_timings(learner, cfg, params, state, featlane, gathered, u, pv, nor
           f"sweep {sums[2]:.4f} ms (CUDA events, mean of {reps}) on {card}")
 
 
-def bounds(rbc_cfg, art_cfg, timing_days):
+def ddpg_twin_checks(art_cfg, art_params, ddpg_art, u4, pv4, cfg, params, u, pv, device, errors):
+    """Phases 13-14: K5/K6 with the DDPG artifact and K9 (explicit, seeded)
+    on the bench config with a fresh 400-300 actor, at full width, element
+    for element against their twins.  Returns the K9 inputs and outputs."""
+    from smart_nanogrid_gym_torch.ops.ddpg_collect import (
+        ddpg_collect_day, ddpg_collect_day_plain, ddpg_collect_day_seeded, ddpg_collect_day_seeded_plain,
+        ddpg_weights)
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
+        actor_weights, gen_policy_day, gen_policy_day_plain, gen_policy_multiday, gen_policy_multiday_plain)
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+    from smart_nanogrid_gym_torch.solvers.ddpg import DDPGLearner
+
+    art_traces = kernel_traces(art_params, device)
+    w = actor_weights(art_cfg, ddpg_art, device, actor="ddpg")
+    errors["gen_policy_day_ddpg"] = compare(
+        "phase 13 K5 gen_policy_day actor=ddpg (DDPG artifact, 4ch, B=4096)",
+        gen_policy_day(art_cfg, art_params, ddpg_art, u4, pv4, actor="ddpg"),
+        gen_policy_day_plain(art_cfg, art_traces, w, u4, pv4, torch.full_like(pv4, 0.5), actor="ddpg"),
+        rtol=2e-4, atol=2e-4)
+    errors["gen_policy_multiday_ddpg"] = compare(
+        "phase 13 K6 gen_policy_multiday actor=ddpg (DDPG artifact, B=4096 x 2 days)",
+        (gen_policy_multiday(art_cfg, art_params, ddpg_art, 2, 12, BENCH_BATCH, actor="ddpg"),),
+        (gen_policy_multiday_plain(art_cfg, art_traces, w, 2, 12, BENCH_BATCH, actor="ddpg"),),
+        rtol=2e-4, atol=1e-2)
+
+    learner = DDPGLearner(cfg, device=device)
+    leaves = learner.init(7, params, BENCH_BATCH).actor
+    gen = torch.Generator(device=device).manual_seed(9)
+    ou = learner._ou_sequence(torch.randn((cfg.steps_per_day, cfg.num_actions, BENCH_BATCH), generator=gen,
+                                          device=device))
+    batt = torch.rand(BENCH_BATCH, generator=gen, device=device)
+    traces, weights = kernel_traces(params, device), ddpg_weights(cfg, leaves, device)
+    names = ("obs", "act", "rewards", "next_obs", "batt")
+    explicit = ddpg_collect_day(cfg, params, leaves, u, ou, pv, batt)
+    for key, got, want in (
+            ("ddpg_collect_day", explicit, ddpg_collect_day_plain(cfg, traces, weights, u, ou, pv, batt)),
+            ("ddpg_collect_day_seeded", ddpg_collect_day_seeded(cfg, params, leaves, 2025, ou, batt, BENCH_BATCH),
+             ddpg_collect_day_seeded_plain(cfg, traces, weights, 2025, ou, batt, BENCH_BATCH))):
+        print(f"phase 14 K9 {key} (8ch b-pv, B={BENCH_BATCH}, 400-300) max |d| per output: "
+              + ", ".join(f"{n} {float((g - w).abs().max()):.3e}" for n, g, w in zip(names, got, want)))
+        errors[key] = compare(f"phase 14 K9 {key}", got, want, rtol=2e-4, atol=2e-4)
+    return learner, leaves, ou, batt, explicit
+
+
+def k9_statistics(cfg, params, learner, leaves, device):
+    """Phase 15: K9 seeded's day returns against the plain engine with the
+    same actor and OU noise process on fresh days (z=6, median of 3 draws)."""
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch, fused_day_rollout
+    from smart_nanogrid_gym_torch.ops.ddpg_collect import ddpg_collect_day_seeded
+    from smart_nanogrid_gym_torch.solvers.ddpg import actor_apply
+
+    days, T, A = 4, cfg.steps_per_day, cfg.num_actions
+    batt = torch.full((BENCH_BATCH,), 0.5, device=device)
+    low, high = (torch.as_tensor(b, device=device) for b in cfg.action_bounds())
+    env = SmartNanogridTorch(cfg)
+
+    def summary(rets):
+        r = torch.cat(rets)
+        return float(r.mean()), float(r.std(unbiased=False))
+
+    def k9_draw(attempt):
+        gen = torch.Generator(device=device).manual_seed(600 + attempt)
+        rets = []
+        for d in range(days):
+            ou = learner._ou_sequence(torch.randn((T, A, BENCH_BATCH), generator=gen, device=device))
+            rew = ddpg_collect_day_seeded(cfg, params, leaves, 8000 + 10 * attempt + d, ou, batt, BENCH_BATCH)[2]
+            rets.append(rew.sum(0).double())
+        return summary(rets)
+
+    def plain_draw(attempt):
+        gen = torch.Generator(device=device).manual_seed(700 + attempt)
+
+        def policy(ob, ou_t):
+            return torch.clamp(actor_apply(leaves, ob, low, high) + ou_t, low, high)
+
+        rets = []
+        with torch.no_grad():
+            for _ in range(days):
+                state, _ = env.reset_batch(params, BENCH_BATCH, gen, batt_soc=batt)
+                ou = learner._ou_sequence(torch.randn((T, BENCH_BATCH, A), generator=gen, device=device))
+                _, (_, rewards, _) = fused_day_rollout(cfg, params, state, policy, next_pv_shift=state.pv_shift,
+                                                       policy_xs=ou)
+                rets.append(rewards.sum(0).double())
+        return summary(rets)
+
+    n = days * BENCH_BATCH
+    stats_match("phase 15 K9 seeded vs plain engine (fresh days, DDPG actor + OU)", k9_draw, plain_draw, n, n)
+
+
+def gathered_batches(cfg, explicit, G, M, seed):
+    """Phase 16's minibatches: G x M transitions of K9's explicit day."""
+    obs, act, rew, nxt, _ = explicit
+    T, B = rew.shape
+    gen = torch.Generator().manual_seed(seed)
+    t_idx = torch.randint(0, T, (G, M), generator=gen).to(rew.device)
+    b_idx = torch.randint(0, B, (G, M), generator=gen).to(rew.device)
+    done = (t_idx == T - 1).float()
+    return (obs.permute(0, 2, 1)[t_idx, b_idx], act.permute(0, 2, 1)[t_idx, b_idx], rew[t_idx, b_idx],
+            nxt.permute(0, 2, 1)[t_idx, b_idx], done)
+
+
+def ddpg_sweep_twin_check(cfg, params, learner, explicit, device, errors):
+    """Phase 16: K10 over one update (G=24, M=256, 400-300) against its twin;
+    a rerun is bit-identical.  Returns the sweep's arguments."""
+    from smart_nanogrid_gym_torch.ops.ddpg_sweep import ddpg_sweep, ddpg_sweep_plain
+
+    state = learner.init(11, params, 8)
+    batches = gathered_batches(cfg, explicit, learner.cfg.gradient_steps, learner.cfg.batch_size, 16)
+    args = (state.actor, state.critic, state.target_actor, state.target_critic, state.actor_opt, state.critic_opt,
+            *batches, learner._action_low, learner._action_high, learner._hypers())
+
+    def flat(out):
+        a, c, ta, tc, ao, co, metrics = out
+        return a + c + ta + tc + ao.mu + ao.nu + co.mu + co.nu + [metrics]
+
+    got = flat(ddpg_sweep(*args))
+    errors["ddpg_sweep"] = compare("phase 16 K10 ddpg_sweep (G=24, M=256, 8ch, 400-300)", got,
+                                   flat(ddpg_sweep_plain(*args)), rtol=1e-4, atol=1e-6)
+    again = flat(ddpg_sweep(*args))
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "K10 rerun is not bit-identical")
+    print("phase 16 K10 rerun: bit-identical (4 networks, 4 moment sets, metrics)")
+    return args
+
+
+def ddpg_evaluation_main_path(art_cfg, art_params, ddpg_art, u4, pv4, device, card):
+    """Phase 17, the DDPG evaluation path through the entry points a user
+    calls, with the launch counts set to 0 before it and read after it."""
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day
+    from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day
+    from smart_nanogrid_gym_torch.solvers.evaluator import evaluate_policy_at_scale
+    from smart_nanogrid_gym_torch.solvers.networks import make_ddpg_policy_fn
+
+    paired = 256
+    u256, pv256 = u4[..., :paired].contiguous(), pv4[:paired].contiguous()
+    eval_days = 16
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    ddpg_rewards, actions, _, _ = gen_policy_day(art_cfg, art_params, ddpg_art, u256, pv256, actor="ddpg")
+    rbc_rewards, _ = gen_rbc_day(art_cfg, art_params, u256, pv256)
+    t0 = time.perf_counter()
+    at_scale = evaluate_policy_at_scale(art_cfg, art_params, ddpg_art, num_days=eval_days, batch=BENCH_BATCH,
+                                        seed=0, algorithm="ddpg")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    print(f"phase 17 evaluate_policy_at_scale(algorithm='ddpg'): {at_scale} in {seconds:.4f} s "
+          f"= {at_scale['total_days'] * 24 / seconds:.4e} env-steps/s on {card}; launches {launches}")
+    for name in DDPG_REPLACES:
+        check(launches.get(name, 0) >= 1, f"kernel {name} was not launched on the DDPG evaluation path")
+    for name, x in (("ddpg rewards", ddpg_rewards), ("rbc rewards", rbc_rewards), ("actions", actions)):
+        check(bool(torch.isfinite(x).all()), f"{name}: non-finite")
+    low, high = (torch.as_tensor(b, device=device)[None, :, None] for b in art_cfg.action_bounds())
+    check(bool(((actions >= low) & (actions <= high)).all()), "DDPG actions outside the action box")
+    paired_ddpg, paired_rbc = float(ddpg_rewards.sum(0).mean()), float(rbc_rewards.sum(0).mean())
+    print(f"phase 17 paired explicit days ({paired}): ddpg artifact {paired_ddpg:.4f}, rbc {paired_rbc:.4f}")
+    check(paired_ddpg > paired_rbc, "the DDPG artifact should beat the RBC on paired days")
+
+    env = SmartNanogridTorch(art_cfg)
+    policy = make_ddpg_policy_fn(ddpg_art)
+
+    def k6_draw(attempt):
+        if attempt == 0:
+            return at_scale["mean_day_return"], at_scale["std_day_return"]
+        res = evaluate_policy_at_scale(art_cfg, art_params, ddpg_art, eval_days, BENCH_BATCH, attempt,
+                                       algorithm="ddpg")
+        return res["mean_day_return"], res["std_day_return"]
+
+    def k6_oracle(attempt):
+        gen = torch.Generator(device=device).manual_seed(199 + attempt)
+        batt = torch.full((BENCH_BATCH,), 0.5, device=device)
+        sums = sq = 0.0
+        for _ in range(eval_days):
+            state, obs = env.reset_batch(art_params, BENCH_BATCH, gen, batt_soc=batt)
+            final, _, (_, rewards, _, _) = env.rollout_day(art_params, state, policy, obs, gen)
+            batt = final.batt_soc
+            ret = rewards.sum(0).double()
+            sums, sq = sums + ret.sum(), sq + (ret * ret).sum()
+        n = eval_days * BENCH_BATCH
+        mean = float(sums) / n
+        return mean, math.sqrt(max(float(sq) / n - mean * mean, 0.0))
+
+    stats_match(f"phase 17 K6 ddpg vs plain engine (DDPG artifact, 4096 x {eval_days} days, battery carried)",
+                k6_draw, k6_oracle, eval_days * BENCH_BATCH, eval_days * BENCH_BATCH)
+    return launches
+
+
+def ddpg_training_main_path(cfg, params, art_cfg, art_params, u, pv, device, card):
+    """Phase 18, the DDPG training path through the entry points a user
+    calls, with the launch counts set to 0 before it and read after it:
+    50 updates at B=4096 on the bench config (K9 seeded + K10), the trained
+    actor with zero noise on explicit days (K9 explicit, equal to K5 there),
+    and a learning run on the artifact's 4-charger config scored by K6."""
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.ddpg_collect import ddpg_collect_day
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day
+    from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day
+    from smart_nanogrid_gym_torch.solvers.ddpg import DDPGConfig, DDPGLearner
+    from smart_nanogrid_gym_torch.solvers.evaluator import evaluate_policy_at_scale
+    from smart_nanogrid_gym_torch.solvers.networks import ddpg_actor_from_leaves
+
+    kernel_cfg = DDPGConfig(collect_impl="kernel", sweep_impl="kernel")
+    learner = DDPGLearner(cfg, kernel_cfg, device=device)
+    state = learner.init(0, params, BENCH_BATCH)
+    low, high = cfg.action_bounds()
+    initial_actor = ddpg_actor_from_leaves(state.actor, low, high)
+    G = learner.cfg.gradient_steps
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = learner.build_train_many(TRAIN_UPDATES)(state, params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    print(f"phase 18 DDPG train: {TRAIN_UPDATES} updates x B={BENCH_BATCH} (G={G}, M={learner.cfg.batch_size}) "
+          f"in {seconds:.4f} s = {seconds / TRAIN_UPDATES * 1e3:.3f} ms/update on {card}; launches {counts} "
+          f"(per update: {', '.join(f'{k} {v / TRAIN_UPDATES:g}' for k, v in counts.items())})")
+    check(counts == {"ddpg_collect_day_seeded": TRAIN_UPDATES, "ddpg_sweep": G * TRAIN_UPDATES},
+          f"launch counts {counts} are not 1 collection + {G} sweep steps per update")
+    for name in metrics._fields:
+        check(bool(torch.isfinite(getattr(metrics, name)).all()), f"DDPG {name}: non-finite")
+    returns = metrics.mean_return.double().cpu()
+    print(f"phase 18 DDPG mean day return: first update {float(returns[0]):.4f}, mean of the last 5 "
+          f"{float(returns[-5:].mean()):.4f}; critic loss {float(metrics.critic_loss[-1]):.3f}, "
+          f"actor loss {float(metrics.actor_loss[-1]):.3f}; buffer {state.buffer.filled} of "
+          f"{state.buffer.obs.shape[0]} steps")
+    # the trained actor with zero noise on explicit days: K9 explicit equals K5 there
+    trained_actor = ddpg_actor_from_leaves(state.actor, low, high)
+    zero = torch.zeros((cfg.steps_per_day, cfg.num_actions, BENCH_BATCH), device=device)
+    batt = torch.full((BENCH_BATCH,), 0.5, device=device)
+    k9_rewards = ddpg_collect_day(cfg, params, state.actor, u, zero, pv, batt)[2]
+    k5_rewards = gen_policy_day(cfg, params, trained_actor, u, pv, actor="ddpg")[0]
+    rbc_rewards, _ = gen_rbc_day(cfg, params, u, pv)
+    check(torch.equal(k9_rewards, k5_rewards), "K9 with zero noise differs from K5 on the same days")
+    print(f"phase 18 paired explicit days (B={BENCH_BATCH}): trained DDPG actor (K9, zero noise = K5) "
+          f"{float(k9_rewards.sum(0).mean()):.4f}, rbc {float(rbc_rewards.sum(0).mean()):.4f}")
+    bench_scores = [evaluate_policy_at_scale(cfg, params, net, num_days=16, batch=BENCH_BATCH, seed=3,
+                                             algorithm="ddpg")["mean_day_return"]
+                    for net in (trained_actor, initial_actor)]
+    print(f"phase 18 bench config, K6 ddpg (16 days x {BENCH_BATCH}): after {TRAIN_UPDATES} updates "
+          f"{bench_scores[0]:.4f}, initial actor {bench_scores[1]:.4f} (not asserted: SB3-default DDPG needs "
+          f"more updates on 8 chargers)")
+    # learning: the artifact's 4-charger config
+    art_learner = DDPGLearner(art_cfg, kernel_cfg, device=device)
+    art_state = art_learner.init(0, art_params, BENCH_BATCH)
+    art_low, art_high = art_cfg.action_bounds()
+    art_initial = ddpg_actor_from_leaves(art_state.actor, art_low, art_high)
+    t0 = time.perf_counter()
+    art_state, art_metrics = art_learner.build_train_many(DDPG_LEARN_UPDATES)(art_state, art_params)
+    torch.cuda.synchronize()
+    learn_seconds = time.perf_counter() - t0
+    scores = [evaluate_policy_at_scale(art_cfg, art_params, net, num_days=16, batch=BENCH_BATCH, seed=3,
+                                       algorithm="ddpg")["mean_day_return"]
+              for net in (ddpg_actor_from_leaves(art_state.actor, art_low, art_high), art_initial)]
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    print(f"phase 18 4ch learning run: {DDPG_LEARN_UPDATES} updates in {learn_seconds:.4f} s; K6 ddpg "
+          f"(16 days x {BENCH_BATCH}): trained {scores[0]:.4f}, initial {scores[1]:.4f}; collected return "
+          f"first {float(art_metrics.mean_return[0]):.4f}, last 5 {float(art_metrics.mean_return[-5:].mean()):.4f}")
+    check(scores[0] > scores[1], "DDPG training did not beat the initial actor")
+    print(f"DDPG training path launches: {launches}")
+    for name in DDPG_TRAIN_REPLACES:
+        check(launches.get(name, 0) >= 1, f"kernel {name} was not launched on the DDPG training path")
+    return learner, state, launches, seconds / TRAIN_UPDATES * 1e3
+
+
+def ddpg_timings(art_cfg, art_params, ddpg_art, u4, pv4, cfg, params, learner, leaves, u, pv, ou, batt,
+                 sweep_args, state, card, times, timing_days):
+    """Phase 19: each DDPG kernel and its twin at the main path's shape, and
+    one training update's phases (collection, sampling and gather, sweep) by
+    CUDA events."""
+    from smart_nanogrid_gym_torch.ops.ddpg_collect import (
+        ddpg_collect_day, ddpg_collect_day_plain, ddpg_collect_day_seeded, ddpg_collect_day_seeded_plain,
+        ddpg_weights)
+    from smart_nanogrid_gym_torch.ops.ddpg_sweep import ddpg_sweep, ddpg_sweep_plain
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
+        actor_weights, gen_policy_day, gen_policy_day_plain, gen_policy_multiday, gen_policy_multiday_plain)
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+
+    device = batt.device
+    art_traces, traces = kernel_traces(art_params, device), kernel_traces(params, device)
+    aw, w = actor_weights(art_cfg, ddpg_art, device, actor="ddpg"), ddpg_weights(cfg, leaves, device)
+    half = torch.full_like(pv4, 0.5)
+    cases = {
+        "gen_policy_day_ddpg": (f"B={BENCH_BATCH}, 1 day, DDPG artifact 4ch, 400-300",
+                                lambda: gen_policy_day(art_cfg, art_params, ddpg_art, u4, pv4, actor="ddpg"),
+                                lambda: gen_policy_day_plain(art_cfg, art_traces, aw, u4, pv4, half, actor="ddpg"),
+                                10),
+        "gen_policy_multiday_ddpg": (f"B={BENCH_BATCH}, {timing_days} days, DDPG artifact 4ch, 400-300",
+                                     lambda: gen_policy_multiday(art_cfg, art_params, ddpg_art, timing_days, 5,
+                                                                 BENCH_BATCH, actor="ddpg"),
+                                     lambda: gen_policy_multiday_plain(art_cfg, art_traces, aw, timing_days, 5,
+                                                                       BENCH_BATCH, actor="ddpg"), 3),
+        "ddpg_collect_day": (f"B={BENCH_BATCH}, 1 day, 8ch b-pv, 400-300",
+                             lambda: ddpg_collect_day(cfg, params, leaves, u, ou, pv, batt),
+                             lambda: ddpg_collect_day_plain(cfg, traces, w, u, ou, pv, batt), 10),
+        "ddpg_collect_day_seeded": (f"B={BENCH_BATCH}, 1 day, 8ch b-pv, 400-300",
+                                    lambda: ddpg_collect_day_seeded(cfg, params, leaves, 5, ou, batt, BENCH_BATCH),
+                                    lambda: ddpg_collect_day_seeded_plain(cfg, traces, w, 5, ou, batt, BENCH_BATCH),
+                                    10),
+        "ddpg_sweep": ("G=24 x M=256, F=25 A=9 400-300", lambda: ddpg_sweep(*sweep_args),
+                       lambda: ddpg_sweep_plain(*sweep_args), 3),
+    }
+    for name, (shape, kernel, plain, repeats) in cases.items():
+        times[name] = (shape, cuda_ms(kernel, repeats), cuda_ms(plain, 1))
+        print(f"phase 19 {name} ({shape}): kernel {times[name][1]:.4f} ms, "
+              f"plain twin {times[name][2]:.4f} ms on {card}")
+
+    # one update's phases, as DDPGLearner._train_body runs them
+    gen = torch.Generator().manual_seed(19)
+    sums, reps = [0.0, 0.0, 0.0], 5
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        draws = learner.draw(gen, BENCH_BATCH, state.buffer.filled)
+        _, _, _, buffer, _ = learner._collect(state, params, draws)
+        ev[1].record()
+        batches = learner._sample(buffer, learner._to_device(draws.t_idx), learner._to_device(draws.b_idx))
+        ev[2].record()
+        ddpg_sweep(state.actor, state.critic, state.target_actor, state.target_critic, state.actor_opt,
+                   state.critic_opt, *batches, learner._action_low, learner._action_high, learner._hypers())
+        ev[3].record()
+        torch.cuda.synchronize()
+        if rep > 0:  # the first pass warms up
+            for i in range(3):
+                sums[i] += ev[i].elapsed_time(ev[i + 1]) / reps
+    print(f"phase 19 one DDPG update (B={BENCH_BATCH}, G=24, M=256): collection {sums[0]:.4f} ms, "
+          f"sampling and gather {sums[1]:.4f} ms, sweep {sums[2]:.4f} ms (CUDA events, mean of {reps}) on {card}")
+
+
+def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
     """The least time of each kernel at the shape phase 7/12 times it."""
     B, T = BENCH_BATCH, rbc_cfg.steps_per_day
     out = {}
@@ -436,6 +787,29 @@ def bounds(rbc_cfg, art_cfg, timing_days):
     state_bytes = 4 * 3 * P * 2 + 4 * 4 * G
     out["ppo_sweep_streamed"] = bound(4 * T * B * (F8 + A8 + 3) + state_bytes, per_sample * G * M)
     out["ppo_sweep"] = bound(4 * G * M * (F8 + A8 + 3) + state_bytes, per_sample * G * M)
+
+    # DDPG (400-300 ReLU torsos; the squash, OU and clip are not counted)
+    H1, H2 = DDPG_HIDDEN
+    ddpg4, ddpg8 = mlp_flops(F4, A4, H1, H2), mlp_flops(F8, A8, H1, H2)
+    out["gen_policy_day_ddpg"] = bound(4 * (T * 5 * N4 * B + 2 * B + T * B + T * A4 * B + N4 * B + B), ddpg4 * T * B)
+    out["gen_policy_multiday_ddpg"] = bound(4 * 3 * B, (ddpg4 * T + PHILOX_OPS * philox_calls_per_day(art_cfg))
+                                            * ddpg_days * B)
+    k9_out = 4 * (2 * T * F8 * B + T * A8 * B + T * B + B)
+    out["ddpg_collect_day"] = bound(4 * (T * 5 * N8 * B + T * A8 * B + 2 * B) + k9_out, ddpg8 * T * B)
+    out["ddpg_collect_day_seeded"] = bound(4 * (T * A8 * B + B) + k9_out,
+                                           ddpg8 * T * B + PHILOX_OPS * philox_calls_per_day(rbc_cfg) * B)
+    # the sweep: per sample and step, the forwards of the target actor, the target
+    # critic, the critic, the actor and the critic on its action; the critic's
+    # weight and input gradients; the input gradients back to the action; the
+    # actor's weight and input gradients (multiply-adds, 2 operations each)
+    FC = F8 + A8
+    actor_fwd, critic_fwd = H1 * F8 + H2 * H1 + A8 * H2, H1 * FC + H2 * H1 + H2
+    macs = (2 * actor_fwd + 3 * critic_fwd + critic_fwd + (H2 + H2 * H1) + (H2 + H2 * H1 + H1 * A8)
+            + actor_fwd + (A8 * H2 + H2 * H1))
+    Gd, Md = 24, 256
+    P_actor, P_critic = actor_fwd + H1 + H2 + A8, critic_fwd + H1 + H2 + 1
+    out["ddpg_sweep"] = bound(4 * Gd * Md * (2 * F8 + A8 + 2) + 4 * 2 * 4 * (P_actor + P_critic) + 4 * 2 * Gd,
+                              2 * macs * Gd * Md)
     return out
 
 
@@ -453,7 +827,7 @@ def main() -> None:
     from smart_nanogrid_gym_torch.solvers.evaluator import evaluate_policy_at_scale
     from smart_nanogrid_gym_torch.solvers.networks import ActorCritic, make_actor_policy_fn
     from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
-    from smart_nanogrid_gym_torch.utils.weights import load_actor_critic_npz
+    from smart_nanogrid_gym_torch.utils.weights import load_actor_critic_npz, load_ddpg_actor_npz
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain engine's actor in full f32
     device = torch.device("cuda", 0)
@@ -470,12 +844,15 @@ def main() -> None:
     art_params = make_params(art_cfg, torch.float32, device)
     v2x_params = make_params(v2x_cfg, torch.float32, device)
     artifact = load_actor_critic_npz(ARTIFACT_NPZ).to(device)
+    ddpg_art = load_ddpg_actor_npz(DDPG_ARTIFACT_NPZ, art_cfg).to(device)
     errors, times = {}, {}
 
     # ---- phase 1: build every kernel from the sources ----
     t0 = time.perf_counter()
     built = _build.build([_build.config_flags(c) for c in (rbc_cfg, art_cfg)]
-                         + [_build.sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64)])
+                         + [_build.sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64)]
+                         + [_build.config_flags(c, DDPG_HIDDEN, "ddpg") for c in (rbc_cfg, art_cfg)]
+                         + [_build.ddpg_sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN)])
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall; "
           + ", ".join(f"{p.name} {s:.2f} s" for p, s in built))
     for path, _ in built:
@@ -640,6 +1017,18 @@ def main() -> None:
     # ---- phase 11: the training path ----
     learner, trained_state, train_launches = training_main_path(rbc_cfg, rbc_params, u, pv, device, card)
 
+    # ---- phases 13-16: the DDPG kernels against their twins, K9's draws ----
+    d_learner, d_leaves, d_ou, d_batt, k9_day = ddpg_twin_checks(art_cfg, art_params, ddpg_art, u4, pv4, rbc_cfg,
+                                                                 rbc_params, u, pv, device, errors)
+    k9_statistics(rbc_cfg, rbc_params, d_learner, d_leaves, device)
+    sweep_args = ddpg_sweep_twin_check(rbc_cfg, rbc_params, d_learner, k9_day, device, errors)
+    torch.cuda.synchronize()
+
+    # ---- phases 17-18: the DDPG evaluation and training paths ----
+    ddpg_eval_launches = ddpg_evaluation_main_path(art_cfg, art_params, ddpg_art, u4, pv4, device, card)
+    ddpg_learner, ddpg_state, ddpg_train_launches, ddpg_ms = ddpg_training_main_path(
+        rbc_cfg, rbc_params, art_cfg, art_params, u, pv, device, card)
+
     # ---- phase 7: each kernel and its twin, timed on the card ----
     timing_days = 20
     cases = {
@@ -667,17 +1056,24 @@ def main() -> None:
 
     training_timings(learner, rbc_cfg, rbc_params, trained_state, featlane, gathered, u, pv, normals,
                      batt_k1, card, times)
+    ddpg_days = 4
+    ddpg_timings(art_cfg, art_params, ddpg_art, u4, pv4, rbc_cfg, rbc_params, ddpg_learner, d_leaves, u, pv, d_ou,
+                 d_batt, sweep_args, ddpg_state, card, times, ddpg_days)
 
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
     check(not jax_modules, f"the port loaded JAX modules: {jax_modules[:5]}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    least = bounds(rbc_cfg, art_cfg, timing_days)
+    least = bounds(rbc_cfg, art_cfg, timing_days, ddpg_days)
     kernels = []
-    for name, replaces in {**TRAIN_REPLACES, **REPLACES}.items():
-        count = train_launches[name] if name in TRAIN_REPLACES else launches[name]
+    # each kernel's launches in the run of the main path it belongs to
+    paths = ((TRAIN_REPLACES, train_launches), (REPLACES, launches), (DDPG_REPLACES, ddpg_eval_launches),
+             (DDPG_TRAIN_REPLACES, ddpg_train_launches))
+    sources = {"ppo_sweep_streamed": SWEEP_SOURCE, "ppo_sweep": SWEEP_SOURCE, "ddpg_sweep": DDPG_SWEEP_SOURCE}
+    for name, replaces, count in ((n, r, path_launches[n]) for table, path_launches in paths
+                                  for n, r in table.items()):
         kernels.append({
-            "name": name, "route": "cuda", "source": SWEEP_SOURCE if "sweep" in name else DAY_SOURCE,
+            "name": name, "route": "cuda", "source": sources.get(name, DAY_SOURCE),
             "replaces": replaces, "launches": count, "max_abs_err": errors[name], "ms": times[name][1],
             "plain_ms": times[name][2], "bound_ms": least[name][0], "bound_by": least[name][1],
             "library_ms": None, "shape": times[name][0],

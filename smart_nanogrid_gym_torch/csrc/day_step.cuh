@@ -7,6 +7,9 @@
 //   K6 pallas_gen_policy_rollout.py::pallas_gen_policy_multiday -> gen_policy_multiday_kernel<C>
 //   K1 pallas_collect.py::pallas_ppo_collect_day            -> ppo_collect_day_kernel<C, false>
 //   K2 pallas_collect.py::pallas_ppo_collect_day_seeded     -> ppo_collect_day_kernel<C, true>
+//   K5/K6 with actor="ddpg"                                 -> gen_policy_day_ddpg_kernel<C>,
+//                                                              gen_policy_multiday_ddpg_kernel<C>
+//   K9 pallas_collect.py::pallas_ddpg_collect_day(_seeded)  -> ddpg_collect_day_kernel<C, SEEDED>
 //
 // Design: one thread per env runs the whole day; the per-charger carries live
 // in registers, the price/radiation/solar traces and (for K5/K6) the actor
@@ -36,6 +39,18 @@
 // log-prob, and the trajectory writes, coalesced across envs in the (T, ., B)
 // layout.  It is bound by the two torsos' multiply-adds, about 2.4e4 flops
 // per env-step; its 14.5 MB of writes at B=4096 take a tenth of that time.
+//
+// The DDPG actor (K5/K6 actor="ddpg", K9) is SB3's 400-300 ReLU torso:
+// 129-133k floats, more than a block's 227 KB of shared memory, and 700
+// hidden floats a thread would spill.  So it runs as a block-level product
+// (DdpgBlockActor): a block takes kDdpgEnvs = 32 envs with kDdpgThreads
+// threads; every warp runs the same 32 envs' step body (one env per lane,
+// the redundant copies write nothing), warp 0 stages the observations in
+// shared memory, and all warps compute the hidden layers there, each thread
+// R output rows of one env, reading warp-uniform weight rows from global
+// memory (the whole actor stays in the 50 MB L2).  Each output's sum over
+// its inputs runs in index order, as the twin's dense() does.  It is bound
+// by the torso's multiply-adds, about 2.7e5 flops per env-step.
 #pragma once
 
 #include <cstdint>
@@ -459,6 +474,41 @@ struct PolicyRows {
   float flows, p_used, dod;
 };
 
+// The price/radiation part of the observation at trace offset o; returns
+// the index of the first charger row.
+template <class C>
+__device__ __forceinline__ int observe_traces(int o, const float* rad_norm, const float* price_norm,
+                                              float pv_shift, float (&obs)[C::F]) {
+  if (C::PV) {
+    obs[0] = rad_norm[o] * pv_shift;
+    obs[1] = price_norm[o];
+#pragma unroll
+    for (int i = 1; i < 4; ++i) obs[1 + i] = rad_norm[o + i] * pv_shift;
+#pragma unroll
+    for (int i = 1; i < 4; ++i) obs[4 + i] = price_norm[o + i];
+    return 8;
+  }
+  obs[0] = price_norm[o];
+#pragma unroll
+  for (int i = 1; i < 4; ++i) obs[i] = price_norm[o + i];
+  return 4;
+}
+
+// The trailing day-end observation (t = T, pallas_collect.py:152-175): the
+// t > 0 rows with o = T - 1 and the carries after the last step.
+template <class C>
+__device__ __forceinline__ void final_observe(const Dims& d, const Carry<C>& c, float batt_soc,
+                                              const float* rad_norm, const float* price_norm, float pv_shift,
+                                              float (&obs)[C::F]) {
+  const int base = observe_traces<C>(d.T - 1, rad_norm, price_norm, pv_shift, obs);
+#pragma unroll
+  for (int n = 0; n < C::N; ++n) {
+    obs[base + n] = c.prev_col[n];
+    obs[base + C::N + n] = c.prev_depcol[n] / 24.0f;
+  }
+  if (C::BATT) obs[base + 2 * C::N] = batt_soc;
+}
+
 // One actor step (_gen_policy_step + _gen_policy_physics): observation, the
 // policy (obs -> action clipped to the box), bidirectional physics.
 template <class C, class Src, class Policy>
@@ -472,21 +522,7 @@ __device__ PolicyRows policy_step(int t, const Dims& d, const Src& src, Carry<C>
 
   // ---- observation (F,) and the per-charger state the physics needs ----
   float obs[C::F];
-  int base = 0;
-  if (C::PV) {
-    obs[0] = rad_norm[o] * pv_shift;
-    obs[1] = price_norm[o];
-#pragma unroll
-    for (int i = 1; i < 4; ++i) obs[1 + i] = rad_norm[o + i] * pv_shift;
-#pragma unroll
-    for (int i = 1; i < 4; ++i) obs[4 + i] = price_norm[o + i];
-    base = 8;
-  } else {
-    obs[0] = price_norm[o];
-#pragma unroll
-    for (int i = 1; i < 4; ++i) obs[i] = price_norm[o + i];
-    base = 4;
-  }
+  const int base = observe_traces<C>(o, rad_norm, price_norm, pv_shift, obs);
   bool occupied[N];
   float soc_eff[N], cap_eff[N], safe_cap[N];
 #pragma unroll
@@ -798,6 +834,276 @@ __global__ void ppo_collect_day_kernel(const float* __restrict__ price, const fl
     collect_day<C>(d, ExplicitDraws<C::N>{u, B, b}, ExplicitNormals<C::A>{normals, B, b}, pv_shift[b],
                    batt_soc[b], s, smem, obs_out, act_out, logp_out, val_out, rew_out, batt_out, B, b);
   }
+}
+
+// ------------------------------------------------------------ DDPG actor ---
+
+constexpr int kDdpgEnvs = 32;     // envs per block: one per lane
+constexpr int kDdpgThreads = 256;  // threads per block: 8 warps share the products
+constexpr int kDdpgRows = 4;      // output rows per thread and pass of dense_block
+
+// Shared-memory activations of the block's envs, feature-major: x[f * kDdpgEnvs + e].
+template <class C>
+struct DdpgShared {
+  float *xs, *h1, *h2, *act;
+  __device__ explicit DdpgShared(float* s) {
+    xs = s;
+    h1 = xs + C::F * kDdpgEnvs;
+    h2 = h1 + C::H1 * kDdpgEnvs;
+    act = h2 + C::H2 * kDdpgEnvs;
+  }
+};
+
+template <class C>
+constexpr int ddpg_shared_floats() {
+  return (C::F + C::H1 + C::H2 + C::A) * kDdpgEnvs;
+}
+
+// y[j][e] = relu(sum_k w[j][k] x[k][e] + b[j]) for the block's envs.  A warp
+// takes kDdpgRows rows for its 32 lanes (one env each): the weight reads are
+// warp-uniform (one broadcast load), the activation reads conflict-free.
+template <int J, int K>
+__device__ __forceinline__ void dense_relu_block(const float* __restrict__ w, const float* __restrict__ bias,
+                                                 const float* x, float* y) {
+  const int lane = threadIdx.x % kDdpgEnvs, warp = threadIdx.x / kDdpgEnvs;
+  const int warps = blockDim.x / kDdpgEnvs;
+  for (int j0 = warp * kDdpgRows; j0 < J; j0 += warps * kDdpgRows) {
+    const float* row[kDdpgRows];
+    float acc[kDdpgRows];
+    const float x0 = x[lane];
+#pragma unroll
+    for (int r = 0; r < kDdpgRows; ++r) {
+      row[r] = w + static_cast<int64_t>(min(j0 + r, J - 1)) * K;
+      acc[r] = __ldg(row[r]) * x0;
+    }
+#pragma unroll 4
+    for (int k = 1; k < K; ++k) {
+      const float xv = x[k * kDdpgEnvs + lane];
+#pragma unroll
+      for (int r = 0; r < kDdpgRows; ++r) acc[r] = acc[r] + __ldg(row[r] + k) * xv;
+    }
+#pragma unroll
+    for (int r = 0; r < kDdpgRows; ++r) {
+      if (j0 + r < J) {
+        const float v = acc[r] + __ldg(bias + j0 + r);
+        y[(j0 + r) * kDdpgEnvs + lane] = v > 0.0f ? v : 0.0f;
+      }
+    }
+  }
+}
+
+// The block-level DDPG actor, a Policy of policy_step: every thread of the
+// block calls it at step t with its lane's observation.  Warp 0 stages the
+// observations, the block computes both hidden layers and the head
+// a = low + (tanh(mu) + 1)·0.5·(high − low) (pallas_gen_policy_rollout.py:148-154,
+// no clip), then K9's a = clip(a + ou[t], low, high) (pallas_collect.py:133-149);
+// each thread reads back its lane's action.  With `record`, warp 0's lanes
+// write obs (T, F, B), the action (T, A, B) and next_obs[t-1] = obs[t].
+template <class C>
+struct DdpgBlockActor {
+  Actor<C> w;  // views of the packed block in global memory
+  DdpgShared<C> s;
+  const float* ou;  // (T, A, B) exploration noise, or nullptr
+  float *obs_out, *act_out, *next_out;  // K9's trajectory, or nullptr
+  int64_t B, b0, b;
+  bool writes;  // warp 0, and a lane inside the batch
+
+  __device__ void operator()(int t, const float (&obs)[C::F], float (&act)[C::A]) const {
+    const int lane = threadIdx.x % kDdpgEnvs;
+    if (threadIdx.x < kDdpgEnvs) {
+#pragma unroll
+      for (int f = 0; f < C::F; ++f) s.xs[f * kDdpgEnvs + lane] = obs[f];
+    }
+    if (writes && obs_out != nullptr) {
+#pragma unroll
+      for (int f = 0; f < C::F; ++f) {
+        obs_out[(static_cast<int64_t>(t) * C::F + f) * B + b] = obs[f];
+        if (t > 0) next_out[(static_cast<int64_t>(t - 1) * C::F + f) * B + b] = obs[f];
+      }
+    }
+    __syncthreads();
+    dense_relu_block<C::H1, C::F>(w.w1, w.b1, s.xs, s.h1);
+    __syncthreads();
+    dense_relu_block<C::H2, C::H1>(w.w2, w.b2, s.h1, s.h2);
+    __syncthreads();
+    for (int i = threadIdx.x; i < C::A * kDdpgEnvs; i += blockDim.x) {
+      const int a = i / kDdpgEnvs, e = i % kDdpgEnvs;
+      const float* row = w.w3 + a * C::H2;
+      float acc = __ldg(row) * s.h2[e];
+      for (int k = 1; k < C::H2; ++k) acc = acc + __ldg(row + k) * s.h2[k * kDdpgEnvs + e];
+      const float mu = acc + __ldg(w.b3 + a);
+      const float lo = __ldg(w.low + a), hi = __ldg(w.high + a);
+      float v = lo + ((tanhf(mu) + 1.0f) * 0.5f) * (hi - lo);
+      if (ou != nullptr) {
+        const int64_t be = b0 + e < B ? b0 + e : B - 1;
+        v = fminf(fmaxf(v + ou[(static_cast<int64_t>(t) * C::A + a) * B + be], lo), hi);
+      }
+      s.act[a * kDdpgEnvs + e] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < C::A; ++i) act[i] = s.act[i * kDdpgEnvs + lane];
+    if (writes && act_out != nullptr) {
+#pragma unroll
+      for (int i = 0; i < C::A; ++i) act_out[(static_cast<int64_t>(t) * C::A + i) * B + b] = act[i];
+    }
+  }
+};
+
+// Lane geometry of a DDPG block: the env of this thread's lane (tail lanes
+// mirror the last env and write nothing).
+struct DdpgLane {
+  int64_t b0, b;
+  bool writes;
+  __device__ DdpgLane(int B) {
+    const int lane = threadIdx.x % kDdpgEnvs;
+    b0 = static_cast<int64_t>(blockIdx.x) * kDdpgEnvs;
+    b = b0 + lane < B ? b0 + lane : static_cast<int64_t>(B) - 1;
+    writes = threadIdx.x < kDdpgEnvs && b0 + lane < B;
+  }
+};
+
+// K5, actor="ddpg": outputs as gen_policy_day_kernel.
+template <class C>
+__global__ void __launch_bounds__(kDdpgThreads)
+gen_policy_day_ddpg_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                           const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                           const float* __restrict__ u, const float* __restrict__ batt_soc,
+                           const float* __restrict__ pv_shift, const float* __restrict__ weights,
+                           float* __restrict__ rewards, float* __restrict__ actions,
+                           float* __restrict__ soc_final, float* __restrict__ batt_final, int B, Dims d) {
+  extern __shared__ float smem[];
+  const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
+  __syncthreads();
+  const DdpgLane l(B);
+  const DdpgBlockActor<C> policy{Actor<C>(weights), DdpgShared<C>(s.solar + d.T), nullptr, nullptr, nullptr,
+                                 nullptr, B, l.b0, l.b, l.writes};
+  const ExplicitDraws<C::N> src{u, B, l.b};
+  const float pv = pv_shift[l.b];
+  float batt = batt_soc[l.b];
+  Carry<C> c;
+  c.clear();
+  float act[C::A], pen[C::N];
+#pragma unroll 1
+  for (int t = 0; t < d.T; ++t) {
+    const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
+    if (!l.writes) continue;
+#pragma unroll
+    for (int i = 0; i < C::A; ++i) actions[(static_cast<int64_t>(t) * C::A + i) * B + l.b] = act[i];
+    float pen_sum = pen[0];
+#pragma unroll
+    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
+    const float cost = policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt) + kWVeh * pen_sum;
+    rewards[static_cast<int64_t>(t) * B + l.b] = -cost;
+  }
+  if (!l.writes) return;
+#pragma unroll
+  for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + l.b] = c.prev_col[n];
+  batt_final[l.b] = batt;
+}
+
+// K6, actor="ddpg": outputs as gen_policy_multiday_kernel.
+template <class C>
+__global__ void __launch_bounds__(kDdpgThreads)
+gen_policy_multiday_ddpg_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                                const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                                uint32_t seed, int num_days, const float* __restrict__ weights,
+                                float* __restrict__ stats, int B, Dims d) {
+  extern __shared__ float smem[];
+  const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
+  __syncthreads();
+  const DdpgLane l(B);
+  const DdpgBlockActor<C> policy{Actor<C>(weights), DdpgShared<C>(s.solar + d.T), nullptr, nullptr, nullptr,
+                                 nullptr, B, l.b0, l.b, l.writes};
+  float batt = kBattInit;
+  float rew_total = 0.0f, sq_total = 0.0f;
+  Carry<C> c;
+  float act[C::A], pen[C::N], pen_acc[C::N];
+#pragma unroll 1
+  for (int day = 0; day < num_days; ++day) {
+    const PhiloxDraws<C::N> src{make_uint2(seed, static_cast<uint32_t>(l.b)), static_cast<uint32_t>(day)};
+    const float pv = src.pv_shift(d.T);
+    c.clear();
+#pragma unroll
+    for (int n = 0; n < C::N; ++n) pen_acc[n] = 0.0f;
+    float day_sum = 0.0f;
+#pragma unroll 1
+    for (int t = 0; t < d.T; ++t) {
+      const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
+#pragma unroll
+      for (int n = 0; n < C::N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
+      const float reward = -policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt);
+      day_sum = t == 0 ? reward : day_sum + reward;
+    }
+    float pen_total = pen_acc[0];
+#pragma unroll
+    for (int n = 1; n < C::N; ++n) pen_total = pen_total + pen_acc[n];
+    const float day_return = day_sum - kWVeh * pen_total;
+    rew_total = rew_total + day_return;
+    sq_total = sq_total + day_return * day_return;
+  }
+  if (!l.writes) return;
+  stats[l.b] = rew_total;
+  stats[static_cast<int64_t>(B) + l.b] = sq_total;
+  stats[2 * static_cast<int64_t>(B) + l.b] = batt;
+}
+
+// K9 (SEEDED false): explicit uniforms u (T, 5, N, B) and pv_shift (B,).
+// K9 seeded: the day's uniforms and PV shift from Philox keyed by (seed, b),
+// with K2's kinds (day 0, kinds 0-4 and 7), so that K2 and K9 generate the
+// same days at the same seed.  The OU noise ou (T, A, B) is explicit in both.
+// Outputs obs (T, F, B), the clipped action (T, A, B), rewards (T, B),
+// next_obs (T, F, B) (next_obs[t] = obs[t+1], the day-end observe at T-1)
+// and batt (B).
+template <class C, bool SEEDED>
+__global__ void __launch_bounds__(kDdpgThreads)
+ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                        const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                        const float* __restrict__ u, uint32_t seed, const float* __restrict__ ou,
+                        const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                        const float* __restrict__ weights, float* __restrict__ obs_out,
+                        float* __restrict__ act_out, float* __restrict__ rew_out, float* __restrict__ next_out,
+                        float* __restrict__ batt_out, int B, Dims d) {
+  extern __shared__ float smem[];
+  const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
+  __syncthreads();
+  const DdpgLane l(B);
+  const DdpgBlockActor<C> policy{Actor<C>(weights), DdpgShared<C>(s.solar + d.T), ou, obs_out, act_out,
+                                 next_out, B, l.b0, l.b, l.writes};
+  const uint2 key = make_uint2(seed, static_cast<uint32_t>(l.b));
+  float pv;
+  if constexpr (SEEDED) {
+    pv = collect_pv_shift(key);
+  } else {
+    pv = pv_shift[l.b];
+  }
+  float batt = batt_soc[l.b];
+  Carry<C> c;
+  c.clear();
+  float act[C::A], pen[C::N];
+#pragma unroll 1
+  for (int t = 0; t < d.T; ++t) {
+    PolicyRows r;
+    if constexpr (SEEDED) {
+      r = policy_step<C>(t, d, PhiloxDraws<C::N>{key, 0u}, c, batt, s.rad_norm, s.price_norm, pv, policy, act,
+                         pen);
+    } else {
+      r = policy_step<C>(t, d, ExplicitDraws<C::N>{u, B, l.b}, c, batt, s.rad_norm, s.price_norm, pv, policy,
+                         act, pen);
+    }
+    if (!l.writes) continue;
+    float pen_sum = pen[0];
+#pragma unroll
+    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
+    const float cost = policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt) + kWVeh * pen_sum;
+    rew_out[static_cast<int64_t>(t) * B + l.b] = -cost;
+  }
+  if (!l.writes) return;
+  float obs[C::F];
+  final_observe<C>(d, c, batt, s.rad_norm, s.price_norm, pv, obs);
+#pragma unroll
+  for (int f = 0; f < C::F; ++f) next_out[(static_cast<int64_t>(d.T - 1) * C::F + f) * B + l.b] = obs[f];
+  batt_out[l.b] = batt;
 }
 
 }  // namespace ngk

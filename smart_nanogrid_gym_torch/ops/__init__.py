@@ -3,6 +3,8 @@ a CUDA library is compiled at the first launch that needs it."""
 
 from ._build import launch_counts, reset_launch_counts
 from .collect import ppo_collect_day, ppo_collect_day_seeded
+from .ddpg_collect import ddpg_collect_day, ddpg_collect_day_seeded
+from .ddpg_sweep import DDPGSweepHypers, ddpg_sweep
 from .gen_policy_rollout import gen_policy_day, gen_policy_multiday
 from .gen_rollout import gen_rbc_day, gen_rbc_multiday
 from .param_guard import check_baked_params
@@ -20,5 +22,9 @@ __all__ = [
     "ppo_sweep",
     "ppo_sweep_streamed",
     "SweepHypers",
+    "ddpg_collect_day",
+    "ddpg_collect_day_seeded",
+    "ddpg_sweep",
+    "DDPGSweepHypers",
     "check_baked_params",
 ]

@@ -2,9 +2,11 @@
 
 ``nvcc`` compiles each entry source of ``csrc/`` into a shared library with a
 plain C interface, at first use, for ``sm_90a``: ``kernels.cu`` (the day
-kernels K1, K2, K5-K8) once per static configuration (charger count, config
-flags, actor hidden sizes), ``sweep.cu`` (the update sweep K3/K4) once per
-network shape.  Libraries land in ``build/torch_kernels/`` at the root of the
+kernels K1, K2, K5-K9) once per static configuration (charger count, config
+flags, actor hidden sizes and kind: the PPO actor's library holds K5/K6 and
+K1/K2, the DDPG actor's K5/K6 ``actor="ddpg"`` and K9, both K7/K8),
+``sweep.cu`` (the PPO update sweep K3/K4) and ``ddpg_sweep.cu`` (the DDPG
+update sweep K10) once per network shape.  Libraries land in ``build/torch_kernels/`` at the root of the
 checkout, named by the flags and a digest of the sources and nvcc flags, so
 an edited source rebuilds.  They are loaded with ``ctypes``; every launch goes
 on PyTorch's current stream and its ``cudaGetLastError()`` is checked.
@@ -31,7 +33,7 @@ from ..core.config import NanogridConfig
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("day_step.cuh", "kernels.cu", "ppo_sweep.cuh", "sweep.cu")
+SOURCES = ("day_step.cuh", "kernels.cu", "ppo_sweep.cuh", "sweep.cu", "ddpg_sweep.cuh", "ddpg_sweep.cu")
 # --fmad=false: no FMA contraction, so the kernels round like their twins;
 # IEEE division stays on (no --use_fast_math).
 NVCC_FLAGS = (
@@ -39,22 +41,36 @@ NVCC_FLAGS = (
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 DEFAULT_HIDDEN = (64, 64)
+ACTORS = {"ppo": 0, "ddpg": 1}
 
 launch_counts: Counter = Counter()
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_DAY_SIGNATURES = {
+_POLICY_DAY = (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
+_POLICY_MULTIDAY = (_P, _P, _I, _P, _I, _P, _U, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P)
+_RBC_SIGNATURES = {
     "ngk_weights_size": (),
-    "ngk_collect_weights_size": (),
     "ngk_gen_rbc_day": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_rbc_multiday": (_P, _P, _I, _P, _U, _I, _P, _I, _I, _I, _I, _I, _F, _P),
-    "ngk_gen_policy_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _F, _P),
-    "ngk_gen_policy_multiday": (_P, _P, _I, _P, _I, _P, _U, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+}
+_PPO_SIGNATURES = {
+    **_RBC_SIGNATURES,
+    "ngk_collect_weights_size": (),
+    "ngk_gen_policy_day": _POLICY_DAY,
+    "ngk_gen_policy_multiday": _POLICY_MULTIDAY,
     "ngk_ppo_collect_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _P),
     "ngk_ppo_collect_day_seeded": (_P, _P, _I, _P, _I, _P, _U, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _F, _P),
+}
+_DDPG_SIGNATURES = {
+    **_RBC_SIGNATURES,
+    "ngk_gen_policy_day_ddpg": _POLICY_DAY,
+    "ngk_gen_policy_multiday_ddpg": _POLICY_MULTIDAY,
+    "ngk_ddpg_collect_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _F, _P),
+    "ngk_ddpg_collect_day_seeded": (_P, _P, _I, _P, _I, _P, _U, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _F, _P),
 }
 _SWEEP_SIGNATURES = {
     "ngk_sweep_params_size": (),
@@ -62,7 +78,11 @@ _SWEEP_SIGNATURES = {
                              _F, _F, _F, _F, _P),
     "ngk_ppo_adam_update": (_P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
-_ENTRIES = {"kernels.cu": _DAY_SIGNATURES, "sweep.cu": _SWEEP_SIGNATURES}
+_DDPG_SWEEP_SIGNATURES = {
+    "ngk_ddpg_actor_size": (),
+    "ngk_ddpg_critic_size": (),
+    "ngk_ddpg_step": (_P, _P, _P, _P),
+}
 _LIBRARIES: dict[Path, ctypes.CDLL] = {}
 
 
@@ -70,8 +90,11 @@ def reset_launch_counts() -> None:
     launch_counts.clear()
 
 
-def config_flags(config: NanogridConfig, hidden: tuple[int, int] = DEFAULT_HIDDEN) -> dict[str, int]:
+def config_flags(config: NanogridConfig, hidden: tuple[int, int] = DEFAULT_HIDDEN,
+                 actor: str = "ppo") -> dict[str, int]:
     """The static configuration a library is built for."""
+    if actor not in ACTORS:
+        raise ValueError(f"actor must be one of {tuple(ACTORS)}, got {actor!r}")
     return {
         "NG_N": config.num_chargers,
         "NG_PV": int(config.pv_system),
@@ -81,6 +104,7 @@ def config_flags(config: NanogridConfig, hidden: tuple[int, int] = DEFAULT_HIDDE
         "NG_REQ_SOC": int(config.requested_state_of_charge),
         "NG_H1": int(hidden[0]),
         "NG_H2": int(hidden[1]),
+        "NG_ACTOR": ACTORS[actor],
     }
 
 
@@ -96,12 +120,26 @@ def _nvcc() -> str:
 
 
 def sweep_flags(F: int, A: int, H1: int, H2: int) -> dict[str, int]:
-    """The network shape a sweep library is built for."""
+    """The network shape a PPO sweep library is built for."""
     return {"NG_F": int(F), "NG_A": int(A), "NG_H1": int(H1), "NG_H2": int(H2)}
 
 
+def ddpg_sweep_flags(F: int, A: int, H1: int, H2: int) -> dict[str, int]:
+    """The network shape a DDPG sweep library is built for."""
+    return {**sweep_flags(F, A, H1, H2), "NG_DDPG": 1}
+
+
 def _source(flags: dict[str, int]) -> str:
+    if "NG_DDPG" in flags:
+        return "ddpg_sweep.cu"
     return "sweep.cu" if "NG_F" in flags else "kernels.cu"
+
+
+def _signatures(flags: dict[str, int]) -> dict:
+    source = _source(flags)
+    if source == "kernels.cu":
+        return _DDPG_SIGNATURES if flags["NG_ACTOR"] else _PPO_SIGNATURES
+    return _DDPG_SWEEP_SIGNATURES if source == "ddpg_sweep.cu" else _SWEEP_SIGNATURES
 
 
 def library_path(flags: dict[str, int]) -> Path:
@@ -148,7 +186,7 @@ def _load(flags: dict[str, int], device: torch.device) -> ctypes.CDLL:
     lib = _LIBRARIES.get(path)
     if lib is None:
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in _ENTRIES[_source(flags)].items():
+        for name, argtypes in _signatures(flags).items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -157,14 +195,20 @@ def _load(flags: dict[str, int], device: torch.device) -> ctypes.CDLL:
 
 
 def library(config: NanogridConfig, device: torch.device,
-            hidden: tuple[int, int] = DEFAULT_HIDDEN) -> ctypes.CDLL:
-    """The loaded day-kernel library for ``config``, built first if needed."""
-    return _load(config_flags(config, hidden), device)
+            hidden: tuple[int, int] = DEFAULT_HIDDEN, actor: str = "ppo") -> ctypes.CDLL:
+    """The loaded day-kernel library for ``config`` and the actor (hidden
+    sizes and kind), built first if needed."""
+    return _load(config_flags(config, hidden, actor), device)
 
 
 def sweep_library(F: int, A: int, H1: int, H2: int, device: torch.device) -> ctypes.CDLL:
-    """The loaded sweep library for the network shape, built first if needed."""
+    """The loaded PPO sweep library for the network shape, built first if needed."""
     return _load(sweep_flags(F, A, H1, H2), device)
+
+
+def ddpg_sweep_library(F: int, A: int, H1: int, H2: int, device: torch.device) -> ctypes.CDLL:
+    """The loaded DDPG sweep library for the network shape, built first if needed."""
+    return _load(ddpg_sweep_flags(F, A, H1, H2), device)
 
 
 def check_f32(t: torch.Tensor, name: str) -> torch.Tensor:

@@ -2,21 +2,26 @@
 with their twins.
 
 Replaces ``smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py`` with
-``actor="ppo"`` and f32 operands:
+f32 operands, for both actors of the JAX kernels: ``actor="ppo"`` (the PPO
+actor's mean, 64-64 tanh torso, clipped to the action box) and
+``actor="ddpg"`` (the DDPG actor, 400-300 ReLU torso, squashed into the box
+by ``tanh`` with no clip, pallas_gen_policy_rollout.py:148-154):
 
 - :func:`gen_policy_day` (K5, ``pallas_gen_policy_day``): one day per env from
-  an explicit uniform block, the PPO actor's mean (64-64 tanh torso) clipped
-  to the action box, bidirectional charger and BESS physics (v2x included);
-  returns ``rewards (T, B)``, ``actions (T, A, B)``, ``soc_final (N, B)`` and
-  ``batt_final (B,)``;
+  an explicit uniform block, the deterministic actor, bidirectional charger
+  and BESS physics (v2x included); returns ``rewards (T, B)``, ``actions (T,
+  A, B)``, ``soc_final (N, B)`` and ``batt_final (B,)``;
 - :func:`gen_policy_multiday` (K6, ``pallas_gen_policy_multiday``):
   ``num_days`` Philox days per env in one launch with the battery carried
   across days; returns ``stats (3, B)``: Σ day return, Σ (day return)², final
   battery SoC.
 
-The DDPG actor and the bf16 operand option of the JAX kernels are not ported
-yet.  The twins mirror the Pallas step body; the actor's products run as
-multiply-add loops in input order, the order the CUDA kernels use.
+The bf16 operand option of the JAX kernels is not ported yet.  The twins
+mirror the Pallas step body; the actor's products run as multiply-add loops
+in input order, the order the CUDA kernels use.  The DDPG actor is a
+block-level product in the CUDA kernels (``csrc/day_step.cuh``,
+``DdpgBlockActor``): its shared memory holds the block's activations, which
+bounds the torso (:func:`check_ddpg_torso`).
 """
 
 from __future__ import annotations
@@ -57,9 +62,11 @@ from .param_guard import check_baked_params
 from .philox import day_uniforms
 
 if TYPE_CHECKING:
-    from ..solvers.networks import ActorCritic
+    from ..solvers.networks import ActorCritic, DDPGActor
 
 B_CAP, B_MAXP, B_EFF = 80.0, 44.0, 0.95
+DDPG_ENVS_PER_BLOCK = 32             # kDdpgEnvs in csrc/day_step.cuh
+MAX_SHARED_BYTES = 232_448           # dynamic shared memory one H100 block may use
 
 
 class ActorWeights(NamedTuple):
@@ -79,9 +86,17 @@ class ActorWeights(NamedTuple):
         return torch.cat([x.reshape(-1) for x in self]).contiguous()
 
 
-def actor_weights(config: NanogridConfig, net: ActorCritic, device: torch.device) -> ActorWeights:
-    """The ``pi`` torso of ``net`` and the action bounds as f32 on ``device``."""
-    pi = net.pi
+def actor_weights(config: NanogridConfig, net: ActorCritic | DDPGActor, device: torch.device,
+                  actor: str = "ppo") -> ActorWeights:
+    """The actor torso of ``net`` (``pi`` of an :class:`ActorCritic` for
+    ``actor="ppo"``, ``mu`` of a :class:`DDPGActor` for ``"ddpg"``) and the
+    action bounds as f32 on ``device``."""
+    if actor not in _build.ACTORS:
+        raise ValueError(f"actor must be one of {tuple(_build.ACTORS)}, got {actor!r}")
+    pi = getattr(net, "pi" if actor == "ppo" else "mu", None)
+    if pi is None:
+        raise ValueError(f"actor={actor!r} needs {'an ActorCritic' if actor == 'ppo' else 'a DDPGActor'}, "
+                         f"got {type(net).__name__}")
     if pi.num_layers != 3:
         raise ValueError("the actor kernels take a torso of two hidden layers")
     if net.obs_dim != config.obs_dim or net.action_dim != config.num_actions:
@@ -110,10 +125,38 @@ def dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def actor_mean(w: ActorWeights, obs: torch.Tensor) -> torch.Tensor:
-    """Deterministic action ``(A, B)`` for observations ``(F, B)``."""
+    """Deterministic PPO action ``(A, B)`` for observations ``(F, B)``."""
     h1 = torch.tanh(dense(w.w1, w.b1, obs))
     h2 = torch.tanh(dense(w.w2, w.b2, h1))
     return torch.clamp(dense(w.w3, w.b3, h2), w.low, w.high)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``x > 0 ? x : 0``, as the kernels write it."""
+    return torch.where(x > 0, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def ddpg_action(w: ActorWeights, obs: torch.Tensor) -> torch.Tensor:
+    """Deterministic DDPG action ``(A, B)`` for observations ``(F, B)``:
+    ``low + (tanh(mu) + 1)·0.5·(high − low)``, no clip."""
+    h1 = relu(dense(w.w1, w.b1, obs))
+    h2 = relu(dense(w.w2, w.b2, h1))
+    return w.low + (torch.tanh(dense(w.w3, w.b3, h2)) + 1.0) * 0.5 * (w.high - w.low)
+
+
+def _policy(actor: str):
+    return actor_mean if actor == "ppo" else ddpg_action
+
+
+def check_ddpg_torso(config: NanogridConfig, hidden: tuple[int, int], traces: Traces) -> None:
+    """Raise for a DDPG torso whose block activations (obs, both hidden
+    layers and the actions of 32 envs) and traces exceed a block's shared
+    memory (the port's counterpart of the JAX kernel's VMEM guard)."""
+    floats = ((config.obs_dim + hidden[0] + hidden[1] + config.num_actions) * DDPG_ENVS_PER_BLOCK
+              + traces.rad_norm.numel() + traces.price_norm.numel() + 2 * config.steps_per_day)
+    if 4 * floats > MAX_SHARED_BYTES:
+        raise ValueError(f"DDPG actor torso {hidden[0]}x{hidden[1]} needs {4 * floats} bytes of shared "
+                         f"memory per block, more than {MAX_SHARED_BYTES}; use the plain engine")
 
 
 def gen_policy_step(t, u5, c, batt_soc, traces: Traces, pv_shift, policy, *,
@@ -219,15 +262,25 @@ def check_policy_config(config: NanogridConfig, params: NanogridParams, kernel: 
                          "use the plain engine for other lookaheads")
 
 
+def _policy_library(config, device, hidden, actor, traces, name):
+    """The library of the actor and the kernel's name in it (the DDPG
+    variants carry a ``_ddpg`` suffix and their own launch count)."""
+    if actor == "ddpg":
+        check_ddpg_torso(config, hidden, traces)
+        return _build.library(config, device, hidden, "ddpg"), f"{name}_ddpg"
+    return _build.library(config, device, hidden), name
+
+
 # --------------------------------------------------------------------- K5 ---
 
-def gen_policy_day_plain(config, traces: Traces, weights: ActorWeights, uniforms, pv_shift, batt_soc):
+def gen_policy_day_plain(config, traces: Traces, weights: ActorWeights, uniforms, pv_shift, batt_soc,
+                         actor: str = "ppo"):
     """Plain twin of K5 on f32 tensors."""
     T = config.steps_per_day
     kw = policy_kwargs(config)
     B = pv_shift.shape[0]
     carry = fresh_carry(kw["N"], B, pv_shift.device, kw["diff_caps"], kw["req_soc"])
-    policy = functools.partial(actor_mean, weights)
+    policy = functools.partial(_policy(actor), weights)
     rows_list, actions = [], []
     for t in range(T):
         rows, act, carry, batt_soc = gen_policy_step(
@@ -242,14 +295,15 @@ def gen_policy_day_plain(config, traces: Traces, weights: ActorWeights, uniforms
     return rewards, torch.stack(actions), carry["prev_col"], batt_soc
 
 
-def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCritic,
+def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCritic | DDPGActor,
                    uniforms: torch.Tensor, pv_shift: torch.Tensor,
-                   batt_soc: torch.Tensor | None = None):
-    """Generate a fresh day per env and roll the deterministic PPO actor over it (K5).
+                   batt_soc: torch.Tensor | None = None, actor: str = "ppo"):
+    """Generate a fresh day per env and roll the deterministic actor over it (K5).
 
     ``uniforms (T, 5, N, B)``, ``pv_shift (B,)``, ``batt_soc (B,)`` (0.5 when
-    omitted).  Returns ``(rewards (T, B), actions (T, A, B), soc_final (N, B),
-    batt_final (B,))``.
+    omitted); ``net`` is an :class:`ActorCritic` for ``actor="ppo"``, a
+    :class:`DDPGActor` for ``"ddpg"``.  Returns ``(rewards (T, B), actions
+    (T, A, B), soc_final (N, B), batt_final (B,))``.
     """
     check_policy_config(config, params, "gen_policy_day")
     T, N, A = config.steps_per_day, config.num_chargers, config.num_actions
@@ -260,10 +314,10 @@ def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCri
     if batt_soc is None:
         batt_soc = params.batt_init_soc.reshape(-1)[0].to(device=device, dtype=F32).expand(B)
     traces = kernel_traces(params, device)
-    weights = actor_weights(config, net, device)
+    weights = actor_weights(config, net, device, actor)
     if not kernel_device(uniforms):
         return gen_policy_day_plain(config, traces, weights, uniforms.to(F32), pv_shift.to(F32),
-                                    batt_soc.to(F32))
+                                    batt_soc.to(F32), actor)
 
     u = _build.check_f32(uniforms, "uniforms")
     pv = _build.check_f32(pv_shift, "pv_shift")
@@ -272,9 +326,9 @@ def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCri
     actions = torch.empty((T, A, B), dtype=F32, device=device)
     soc_final = torch.empty((N, B), dtype=F32, device=device)
     batt_final = torch.empty((B,), dtype=F32, device=device)
-    lib = _build.library(config, device, net.hidden)
+    lib, name = _policy_library(config, device, net.hidden, actor, traces, "gen_policy_day")
     _build.launch(
-        "gen_policy_day", lib.ngk_gen_policy_day,
+        name, getattr(lib, f"ngk_{name}"),
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
         traces.rad_norm.numel(), traces.solar, u, batt, pv, _packed(weights, lib),
         rewards, actions, soc_final, batt_final, B, *_build.day_dims(config), device=device,
@@ -285,14 +339,14 @@ def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCri
 # --------------------------------------------------------------------- K6 ---
 
 def gen_policy_multiday_plain(config, traces: Traces, weights: ActorWeights, num_days: int,
-                              seed: int, batch: int):
+                              seed: int, batch: int, actor: str = "ppo"):
     """Plain twin of K6: ``stats (3, batch)``, same Philox draws as the kernel."""
     T = config.steps_per_day
     kw = policy_kwargs(config)
     N = kw["N"]
     device = traces.price.device
     batt_soc = torch.full((batch,), BATT_INIT_SOC, dtype=F32, device=device)
-    policy = functools.partial(actor_mean, weights)
+    policy = functools.partial(_policy(actor), weights)
     rew_total = torch.zeros(batch, dtype=F32, device=device)
     sq_total = torch.zeros(batch, dtype=F32, device=device)
     for day in range(num_days):
@@ -315,25 +369,25 @@ def gen_policy_multiday_plain(config, traces: Traces, weights: ActorWeights, num
     return torch.stack([rew_total, sq_total, batt_soc])
 
 
-def gen_policy_multiday(config: NanogridConfig, params: NanogridParams, net: ActorCritic,
-                        num_days: int, seed: int, batch: int):
+def gen_policy_multiday(config: NanogridConfig, params: NanogridParams, net: ActorCritic | DDPGActor,
+                        num_days: int, seed: int, batch: int, actor: str = "ppo"):
     """``num_days`` fresh actor-driven days × ``batch`` envs in one launch (K6).
 
     Runs on the device of ``params``; the battery starts at 0.5 and carries
-    across days.  Returns ``stats (3, batch)``: Σ day return, Σ (day return)²,
-    final battery SoC.
+    across days; ``actor`` as for :func:`gen_policy_day`.  Returns ``stats
+    (3, batch)``: Σ day return, Σ (day return)², final battery SoC.
     """
     check_policy_config(config, params, "gen_policy_multiday", battery_init=True)
     device = params.device
     traces = kernel_traces(params, device)
-    weights = actor_weights(config, net, device)
+    weights = actor_weights(config, net, device, actor)
     if not kernel_device(params.price):
-        return gen_policy_multiday_plain(config, traces, weights, num_days, seed, batch)
+        return gen_policy_multiday_plain(config, traces, weights, num_days, seed, batch, actor)
 
     stats = torch.empty((3, batch), dtype=F32, device=device)
-    lib = _build.library(config, device, net.hidden)
+    lib, name = _policy_library(config, device, net.hidden, actor, traces, "gen_policy_multiday")
     _build.launch(
-        "gen_policy_multiday", lib.ngk_gen_policy_multiday,
+        name, getattr(lib, f"ngk_{name}"),
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
         traces.rad_norm.numel(), traces.solar, seed & 0xFFFFFFFF, num_days, _packed(weights, lib),
         stats, batch, *_build.day_dims(config), device=device,

@@ -23,7 +23,10 @@ its own, so that they never overlap the generation draws (kinds 0-4):
 - the fresh day's PV shift ``⌊U · 181⌋ / 100`` (pallas_collect.py:276), ``U``
   = word 0 of ``philox((0, 0, 7, 0))``.
 
-Unlike the JAX kernel's ``seed + program_id`` streams
+The DDPG collection kernel K9 draws its day with K2's kinds (generation
+kinds 0-4 of day 0 and the PV shift of kind 7, :func:`collect_day_draws`),
+so that K2 and K9 generate the same days at the same seed; its OU noise is an
+explicit input.  Unlike the JAX kernels' ``seed + program_id`` streams
 (pallas_collect.py:255), two seeds never share a stream.
 
 A 32-bit word ``x`` becomes the uniform ``(x >> 8) · 2⁻²⁴`` in ``[0, 1)``,
@@ -103,12 +106,23 @@ def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(-2.0 * torch.log(1.0 - u1)) * torch.cos(TWO_PI_F32 * u2)
 
 
+def collect_day_draws(seed: int, batch: int, steps: int, num_chargers: int,
+                      device: torch.device | str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fresh day of K2 and K9 for envs ``0..batch-1``: ``(u (T, 5, N, B),
+    u_pv (B,))`` as f32 (``u_pv`` before the PV-shift map ``⌊U · 181⌋ / 100``)."""
+    u, _ = day_uniforms(seed, 0, batch, steps, num_chargers, device)
+    i64 = dict(dtype=torch.int64, device=device)
+    key = (torch.full((), seed & MASK32, **i64), torch.arange(batch, **i64))
+    zero = torch.zeros((), **i64)
+    pv_word = philox4x32_10((zero, zero, torch.full((), KIND_PV_SHIFT, **i64), zero), key)[0]
+    return u, to_uniform(pv_word)
+
+
 def collect_draws(seed: int, batch: int, steps: int, num_chargers: int, num_actions: int,
                   device: torch.device | str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's draws for envs ``0..batch-1``: ``(u (T, 5, N, B), normals (T, A, B),
-    u_pv (B,))`` as f32, the inputs K1 takes (``u_pv`` before the PV-shift
-    map ``⌊U · 181⌋ / 100``)."""
-    u, _ = day_uniforms(seed, 0, batch, steps, num_chargers, device)
+    u_pv (B,))`` as f32, the inputs K1 takes."""
+    u, u_pv = collect_day_draws(seed, batch, steps, num_chargers, device)
     groups = (num_actions + 3) // 4
     i64 = dict(dtype=torch.int64, device=device)
     key = (torch.full((), seed & MASK32, **i64), torch.arange(batch, **i64))
@@ -122,5 +136,4 @@ def collect_draws(seed: int, batch: int, steps: int, num_chargers: int, num_acti
         return to_uniform(w.reshape(steps, groups * 4, batch)[:, :num_actions])
 
     normals = box_muller(words(KIND_NORMAL_U1), words(KIND_NORMAL_U2))
-    pv_word = philox4x32_10((zero, zero, torch.full((), KIND_PV_SHIFT, **i64), zero), key)[0]
-    return u, normals, to_uniform(pv_word)
+    return u, normals, u_pv

@@ -238,6 +238,14 @@ def adam_step_plain(params, mu, nu, grads, t: int, hp: SweepHypers):
     g_norm = _adam_block_norm(grads)
     max_norm = _scalar(hp.max_grad_norm, grads)
     grads = torch.where(g_norm < max_norm, grads, (grads / g_norm) * max_norm)
+    return adam_update_plain(params, mu, nu, grads, t, hp)
+
+
+def adam_update_plain(params, mu, nu, grads, t: int, hp):
+    """One bare Adam step on flat vectors as the sweep kernels take it:
+    bias correction ``1 − exp(t·log b)``, eps outside the sqrt; ``hp`` has
+    ``lr``, ``adam_b1``, ``adam_b2`` and ``adam_eps``.  Returns ``(params,
+    mu, nu)``."""
     tf = _scalar(float(t), grads)
     bc1 = 1.0 - torch.exp(tf * float(np.float32(np.log(hp.adam_b1))))
     bc2 = 1.0 - torch.exp(tf * float(np.float32(np.log(hp.adam_b2))))

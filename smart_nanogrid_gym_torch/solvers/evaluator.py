@@ -3,7 +3,8 @@
 - :func:`evaluate_policies_same_days` scores several policies on identical
   days (the reference evaluator's paired design) on the plain engine.  The
   days are generated from ``seed`` or given explicitly as initial states.
-- :func:`evaluate_policy_at_scale` runs the deterministic PPO actor over
+- :func:`evaluate_policy_at_scale` runs a deterministic actor (the PPO
+  actor's clipped mean, or the DDPG actor with ``algorithm="ddpg"``) over
   ``num_days × batch`` fresh days in one launch of kernel K6 (its plain twin
   on CPU params).
 
@@ -25,7 +26,7 @@ from ..core.state import EnvState
 from ..core.transition import reset, step
 from ..ops.gen_policy_rollout import gen_policy_multiday
 from ..ops.param_guard import check_baked_params
-from .networks import ActorCritic
+from .networks import ActorCritic, DDPGActor
 
 
 def evaluate_policies_same_days(
@@ -71,19 +72,22 @@ def evaluate_policies_same_days(
 def evaluate_policy_at_scale(
     config: NanogridConfig,
     params: NanogridParams,
-    net: ActorCritic,
+    net: ActorCritic | DDPGActor,
     num_days: int = 10_000,
     batch: int = 4096,
     seed: int = 0,
+    algorithm: str = "ppo",
 ) -> dict[str, float]:
     """Deterministic-actor evaluation over ``num_days × batch`` fresh days in
-    one launch of kernel K6, on the device of ``params``.
+    one launch of kernel K6, on the device of ``params``.  ``algorithm`` is
+    the actor's kind: ``"ppo"`` (an :class:`ActorCritic`) or ``"ddpg"`` (a
+    :class:`DDPGActor`).
 
     Returns ``{"mean_day_return", "std_day_return", "total_days"}``.
     """
     check_baked_params(config, params, "evaluate_policy_at_scale",
                        generation=True, battery_init=True)
-    stats = gen_policy_multiday(config, params, net, num_days, seed, batch).double()
+    stats = gen_policy_multiday(config, params, net, num_days, seed, batch, actor=algorithm).double()
     total = float(num_days * batch)
     mean = float(stats[0].sum()) / total
     var = float(stats[1].sum()) / total - mean * mean

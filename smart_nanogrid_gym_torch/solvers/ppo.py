@@ -110,6 +110,20 @@ def _gaussian_logp(mean, log_std, action):
     return torch.sum(-0.5 * ((action - mean) ** 2 / var + 2 * log_std + LOG_2PI), dim=-1)
 
 
+def optax_adam_step(params, opt: AdamState, grads, lr: float, b1: float = 0.9, b2: float = 0.999,
+                    eps: float = 1e-8):
+    """One step of ``optax.adam(lr)`` on lists of leaves, written out: bias
+    correction ``1 − bᵗ``, eps outside the sqrt.  Returns ``(params,
+    AdamState)``."""
+    count = opt.count + 1
+    mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, opt.mu)]
+    nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, opt.nu)]
+    bc1 = torch.tensor(1 - b1 ** count, dtype=F32)
+    bc2 = torch.tensor(1 - b2 ** count, dtype=F32)
+    new = [p + (-lr) * ((m / bc1) / (torch.sqrt(v / bc2) + eps)) for p, m, v in zip(params, mu, nu)]
+    return new, AdamState(count, mu, nu)
+
+
 def apply_actor_critic(leaves, obs):
     """``(mean, log_std, value)`` of the actor-critic given as leaves, for
     ``obs (..., F)``: the flax module's ``apply``."""
@@ -226,20 +240,11 @@ class PPOLearner:
 
     def _optax_step(self, params, opt: AdamState, grads):
         """``optax.chain(clip_by_global_norm(max_norm), adam(lr))`` written out:
-        scale by ``max_norm / norm`` only when ``norm >= max_norm``; eps outside
-        the sqrt."""
+        scale by ``max_norm / norm`` only when ``norm >= max_norm``."""
         max_norm = torch.tensor(self.ppo.max_grad_norm, dtype=F32, device=grads[0].device)
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         grads = [torch.where(g_norm < max_norm, g, (g / g_norm) * max_norm) for g in grads]
-        b1, b2, eps, lr = 0.9, 0.999, 1e-8, self.ppo.learning_rate
-        count = opt.count + 1
-        mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, opt.mu)]
-        nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, opt.nu)]
-        bc1 = torch.tensor(1 - b1 ** count, dtype=F32)
-        bc2 = torch.tensor(1 - b2 ** count, dtype=F32)
-        new = [p + (-lr) * ((m / bc1) / (torch.sqrt(v / bc2) + eps))
-               for p, m, v in zip(params, mu, nu)]
-        return new, AdamState(count, mu, nu)
+        return optax_adam_step(params, opt, grads, self.ppo.learning_rate)
 
     # -------------------------------------------------------- plain collect --
 

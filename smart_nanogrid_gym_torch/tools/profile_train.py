@@ -1,10 +1,11 @@
-"""Device time of the PPO training path by kernel, on one CUDA card.
+"""Device time of the PPO or DDPG training path by kernel, on one CUDA card.
 
 Run from the root of the repository (it builds the kernels first):
 
-    python3 -m smart_nanogrid_gym_torch.tools.profile_train [--batch 4096] [--updates 5]
+    python3 -m smart_nanogrid_gym_torch.tools.profile_train [--batch 4096] [--updates 5] [--ddpg]
 
-Trains ``PPOLearner(collect_impl="kernel", sweep_impl="kernel")`` on the
+Trains ``PPOLearner(collect_impl="kernel", sweep_impl="kernel")`` (with
+``--ddpg``: ``DDPGLearner(collect_impl="kernel", sweep_impl="kernel")``) on the
 8-charger bench config for two warm-up updates, then profiles ``--updates``
 updates with ``torch.profiler`` and prints, per kernel name, the launches
 and the device milliseconds per update, the device busy share of the
@@ -28,6 +29,12 @@ KERNELS = {  # substring of the CUDA kernel's name -> the port's kernel
     "ppo_collect_day_kernel": "K2 ppo_collect_day_seeded",
     "ppo_grad_partial": "K3 ppo_grad_partial",
     "ppo_adam_update": "K3 ppo_adam_update",
+    "ddpg_collect_day_kernel": "K9 ddpg_collect_day_seeded",
+    "gemm_kernel": "K10 gemm_kernel",
+    "colsum_kernel": "K10 colsum_kernel",
+    "adam_kernel": "K10 adam_kernel",
+    "polyak_kernel": "K10 polyak_kernel",
+    "metrics_kernel": "K10 metrics_kernel",
 }
 
 
@@ -35,17 +42,22 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--batch", type=int, default=4096)
     parser.add_argument("--updates", type=int, default=5)
+    parser.add_argument("--ddpg", action="store_true", help="profile the DDPG learner (K9 + K10)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     from smart_nanogrid_gym_torch.core import NanogridConfig, make_params
+    from smart_nanogrid_gym_torch.solvers.ddpg import DDPGConfig, DDPGLearner
     from smart_nanogrid_gym_torch.solvers.ppo import PPOConfig, PPOLearner
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     config = NanogridConfig()
     params = make_params(config)
-    learner = PPOLearner(config, PPOConfig(collect_impl="kernel", sweep_impl="kernel"))
+    if args.ddpg:
+        learner = DDPGLearner(config, DDPGConfig(collect_impl="kernel", sweep_impl="kernel"))
+    else:
+        learner = PPOLearner(config, PPOConfig(collect_impl="kernel", sweep_impl="kernel"))
     state = learner.init(0, params, args.batch)
     step = learner.build_train_step()
     for _ in range(2):
@@ -81,7 +93,8 @@ def main() -> None:
     for name, (count, ms) in rows:
         print(f"  {name}: {count / n:.1f} launches/update, {ms / n:.4f} device ms/update, "
               f"{ms / max(count, 1):.4f} ms/launch")
-    print(json.dumps({"card": card, "batch": args.batch, "updates": n, "wall_ms_per_update": wall * 1e3 / n,
+    print(json.dumps({"card": card, "learner": "ddpg" if args.ddpg else "ppo", "batch": args.batch, "updates": n,
+                      "wall_ms_per_update": wall * 1e3 / n,
                       "device_ms_per_update": device_total / 1e3 / n,
                       "kernels": {k: {"launches_per_update": c / n, "device_ms_per_update": ms / n}
                                   for k, (c, ms) in rows},

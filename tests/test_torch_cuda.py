@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K8 of the PyTorch port against their plain twins.
+"""The CUDA kernels K1-K10 of the PyTorch port against their plain twins.
 
 Marked ``cuda``: each test skips without a CUDA device (and needs ``nvcc``
 to build the kernels at first use).  The file imports no JAX, so it also
@@ -224,3 +224,124 @@ def test_kernel_learner_launches_one_collection_and_two_per_step(cuda):
     torch.cuda.synchronize()
     assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "ppo_sweep_streamed": 2 * 8}
     assert all(bool(torch.isfinite(x)) for x in metrics)
+
+
+# ---------------------------------------------------------------- DDPG ---
+
+DDPG_CONFIGS = {
+    "b-pv-4ch": NanogridConfig(num_chargers=4, pv_system=True, battery_system=True),
+    "v2x-b-pv": NanogridConfig(num_chargers=8, pv_system=True, battery_system=True,
+                               vehicle_to_everything=True),
+}
+
+
+def shifted_ddpg_actor(config, seed, device):
+    """A random 400-300 DDPG actor with the output biases pushed off the 0
+    branch boundaries (tests/test_pallas.py:252-263); with v2x, chargers
+    alternate charge and discharge."""
+    from smart_nanogrid_gym_torch.solvers.networks import DDPGActor
+
+    low, high = config.action_bounds()
+    net = DDPGActor(config.obs_dim, config.num_actions, low, high, generator=torch.Generator().manual_seed(seed))
+    if config.vehicle_to_everything:
+        ch_bias = np.where(np.arange(config.num_chargers) % 2 == 0, 0.5, -0.4)
+    else:
+        ch_bias = np.full(config.num_chargers, 0.4)
+    with torch.no_grad():
+        net.mu.Dense_2.bias.copy_(torch.as_tensor(np.concatenate([ch_bias, [-0.6]])))
+    return net.to(device)
+
+
+@pytest.mark.parametrize("name", list(DDPG_CONFIGS))
+def test_ddpg_policy_kernels_match_twins(cuda, name):
+    config = DDPG_CONFIGS[name]
+    params = make_params(config, torch.float32, cuda)
+    traces = kernel_traces(params, cuda)
+    net = shifted_ddpg_actor(config, 13, cuda)
+    weights = actor_weights(config, net, cuda, actor="ddpg")
+    u, pv = _inputs(config, 6, 300, cuda)
+    reset_launch_counts()
+    out = gen_policy_day(config, params, net, u, pv, actor="ddpg")
+    out_p = gen_policy_day_plain(config, traces, weights, u, pv, torch.full_like(pv, 0.5), actor="ddpg")
+    for got, want in zip(out, out_p):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    stats = gen_policy_multiday(config, params, net, 2, 17, 300, actor="ddpg")
+    stats_p = gen_policy_multiday_plain(config, traces, weights, 2, 17, 300, actor="ddpg")
+    torch.testing.assert_close(stats, stats_p, rtol=2e-4, atol=1e-2)
+    assert dict(launch_counts) == {"gen_policy_day_ddpg": 1, "gen_policy_multiday_ddpg": 1}
+
+
+def test_ddpg_collect_kernels_match_twins(cuda):
+    from smart_nanogrid_gym_torch.ops.ddpg_collect import (
+        ddpg_collect_day, ddpg_collect_day_plain, ddpg_collect_day_seeded, ddpg_collect_day_seeded_plain,
+        ddpg_weights)
+
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    params = make_params(config, torch.float32, cuda)
+    traces = kernel_traces(params, cuda)
+    net = shifted_ddpg_actor(config, 21, cuda)
+    weights = ddpg_weights(config, net, cuda)
+    u, pv = _inputs(config, 7, 300, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ou = 0.3 * torch.randn((config.steps_per_day, config.num_actions, 300), generator=gen, device=cuda)
+    batt = torch.rand(300, generator=gen, device=cuda)
+    reset_launch_counts()
+    for got, want in ((ddpg_collect_day(config, params, net, u, ou, pv, batt),
+                       ddpg_collect_day_plain(config, traces, weights, u, ou, pv, batt)),
+                      (ddpg_collect_day_seeded(config, params, net, 99, ou, batt, 300),
+                       ddpg_collect_day_seeded_plain(config, traces, weights, 99, ou, batt, 300))):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+    assert dict(launch_counts) == {"ddpg_collect_day": 1, "ddpg_collect_day_seeded": 1}
+
+
+def test_ddpg_sweep_kernel_matches_twin(cuda):
+    """K10 over G = 3 steps of a ragged minibatch (M = 200) with the 400-300
+    networks, against its twin; a rerun is bit-identical."""
+    from smart_nanogrid_gym_torch.ops.ddpg_sweep import DDPGSweepHypers, ddpg_sweep, ddpg_sweep_plain
+    from smart_nanogrid_gym_torch.solvers.networks import DDPGCritic, ddpg_leaves
+
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    F, A = config.obs_dim, config.num_actions
+    actor = [x.detach() for x in ddpg_leaves(shifted_ddpg_actor(config, 5, cuda))]
+    critic = [x.detach().to(cuda) for x in ddpg_leaves(DDPGCritic(F, A, generator=torch.Generator().manual_seed(6)))]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    G, M = 3, 200
+    data = (torch.randn((G, M, F), generator=gen, device=cuda), torch.rand((G, M, A), generator=gen, device=cuda),
+            -torch.rand((G, M), generator=gen, device=cuda) * 10, torch.randn((G, M, F), generator=gen, device=cuda),
+            (torch.rand((G, M), generator=gen, device=cuda) < 0.05).float())
+    low, high = (torch.as_tensor(b, device=cuda) for b in config.action_bounds())
+    hp = DDPGSweepHypers(lr=1e-3, gamma=0.99, tau=5e-3)
+    args = (actor, critic, actor, critic, zeros_adam(actor), zeros_adam(critic), *data, low, high, hp)
+    reset_launch_counts()
+    got = ddpg_sweep(*args)
+    want = ddpg_sweep_plain(*args)
+
+    def leaves(out):
+        a, c, ta, tc, ao, co, metrics = out
+        return a + c + ta + tc + ao.mu + ao.nu + co.mu + co.nu + [metrics]
+
+    err = max(float((g - w).abs().max()) for g, w in zip(leaves(got), leaves(want)))
+    print(f"K10 vs twin max |d| {err:.3e}")
+    for g, w in zip(leaves(got), leaves(want)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    again = ddpg_sweep(*args)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(again)))
+    assert got[4].count == got[5].count == G and launch_counts["ddpg_sweep"] == 2 * G
+
+
+def test_ddpg_kernel_learner_launches_one_collection_and_one_per_step(cuda):
+    from smart_nanogrid_gym_torch.solvers.ddpg import DDPGConfig, DDPGLearner
+
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    params = make_params(config, torch.float32, cuda)
+    learner = DDPGLearner(config, DDPGConfig(buffer_days=2, gradient_steps=4, collect_impl="kernel",
+                                             sweep_impl="kernel"), device=cuda)
+    state = learner.init(0, params, 256)
+    step = learner.build_train_step()
+    reset_launch_counts()
+    state, metrics = step(state, params)
+    torch.cuda.synchronize()
+    assert dict(launch_counts) == {"ddpg_collect_day_seeded": 1, "ddpg_sweep": 4}
+    assert all(bool(torch.isfinite(x)) for x in metrics)
+    assert state.buffer.filled == config.steps_per_day

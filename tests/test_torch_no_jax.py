@@ -1,5 +1,6 @@
 """The port runs without JAX or the JAX package: importing it, rolling a
-day and running one PPO training update on the CPU leave ``jax`` and
+day, running one PPO and one DDPG training update and a DDPG at-scale
+evaluation on the CPU leave ``jax`` and
 ``smart_nanogrid_gym_tpu`` out of ``sys.modules``, and no file of the port
 imports them.  The port's copies of the JAX-free tables equal the JAX
 package's."""
@@ -22,9 +23,9 @@ import smart_nanogrid_gym_torch
 from smart_nanogrid_gym_torch.core import NanogridConfig, SmartNanogridTorch
 from smart_nanogrid_gym_torch.ops import gen_policy_multiday, gen_rbc_day, gen_rbc_multiday
 from smart_nanogrid_gym_torch.solvers import (
-    ActorCritic, PPOConfig, PPOLearner, evaluate_policies_same_days, evaluate_policy_at_scale,
-    make_rbc_policy_fn)
-from smart_nanogrid_gym_torch.utils import load_actor_critic_npz
+    ActorCritic, DDPGActor, DDPGConfig, DDPGLearner, PPOConfig, PPOLearner, evaluate_policies_same_days,
+    evaluate_policy_at_scale, make_rbc_policy_fn)
+from smart_nanogrid_gym_torch.utils import load_actor_critic_npz, load_ddpg_actor_npz
 
 config = NanogridConfig(num_chargers=4)
 env = SmartNanogridTorch(config)
@@ -40,6 +41,13 @@ learner = PPOLearner(config, PPOConfig(num_epochs=1, num_minibatches=2, collect_
                                        sweep_impl="kernel"), device="cpu")
 state, metrics = learner.build_train_step()(learner.init(0, params, 128), params)
 assert state.update_step == 1 and bool(torch.isfinite(metrics.mean_return))
+ddpg = DDPGLearner(config, DDPGConfig(buffer_days=1, gradient_steps=1, batch_size=16, collect_impl="kernel",
+                                      sweep_impl="kernel"), device="cpu")
+state, metrics = ddpg.build_train_step()(ddpg.init(0, params, 8), params)
+assert state.update_step == 1 and bool(torch.isfinite(metrics.critic_loss))
+low, high = config.action_bounds()
+actor = DDPGActor(config.obs_dim, config.num_actions, low, high)
+assert evaluate_policy_at_scale(config, params, actor, 1, 8, algorithm="ddpg")["total_days"] == 8
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "smart_nanogrid_gym_tpu")]
 assert not loaded, loaded

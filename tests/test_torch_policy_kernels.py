@@ -3,7 +3,9 @@ with the JAX package as the reference.
 
 K5's twin is held against ``pallas_gen_policy_day`` in interpret mode on the
 same numpy uniforms, PV shifts and (bias-shifted) actor weights, at the
-tolerance tests/test_pallas.py uses.  K6 draws in-kernel Philox numbers: its
+tolerance tests/test_pallas.py uses, for both actors: ``actor="ppo"`` and
+``actor="ddpg"`` (the DDPG actor on 8-charger b-pv and on the DDPG
+artifact's 4-charger config).  K6 draws in-kernel Philox numbers: its
 twin is held against K5's twin fed the same draws, with the battery carried
 from one day to the next.
 """
@@ -24,14 +26,17 @@ from smart_nanogrid_gym_torch.core.transition import reset
 from smart_nanogrid_gym_torch.ops import gen_policy_day
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
     actor_weights,
+    check_ddpg_torso,
     gen_policy_day_plain,
     gen_policy_multiday_plain,
 )
 from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces, pv_shift_from_uniform
 from smart_nanogrid_gym_torch.ops.philox import day_uniforms
-from smart_nanogrid_gym_torch.solvers.networks import actor_critic_from_flax, make_actor_policy_fn
+from smart_nanogrid_gym_torch.solvers.evaluator import evaluate_policy_at_scale
+from smart_nanogrid_gym_torch.solvers.networks import actor_critic_from_flax, ddpg_actor_from_flax, \
+    make_actor_policy_fn
 
-from torch_parity import kernel_inputs, shifted_flax_actor
+from torch_parity import flax_ddpg_actor, kernel_inputs, shifted_flax_actor
 
 B = 128
 
@@ -99,3 +104,73 @@ def test_policy_multiday_twin_equals_explicit_days():
     np.testing.assert_allclose(stats[0].double().numpy(), days.sum(0).numpy(), rtol=1e-5)
     np.testing.assert_allclose(stats[1].double().numpy(), (days ** 2).sum(0).numpy(), rtol=1e-5)
     np.testing.assert_array_equal(stats[2].numpy(), batt.numpy())
+
+
+DDPG_CONFIGS = {
+    "b-pv-8ch": NanogridConfig(num_chargers=8, pv_system=True, battery_system=True, penalty_mode="sparse"),
+    "artifact-4ch": NanogridConfig(num_chargers=4, pv_system=True, battery_system=True, penalty_mode="sparse"),
+}
+ART4 = DDPG_CONFIGS["artifact-4ch"]
+NARROW = (64, 48)  # the DDPG torso at test width; the card's tests run 400-300
+
+
+def port_actor(config, flax_params):
+    low, high = config.action_bounds()
+    return ddpg_actor_from_flax(flax_params, low, high)
+
+
+@pytest.mark.parametrize("name", list(DDPG_CONFIGS))
+def test_ddpg_policy_day_twin_matches_pallas(name):
+    config = DDPG_CONFIGS[name]
+    u, pv = kernel_inputs(config, 11, 128)
+    flax_params = flax_ddpg_actor(config, 23, hidden=NARROW)
+    with jax.enable_x64(False):
+        ref = pallas_gen_policy_day(config, jax_make_params(config, dtype=jnp.float32), flax_params,
+                                    jnp.asarray(u), jnp.asarray(pv), interpret=True, actor="ddpg")
+    got = gen_policy_day(config, make_params(config, torch.float32, "cpu"), port_actor(config, flax_params),
+                         torch.from_numpy(u), torch.from_numpy(pv), actor="ddpg")
+    for name, g, r in zip(("rewards", "actions", "soc", "batt"), got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-4, atol=2e-4, err_msg=name)
+    low, high = config.action_bounds()
+    a = got[1].numpy()
+    assert (a >= low[None, :, None]).all() and (a <= high[None, :, None]).all()
+
+
+def test_ddpg_policy_multiday_twin_equals_explicit_days():
+    """K6's DDPG twin equals K5's DDPG twin fed the same Philox days with the
+    battery carried; ``evaluate_policy_at_scale(algorithm="ddpg")`` reads it."""
+    config = ART4
+    params = make_params(config, torch.float32, "cpu")
+    traces = kernel_traces(params, torch.device("cpu"))
+    net = port_actor(config, flax_ddpg_actor(config, 29, hidden=NARROW))
+    weights = actor_weights(config, net, torch.device("cpu"), actor="ddpg")
+    stats = gen_policy_multiday_plain(config, traces, weights, 2, 4, 32, actor="ddpg")
+    batt = torch.full((32,), 0.5)
+    returns = []
+    for day in range(2):
+        u, u_pv = day_uniforms(4, day, 32, 24, 4, "cpu")
+        rew, _, _, batt = gen_policy_day_plain(config, traces, weights, u, pv_shift_from_uniform(u_pv), batt,
+                                               actor="ddpg")
+        returns.append(rew.sum(0, dtype=torch.float64))
+    days = torch.stack(returns)
+    np.testing.assert_allclose(stats[0].double().numpy(), days.sum(0).numpy(), rtol=1e-5)
+    np.testing.assert_allclose(stats[1].double().numpy(), (days ** 2).sum(0).numpy(), rtol=1e-5)
+    np.testing.assert_array_equal(stats[2].numpy(), batt.numpy())
+    res = evaluate_policy_at_scale(config, params, net, 2, 32, seed=4, algorithm="ddpg")
+    np.testing.assert_allclose(res["mean_day_return"], float(days.mean()), rtol=1e-5)
+
+
+def test_ddpg_actor_option_rejects_the_wrong_network_and_large_torsos():
+    params = make_params(ART4, torch.float32, "cpu")
+    net = port_actor(ART4, flax_ddpg_actor(ART4, 3))
+    u, pv = kernel_inputs(ART4, 1, 8)
+    with pytest.raises(ValueError, match="ActorCritic"):
+        gen_policy_day(ART4, params, net, torch.from_numpy(u), torch.from_numpy(pv), actor="ppo")
+    with pytest.raises(ValueError, match="actor must be"):
+        gen_policy_day(ART4, params, net, torch.from_numpy(u), torch.from_numpy(pv), actor="sac")
+    traces = kernel_traces(params, torch.device("cpu"))
+    check_ddpg_torso(ART4, (400, 300), traces)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_ddpg_torso(ART4, (1024, 1024), traces)
+
+

@@ -1,10 +1,10 @@
 """Parity helpers for the PyTorch port's tests: build JAX inputs on the CPU,
 convert them to the port's tensor containers and back, and restore the
-committed PPO artifact.
+committed PPO and DDPG artifacts.
 
 Kept outside ``smart_nanogrid_gym_torch`` so that the port itself never
 imports JAX, flax or orbax.  Run as a script to (re)write the artifact's
-numpy copy: ``PYTHONPATH=. python tests/torch_parity.py``.
+numpy copies: ``PYTHONPATH=. python tests/torch_parity.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT_DIR = os.path.join(REPO, "artifacts", "PPO-b-pv-bounded-sparse-4ch-1h")
 ARTIFACT_STEP = 108_134_400
 ARTIFACT_NPZ = os.path.join(ARTIFACT_DIR, f"{ARTIFACT_STEP}.npz")
+DDPG_ARTIFACT_DIR = os.path.join(REPO, "artifacts", "DDPG-b-pv-bounded-sparse-4ch-1h")
+DDPG_ARTIFACT_STEP = 49_152_000
+DDPG_ARTIFACT_NPZ = os.path.join(DDPG_ARTIFACT_DIR, f"{DDPG_ARTIFACT_STEP}.npz")
 
 
 def to_torch(x) -> torch.Tensor:
@@ -56,8 +59,8 @@ def state_to_torch(state) -> EnvState:
     )
 
 
-def artifact_config() -> NanogridConfig:
-    with open(os.path.join(ARTIFACT_DIR, "config.json")) as fp:
+def artifact_config(directory: str = ARTIFACT_DIR) -> NanogridConfig:
+    with open(os.path.join(directory, "config.json")) as fp:
         meta = json.load(fp)
     return NanogridConfig(
         num_chargers=meta["num_chargers"],
@@ -86,6 +89,25 @@ def restore_artifact():
         return restore_checkpoint(ARTIFACT_DIR, ARTIFACT_STEP, template)
 
 
+def restore_ddpg_artifact():
+    """The DDPG artifact's actor params as stored (f32): the checkpoint holds
+    only ``actor_params``, restored with the actor template
+    (tests/test_artifacts.py)."""
+    import jax
+    import jax.numpy as jnp
+
+    from smart_nanogrid_gym_tpu.core import make_params
+    from smart_nanogrid_gym_tpu.solvers.ddpg import DDPGConfig, DDPGLearner
+    from smart_nanogrid_gym_tpu.utils.checkpoint import restore_checkpoint
+
+    config = artifact_config(DDPG_ARTIFACT_DIR)
+    with jax.enable_x64(False):
+        learner = DDPGLearner(config, DDPGConfig(buffer_days=2, gradient_steps=1))
+        template = learner.init(jax.random.PRNGKey(0), make_params(config, dtype=jnp.float32),
+                                batch_size=1).actor_params
+        return restore_checkpoint(DDPG_ARTIFACT_DIR, DDPG_ARTIFACT_STEP, template)
+
+
 def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     """``{"a": {"b": x}}`` -> ``{"a/b": x}`` with numpy leaves."""
     out = {}
@@ -100,6 +122,11 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
 
 def write_artifact_npz(path: str = ARTIFACT_NPZ) -> str:
     np.savez(path, **flatten(restore_artifact()))
+    return path
+
+
+def write_ddpg_artifact_npz(path: str = DDPG_ARTIFACT_NPZ) -> str:
+    np.savez(path, **flatten(restore_ddpg_artifact()))
     return path
 
 
@@ -136,5 +163,30 @@ def shifted_flax_actor(config, seed: int):
     return jax.tree.map(np.asarray, params)
 
 
+def flax_ddpg_actor(config, seed: int, hidden=(400, 300), shift: bool = True):
+    """Fresh flax DDPGActor params (numpy), with the output biases pushed off
+    the 0 branch boundaries (tests/test_pallas.py:252-263): 0.4 per charger
+    (0.5/-0.4 alternating with v2x), -0.6 for the battery."""
+    import jax
+    import jax.numpy as jnp
+
+    from smart_nanogrid_gym_tpu.solvers.networks import DDPGActor as FlaxDDPGActor
+
+    low, high = config.action_bounds()
+    net = FlaxDDPGActor(config.num_actions, tuple(low.tolist()), tuple(high.tolist()), hidden)
+    with jax.enable_x64(False):
+        params = net.init(jax.random.PRNGKey(seed), jnp.zeros((1, config.obs_dim), jnp.float32))
+    params = jax.tree.map(np.asarray, params)
+    if shift:
+        if config.vehicle_to_everything:
+            ch_bias = np.where(np.arange(config.num_chargers) % 2 == 0, 0.5, -0.4)
+        else:
+            ch_bias = np.full(config.num_chargers, 0.4)
+        bias = np.concatenate([ch_bias, [-0.6]] if config.battery_system else [ch_bias]).astype(np.float32)
+        params["params"]["mu"]["Dense_2"]["bias"] = bias
+    return params
+
+
 if __name__ == "__main__":
     print(write_artifact_npz())
+    print(write_ddpg_artifact_npz())
