@@ -1,13 +1,13 @@
-"""Drive the PyTorch port's evaluation, PPO and DDPG training paths once on a CUDA card.
+"""Drive the PyTorch port's evaluation, training and stateful-env paths once on a CUDA card.
 
 Run from the root of the repository, on a machine with one NVIDIA card and
 the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels K1-K10 from ``smart_nanogrid_gym_torch/csrc``
+It builds the hand-written kernels K1-K11 from ``smart_nanogrid_gym_torch/csrc``
 with nvcc (one process per library, all at once), holds each against its
-plain-PyTorch twin on the card, and drives four paths through their user
+plain-PyTorch twin on the card, and drives five paths through their user
 entry points, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -24,7 +24,13 @@ just after:
 - DDPG training (K9, K10): ``DDPGLearner(collect_impl="kernel",
   sweep_impl="kernel")`` for 50 updates at B=4096 on the bench config, the
   trained actor with zero noise on explicit days (K9 explicit), and a
-  learning run on the artifact's 4-charger config scored by K6.
+  learning run on the artifact's 4-charger config scored by K6;
+- the stateful env (K11a, K11b): card resets rolled by ``rbc_day_rollout``
+  (the bench's reset + RBC day row, 50 days at B=4096 and one day at
+  B=131,072), the PPO artifact's day from given states
+  (``policy_day_rollout``), ``VectorSmartNanogridEnv`` at 4096 envs against
+  K11a, and the gym adapter's day, its same-day JSON replay and
+  ``predict_single_day`` on that day.
 
 It checks the launch counts, the statistics of the in-kernel draws against
 the plain engine, that training raises the mean day return, and times each
@@ -67,6 +73,10 @@ DDPG_REPLACES = {
     "gen_policy_day_ddpg": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:439",
     "gen_policy_multiday_ddpg": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:522",
 }
+TABLES_REPLACES = {
+    "rbc_day_rollout": "smart_nanogrid_gym_tpu/ops/pallas_rollout.py:144",
+    "policy_day_rollout": "smart_nanogrid_gym_tpu/ops/pallas_policy_rollout.py:186",
+}
 DDPG_TRAIN_REPLACES = {
     "ddpg_collect_day": "smart_nanogrid_gym_tpu/ops/pallas_collect.py:424",
     "ddpg_collect_day_seeded": "smart_nanogrid_gym_tpu/ops/pallas_collect.py:461",
@@ -76,6 +86,8 @@ BENCH_BATCH = 4096
 TRAIN_UPDATES = 50
 DDPG_LEARN_UPDATES = 150  # the 4-charger learning run, scored against its initial actor
 DDPG_HIDDEN = (400, 300)
+RESET_DAYS = 50  # the bench's card reset + RBC day row
+FULL_BATCH = 131_072  # a batch that fills the card
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -94,16 +106,45 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare(name: str, got, want, rtol: float, atol: float) -> float:
-    """Kernel against twin, element for element; returns the max abs error."""
+def compare(name: str, got, want, rtol: float, atol: float, against: str = "twin") -> float:
+    """Kernel against its twin (or ``against`` another reference), element
+    for element; returns the max abs error."""
     err = 0.0
     for g, w in zip(got, want):
         check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
         check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol, msg=lambda m: f"{name}: {m}")
         err = max(err, float((g - w).abs().max()))
-    print(f"{name}: kernel vs twin max_abs_err {err:.3e} (rtol {rtol}, atol {atol})")
+    print(f"{name}: kernel vs {against} max_abs_err {err:.3e} (rtol {rtol}, atol {atol})")
     return err
+
+
+def shifted_actor(config, seed: int, device):
+    """A fresh PPO actor-critic with the action-mean biases pushed off the 0
+    branch boundaries (tests/test_pallas.py:115-127): 0.5 per charger, or
+    0.5/-0.4 alternating with v2x, and -0.3 for the battery."""
+    from smart_nanogrid_gym_torch.solvers.networks import ActorCritic
+
+    torch.manual_seed(seed)
+    net = ActorCritic(config.obs_dim, config.num_actions)
+    bias = [0.5 if n % 2 == 0 or not config.vehicle_to_everything else -0.4 for n in range(config.num_chargers)]
+    with torch.no_grad():
+        net.pi.Dense_2.bias.copy_(torch.tensor(bias + [-0.3] if config.battery_system else bias))
+    return net.to(device)
+
+
+def device_ms(fn, kernel: str, repeats: int) -> float:
+    """Mean device milliseconds per call of the kernels whose name holds
+    ``kernel``, by ``torch.profiler`` over ``repeats`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
+    check(total_us > 0, f"the profiler recorded no device time for {kernel}")
+    return total_us / repeats / 1e3
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -365,6 +406,41 @@ def training_main_path(cfg, params, u, pv, device, card):
     for name in TRAIN_REPLACES:
         check(launches.get(name, 0) >= 1, f"kernel {name} was not launched on the training path")
     return learner, state, launches
+
+
+def tables_in_timings(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card, times):
+    """Phase 7, K11a and K11b: the kernel's device time (profiler) on tables
+    already built, the twin's time on the same tables, the wrapper's (table
+    build included) and the table build's (CUDA events)."""
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+    from smart_nanogrid_gym_torch.ops.policy_rollout import (
+        launch_policy_day, policy_day_rollout, policy_day_rollout_plain)
+    from smart_nanogrid_gym_torch.ops.rollout import (
+        launch_rbc_day, rbc_day_rollout, rbc_day_rollout_plain, state_tables)
+
+    rbc_state = given_states(rbc_cfg, rbc_params, 70, device)["fresh"]
+    art_state = given_states(art_cfg, art_params, 71, device)["fresh"]
+    rbc_traces, art_traces = kernel_traces(rbc_params, device), kernel_traces(art_params, device)
+    weights = actor_weights(art_cfg, artifact, device)
+    rbc_st, art_st = state_tables(rbc_cfg, rbc_params, rbc_state), state_tables(art_cfg, art_params, art_state)
+    cases = {
+        "rbc_day_rollout": (f"B={BENCH_BATCH}, 1 day, 8ch b-pv, given state", "rbc_day_rollout_kernel",
+                            lambda: launch_rbc_day(rbc_cfg, rbc_traces, rbc_st),
+                            lambda: rbc_day_rollout_plain(rbc_cfg, rbc_traces, rbc_st),
+                            lambda: rbc_day_rollout(rbc_cfg, rbc_params, rbc_state),
+                            lambda: state_tables(rbc_cfg, rbc_params, rbc_state)),
+        "policy_day_rollout": (f"B={BENCH_BATCH}, 1 day, artifact 4ch b-pv, given state", "policy_day_rollout_kernel",
+                               lambda: launch_policy_day(art_cfg, art_traces, weights, art_st, artifact.hidden),
+                               lambda: policy_day_rollout_plain(art_cfg, art_traces, weights, art_st),
+                               lambda: policy_day_rollout(art_cfg, art_params, art_state, artifact),
+                               lambda: state_tables(art_cfg, art_params, art_state)),
+    }
+    for name, (shape, kernel_name, kernel, plain, wrapper, tables) in cases.items():
+        times[name] = (shape, device_ms(kernel, kernel_name, 20), cuda_ms(plain, 1))
+        print(f"phase 7 {name} ({shape}): kernel {times[name][1]:.4f} ms of device time, plain twin "
+              f"{times[name][2]:.4f} ms, wrapper with the table build {cuda_ms(wrapper, 20):.4f} ms, table build "
+              f"{cuda_ms(tables, 20):.4f} ms, launch alone {cuda_ms(kernel, 20):.4f} ms on {card}")
 
 
 def training_timings(learner, cfg, params, state, featlane, gathered, u, pv, normals, batt, card, times):
@@ -759,6 +835,228 @@ def ddpg_timings(art_cfg, art_params, ddpg_art, u4, pv4, cfg, params, learner, l
           f"sampling and gather {sums[1]:.4f} ms, sweep {sums[2]:.4f} ms (CUDA events, mean of {reps}) on {card}")
 
 
+def given_states(config, params, seed: int, device):
+    """Card reset states of BENCH_BATCH envs, and the same envs continued
+    into day 2 by one plain RBC day (day-1 SoC history and a carried
+    penalty mask)."""
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch, fused_day_rollout
+    from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fresh, _ = SmartNanogridTorch(config).reset_batch(params, BENCH_BATCH, gen)
+    day2, _ = fused_day_rollout(config, params, fresh, make_rbc_policy_fn(config), generator=gen)
+    return {"fresh": fresh, "continued": day2}
+
+
+def tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg, v2x_params, device, errors):
+    """Phases 20-21 (checks): K11a and K11b element for element against their
+    twins at B=4096, and against the plain engine (fused_day_rollout) on the
+    same given states."""
+    from smart_nanogrid_gym_torch.core import fused_day_rollout
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+    from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout, policy_day_rollout_plain
+    from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout, rbc_day_rollout_plain, state_tables
+    from smart_nanogrid_gym_torch.solvers.networks import make_actor_policy_fn
+    from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
+
+    T = rbc_cfg.steps_per_day
+    traces, rbc = kernel_traces(rbc_params, device), make_rbc_policy_fn(rbc_cfg)
+    err = 0.0
+    for label, state in given_states(rbc_cfg, rbc_params, 20, device).items():
+        if label == "continued":
+            changed = int((state.soc[..., :T] != state.schedule.soc_init[..., :T]).sum())
+            print(f"phase 20 continued state: {int(state.pmask.sum())} carried penalty-mask entries, {changed} SoC "
+                  f"entries of day 1's history differ from the day's initial SoC")
+        got = rbc_day_rollout(rbc_cfg, rbc_params, state)
+        err = max(err, compare(f"phase 20 K11a rbc_day_rollout ({label} state, 8ch b-pv, B={BENCH_BATCH})", got,
+                               rbc_day_rollout_plain(rbc_cfg, traces, state_tables(rbc_cfg, rbc_params, state)),
+                               rtol=2e-5, atol=1e-5))
+        final, (_, rewards, _) = fused_day_rollout(rbc_cfg, rbc_params, state, rbc, next_pv_shift=state.pv_shift)
+        compare(f"phase 20 K11a ({label} state)", got, (rewards, final.soc[..., T - 1].T), rtol=2e-5, atol=1e-5,
+                against="plain engine (fused_day_rollout, RBC)")
+    errors["rbc_day_rollout"] = err
+
+    err = 0.0
+    cases = (("the PPO artifact, 4ch b-pv", art_cfg, art_params, artifact, 21),
+             ("bench config, biases shifted, 8ch b-pv", rbc_cfg, rbc_params, shifted_actor(rbc_cfg, 22, device), 22),
+             ("v2x-b-pv 8ch, alternating biases", v2x_cfg, v2x_params, shifted_actor(v2x_cfg, 23, device), 23))
+    for label, cfg, params, net, seed in cases:
+        state = given_states(cfg, params, seed, device)["fresh"]
+        got = policy_day_rollout(cfg, params, state, net)
+        want = policy_day_rollout_plain(cfg, kernel_traces(params, device), actor_weights(cfg, net, device),
+                                        state_tables(cfg, params, state))
+        err = max(err, compare(f"phase 21 K11b policy_day_rollout ({label}, B={BENCH_BATCH})", got, want,
+                               rtol=2e-4, atol=2e-4))
+        final, (_, rewards, _) = fused_day_rollout(cfg, params, state, make_actor_policy_fn(cfg, net),
+                                                   next_pv_shift=state.pv_shift)
+        compare(f"phase 21 K11b ({label})", (got[0], got[2]), (rewards, final.soc[..., T - 1].T), rtol=2e-4,
+                atol=2e-4, against="plain engine (fused_day_rollout, deterministic actor)")
+        low, high = (torch.as_tensor(b, device=device)[None, :, None] for b in cfg.action_bounds())
+        check(bool(((got[1] >= low) & (got[1] <= high)).all()), f"K11b ({label}): actions outside the box")
+        if cfg.vehicle_to_everything:
+            chargers = got[1][:, :cfg.num_chargers]
+            check(bool((chargers > 0).any() and (chargers < 0).any()), "K11b v2x: not both charger branches ran")
+    errors["policy_day_rollout"] = err
+
+
+def rbc_actions_on(device, config):
+    """The RBC as the adapters' caller runs it: numpy observations in, numpy
+    actions out, the rule evaluated on ``device``."""
+    from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
+
+    rbc = make_rbc_policy_fn(config)
+    return lambda obs: rbc(torch.from_numpy(obs).to(device)).cpu().numpy()
+
+
+def stateful_env_main_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card):
+    """Phases 20-23, the stateful-env path through the entry points a user
+    calls, with the launch counts set to 0 before it and read after it."""
+    import shutil
+
+    from smart_nanogrid_gym_torch.compat import SmartNanogridEnv, VectorSmartNanogridEnv
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch
+    from smart_nanogrid_gym_torch.core.generate import load_initial_values_json
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+    from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout
+    from smart_nanogrid_gym_torch.ops.rollout import launch_rbc_day, rbc_day_rollout, state_tables
+    from smart_nanogrid_gym_torch.solvers.evaluator import predict_single_day
+    from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
+
+    T = rbc_cfg.steps_per_day
+    env = SmartNanogridTorch(rbc_cfg)
+    gen = torch.Generator(device=device).manual_seed(2020)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+
+    # ---- phase 20: the bench row "card reset + K11a" ----
+    returns = []
+    t0 = time.perf_counter()
+    for _ in range(RESET_DAYS):
+        state, _ = env.reset_batch(rbc_params, BENCH_BATCH, gen)
+        returns.append(rbc_day_rollout(rbc_cfg, rbc_params, state)[0].sum(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    returns = torch.cat(returns).double()
+    check(bool(torch.isfinite(returns).all()), "K11a: non-finite day returns")
+    print(f"phase 20 card reset + K11a: B={BENCH_BATCH} x {RESET_DAYS} days in {seconds:.4f} s = "
+          f"{BENCH_BATCH * RESET_DAYS * T / seconds:.4e} env-steps/s on {card}; mean day return "
+          f"{float(returns.mean()):.4f}")
+    traces, split, reps = kernel_traces(rbc_params, device), [0.0, 0.0, 0.0], 5
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        state, _ = env.reset_batch(rbc_params, BENCH_BATCH, gen)
+        ev[1].record()
+        st = state_tables(rbc_cfg, rbc_params, state)
+        ev[2].record()
+        launch_rbc_day(rbc_cfg, traces, st)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if rep > 0:  # the first pass warms up
+            for i in range(3):
+                split[i] += ev[i].elapsed_time(ev[i + 1]) / reps
+    print(f"phase 20 one day (B={BENCH_BATCH}) by CUDA events, mean of {reps}: reset {split[0]:.4f} ms, table build "
+          f"{split[1]:.4f} ms, K11a launch {split[2]:.4f} ms on {card}")
+    big, _ = env.reset_batch(rbc_params, FULL_BATCH, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big_rewards, _ = rbc_day_rollout(rbc_cfg, rbc_params, big)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(bool(torch.isfinite(big_rewards).all()), "K11a at full batch: non-finite rewards")
+    table_mb = 7 * T * rbc_cfg.num_chargers * FULL_BATCH * 4 / 1e6
+    print(f"phase 20 K11a at B={FULL_BATCH} ({table_mb:.0f} MB of tables): wrapper with table build "
+          f"{seconds * 1e3:.3f} ms = {FULL_BATCH * T / seconds:.4e} env-steps/s on {card}")
+    del big, big_rewards
+
+    # ---- phase 21: the PPO artifact's day from given states, beside the RBC's ----
+    art_state, _ = SmartNanogridTorch(art_cfg).reset_batch(art_params, BENCH_BATCH, gen)
+    ppo_rewards, actions, _ = policy_day_rollout(art_cfg, art_params, art_state, artifact)
+    rbc_rewards, _ = rbc_day_rollout(art_cfg, art_params, art_state)
+    check(bool(torch.isfinite(ppo_rewards).all() and torch.isfinite(actions).all()), "K11b: non-finite output")
+    ppo_mean, rbc_mean = float(ppo_rewards.sum(0).mean()), float(rbc_rewards.sum(0).mean())
+    print(f"phase 21 given states (B={BENCH_BATCH}, 4ch): PPO artifact {ppo_mean:.4f}, rbc {rbc_mean:.4f}")
+    check(ppo_mean > rbc_mean, "the artifact should beat the RBC on the same given states")
+
+    # ---- phase 22: the vector env at 4096 envs, one day against K11a ----
+    kw = dict(number_of_chargers=rbc_cfg.num_chargers, pv_system_available_in_model=True,
+              battery_system_available_in_model=True, time_interval="1h", vehicle_uncharged_penalty_mode="sparse")
+    venv = VectorSmartNanogridEnv(num_envs=BENCH_BATCH, seed=22, device=device, **kw)
+    rbc_np = rbc_actions_on(device, venv.config)
+    obs, _ = venv.reset()
+    k11a_rewards, _ = rbc_day_rollout(venv.config, venv.params, venv.states)
+    rewards, step_s = [], 0.0
+    for _ in range(T):
+        act = rbc_np(obs)
+        t0 = time.perf_counter()
+        obs, rew, term, trunc, infos = venv.step(act)
+        step_s += time.perf_counter() - t0
+        rewards.append(rew)
+    compare(f"phase 22 vector env day (B={BENCH_BATCH}, RBC)", (k11a_rewards,),
+            (torch.from_numpy(np.stack(rewards)).to(device),), rtol=2e-5, atol=1e-5,
+            against="VectorSmartNanogridEnv's per-step rewards")
+    check(bool(term.all()) and not trunc.any() and "final_observation" in infos, "vector env: no day end at step 24")
+    check(bool((venv.states.t == 0).all()), "vector env: the autoreset did not start a new day")
+    check(np.array_equal(obs[:, -1], infos["final_observation"][:, -1]), "vector env: battery not carried")
+    hold = np.tile(np.append(np.full(rbc_cfg.num_chargers, 0.3), -0.4), (BENCH_BATCH, 1)).astype(np.float32)
+    for _ in range(T):
+        obs, _, term, _, infos = venv.step(hold)
+    check(bool(term.all()) and np.array_equal(obs[:, -1], infos["final_observation"][:, -1])
+          and bool((obs[:, -1] < 0.5).all()), "vector env: the discharged battery was not carried into day 3")
+    print(f"phase 22 VectorSmartNanogridEnv(num_envs={BENCH_BATCH}): {step_s / T * 1e3:.3f} ms per step (host "
+          f"clock, numpy in and out) on {card}; day end at step {T}, battery carried (mean "
+          f"{float(obs[:, -1].mean()):.4f} after a discharging day)")
+
+    # ---- phase 23: the gym adapter, its same-day replay, predict_single_day ----
+    out = os.path.join(ROOT, "build", "chip_smoke_adapter")
+    shutil.rmtree(out, ignore_errors=True)
+    akw = dict(kw, algorithm_used="RBC", environment_mode="prediction", seed=23, device=device)
+    adapter = SmartNanogridEnv(output_directory=os.path.join(out, "day"), **akw)
+
+    def run_day(env, obs):
+        rewards, dones, t0 = [], [], time.perf_counter()
+        for _ in range(T):
+            obs, reward, done, _, _ = env.step(rbc_np(obs))
+            rewards.append(reward)
+            dones.append(done)
+        return rewards, dones, time.perf_counter() - t0
+
+    obs, _ = adapter.reset()
+    pv_shift = float(adapter._state.pv_shift)
+    day_rewards, dones, seconds = run_day(adapter, obs)
+    check(dones == [False] * (T - 1) + [True], "adapter: done must fire at step 24 only")
+    dumps = os.path.join(out, "day", "RL", "single_prediction_files")
+    root = f"RBC-b-pv-bounded-sparse-{rbc_cfg.num_chargers}ch-1h"
+    for name in ("prediction_results.json", f"{root}-prediction_results.json", f"{root}-initial_values.json"):
+        check(os.path.exists(os.path.join(dumps, name)), f"adapter: {name} was not written")
+    with open(os.path.join(dumps, "prediction_results.json")) as fp:
+        check(len(json.load(fp)) == 28, "adapter: prediction_results.json must hold 28 keys")
+    day_json = os.path.join(out, "day", "initial_values.json")
+    replay = SmartNanogridEnv(output_directory=os.path.join(out, "replay"), **akw)
+    obs, _ = replay.reset(generate_new_initial_values=False, initial_values_path=day_json)
+    check(float(replay._state.pv_shift) == pv_shift, "replay: another PV shift")
+    replay_rewards, _, _ = run_day(replay, obs)
+    check(replay_rewards == day_rewards, "the same-day replay did not reproduce the rewards bit for bit")
+    rbc = make_rbc_policy_fn(adapter.config)
+    predicted, info = predict_single_day(adapter.config, adapter.params, rbc, torch.Generator(device=device),
+                                         schedule=load_initial_values_json(day_json, adapter.config,
+                                                                           torch.float32, device),
+                                         pv_shift=pv_shift)
+    check(np.array_equal(predicted.astype(np.float64), np.asarray(day_rewards)),
+          "predict_single_day differs from the adapter on the same day")
+    check(len(info) == 26 and info.charger_actions.shape == (T, rbc_cfg.num_chargers), "predict_single_day telemetry")
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    print(f"phase 23 SmartNanogridEnv on {card}: {seconds / T * 1e3:.3f} ms per single-env step; day return "
+          f"{sum(day_rewards):.4f}; the JSON replay and predict_single_day give the same rewards bit for bit")
+    print(f"stateful-env path launches: {launches}")
+    for name in TABLES_REPLACES:
+        check(launches.get(name, 0) >= 1, f"kernel {name} was not launched on the stateful-env path")
+    return launches
+
+
 def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
     """The least time of each kernel at the shape phase 7/12 times it."""
     B, T = BENCH_BATCH, rbc_cfg.steps_per_day
@@ -810,6 +1108,14 @@ def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
     P_actor, P_critic = actor_fwd + H1 + H2 + A8, critic_fwd + H1 + H2 + 1
     out["ddpg_sweep"] = bound(4 * Gd * Md * (2 * F8 + A8 + 2) + 4 * 2 * 4 * (P_actor + P_critic) + 4 * 2 * Gd,
                               2 * macs * Gd * Md)
+
+    # K11a/K11b: the seven (T, N, B) tables, the carried column and mask, the
+    # battery and PV shift in; rewards, (actions,) and the final column out
+    def tables_in_bytes(N, A):
+        return 4 * (7 * T * N * B + 2 * N * B + 2 * B + T * B + T * A * B + N * B)
+
+    out["rbc_day_rollout"] = bound(tables_in_bytes(N8, 0), 0)
+    out["policy_day_rollout"] = bound(tables_in_bytes(N4, A4), actor4 * T * B)
     return out
 
 
@@ -825,7 +1131,7 @@ def main() -> None:
     from smart_nanogrid_gym_torch.ops.gen_rollout import (
         gen_rbc_day, gen_rbc_day_plain, gen_rbc_multiday, gen_rbc_multiday_plain, kernel_traces)
     from smart_nanogrid_gym_torch.solvers.evaluator import evaluate_policy_at_scale
-    from smart_nanogrid_gym_torch.solvers.networks import ActorCritic, make_actor_policy_fn
+    from smart_nanogrid_gym_torch.solvers.networks import make_actor_policy_fn
     from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
     from smart_nanogrid_gym_torch.utils.weights import load_actor_critic_npz, load_ddpg_actor_npz
 
@@ -878,12 +1184,7 @@ def main() -> None:
         "K5 gen_policy_day (artifact, 4ch b-pv)", gen_policy_day(art_cfg, art_params, artifact, u4, pv4),
         gen_policy_day_plain(art_cfg, art_traces, actor_weights(art_cfg, artifact, device), u4, pv4,
                              torch.full_like(pv4, 0.5)), rtol=2e-4, atol=2e-4)
-    torch.manual_seed(13)
-    v2x_actor = ActorCritic(v2x_cfg.obs_dim, v2x_cfg.num_actions)
-    with torch.no_grad():
-        bias = [0.5 if n % 2 == 0 else -0.4 for n in range(v2x_cfg.num_chargers)] + [-0.3]
-        v2x_actor.pi.Dense_2.bias.copy_(torch.tensor(bias))
-    v2x_actor = v2x_actor.to(device)
+    v2x_actor = shifted_actor(v2x_cfg, 13, device)
     u8, pv8 = explicit_inputs(v2x_cfg, BENCH_BATCH, 2, device)
     err_v2x = compare(
         "K5 gen_policy_day (shifted actor, 8ch v2x-b-pv)",
@@ -1029,6 +1330,11 @@ def main() -> None:
     ddpg_learner, ddpg_state, ddpg_train_launches, ddpg_ms = ddpg_training_main_path(
         rbc_cfg, rbc_params, art_cfg, art_params, u, pv, device, card)
 
+    # ---- phases 20-23: K11a/K11b against their twins, then the stateful-env path ----
+    tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg, v2x_params, device, errors)
+    torch.cuda.synchronize()
+    tables_launches = stateful_env_main_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card)
+
     # ---- phase 7: each kernel and its twin, timed on the card ----
     timing_days = 20
     cases = {
@@ -1053,6 +1359,7 @@ def main() -> None:
         times[name] = (shape, cuda_ms(kernel, repeats), cuda_ms(plain, 1))
         print(f"phase 7 {name} ({shape}): kernel {times[name][1]:.4f} ms, "
               f"plain twin {times[name][2]:.4f} ms on {card}")
+    tables_in_timings(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card, times)
 
     training_timings(learner, rbc_cfg, rbc_params, trained_state, featlane, gathered, u, pv, normals,
                      batt_k1, card, times)
@@ -1068,7 +1375,7 @@ def main() -> None:
     kernels = []
     # each kernel's launches in the run of the main path it belongs to
     paths = ((TRAIN_REPLACES, train_launches), (REPLACES, launches), (DDPG_REPLACES, ddpg_eval_launches),
-             (DDPG_TRAIN_REPLACES, ddpg_train_launches))
+             (DDPG_TRAIN_REPLACES, ddpg_train_launches), (TABLES_REPLACES, tables_launches))
     sources = {"ppo_sweep_streamed": SWEEP_SOURCE, "ppo_sweep": SWEEP_SOURCE, "ddpg_sweep": DDPG_SWEEP_SOURCE}
     for name, replaces, count in ((n, r, path_launches[n]) for table, path_launches in paths
                                   for n, r in table.items()):

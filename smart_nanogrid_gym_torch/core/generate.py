@@ -6,12 +6,21 @@ per-env ``(T, 5, N)`` contract of the JAX ``generate_schedule(uniforms=...)``
 the same tables bit for bit: its two multiply-adds go through
 ``torch.addcmul``, which rounds once like the fused multiply-add XLA's CPU
 backend emits for them.  The seeded path draws that block from a
-``torch.Generator`` (:func:`draw_uniforms`).  The JSON replay helpers of the
-JAX module are not ported yet.
+``torch.Generator`` (:func:`draw_uniforms`).
+
+The host-side replay helpers (``generate.py:149-289``) read and write the
+reference's ``initial_values.json`` day: :func:`schedule_from_arrays`,
+:func:`load_initial_values_json` and :func:`schedule_to_json_dict` work on
+one env's ``(N, L)`` tables, as the JAX helpers do.  The bit-exact replay
+from a reference seed (``schedule_from_reference_seed``, the native MT19937
+generator) is not ported yet.
 """
 
 from __future__ import annotations
 
+import json
+
+import numpy as np
 import torch
 
 from .config import NanogridConfig
@@ -125,3 +134,119 @@ def generate_schedule(
         mask_departing=table(outs["m1"]),
         mask_departing3=table(outs["m3"]),
     )
+
+
+# ---------------------------------------------------------------------------
+# Host-side exact replay from recorded schedules
+# ---------------------------------------------------------------------------
+
+
+def schedule_from_arrays(
+    config: NanogridConfig,
+    soc,
+    arrivals: list[list[int]],
+    departures: list[list[int]],
+    occupancy,
+    capacities,
+    requested_soc=None,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+) -> DaySchedule:
+    """One env's schedule, ``(N, L)`` tables, from reference-format day arrays
+    (charging_station.py:119-136,164-180), built on the host with numpy.
+
+    The lookup tables reproduce the reference's per-step list searches:
+
+    - ``dep_obs[c, t]`` = first departure >= t, minus t, while occupied
+      (charging_station.py:92-112);
+    - ``mask_departing[c, t]`` = occupied and t+1 in departures[c] (:79-84);
+    - ``mask_departing3[c, t]`` = occupied and {t+1, t+2, t+3} meets
+      departures[c] (:86-90; the reference ignores its ``n``, SURVEY.md Q10);
+    - ``is_arrival[c, t]`` = t in arrivals[c] (the charger-level list).
+
+    Without ``requested_soc`` every occupied step requests 1.
+    """
+    N, T, L = config.num_chargers, config.steps_per_day, config.table_len
+
+    def fit(arr):
+        arr = np.asarray(arr, dtype=np.float64)
+        out = np.zeros((N, L), dtype=np.float64)
+        cols = min(L, arr.shape[1])
+        out[:, :cols] = arr[:, :cols]
+        return out
+
+    occ = fit(occupancy)
+    req = np.where(occ > 0, 1.0, 0.0) if requested_soc is None else fit(requested_soc)
+    is_arr = np.zeros((N, L))
+    dep_obs = np.zeros((N, L))
+    m1 = np.zeros((N, L))
+    m3 = np.zeros((N, L))
+    for c in range(N):
+        arr_set = {int(a) for a in arrivals[c]}
+        deps = [int(d) for d in departures[c]]
+        dep_set = set(deps)
+        for t in range(T):
+            if t in arr_set:
+                is_arr[c, t] = 1.0
+            if occ[c, t] > 0:
+                for d in deps:
+                    if t <= d:
+                        dep_obs[c, t] = d - t
+                        break
+                if (t + 1) in dep_set:
+                    m1[c, t] = 1.0
+                if (t + 1) in dep_set or (t + 2) in dep_set or (t + 3) in dep_set:
+                    m3[c, t] = 1.0
+
+    def table(x):
+        return torch.as_tensor(x, device=device).to(dtype)
+
+    return DaySchedule(
+        occupancy=table(occ),
+        capacity=table(fit(capacities)),
+        requested_soc=table(req),
+        soc_init=table(fit(soc)),
+        is_arrival=table(is_arr),
+        dep_obs=table(dep_obs),
+        mask_departing=table(m1),
+        mask_departing3=table(m3),
+    )
+
+
+def load_initial_values_json(path: str, config: NanogridConfig, dtype: torch.dtype = torch.float64,
+                             device: torch.device | str = "cuda") -> DaySchedule:
+    """One env's schedule from a reference-format ``initial_values.json``
+    (keys per charging_station.py:173-180; ``Requested_SOC`` optional)."""
+    with open(path) as fp:
+        initials = json.load(fp)
+    return schedule_from_arrays(
+        config,
+        soc=initials["SOC"],
+        arrivals=initials["Arrivals"],
+        departures=initials["Departures"],
+        occupancy=initials["Charger_occupancy"],
+        capacities=initials["Vehicle_capacities"],
+        requested_soc=initials.get("Requested_SOC"),
+        dtype=dtype,
+        device=device,
+    )
+
+
+def schedule_to_json_dict(schedule: DaySchedule, config: NanogridConfig) -> dict:
+    """One env's ``(N, L)`` schedule in the reference's ``initial_values.json``
+    layout (charging_station.py:173-180)."""
+    T = config.steps_per_day
+    host = DaySchedule(*(x.detach().cpu().numpy() for x in schedule))
+    arrivals, departures = [], []
+    for c in range(config.num_chargers):
+        arr_ts = [t for t in range(T) if host.is_arrival[c, t] > 0]
+        arrivals.append(arr_ts)
+        departures.append([int(t + host.dep_obs[c, t]) for t in arr_ts])
+    return {
+        "SOC": host.soc_init.tolist(),
+        "Arrivals": arrivals,
+        "Departures": departures,
+        "Charger_occupancy": host.occupancy.tolist(),
+        "Vehicle_capacities": host.capacity.tolist(),
+        "Requested_SOC": host.requested_soc.tolist(),
+    }

@@ -1,4 +1,5 @@
-// Day-step bodies of the fused generation + closed-loop kernels (K1, K2, K5-K8).
+// Day-step bodies of the fused generation + closed-loop kernels (K1, K2, K5-K9)
+// and of the tables-in day kernels (K11a, K11b).
 //
 // Replaces the Pallas TPU kernels of smart_nanogrid_gym_tpu/ops/:
 //   K7 pallas_gen_rollout.py::pallas_gen_rbc_day            -> gen_rbc_day_kernel<C, Explicit>
@@ -10,6 +11,8 @@
 //   K5/K6 with actor="ddpg"                                 -> gen_policy_day_ddpg_kernel<C>,
 //                                                              gen_policy_multiday_ddpg_kernel<C>
 //   K9 pallas_collect.py::pallas_ddpg_collect_day(_seeded)  -> ddpg_collect_day_kernel<C, SEEDED>
+//   K11a pallas_rollout.py::pallas_rbc_day_rollout          -> rbc_day_rollout_kernel<C>
+//   K11b pallas_policy_rollout.py::pallas_policy_day_rollout -> policy_day_rollout_kernel<C>
 //
 // Design: one thread per env runs the whole day; the per-charger carries live
 // in registers, the price/radiation/solar traces and (for K5/K6) the actor
@@ -51,6 +54,15 @@
 // memory (the whole actor stays in the 50 MB L2).  Each output's sum over
 // its inputs runs in index order, as the twin's dense() does.  It is bound
 // by the torso's multiply-adds, about 2.7e5 flops per env-step.
+//
+// The tables-in kernels (K11a RBC, K11b the PPO actor's mean) roll one day of
+// a given state instead of generating it: the wrapper (ops/rollout.py) builds
+// the seven (T, N, B) day tables of the state, packed as (7, T, N, B), and the
+// kernel reads column t of each per step, coalesced across envs, with the
+// state's carried SoC column and penalty mask in registers.  K11a reads 28
+// bytes per charger-step and does a few dozen operations, so it is bound by
+// those bytes; K11b by the actor's multiply-adds, as K5.  They share the RBC
+// action, the charger and battery physics and the penalty with K5/K7.
 #pragma once
 
 #include <cstdint>
@@ -293,13 +305,19 @@ __device__ __forceinline__ Column generate_column(int t, int n, const StepDraws<
   return k;
 }
 
+// Insufficiency penalty of one charger: the previous SoC column against the
+// requested SoC at (t-1) mod L, for the chargers in the trailing-observe mask.
+__device__ __forceinline__ float insufficiency_penalty(float pmask, float prev_col, float req_p) {
+  const bool insufficient = prev_col < req_p - kMargin * req_p;
+  const float gap = (req_p - prev_col) * kGain;
+  return (pmask > 0.0f && insufficient) ? gap * gap : 0.0f;
+}
+
 // Insufficiency penalty of charger n from the previous step's carry (Q2 reads).
 template <class C>
 __device__ __forceinline__ float vehicle_penalty(int n, float pmask, const Carry<C>& c) {
   const float req_p = C::REQ_SOC ? c.prev_reqcol[n] : c.present[n];
-  const bool insufficient = c.prev_col[n] < req_p - kMargin * req_p;
-  const float gap = (req_p - c.prev_col[n]) * kGain;
-  return (pmask > 0.0f && insufficient) ? gap * gap : 0.0f;
+  return insufficiency_penalty(pmask, c.prev_col[n], req_p);
 }
 
 // Generation-carry update of charger n (prev_col is written after the physics).
@@ -317,6 +335,17 @@ __device__ __forceinline__ void advance_carry(int n, const Column& k, Carry<C>& 
 
 // ------------------------------------------------------------- RBC step ---
 
+// The RBC's fallback action (r(o) + r(o+1)) / 2 of the shifted radiation.
+template <class C>
+__device__ __forceinline__ float rbc_fallback(int o, const float* rad_norm, float pv_shift) {
+  return C::PV ? (rad_norm[o] * pv_shift + rad_norm[o + 1] * pv_shift) * 0.5f : 0.0f;
+}
+
+// The RBC's action for a departure countdown dep_o of the observation.
+__device__ __forceinline__ float rbc_action(float dep_o, float fallback) {
+  return (dep_o == 0.0f) ? 0.0f : ((dep_o < kSoon) ? 1.0f : fallback);
+}
+
 // One RBC step (_gen_rbc_step): returns the charging power; pen[n] the
 // per-charger vehicle penalty.
 template <class C, class Src>
@@ -324,9 +353,7 @@ __device__ float rbc_step(int t, const Dims& d, const Src& src, Carry<C>& c, con
                           float pv_shift, float (&pen)[C::N]) {
   StepDraws<C> u;
   u.fill(src, t, d);
-  const int o = t > 0 ? t - 1 : 0;
-  float fallback = 0.0f;
-  if (C::PV) fallback = (rad_norm[o] * pv_shift + rad_norm[o + 1] * pv_shift) * 0.5f;
+  const float fallback = rbc_fallback<C>(t > 0 ? t - 1 : 0, rad_norm, pv_shift);
 
   float charging = 0.0f;
 #pragma unroll
@@ -334,7 +361,7 @@ __device__ float rbc_step(int t, const Dims& d, const Src& src, Carry<C>& c, con
     const Column k = generate_column<C>(t, n, u, c);
     const float pmask = t == 0 ? k.mask_col : c.pmask[n];
     const float dep_o = t == 0 ? k.dep_col : c.prev_depcol[n];
-    const float a = (dep_o == 0.0f) ? 0.0f : ((dep_o < kSoon) ? 1.0f : fallback);
+    const float a = rbc_action(dep_o, fallback);
 
     const float soc_eff = k.arrives ? k.soc_t : c.prev_col[n];
     const float p_raw = a * kMaxPEff;
@@ -474,6 +501,36 @@ struct PolicyRows {
   float flows, p_used, dod;
 };
 
+struct ChargerFlow {
+  float power, soc_new;
+};
+
+// Charger physics of one occupied-or-not charger under action a, both
+// branches, with the inverted discharge flag quirk (charger.py:122-132).
+__device__ __forceinline__ ChargerFlow charger_physics(float a, float soc_eff, float cap_eff, float safe_cap,
+                                                       bool occupied, float dt) {
+  const float p_raw = a * kMaxPEff;
+  const float calc = soc_eff + (p_raw * dt) / safe_cap;
+  const float p_dis = calc >= 0.0f ? -(soc_eff * cap_eff) / dt : p_raw;
+  const float power = a > 0.0f ? p_raw : (a < 0.0f ? p_dis : 0.0f);
+  ChargerFlow f;
+  f.power = occupied ? power : 0.0f;
+  f.soc_new = a > 0.0f ? fminf(calc, 1.0f) : (a < 0.0f ? fmaxf(calc, 0.0f) : soc_eff);
+  return f;
+}
+
+// BESS physics under action ba (non-inverted discharge flag): updates the
+// battery SoC and writes the power used and the DoD penalty into rows.
+__device__ __forceinline__ void battery_physics(float ba, float& batt_soc, float dt, PolicyRows& rows) {
+  const float p_calc = ba * kBattMaxPEff;
+  const float b_calc = batt_soc + (p_calc * dt) / kBattCap;
+  const float p_b_dis = b_calc < 0.0f ? -(batt_soc * kBattCap) / dt : p_calc;
+  batt_soc = ba > 0.0f ? fminf(b_calc, 1.0f) : (ba < 0.0f ? fmaxf(b_calc, 0.0f) : batt_soc);
+  rows.p_used = ba > 0.0f ? p_calc : (ba < 0.0f ? p_b_dis : 0.0f);
+  const float gap = (kBattDod - batt_soc) * kGain;
+  rows.dod = batt_soc < kBattDod ? gap * gap : 0.0f;
+}
+
 // The price/radiation part of the observation at trace offset o; returns
 // the index of the first charger row.
 template <class C>
@@ -551,16 +608,10 @@ __device__ PolicyRows policy_step(int t, const Dims& d, const Src& src, Carry<C>
   float charging = 0.0f, discharging = 0.0f;
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    const float a = act[n];
-    const float p_raw = a * kMaxPEff;
-    const float calc = soc_eff[n] + (p_raw * d.dt) / safe_cap[n];
-    const float p_dis = calc >= 0.0f ? -(soc_eff[n] * cap_eff[n]) / d.dt : p_raw;
-    float power = a > 0.0f ? p_raw : (a < 0.0f ? p_dis : 0.0f);
-    power = occupied[n] ? power : 0.0f;
-    const float soc_new = a > 0.0f ? fminf(calc, 1.0f) : (a < 0.0f ? fmaxf(calc, 0.0f) : soc_eff[n]);
-    c.prev_col[n] = occupied[n] ? soc_new : 0.0f;
-    const float pos = power > 0.0f ? power : 0.0f;
-    const float neg = power < 0.0f ? power : 0.0f;
+    const ChargerFlow f = charger_physics(act[n], soc_eff[n], cap_eff[n], safe_cap[n], occupied[n], d.dt);
+    c.prev_col[n] = occupied[n] ? f.soc_new : 0.0f;
+    const float pos = f.power > 0.0f ? f.power : 0.0f;
+    const float neg = f.power < 0.0f ? f.power : 0.0f;
     charging = n == 0 ? pos : charging + pos;
     discharging = n == 0 ? neg : discharging + neg;
   }
@@ -569,16 +620,7 @@ __device__ PolicyRows policy_step(int t, const Dims& d, const Src& src, Carry<C>
   rows.flows = charging + discharging;
   rows.p_used = 0.0f;
   rows.dod = 0.0f;
-  if (C::BATT) {
-    const float ba = act[N];
-    const float p_calc = ba * kBattMaxPEff;
-    const float b_calc = batt_soc + (p_calc * d.dt) / kBattCap;
-    const float p_b_dis = b_calc < 0.0f ? -(batt_soc * kBattCap) / d.dt : p_calc;
-    batt_soc = ba > 0.0f ? fminf(b_calc, 1.0f) : (ba < 0.0f ? fmaxf(b_calc, 0.0f) : batt_soc);
-    rows.p_used = ba > 0.0f ? p_calc : (ba < 0.0f ? p_b_dis : 0.0f);
-    const float gap = (kBattDod - batt_soc) * kGain;
-    rows.dod = batt_soc < kBattDod ? gap * gap : 0.0f;
-  }
+  if (C::BATT) battery_physics(act[N], batt_soc, d.dt, rows);
   return rows;
 }
 
@@ -1104,6 +1146,153 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
 #pragma unroll
   for (int f = 0; f < C::F; ++f) next_out[(static_cast<int64_t>(d.T - 1) * C::F + f) * B + l.b] = obs[f];
   batt_out[l.b] = batt;
+}
+
+// ------------------------------------------------------- tables-in days ---
+
+// The seven day tables of a given state, packed (7, T, N, B) f32 by
+// ops/rollout.py::state_tables: column t of table k for charger n of env b.
+enum TableKind { kOcc = 0, kCapEff, kReqPrev, kSocCols, kIsArr, kDepObs, kPmask, kTables };
+
+struct DayTablesView {
+  const float* base;
+  int64_t plane, B, b;
+  int N;
+  __device__ float operator()(int k, int t, int n) const {
+    return __ldg(base + k * plane + (static_cast<int64_t>(t) * N + n) * B + b);
+  }
+};
+
+// K11a: one RBC day of a given state; rewards (T, B), soc_final (N, B).
+// prev_col0 (N, B) is the state's SoC column L-1, pmask0 (N, B) its
+// trailing-observe mask (pallas_rollout.py:46-141).
+template <class C>
+__global__ void rbc_day_rollout_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
+                                       const float* __restrict__ solar, const float* __restrict__ tables,
+                                       const float* __restrict__ prev_col0, const float* __restrict__ pmask0,
+                                       const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                                       float* __restrict__ rewards, float* __restrict__ soc_final, int B, int T,
+                                       float dt) {
+  extern __shared__ float smem[];
+  const SharedTraces s = load_traces(smem, rad_norm, S, nullptr, 0, price, solar, T);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  const DayTablesView tab{tables, static_cast<int64_t>(T) * C::N * B, B, b, C::N};
+  float prev_col[C::N], pmask[C::N];
+#pragma unroll
+  for (int n = 0; n < C::N; ++n) {
+    prev_col[n] = prev_col0[static_cast<int64_t>(n) * B + b];
+    pmask[n] = pmask0[static_cast<int64_t>(n) * B + b];
+  }
+  const float pv = pv_shift[b];
+  const float dod = idle_dod_penalty<C>(batt_soc[b]);  // the RBC idles the BESS
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    // the RBC acts on the previous step's observation: tables at o = max(t-1, 0)
+    const int o = t > 0 ? t - 1 : 0;
+    const float fallback = rbc_fallback<C>(o, s.rad_norm, pv);
+    float charging = 0.0f, pen_sum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < C::N; ++n) {
+      const float a = rbc_action(tab(kDepObs, o, n), fallback);
+      const bool occupied = tab(kOcc, t, n) > 0.0f;
+      const float soc_col = tab(kSocCols, t, n);
+      const float soc_eff = tab(kIsArr, t, n) > 0.0f ? soc_col : prev_col[n];
+      const float cap = tab(kCapEff, t, n);
+      const float safe_cap = cap > 0.0f ? cap : 1.0f;
+      const float p_raw = a * kMaxPEff;  // charge branch only: RBC actions are >= 0
+      const float calc = soc_eff + (p_raw * dt) / safe_cap;
+      const float power = (occupied && a > 0.0f) ? p_raw : 0.0f;
+      const float soc_new = a > 0.0f ? fminf(calc, 1.0f) : soc_eff;
+      const float pen = insufficiency_penalty(pmask[n], prev_col[n], tab(kReqPrev, t, n));
+      pmask[n] = tab(kPmask, t, n);  // the trailing observe's mask for the next step
+      prev_col[n] = occupied ? soc_new : soc_col;
+      charging = n == 0 ? power : charging + power;
+      pen_sum = n == 0 ? pen : pen_sum + pen;
+    }
+    const float cost = rbc_reward<C>(charging, s.solar[t], s.price[t], pv, dod, dt) + kWVeh * pen_sum;
+    rewards[static_cast<int64_t>(t) * B + b] = -cost;
+  }
+#pragma unroll
+  for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = prev_col[n];
+}
+
+// K11b: one day of the PPO actor's clipped mean from a given state, with
+// bidirectional charger and BESS physics; rewards (T, B), actions (T, A, B),
+// soc_final (N, B) (pallas_policy_rollout.py:40-183).  The observation at
+// t = 0 takes its SoC rows from the state's column 0, the penalty at t = 0
+// the column L-1.
+template <class C>
+__global__ void policy_day_rollout_kernel(const float* __restrict__ price, const float* __restrict__ price_norm,
+                                          int P, const float* __restrict__ rad_norm, int S,
+                                          const float* __restrict__ solar, const float* __restrict__ tables,
+                                          const float* __restrict__ prev_col0, const float* __restrict__ pmask0,
+                                          const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                                          const float* __restrict__ weights, float* __restrict__ rewards,
+                                          float* __restrict__ actions, float* __restrict__ soc_final, int B,
+                                          int T, float dt) {
+  extern __shared__ float smem[];
+  load_block(smem, weights, C::WEIGHTS);
+  const SharedTraces s = load_traces(smem + C::WEIGHTS, rad_norm, S, price_norm, P, price, solar, T);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  constexpr int N = C::N;
+  const MeanActor<C> policy{Actor<C>(smem)};
+  const DayTablesView tab{tables, static_cast<int64_t>(T) * N * B, B, b, N};
+  float prev_col[N], pmask[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    prev_col[n] = prev_col0[static_cast<int64_t>(n) * B + b];
+    pmask[n] = pmask0[static_cast<int64_t>(n) * B + b];
+  }
+  const float pv = pv_shift[b];
+  float batt = batt_soc[b];
+  float obs[C::F], act[C::A];
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    const int o = t > 0 ? t - 1 : 0;
+    const int base = observe_traces<C>(o, s.rad_norm, s.price_norm, pv, obs);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      obs[base + n] = t == 0 ? tab(kSocCols, 0, n) : prev_col[n];
+      obs[base + N + n] = tab(kDepObs, o, n) / 24.0f;
+    }
+    if (C::BATT) obs[base + 2 * N] = batt;
+    policy(t, obs, act);
+
+    float charging = 0.0f, discharging = 0.0f, pen_sum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const bool occupied = tab(kOcc, t, n) > 0.0f;
+      const float soc_col = tab(kSocCols, t, n);
+      const float soc_eff = tab(kIsArr, t, n) > 0.0f ? soc_col : prev_col[n];
+      const float cap = tab(kCapEff, t, n);
+      const ChargerFlow f = charger_physics(act[n], soc_eff, cap, cap > 0.0f ? cap : 1.0f, occupied, dt);
+      const float pen = insufficiency_penalty(pmask[n], prev_col[n], tab(kReqPrev, t, n));
+      pmask[n] = tab(kPmask, t, n);
+      prev_col[n] = occupied ? f.soc_new : soc_col;
+      const float pos = f.power > 0.0f ? f.power : 0.0f;
+      const float neg = f.power < 0.0f ? f.power : 0.0f;
+      charging = n == 0 ? pos : charging + pos;
+      discharging = n == 0 ? neg : discharging + neg;
+      pen_sum = n == 0 ? pen : pen_sum + pen;
+    }
+    PolicyRows rows;
+    rows.flows = charging + discharging;
+    rows.p_used = 0.0f;
+    rows.dod = 0.0f;
+    if (C::BATT) battery_physics(act[N], batt, dt, rows);
+    const float cost = policy_cost<C>(rows, s.solar[t], s.price[t], pv, dt) + kWVeh * pen_sum;
+    rewards[static_cast<int64_t>(t) * B + b] = -cost;
+#pragma unroll
+    for (int i = 0; i < C::A; ++i) actions[(static_cast<int64_t>(t) * C::A + i) * B + b] = act[i];
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = prev_col[n];
 }
 
 }  // namespace ngk

@@ -1,4 +1,4 @@
-// C entry points of the day kernels (K1, K2, K5-K9) for one static configuration.
+// C entry points of the day kernels (K1, K2, K5-K9, K11a/K11b) for one static configuration.
 //
 // The configuration comes from -D flags (ops/_build.py builds one shared
 // library per configuration at first use):
@@ -6,7 +6,7 @@
 //   NG_REQ_SOC, NG_H1/NG_H2 actor hidden sizes, NG_ACTOR the actor kind:
 //   0 the PPO actor (K5/K6 and the collection kernels K1/K2), 1 the DDPG
 //   actor (K5/K6 actor="ddpg" and the collection kernel K9).
-// Both kinds carry the RBC kernels K7/K8.
+// Both kinds carry the RBC kernels K7/K8 and K11a; the PPO kind K11b.
 // Every entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
 #include "day_step.cuh"
@@ -62,9 +62,31 @@ int ngk_gen_rbc_multiday(const float* price, const float* rad_norm, int S, const
   return static_cast<int>(cudaGetLastError());
 }
 
+int ngk_rbc_day_rollout(const float* price, const float* rad_norm, int S, const float* solar, const float* tables,
+                        const float* prev_col, const float* pmask, const float* batt_soc, const float* pv_shift,
+                        float* rewards, float* soc_final, int B, int T, float dt, void* stream) {
+  const size_t smem = static_cast<size_t>(S + 2 * T) * sizeof(float);
+  ngk::rbc_day_rollout_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      price, rad_norm, S, solar, tables, prev_col, pmask, batt_soc, pv_shift, rewards, soc_final, B, T, dt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 #if NG_ACTOR == 0
 
 int ngk_collect_weights_size() { return C::COLLECT_WEIGHTS; }
+
+int ngk_policy_day_rollout(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
+                           const float* solar, const float* tables, const float* prev_col, const float* pmask,
+                           const float* batt_soc, const float* pv_shift, const float* weights, float* rewards,
+                           float* actions, float* soc_final, int B, int T, float dt, void* stream) {
+  const size_t smem = static_cast<size_t>(C::WEIGHTS + S + P + 2 * T) * sizeof(float);
+  const int err = set_smem(ngk::policy_day_rollout_kernel<C>, smem);
+  if (err != 0) return err;
+  ngk::policy_day_rollout_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      price, price_norm, P, rad_norm, S, solar, tables, prev_col, pmask, batt_soc, pv_shift, weights, rewards,
+      actions, soc_final, B, T, dt);
+  return static_cast<int>(cudaGetLastError());
+}
 
 int ngk_gen_policy_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                        const float* solar, const float* u, const float* batt_soc, const float* pv_shift,

@@ -2,9 +2,10 @@
 
 ``nvcc`` compiles each entry source of ``csrc/`` into a shared library with a
 plain C interface, at first use, for ``sm_90a``: ``kernels.cu`` (the day
-kernels K1, K2, K5-K9) once per static configuration (charger count, config
-flags, actor hidden sizes and kind: the PPO actor's library holds K5/K6 and
-K1/K2, the DDPG actor's K5/K6 ``actor="ddpg"`` and K9, both K7/K8),
+kernels K1, K2, K5-K9, K11a/K11b) once per static configuration (charger
+count, config flags, actor hidden sizes and kind: the PPO actor's library
+holds K5/K6, K1/K2 and K11b, the DDPG actor's K5/K6 ``actor="ddpg"`` and K9,
+both K7/K8 and K11a),
 ``sweep.cu`` (the PPO update sweep K3/K4) and ``ddpg_sweep.cu`` (the DDPG
 update sweep K10) once per network shape.  Libraries land in ``build/torch_kernels/`` at the root of the
 checkout, named by the flags and a digest of the sources and nvcc flags, so
@@ -52,12 +53,14 @@ _RBC_SIGNATURES = {
     "ngk_weights_size": (),
     "ngk_gen_rbc_day": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_rbc_multiday": (_P, _P, _I, _P, _U, _I, _P, _I, _I, _I, _I, _I, _F, _P),
+    "ngk_rbc_day_rollout": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
 }
 _PPO_SIGNATURES = {
     **_RBC_SIGNATURES,
     "ngk_collect_weights_size": (),
     "ngk_gen_policy_day": _POLICY_DAY,
     "ngk_gen_policy_multiday": _POLICY_MULTIDAY,
+    "ngk_policy_day_rollout": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "ngk_ppo_collect_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _P),
     "ngk_ppo_collect_day_seeded": (_P, _P, _I, _P, _I, _P, _U, _P, _P, _P, _P, _P, _P, _P, _P,

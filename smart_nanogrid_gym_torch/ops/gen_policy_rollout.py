@@ -159,6 +159,58 @@ def check_ddpg_torso(config: NanogridConfig, hidden: tuple[int, int], traces: Tr
                          f"memory per block, more than {MAX_SHARED_BYTES}; use the plain engine")
 
 
+def policy_obs(traces: Traces, o: int, pv_shift, soc_rows, dep_o, batt_soc, *, pv: bool, batt: bool):
+    """The observation ``(F, B)`` at trace offset ``o``: radiation and price
+    now and three steps ahead, the SoC rows, the departure rows / 24 and the
+    battery SoC."""
+    B = pv_shift.shape[0]
+    price_norm, rad_norm = traces.price_norm, traces.rad_norm
+    if pv:
+        rows = [rad_norm[o] * pv_shift, price_norm[o].expand(B)]
+        rows += [rad_norm[o + i] * pv_shift for i in range(1, 4)]
+        rows += [price_norm[o + i].expand(B) for i in range(1, 4)]
+    else:
+        rows = [price_norm[o + i].expand(B) for i in range(4)]
+    parts = [torch.stack(rows), soc_rows, div(dep_o, 24.0)]
+    if batt:
+        parts.append(batt_soc[None])
+    return torch.cat(parts)
+
+
+def charger_physics(ch_act, soc_eff, cap_eff, calc, dt, occupied):
+    """Power and new SoC ``(N, B)`` of the chargers, both branches, with the
+    inverted discharge flag quirk (charger.py:122-132)."""
+    zero = torch.zeros((), dtype=F32, device=ch_act.device)
+    p_raw = ch_act * (MAX_P * EFF)
+    p_dis = torch.where(calc >= 0.0, div(-(soc_eff * cap_eff), dt), p_raw)
+    is_pos, is_neg = ch_act > 0, ch_act < 0
+    power = torch.where(is_pos, p_raw, torch.where(is_neg, p_dis, zero))
+    soc_new = torch.where(is_pos, torch.clamp(calc, max=1.0),
+                          torch.where(is_neg, torch.clamp(calc, min=0.0), soc_eff))
+    return torch.where(occupied, power, zero), soc_new
+
+
+def battery_physics(ba, batt_soc, dt):
+    """BESS physics under action ``ba (B,)``: ``(new SoC, power used, DoD
+    penalty)``."""
+    zero = torch.zeros((), dtype=F32, device=ba.device)
+    p_calc = ba * (B_MAXP * B_EFF)
+    b_calc = batt_soc + div(p_calc * dt, B_CAP)
+    p_b_dis = torch.where(b_calc < 0.0, div(-(batt_soc * B_CAP), dt), p_calc)
+    b_pos, b_neg = ba > 0, ba < 0
+    batt_soc = torch.where(b_pos, torch.clamp(b_calc, max=1.0),
+                           torch.where(b_neg, torch.clamp(b_calc, min=0.0), batt_soc))
+    p_used = torch.where(b_pos, p_calc, torch.where(b_neg, p_b_dis, zero))
+    gap = (BATT_DOD - batt_soc) * GAIN
+    return batt_soc, p_used, torch.where(batt_soc < BATT_DOD, gap * gap, zero)
+
+
+def charger_flows(power):
+    """Total charging plus total discharging ``(B,)``, each summed in charger order."""
+    zero = torch.zeros((), dtype=F32, device=power.device)
+    return sum_rows(torch.where(power > 0, power, zero)) + sum_rows(torch.where(power < 0, power, zero))
+
+
 def gen_policy_step(t, u5, c, batt_soc, traces: Traces, pv_shift, policy, *,
                     T, N, dt, pv, batt, penalty_mode, diff_caps, req_soc, k4, k10, k1):
     """One step (``_gen_policy_step`` + ``_gen_policy_physics``,
@@ -179,19 +231,7 @@ def gen_policy_step(t, u5, c, batt_soc, traces: Traces, pv_shift, policy, *,
     else:
         pmask, dep_o, soc_rows = c["pmask"], c["prev_depcol"], c["prev_col"]
 
-    o = max(t - 1, 0)
-    B = pv_shift.shape[0]
-    price_norm, rad_norm = traces.price_norm, traces.rad_norm
-    if pv:
-        rows = [rad_norm[o] * pv_shift, price_norm[o].expand(B)]
-        rows += [rad_norm[o + i] * pv_shift for i in range(1, 4)]
-        rows += [price_norm[o + i].expand(B) for i in range(1, 4)]
-    else:
-        rows = [price_norm[o + i].expand(B) for i in range(4)]
-    parts = [torch.stack(rows), soc_rows, div(dep_o, 24.0)]
-    if batt:
-        parts.append(batt_soc[None])
-    actions = policy(torch.cat(parts))
+    actions = policy(policy_obs(traces, max(t - 1, 0), pv_shift, soc_rows, dep_o, batt_soc, pv=pv, batt=batt))
 
     # ---- charger physics, both branches (inverted discharge flag quirk) ----
     ch_act = actions[:N]
@@ -203,28 +243,12 @@ def gen_policy_step(t, u5, c, batt_soc, traces: Traces, pv_shift, policy, *,
     else:
         cap_eff = cols["occ_f"] * DEFAULT_CAP
         calc = soc_eff + div(p_raw * dt, DEFAULT_CAP)
-    p_dis = torch.where(calc >= 0.0, div(-(soc_eff * cap_eff), dt), p_raw)
-    is_pos, is_neg = ch_act > 0, ch_act < 0
-    power = torch.where(is_pos, p_raw, torch.where(is_neg, p_dis, zero))
-    soc_new = torch.where(is_pos, torch.clamp(calc, max=1.0),
-                          torch.where(is_neg, torch.clamp(calc, min=0.0), soc_eff))
-    power = torch.where(occupied, power, zero)
+    power, soc_new = charger_physics(ch_act, soc_eff, cap_eff, calc, dt, occupied)
     new_col = torch.where(occupied, soc_new, zero)
-    charging = sum_rows(torch.where(power > 0, power, zero))
-    discharging = sum_rows(torch.where(power < 0, power, zero))
 
-    out = {"flows": charging + discharging, "pen": vehicle_penalty(c, pmask, req_soc)}
+    out = {"flows": charger_flows(power), "pen": vehicle_penalty(c, pmask, req_soc)}
     if batt:
-        ba = actions[N]
-        p_calc = ba * (B_MAXP * B_EFF)
-        b_calc = batt_soc + div(p_calc * dt, B_CAP)
-        p_b_dis = torch.where(b_calc < 0.0, div(-(batt_soc * B_CAP), dt), p_calc)
-        b_pos, b_neg = ba > 0, ba < 0
-        batt_soc = torch.where(b_pos, torch.clamp(b_calc, max=1.0),
-                               torch.where(b_neg, torch.clamp(b_calc, min=0.0), batt_soc))
-        out["p_used"] = torch.where(b_pos, p_calc, torch.where(b_neg, p_b_dis, zero))
-        gap = (BATT_DOD - batt_soc) * GAIN
-        out["dod"] = torch.where(batt_soc < BATT_DOD, gap * gap, zero)
+        batt_soc, out["p_used"], out["dod"] = battery_physics(actions[N], batt_soc, dt)
     return out, actions, next_carry(gen, cols, new_col, diff_caps, req_soc), batt_soc
 
 

@@ -158,13 +158,19 @@ def generate_column(t, u5, c, *, T, penalty_mode, diff_caps, req_soc, k4, k10, k
     return cols, gen
 
 
+def insufficiency_penalty(pmask, prev_col, req_p):
+    """Per-charger insufficiency penalty ``(N, B)``: the previous SoC column
+    against the requested SoC at (t-1) mod L, where the trailing-observe mask
+    is set."""
+    insufficient = prev_col < req_p - MARGIN * req_p
+    gap = (req_p - prev_col) * GAIN
+    return torch.where((pmask > 0) & insufficient, gap * gap, torch.zeros_like(gap))
+
+
 def vehicle_penalty(c, pmask, req_soc):
     """Per-charger insufficiency penalty ``(N, B)`` from the previous step's
     carry (trailing-observe mask, (t-1) mod L reads)."""
-    req_p = c["prev_reqcol"] if req_soc else c["present"]
-    insufficient = c["prev_col"] < req_p - MARGIN * req_p
-    gap = (req_p - c["prev_col"]) * GAIN
-    return torch.where((pmask > 0) & insufficient, gap * gap, torch.zeros_like(gap))
+    return insufficiency_penalty(pmask, c["prev_col"], c["prev_reqcol"] if req_soc else c["present"])
 
 
 def next_carry(gen, cols, new_col, diff_caps, req_soc):
@@ -175,6 +181,19 @@ def next_carry(gen, cols, new_col, diff_caps, req_soc):
     if req_soc:
         carry["prev_reqcol"] = cols["req_col"]
     return carry
+
+
+def rbc_actions(dep_o, rad_norm, o, pv_shift, pv):
+    """The RBC's charger actions ``(N, B)`` for the departure rows ``dep_o``
+    of the observation at trace offset ``o``."""
+    zero = torch.zeros((), dtype=F32, device=pv_shift.device)
+    one = torch.ones((), dtype=F32, device=pv_shift.device)
+    if pv:
+        fallback = (rad_norm[o] * pv_shift + rad_norm[o + 1] * pv_shift) * 0.5
+    else:
+        fallback = torch.zeros_like(pv_shift)
+    soon = dep_o < (24.0 * DEPARTURE_SOON_THRESHOLD)
+    return torch.where(dep_o == 0.0, zero, torch.where(soon, one, fallback))
 
 
 def gen_rbc_step(t, u5, c, rad_norm, pv_shift, *, T, dt, pv, penalty_mode,
@@ -193,14 +212,8 @@ def gen_rbc_step(t, u5, c, rad_norm, pv_shift, *, T, dt, pv, penalty_mode,
     else:
         pmask, dep_o = c["pmask"], c["prev_depcol"]
 
-    o = max(t - 1, 0)
-    if pv:
-        fallback = (rad_norm[o] * pv_shift + rad_norm[o + 1] * pv_shift) * 0.5
-    else:
-        fallback = torch.zeros_like(pv_shift)
-    soon = dep_o < (24.0 * DEPARTURE_SOON_THRESHOLD)
+    actions = rbc_actions(dep_o, rad_norm, max(t - 1, 0), pv_shift, pv)
     one = torch.ones((), dtype=F32, device=pv_shift.device)
-    actions = torch.where(dep_o == 0.0, zero, torch.where(soon, one, fallback))
 
     soc_eff = torch.where(arrives, cols["soc_t"], c["prev_col"])
     p_raw = actions * (MAX_P * EFF)

@@ -1,5 +1,5 @@
 from .ddpg import DDPGConfig, DDPGDraws, DDPGLearner, DDPGMetrics, DDPGTrainState, ReplayBuffer, ou_step
-from .evaluator import evaluate_policies_same_days, evaluate_policy_at_scale
+from .evaluator import evaluate_policies_same_days, evaluate_policy_at_scale, predict_single_day
 from .networks import (
     ActorCritic,
     DDPGActor,
@@ -37,4 +37,5 @@ __all__ = [
     "make_rbc_policy_fn",
     "evaluate_policies_same_days",
     "evaluate_policy_at_scale",
+    "predict_single_day",
 ]

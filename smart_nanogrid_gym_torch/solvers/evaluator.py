@@ -1,4 +1,4 @@
-"""Policy evaluation (port of ``solvers/evaluator.py:33-132``).
+"""Policy evaluation (port of ``solvers/evaluator.py``).
 
 - :func:`evaluate_policies_same_days` scores several policies on identical
   days (the reference evaluator's paired design) on the plain engine.  The
@@ -7,8 +7,9 @@
   actor's clipped mean, or the DDPG actor with ``algorithm="ddpg"``) over
   ``num_days × batch`` fresh days in one launch of kernel K6 (its plain twin
   on CPU params).
-
-``predict_single_day`` is not ported yet.
+- :func:`predict_single_day` rolls one day of one env with a policy and
+  returns the per-step rewards and the stacked telemetry (the reference
+  predictor's ``prediction_results.json`` series).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 from ..core.config import NanogridConfig
 from ..core.generate import generate_schedule
 from ..core.params import NanogridParams
-from ..core.state import EnvState
+from ..core.env import SmartNanogridTorch
+from ..core.state import DaySchedule, EnvState, StepInfo
 from ..core.transition import reset, step
 from ..ops.gen_policy_rollout import gen_policy_multiday
 from ..ops.param_guard import check_baked_params
@@ -96,3 +98,36 @@ def evaluate_policy_at_scale(
         "std_day_return": math.sqrt(max(var, 0.0)),
         "total_days": int(total),
     }
+
+
+def predict_single_day(
+    config: NanogridConfig,
+    params: NanogridParams,
+    policy: Callable[[torch.Tensor], torch.Tensor],
+    generator: torch.Generator | None = None,
+    schedule: DaySchedule | None = None,
+    pv_shift: float | None = None,
+) -> tuple[np.ndarray, StepInfo]:
+    """Roll one day of one env with ``policy`` (``obs (F,) -> actions (A,)``)
+    on the device of ``params``; returns ``(rewards (T,), StepInfo)`` with
+    every telemetry leaf stacked along a leading time axis.
+
+    ``schedule`` (one env's ``(N, L)`` tables, e.g. from
+    :func:`..core.generate.load_initial_values_json`) replays a recorded day
+    and ``pv_shift`` pins the PV shift; whatever is not given is drawn from
+    ``generator`` (a fresh one seeded with 0 when omitted).  The battery
+    starts at ``params.batt_init_soc``.  Unlike the JAX function, a pinned PV
+    shift already scales the reset observation.
+    """
+    if generator is None:
+        generator = torch.Generator(device=params.device).manual_seed(0)
+    env = SmartNanogridTorch(config)
+    state, obs = env.reset(params, generator, schedule=schedule, pv_shift=pv_shift)
+    rewards, infos = [], []
+    with torch.no_grad():
+        for _ in range(config.steps_per_day):
+            res = env.step(params, state, policy(obs), generator)
+            state, obs = res.state, res.obs
+            rewards.append(res.reward)
+            infos.append(res.info)
+    return torch.stack(rewards).cpu().numpy(), StepInfo(*(torch.stack(f) for f in zip(*infos)))

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K10 of the PyTorch port against their plain twins.
+"""The CUDA kernels K1-K11 of the PyTorch port against their plain twins.
 
 Marked ``cuda``: each test skips without a CUDA device (and needs ``nvcc``
 to build the kernels at first use).  The file imports no JAX, so it also
@@ -345,3 +345,58 @@ def test_ddpg_kernel_learner_launches_one_collection_and_one_per_step(cuda):
     assert dict(launch_counts) == {"ddpg_collect_day_seeded": 1, "ddpg_sweep": 4}
     assert all(bool(torch.isfinite(x)) for x in metrics)
     assert state.buffer.filled == config.steps_per_day
+
+
+# ----------------------------------------------------------- tables-in days ---
+
+TABLES_IN_CONFIGS = {
+    "b-pv-8ch": NanogridConfig(num_chargers=8, pv_system=True, battery_system=True),
+    "b-pv-4ch": NanogridConfig(num_chargers=4, pv_system=True, battery_system=True),
+}
+
+
+def _day_states(config, params, batch, device):
+    """Reset states of ``batch`` envs and the same envs rolled over into day 2
+    by one plain RBC day (a carried SoC column and penalty mask)."""
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch, fused_day_rollout
+    from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
+
+    env = SmartNanogridTorch(config)
+    gen = torch.Generator(device=device).manual_seed(4)
+    state, _ = env.reset_batch(params, batch, gen)
+    day2, _ = fused_day_rollout(config, params, state, make_rbc_policy_fn(config), generator=gen)
+    return state, day2
+
+
+@pytest.mark.parametrize("name", list(TABLES_IN_CONFIGS))
+def test_tables_in_kernels_match_twins(cuda, name):
+    """K11a and K11b at B=300 (a ragged last block) on a fresh and a
+    continued state, against their twins."""
+    from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout, policy_day_rollout_plain
+    from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout, rbc_day_rollout_plain, state_tables
+
+    config = TABLES_IN_CONFIGS[name]
+    params = make_params(config, torch.float32, cuda)
+    traces = kernel_traces(params, cuda)
+    net = shifted_actor(config, 17, cuda)
+    weights = actor_weights(config, net, cuda)
+    reset_launch_counts()
+    for state in _day_states(config, params, 300, cuda):
+        st = state_tables(config, params, state)
+        for got, want in zip(rbc_day_rollout(config, params, state), rbc_day_rollout_plain(config, traces, st)):
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+        for got, want in zip(policy_day_rollout(config, params, state, net),
+                             policy_day_rollout_plain(config, traces, weights, st)):
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert dict(launch_counts) == {"rbc_day_rollout": 2, "policy_day_rollout": 2}
+
+
+def test_tables_in_kernels_reject_f64_states(cuda):
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch
+    from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout
+
+    config = TABLES_IN_CONFIGS["b-pv-4ch"]
+    params = make_params(config, torch.float64, cuda)
+    state, _ = SmartNanogridTorch(config).reset_batch(params, 64, torch.Generator(device=cuda).manual_seed(0))
+    with pytest.raises(ValueError, match="float32"):
+        rbc_day_rollout(config, params, state)

@@ -1,8 +1,8 @@
 """The port runs without JAX or the JAX package: importing it, rolling a
-day, running one PPO and one DDPG training update and a DDPG at-scale
-evaluation on the CPU leave ``jax`` and
-``smart_nanogrid_gym_tpu`` out of ``sys.modules``, and no file of the port
-imports them.  The port's copies of the JAX-free tables equal the JAX
+day, running one PPO and one DDPG training update, a DDPG at-scale
+evaluation, the tables-in day twins, the gym adapter and the vector env on
+the CPU leave ``jax`` and ``smart_nanogrid_gym_tpu`` out of ``sys.modules``,
+and no file of the port imports them.  The port's copies of the JAX-free tables equal the JAX
 package's."""
 
 import os
@@ -18,13 +18,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = """
 import sys
+import tempfile
+import numpy as np
 import torch
 import smart_nanogrid_gym_torch
+import smart_nanogrid_gym_torch.envs
+from smart_nanogrid_gym_torch.compat import SmartNanogridEnv, VectorSmartNanogridEnv
 from smart_nanogrid_gym_torch.core import NanogridConfig, SmartNanogridTorch
-from smart_nanogrid_gym_torch.ops import gen_policy_multiday, gen_rbc_day, gen_rbc_multiday
+from smart_nanogrid_gym_torch.ops import (
+    gen_policy_multiday, gen_rbc_day, gen_rbc_multiday, policy_day_rollout, rbc_day_rollout)
 from smart_nanogrid_gym_torch.solvers import (
     ActorCritic, DDPGActor, DDPGConfig, DDPGLearner, PPOConfig, PPOLearner, evaluate_policies_same_days,
-    evaluate_policy_at_scale, make_rbc_policy_fn)
+    evaluate_policy_at_scale, make_rbc_policy_fn, predict_single_day)
 from smart_nanogrid_gym_torch.utils import load_actor_critic_npz, load_ddpg_actor_npz
 
 config = NanogridConfig(num_chargers=4)
@@ -36,6 +41,18 @@ _, _, (_, rewards, _, _) = env.rollout_day(params, state, make_rbc_policy_fn(con
 assert rewards.shape == (24, 8) and bool(torch.isfinite(rewards).all())
 gen_rbc_multiday(config, params, 1, 0, 8)
 net = ActorCritic(config.obs_dim, config.num_actions)
+assert rbc_day_rollout(config, params, state)[0].shape == (24, 8)
+assert policy_day_rollout(config, params, state, net)[1].shape == (24, config.num_actions, 8)
+rewards, info = predict_single_day(config, params, make_rbc_policy_fn(config), gen)
+assert rewards.shape == (24,) and info.charger_actions.shape == (24, 4)
+adapter = SmartNanogridEnv(number_of_chargers=4, output_directory=tempfile.mkdtemp(), device="cpu")
+adapter.reset(seed=1)
+for _ in range(24):
+    out = adapter.step(np.full(5, 0.2))
+assert out[2]
+venv = VectorSmartNanogridEnv(num_envs=8, device="cpu", number_of_chargers=4)
+venv.reset()
+assert venv.step(np.zeros((8, 5)))[1].shape == (8,)
 assert evaluate_policy_at_scale(config, params, net, 1, 8)["total_days"] == 8
 learner = PPOLearner(config, PPOConfig(num_epochs=1, num_minibatches=2, collect_impl="kernel",
                                        sweep_impl="kernel"), device="cpu")
