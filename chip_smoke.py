@@ -30,7 +30,16 @@ just after:
   B=131,072), the PPO artifact's day from given states
   (``policy_day_rollout``), ``VectorSmartNanogridEnv`` at 4096 envs against
   K11a, and the gym adapter's day, its same-day JSON replay and
-  ``predict_single_day`` on that day.
+  ``predict_single_day`` on that day;
+- the bf16 operand options and the bench's 256x256 actor (phases 24-28):
+  each new kernel variant against its twin, the bench row
+  ``pallas_gen_policy_multiday_256x256_{f32,bf16}`` through
+  ``gen_policy_multiday`` (bf16 against f32 within 0.5 % of the mean day
+  return; at 64x64 the std within 2 %), the 256x256 actor through K5 and
+  K11b, the DDPG artifact through K6 in bf16, PPO training with
+  ``update_matmul_dtype=torch.bfloat16`` (50 updates, K2 + K3 bf16, and two
+  ``env``-scheme updates, K4 bf16) and DDPG training (30 updates, K9 + K10
+  bf16), and each new row timed against its f32 counterpart.
 
 It checks the launch counts, the statistics of the in-kernel draws against
 the plain engine, that training raises the mean day return, and times each
@@ -82,16 +91,40 @@ DDPG_TRAIN_REPLACES = {
     "ddpg_collect_day_seeded": "smart_nanogrid_gym_tpu/ops/pallas_collect.py:461",
     "ddpg_sweep": "smart_nanogrid_gym_tpu/ops/pallas_ddpg_sweep.py:235",
 }
+# the bf16 variants and the 256x256 torso's block-level actor (phases 24-28)
+BIG_REPLACES = {
+    "gen_policy_day_block": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:439",
+    "gen_policy_multiday_block": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:522",
+    "gen_policy_multiday_block_bf16": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:522",
+    "gen_policy_multiday_bf16": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:522",
+    "gen_policy_multiday_ddpg_bf16": "smart_nanogrid_gym_tpu/ops/pallas_gen_policy_rollout.py:522",
+    "policy_day_rollout_block": "smart_nanogrid_gym_tpu/ops/pallas_policy_rollout.py:186",
+}
+BF16_TRAIN_REPLACES = {
+    "ppo_sweep_streamed_bf16": "smart_nanogrid_gym_tpu/ops/pallas_ppo_sweep.py:473",
+    "ppo_sweep_bf16": "smart_nanogrid_gym_tpu/ops/pallas_ppo_sweep.py:375",
+}
+BF16_DDPG_REPLACES = {"ddpg_sweep_bf16": "smart_nanogrid_gym_tpu/ops/pallas_ddpg_sweep.py:235"}
 BENCH_BATCH = 4096
 TRAIN_UPDATES = 50
 DDPG_LEARN_UPDATES = 150  # the 4-charger learning run, scored against its initial actor
 DDPG_HIDDEN = (400, 300)
 RESET_DAYS = 50  # the bench's card reset + RBC day row
 FULL_BATCH = 131_072  # a batch that fills the card
+BIG_HIDDEN = (256, 256)  # the bench row's actor (bench.py:403-414)
+BIG_ROW_DAYS = 1000  # the bench row's days
+ROW_SECONDS = 5.0  # a bench row that would take longer on its first run runs fewer days
+BF16_TRAIN_UPDATES = 30  # the bf16 DDPG training run
+# days of the new K6 rows where phase 24 times them against their twins
+NEW_ROW_DAYS = {"gen_policy_multiday_bf16": 4, "gen_policy_multiday_block": 2, "gen_policy_multiday_block_bf16": 2,
+                "gen_policy_multiday_ddpg_bf16": 2}
+BF16 = torch.bfloat16
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
-# bytes/s and float32 operations/s outside the tensor cores
+# bytes/s, float32 operations/s outside the tensor cores, dense bf16 tensor-core
+# operations/s (the least time a bf16 row's products could take)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 PHILOX_OPS = 100  # 10 rounds x (2 mul, 2 mulhi, 4 xor, 2 key adds) per 4 words
 
 
@@ -133,16 +166,21 @@ def shifted_actor(config, seed: int, device):
     return net.to(device)
 
 
-def device_ms(fn, kernel: str, repeats: int) -> float:
+def device_ms(fn, kernel: str | tuple, repeats: int, required: bool = True) -> float:
     """Mean device milliseconds per call of the kernels whose name holds
-    ``kernel``, by ``torch.profiler`` over ``repeats`` calls after a warm-up."""
+    ``kernel`` (or one of the names in a tuple), by ``torch.profiler`` over
+    ``repeats`` calls after a warm-up; NaN when the profiler records none and
+    the number is not ``required``."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
+    total_us = sum(e.self_device_time_total for e in prof.key_averages() if any(k in e.key for k in names))
+    if total_us <= 0 and not required:
+        return float("nan")
     check(total_us > 0, f"the profiler recorded no device time for {kernel}")
     return total_us / repeats / 1e3
 
@@ -196,11 +234,13 @@ def mean_std(stats: torch.Tensor, n: int) -> tuple[float, float]:
     return mean, math.sqrt(max(float(s[1].sum()) / n - mean * mean, 0.0))
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """The least time in ms for moving ``n_bytes`` and doing ``n_ops`` f32
+def bound(n_bytes: float, n_ops: float, bf16_ops: float = 0.0) -> tuple[float, str]:
+    """The least time in ms for moving ``n_bytes``, doing ``n_ops`` f32
     operations (integer Philox operations counted at the same rate, which
-    can only make the bound smaller), and which of the two bounds it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    can only make the bound smaller) and ``bf16_ops`` products of bf16
+    operands at the tensor cores' rate, and which of the two bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n_ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1057,8 +1097,296 @@ def stateful_env_main_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, d
     return launches
 
 
+def shifted_bias_actor(config, hidden, seed: int, device):
+    """A fresh ActorCritic of the ``hidden`` torso from ``seed``, every bias
+    (and log_std) shifted by +0.05 as tests/test_tpu_kernels.py:238-240
+    shifts the bench row's actor (bench.py:403-414)."""
+    from smart_nanogrid_gym_torch.solvers.networks import ActorCritic
+
+    net = ActorCritic(config.obs_dim, config.num_actions, hidden, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.dim() == 1:
+                p.add_(0.05)
+    return net.to(device)
+
+
+def bf16_rows(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big, u, pv, featlane, gathered,
+              state0, learner0, ddpg_sweep_args, device, card, errors, times):
+    """Phase 24: every new kernel variant against its twin at the shape its
+    row is timed at, K6 with bf16 operands (the PPO artifact's 64x64 actor,
+    the bench's 256x256 one, the DDPG artifact's 400-300 one), K6 f32, K5 and
+    K11b with the 256x256 block-level actor, K3/K4 and K10 bf16 over one full
+    update; each twin runs once, timed by CUDA events, and each kernel's
+    wrapper is timed by CUDA events after a warm-up."""
+    from smart_nanogrid_gym_torch.ops.ddpg_sweep import ddpg_sweep, ddpg_sweep_plain
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
+        actor_weights, gen_policy_day, gen_policy_day_plain, gen_policy_multiday, gen_policy_multiday_plain)
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+    from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout, policy_day_rollout_plain
+    from smart_nanogrid_gym_torch.ops.ppo_sweep import (
+        ppo_sweep, ppo_sweep_plain, ppo_sweep_streamed, ppo_sweep_streamed_plain)
+    from smart_nanogrid_gym_torch.ops.rollout import state_tables
+
+    traces, art_traces = kernel_traces(rbc_params, device), kernel_traces(art_params, device)
+    w_big = actor_weights(rbc_cfg, big, device)
+    state = given_states(rbc_cfg, rbc_params, 24, device)["continued"]
+    st = state_tables(rbc_cfg, rbc_params, state)
+    hp16 = learner0._hypers()._replace(matmul_dtype=BF16)
+    *data, block_perm, slab = featlane
+    p, o = state0.params, state0.opt_state
+    d16 = ddpg_sweep_args[:-1] + (ddpg_sweep_args[-1]._replace(matmul_dtype=BF16),)
+
+    def multiday(name, label, cfg, params, tr, net, actor, mm):
+        days = NEW_ROW_DAYS[name]
+        w = actor_weights(cfg, net, device, actor, mm)
+        return (f"B={BENCH_BATCH}, {days} days, {label}",
+                lambda: (gen_policy_multiday(cfg, params, net, days, 12, BENCH_BATCH, actor=actor, mlp_dtype=mm),),
+                lambda: (gen_policy_multiday_plain(cfg, tr, w, days, 12, BENCH_BATCH, actor=actor, mlp_dtype=mm),),
+                3, 2e-4, 1e-2)
+
+    def sweep(out):
+        params, adam, metrics = out
+        return list(params) + list(adam.mu) + list(adam.nu) + [metrics]
+
+    def ddpg(out):
+        a, c, ta, tc, ao, co, metrics = out
+        return a + c + ta + tc + ao.mu + ao.nu + co.mu + co.nu + [metrics]
+
+    cases = {
+        "gen_policy_multiday_bf16": multiday("gen_policy_multiday_bf16", "PPO artifact 4ch, 64x64, bf16", art_cfg,
+                                             art_params, art_traces, artifact, "ppo", BF16),
+        "gen_policy_multiday_block": multiday("gen_policy_multiday_block", "bench 8ch, 256x256", rbc_cfg, rbc_params,
+                                              traces, big, "ppo", None),
+        "gen_policy_multiday_block_bf16": multiday("gen_policy_multiday_block_bf16", "bench 8ch, 256x256, bf16",
+                                                   rbc_cfg, rbc_params, traces, big, "ppo", BF16),
+        "gen_policy_multiday_ddpg_bf16": multiday("gen_policy_multiday_ddpg_bf16", "DDPG artifact 4ch, 400-300, bf16",
+                                                  art_cfg, art_params, art_traces, ddpg_art, "ddpg", BF16),
+        "gen_policy_day_block": (f"B={BENCH_BATCH}, 1 day, bench 8ch, 256x256",
+                                 lambda: gen_policy_day(rbc_cfg, rbc_params, big, u, pv),
+                                 lambda: gen_policy_day_plain(rbc_cfg, traces, w_big, u, pv, torch.full_like(pv, 0.5)),
+                                 10, 2e-4, 2e-4),
+        "policy_day_rollout_block": (f"B={BENCH_BATCH}, 1 day, bench 8ch, 256x256, continued state",
+                                     lambda: policy_day_rollout(rbc_cfg, rbc_params, state, big),
+                                     lambda: policy_day_rollout_plain(rbc_cfg, traces, w_big, st), 10, 2e-4, 2e-4),
+        "ppo_sweep_streamed_bf16": ("G=40 x M=24576, featlane, F=25 A=9 64x64, bf16",
+                                    lambda: sweep(ppo_sweep_streamed(p, o, *data, block_perm, slab, hp16)),
+                                    lambda: sweep(ppo_sweep_streamed_plain(p, o, *data, block_perm, slab, hp16)),
+                                    3, 1e-4, 1e-6),
+        "ppo_sweep_bf16": ("G=40 x M=24576, gathered, F=25 A=9 64x64, bf16",
+                           lambda: sweep(ppo_sweep(p, o, *gathered, hp16)),
+                           lambda: sweep(ppo_sweep_plain(p, o, zip(*gathered), hp16)), 3, 1e-4, 1e-6),
+        "ddpg_sweep_bf16": ("G=24 x M=256, F=25 A=9 400-300, bf16", lambda: ddpg(ddpg_sweep(*d16)),
+                            lambda: ddpg(ddpg_sweep_plain(*d16)), 3, 1e-4, 1e-6),
+    }
+    for name, (shape, kernel, plain, repeats, rtol, atol) in cases.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain()
+        end.record()
+        torch.cuda.synchronize()
+        errors[name] = compare(f"phase 24 {name} ({shape})", got, want, rtol=rtol, atol=atol)
+        if name in ("ppo_sweep_streamed_bf16", "ddpg_sweep_bf16"):
+            check(all(torch.equal(a, b) for a, b in zip(got, kernel())), f"{name}: a rerun is not bit-identical")
+        times[name] = (shape, cuda_ms(kernel, repeats), start.elapsed_time(end))
+        print(f"phase 24 {name} ({shape}): kernel {times[name][1]:.4f} ms, plain twin {times[name][2]:.4f} ms "
+              f"on {card}")
+    f32 = sweep(ppo_sweep_streamed(p, o, *data, block_perm, slab, learner0._hypers()))
+    bf16 = sweep(ppo_sweep_streamed(p, o, *data, block_perm, slab, hp16))
+    print(f"phase 24 K3 bf16 against K3 f32 after one update: params max |d| "
+          f"{max(float((a - b).abs().max()) for a, b in zip(bf16[:13], f32[:13])):.3e}")
+
+
+def big_evaluation_main_path(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art, big, u, pv, device, card):
+    """Phase 25, the 256x256 actor and K6's bf16 option through the entry
+    points a user calls, with the launch counts set to 0 before it and read
+    after it: the bench row ``pallas_gen_policy_multiday_256x256_{f32,bf16}``
+    (bench.py:403-414) through ``gen_policy_multiday`` at B=4096, the same
+    actor on paired explicit days (K5) and from card reset states (K11b),
+    the 64x64 bench actor and the DDPG artifact through K6 in bf16 and f32."""
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day, gen_policy_multiday
+    from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day
+    from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout
+
+    T = rbc_cfg.steps_per_day
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    rewards, actions, _, _ = gen_policy_day(rbc_cfg, rbc_params, big, u, pv)
+    rbc_rewards, _ = gen_rbc_day(rbc_cfg, rbc_params, u, pv)
+    check(bool(torch.isfinite(rewards).all() and torch.isfinite(actions).all()), "K5 256x256: non-finite output")
+    low, high = (torch.as_tensor(b, device=device)[None, :, None] for b in rbc_cfg.action_bounds())
+    check(bool(((actions >= low) & (actions <= high)).all()), "K5 256x256: actions outside the box")
+    state, _ = SmartNanogridTorch(rbc_cfg).reset_batch(rbc_params, BENCH_BATCH, torch.Generator(device=device)
+                                                       .manual_seed(25))
+    k11b = policy_day_rollout(rbc_cfg, rbc_params, state, big)[0]
+    check(bool(torch.isfinite(k11b).all()), "K11b 256x256: non-finite rewards")
+    print(f"phase 25 256x256 actor (B={BENCH_BATCH}): paired explicit days {float(rewards.sum(0).mean()):.4f} "
+          f"(rbc {float(rbc_rewards.sum(0).mean()):.4f}); from card reset states {float(k11b.sum(0).mean()):.4f}")
+
+    # the bench row: a 10-day run sizes it (a row over ROW_SECONDS on its first run is cut)
+    probe_days = 10
+    t0 = time.perf_counter()
+    gen_policy_multiday(rbc_cfg, rbc_params, big, probe_days, 0, BENCH_BATCH)
+    torch.cuda.synchronize()
+    per_day = (time.perf_counter() - t0) / probe_days
+    days = min(BIG_ROW_DAYS, max(1, int(ROW_SECONDS / per_day)))
+    if days < BIG_ROW_DAYS:
+        print(f"phase 25 bench row cut to {days} of {BIG_ROW_DAYS} days ({per_day * 1e3:.3f} ms a day in f32)")
+    rows = {}
+    for tag, mm in (("f32", None), ("bf16", BF16)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = gen_policy_multiday(rbc_cfg, rbc_params, big, days, 1, BENCH_BATCH, mlp_dtype=mm)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rows[tag] = mean_std(stats, days * BENCH_BATCH)
+        print(f"phase 25 bench row pallas_gen_policy_multiday_256x256_{tag}: B={BENCH_BATCH} x {days} days in "
+              f"{seconds:.4f} s = {BENCH_BATCH * days * T / seconds:.4e} env-steps/s on {card}; mean day return "
+              f"{rows[tag][0]:.4f}, std {rows[tag][1]:.4f}")
+    rel = abs(rows["bf16"][0] - rows["f32"][0]) / abs(rows["f32"][0])
+    print(f"phase 25 256x256 bf16 against f32: mean day return differs by {rel:.5f} (limit 0.005)")
+    check(rel < 0.005, "bf16 moved the 256x256 mean day return by 0.5 % or more")
+
+    small = shifted_bias_actor(rbc_cfg, (64, 64), 42, device)
+    small_days = 400  # x 4096 envs, tests/test_tpu_kernels.py:195-217's check
+    small_rows = {tag: mean_std(gen_policy_multiday(rbc_cfg, rbc_params, small, small_days, 2, BENCH_BATCH,
+                                                    mlp_dtype=mm), small_days * BENCH_BATCH)
+                  for tag, mm in (("f32", None), ("bf16", BF16))}
+    (mf, sf), (mb, sb) = small_rows["f32"], small_rows["bf16"]
+    print(f"phase 25 64x64 bench actor, {small_days} days x {BENCH_BATCH}: f32 mean {mf:.4f} std {sf:.4f}, bf16 "
+          f"mean {mb:.4f} std {sb:.4f} (limits 0.5 %, 2 %)")
+    check(abs(mb - mf) / abs(mf) < 0.005 and abs(sb - sf) / abs(sf) < 0.02,
+          "bf16 moved the 64x64 day-return statistics")
+    ddpg_rows = {tag: mean_std(gen_policy_multiday(art_cfg, art_params, ddpg_art, 4, 3, BENCH_BATCH, actor="ddpg",
+                                                   mlp_dtype=mm), 4 * BENCH_BATCH)
+                 for tag, mm in (("f32", None), ("bf16", BF16))}
+    print(f"phase 25 DDPG artifact K6, 4 days x {BENCH_BATCH}: f32 mean {ddpg_rows['f32'][0]:.4f}, bf16 mean "
+          f"{ddpg_rows['bf16'][0]:.4f}")
+    check(all(math.isfinite(v) for r in ddpg_rows.values() for v in r), "K6 ddpg bf16: non-finite statistics")
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    print(f"256x256 and K6 bf16 path launches: {launches}")
+    for name in BIG_REPLACES:
+        check(launches.get(name, 0) >= 1, f"kernel {name} was not launched on the 256x256 / K6 bf16 path")
+    return launches
+
+
+def bf16_training_main_path(cfg, params, device, card):
+    """Phases 26-27, training with ``update_matmul_dtype=torch.bfloat16``
+    through the entry points a user calls, each with the launch counts set
+    to 0 before it and read after it: PPO (K2 + K3 bf16) for 50 updates at
+    B=4096 and two ``env``-scheme updates (K4 bf16); DDPG (K9 + K10 bf16)
+    for 30 updates at B=4096."""
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.solvers.ddpg import DDPGConfig, DDPGLearner
+    from smart_nanogrid_gym_torch.solvers.ppo import PPOConfig, PPOLearner
+
+    learner = PPOLearner(cfg, PPOConfig(collect_impl="kernel", sweep_impl="kernel", update_matmul_dtype=BF16),
+                         device=device)
+    state = learner.init(0, params, BENCH_BATCH)
+    G = learner.ppo.num_epochs * learner.ppo.num_minibatches
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = learner.build_train_many(TRAIN_UPDATES)(state, params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    returns = metrics.mean_return.double().cpu()
+    first, last = float(returns[0]), float(returns[-5:].mean())
+    print(f"phase 26 bf16 PPO train: {TRAIN_UPDATES} updates x B={BENCH_BATCH} (G={G}) in {seconds:.4f} s = "
+          f"{seconds / TRAIN_UPDATES * 1e3:.3f} ms/update on {card}; launches {counts}; mean day return first "
+          f"{first:.4f}, mean of the last 5 {last:.4f}")
+    check(counts == {"ppo_collect_day_seeded": TRAIN_UPDATES, "ppo_sweep_streamed_bf16": 2 * G * TRAIN_UPDATES},
+          f"launch counts {counts} are not 1 collection + {2 * G} bf16 sweep launches per update")
+    check(bool(torch.isfinite(returns).all()) and last > first, "bf16 training did not raise the mean day return")
+    check(all(x.dtype == torch.float32 for x in state.params), "bf16 training left f32 master params")
+    env_learner = PPOLearner(cfg, PPOConfig(sweep_impl="kernel", minibatch_scheme="env", update_matmul_dtype=BF16),
+                             device=device)
+    _, env_metrics = env_learner.build_train_many(2)(state._replace(update_step=0), params)
+    check(bool(torch.isfinite(env_metrics.mean_return).all()), "bf16 env-scheme update: non-finite return")
+    torch.cuda.synchronize()
+    ppo_launches = dict(_build.launch_counts)
+    print(f"bf16 PPO training path launches: {ppo_launches}")
+
+    d_learner = DDPGLearner(cfg, DDPGConfig(collect_impl="kernel", sweep_impl="kernel", update_matmul_dtype=BF16),
+                            device=device)
+    d_state = d_learner.init(0, params, BENCH_BATCH)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    d_state, d_metrics = d_learner.build_train_many(BF16_TRAIN_UPDATES)(d_state, params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ddpg_launches = dict(_build.launch_counts)
+    Gd = d_learner.cfg.gradient_steps
+    print(f"phase 27 bf16 DDPG train: {BF16_TRAIN_UPDATES} updates x B={BENCH_BATCH} (G={Gd}) in {seconds:.4f} s = "
+          f"{seconds / BF16_TRAIN_UPDATES * 1e3:.3f} ms/update on {card}; launches {ddpg_launches}; critic loss "
+          f"{float(d_metrics.critic_loss[-1]):.3f}, actor loss {float(d_metrics.actor_loss[-1]):.3f}")
+    check(ddpg_launches == {"ddpg_collect_day_seeded": BF16_TRAIN_UPDATES, "ddpg_sweep_bf16": Gd * BF16_TRAIN_UPDATES},
+          f"launch counts {ddpg_launches} are not 1 collection + {Gd} bf16 sweep steps per update")
+    for name in d_metrics._fields:
+        check(bool(torch.isfinite(getattr(d_metrics, name)).all()), f"bf16 DDPG {name}: non-finite")
+    check(all(x.dtype == torch.float32 for x in d_state.actor + d_state.critic), "bf16 DDPG left f32 master params")
+    for name in BF16_TRAIN_REPLACES:
+        check(ppo_launches.get(name, 0) >= 1, f"kernel {name} was not launched on the bf16 training path")
+    return ppo_launches, ddpg_launches
+
+
+def bf16_device_times(rbc_cfg, rbc_params, big, featlane, state, learner, ddpg_sweep_args, card):
+    """Phase 28: by the profiler, the device time of each bf16 row beside its
+    f32 counterpart's: K6 at 256x256 (B=4096, 2 days), K3 and K10 per update."""
+    from smart_nanogrid_gym_torch.ops.ddpg_sweep import ddpg_sweep
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_multiday
+    from smart_nanogrid_gym_torch.ops.ppo_sweep import ppo_sweep_streamed
+
+    days = NEW_ROW_DAYS["gen_policy_multiday_block"]
+    hp32 = learner._hypers()
+    hp16 = hp32._replace(matmul_dtype=BF16)
+    *data, block_perm, slab = featlane
+    p, o = state.params, state.opt_state
+    d16 = ddpg_sweep_args[:-1] + (ddpg_sweep_args[-1]._replace(matmul_dtype=BF16),)
+    k3 = ("ppo_grad_partial", "ppo_adam_update")
+    k10 = ("gemm_kernel", "colsum_kernel", "adam_kernel", "polyak_kernel", "metrics_kernel")
+    device_times = {}
+    pairs = (
+        ("gen_policy_multiday_block", lambda: gen_policy_multiday(rbc_cfg, rbc_params, big, days, 5, BENCH_BATCH),
+         "gen_policy_multiday_block_kernel"),
+        ("gen_policy_multiday_block_bf16",
+         lambda: gen_policy_multiday(rbc_cfg, rbc_params, big, days, 5, BENCH_BATCH, mlp_dtype=BF16),
+         "gen_policy_multiday_block_kernel"),
+        ("ppo_sweep_streamed", lambda: ppo_sweep_streamed(p, o, *data, block_perm, slab, hp32), k3),
+        ("ppo_sweep_streamed_bf16", lambda: ppo_sweep_streamed(p, o, *data, block_perm, slab, hp16), k3),
+        ("ddpg_sweep", lambda: ddpg_sweep(*ddpg_sweep_args), k10),
+        ("ddpg_sweep_bf16", lambda: ddpg_sweep(*d16), k10),
+    )
+    for name, fn, kernel in pairs:
+        device_times[name] = device_ms(fn, kernel, 3)
+        print(f"phase 28 {name}: {device_times[name]:.4f} ms of device time per call (profiler) on {card}")
+    for a, b in (("gen_policy_multiday_block_bf16", "gen_policy_multiday_block"),
+                 ("ppo_sweep_streamed_bf16", "ppo_sweep_streamed"), ("ddpg_sweep_bf16", "ddpg_sweep")):
+        print(f"phase 28 {a} / {b}: device time ratio {device_times[a] / device_times[b]:.4f}")
+    # K11b's block kernel on tables already built (nan when the profiler
+    # records no kernel in this window: not required)
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+    from smart_nanogrid_gym_torch.ops.policy_rollout import launch_policy_day
+    from smart_nanogrid_gym_torch.ops.rollout import state_tables
+
+    device = next(iter(big.parameters())).device
+    tables = state_tables(rbc_cfg, rbc_params, given_states(rbc_cfg, rbc_params, 28, device)["fresh"])
+    traces, weights = kernel_traces(rbc_params, device), actor_weights(rbc_cfg, big, device)
+    ms = device_ms(lambda: launch_policy_day(rbc_cfg, traces, weights, tables, BIG_HIDDEN),
+                   "policy_day_rollout_block_kernel", 3, required=False)
+    print(f"phase 28 policy_day_rollout_block: {ms:.4f} ms of device time per call (profiler) on {card}")
+
+
 def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
-    """The least time of each kernel at the shape phase 7/12 times it."""
+    """The least time of each kernel at the shape phase 7/12/19/24 times it."""
     B, T = BENCH_BATCH, rbc_cfg.steps_per_day
     out = {}
     N8, A8, F8 = rbc_cfg.num_chargers, rbc_cfg.num_actions, rbc_cfg.obs_dim
@@ -1116,6 +1444,28 @@ def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
 
     out["rbc_day_rollout"] = bound(tables_in_bytes(N8, 0), 0)
     out["policy_day_rollout"] = bound(tables_in_bytes(N4, A4), actor4 * T * B)
+
+    # phase 24's rows: the 256x256 torso's products at the f32 rate, a bf16
+    # row's products at the bf16 tensor-core rate (Philox stays at the f32 rate)
+    big8 = mlp_flops(F8, A8, *BIG_HIDDEN)
+    days = NEW_ROW_DAYS
+    philox8 = PHILOX_OPS * philox_calls_per_day(rbc_cfg) * B
+    philox4 = PHILOX_OPS * philox_calls_per_day(art_cfg) * B
+    d = days["gen_policy_multiday_bf16"]
+    out["gen_policy_multiday_bf16"] = bound(4 * 3 * B, philox4 * d, actor4 * T * d * B)
+    d = days["gen_policy_multiday_block"]
+    out["gen_policy_multiday_block"] = bound(4 * 3 * B, (big8 * T * B + philox8) * d)
+    d = days["gen_policy_multiday_block_bf16"]
+    out["gen_policy_multiday_block_bf16"] = bound(4 * 3 * B, philox8 * d, big8 * T * d * B)
+    d = days["gen_policy_multiday_ddpg_bf16"]
+    out["gen_policy_multiday_ddpg_bf16"] = bound(4 * 3 * B, philox4 * d, ddpg4 * T * d * B)
+    out["gen_policy_day_block"] = bound(4 * (T * 5 * N8 * B + 2 * B + T * B + T * A8 * B + N8 * B + B),
+                                        big8 * T * B)
+    out["policy_day_rollout_block"] = bound(tables_in_bytes(N8, A8), big8 * T * B)
+    out["ppo_sweep_streamed_bf16"] = bound(4 * T * B * (F8 + A8 + 3) + state_bytes, 0, per_sample * G * M)
+    out["ppo_sweep_bf16"] = bound(4 * G * M * (F8 + A8 + 3) + state_bytes, 0, per_sample * G * M)
+    out["ddpg_sweep_bf16"] = bound(4 * Gd * Md * (2 * F8 + A8 + 2) + 4 * 2 * 4 * (P_actor + P_critic) + 4 * 2 * Gd,
+                                   0, 2 * macs * Gd * Md)
     return out
 
 
@@ -1156,6 +1506,7 @@ def main() -> None:
     # ---- phase 1: build every kernel from the sources ----
     t0 = time.perf_counter()
     built = _build.build([_build.config_flags(c) for c in (rbc_cfg, art_cfg)]
+                         + [_build.config_flags(rbc_cfg, BIG_HIDDEN)]
                          + [_build.sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64)]
                          + [_build.config_flags(c, DDPG_HIDDEN, "ddpg") for c in (rbc_cfg, art_cfg)]
                          + [_build.ddpg_sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN)])
@@ -1335,6 +1686,19 @@ def main() -> None:
     torch.cuda.synchronize()
     tables_launches = stateful_env_main_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card)
 
+    # ---- phases 24-27: the bf16 variants and the 256x256 actor against their twins, then their paths ----
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 24")
+    big = shifted_bias_actor(rbc_cfg, BIG_HIDDEN, 42, device)
+    bf16_rows(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big, u, pv, featlane, gathered, state0,
+              learner0, sweep_args, device, card, errors, times)
+    torch.cuda.synchronize()
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 25")
+    big_launches = big_evaluation_main_path(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art, big, u, pv, device,
+                                            card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 26")
+    bf16_ppo_launches, bf16_ddpg_launches = bf16_training_main_path(rbc_cfg, rbc_params, device, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
+
     # ---- phase 7: each kernel and its twin, timed on the card ----
     timing_days = 20
     cases = {
@@ -1366,6 +1730,8 @@ def main() -> None:
     ddpg_days = 4
     ddpg_timings(art_cfg, art_params, ddpg_art, u4, pv4, rbc_cfg, rbc_params, ddpg_learner, d_leaves, u, pv, d_ou,
                  d_batt, sweep_args, ddpg_state, card, times, ddpg_days)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 28")
+    bf16_device_times(rbc_cfg, rbc_params, big, featlane, trained_state, learner, sweep_args, card)
 
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
@@ -1375,8 +1741,11 @@ def main() -> None:
     kernels = []
     # each kernel's launches in the run of the main path it belongs to
     paths = ((TRAIN_REPLACES, train_launches), (REPLACES, launches), (DDPG_REPLACES, ddpg_eval_launches),
-             (DDPG_TRAIN_REPLACES, ddpg_train_launches), (TABLES_REPLACES, tables_launches))
-    sources = {"ppo_sweep_streamed": SWEEP_SOURCE, "ppo_sweep": SWEEP_SOURCE, "ddpg_sweep": DDPG_SWEEP_SOURCE}
+             (DDPG_TRAIN_REPLACES, ddpg_train_launches), (TABLES_REPLACES, tables_launches),
+             (BIG_REPLACES, big_launches), (BF16_TRAIN_REPLACES, bf16_ppo_launches),
+             (BF16_DDPG_REPLACES, bf16_ddpg_launches))
+    sources = {name: SWEEP_SOURCE for name in ("ppo_sweep_streamed", "ppo_sweep", *BF16_TRAIN_REPLACES)}
+    sources.update({name: DDPG_SWEEP_SOURCE for name in ("ddpg_sweep", *BF16_DDPG_REPLACES)})
     for name, replaces, count in ((n, r, path_launches[n]) for table, path_launches in paths
                                   for n, r in table.items()):
         kernels.append({

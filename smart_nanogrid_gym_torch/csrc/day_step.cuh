@@ -5,14 +5,15 @@
 //   K7 pallas_gen_rollout.py::pallas_gen_rbc_day            -> gen_rbc_day_kernel<C, Explicit>
 //   K8 pallas_gen_rollout.py::pallas_gen_rbc_multiday       -> gen_rbc_multiday_kernel<C>
 //   K5 pallas_gen_policy_rollout.py::pallas_gen_policy_day  -> gen_policy_day_kernel<C>
-//   K6 pallas_gen_policy_rollout.py::pallas_gen_policy_multiday -> gen_policy_multiday_kernel<C>
+//   K6 pallas_gen_policy_rollout.py::pallas_gen_policy_multiday -> gen_policy_multiday_kernel<C, BF16>
 //   K1 pallas_collect.py::pallas_ppo_collect_day            -> ppo_collect_day_kernel<C, false>
 //   K2 pallas_collect.py::pallas_ppo_collect_day_seeded     -> ppo_collect_day_kernel<C, true>
-//   K5/K6 with actor="ddpg"                                 -> gen_policy_day_ddpg_kernel<C>,
-//                                                              gen_policy_multiday_ddpg_kernel<C>
+//   K5/K6 with actor="ddpg", or a PPO torso too large for   -> gen_policy_day_block_kernel<C, KIND>,
+//   shared memory                                              gen_policy_multiday_block_kernel<C, KIND, BF16>
 //   K9 pallas_collect.py::pallas_ddpg_collect_day(_seeded)  -> ddpg_collect_day_kernel<C, SEEDED>
 //   K11a pallas_rollout.py::pallas_rbc_day_rollout          -> rbc_day_rollout_kernel<C>
-//   K11b pallas_policy_rollout.py::pallas_policy_day_rollout -> policy_day_rollout_kernel<C>
+//   K11b pallas_policy_rollout.py::pallas_policy_day_rollout -> policy_day_rollout_kernel<C>,
+//                                                              policy_day_rollout_block_kernel<C>
 //
 // Design: one thread per env runs the whole day; the per-charger carries live
 // in registers, the price/radiation/solar traces and (for K5/K6) the actor
@@ -46,14 +47,24 @@
 // The DDPG actor (K5/K6 actor="ddpg", K9) is SB3's 400-300 ReLU torso:
 // 129-133k floats, more than a block's 227 KB of shared memory, and 700
 // hidden floats a thread would spill.  So it runs as a block-level product
-// (DdpgBlockActor): a block takes kDdpgEnvs = 32 envs with kDdpgThreads
+// (BlockActor): a block takes kBlockEnvs = 32 envs with kBlockThreads
 // threads; every warp runs the same 32 envs' step body (one env per lane,
 // the redundant copies write nothing), warp 0 stages the observations in
 // shared memory, and all warps compute the hidden layers there, each thread
 // R output rows of one env, reading warp-uniform weight rows from global
 // memory (the whole actor stays in the 50 MB L2).  Each output's sum over
 // its inputs runs in index order, as the twin's dense() does.  It is bound
-// by the torso's multiply-adds, about 2.7e5 flops per env-step.
+// by the torso's multiply-adds, about 2.7e5 flops per env-step.  A PPO
+// actor whose f32 block does not fit beside the traces in shared memory
+// (the bench's 256x256 torso: 74,779 floats) takes the same design with
+// tanh hidden layers and the clipped mean as its head (kernels.cu chooses
+// per library); the 64x64 torsos keep MeanActor.
+//
+// K6's bf16 option (mlp_dtype, pallas_gen_policy_rollout.py:140-154, 531):
+// the wrapper rounds w1..w3 to bf16 values (biases stay f32); the kernel
+// rounds the observation, h1 and h2 (every use of them is a product
+// operand) and accumulates the products in f32 (operand.cuh).  It is a
+// template flag of K6 chosen at launch, so no library is added.
 //
 // The tables-in kernels (K11a RBC, K11b the PPO actor's mean) roll one day of
 // a given state instead of generating it: the wrapper (ops/rollout.py) builds
@@ -68,7 +79,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "operand.cuh"
+
 namespace ngk {
+
+using ngo::operand;
 
 // reference constants (charger.py:20-23, central_management_system.py:35,
 // penaliser.py:7,79,177-181, accountant.py:6,35, charging_station.py:214,257-269)
@@ -438,20 +453,29 @@ struct Critic {
 };
 
 // The hidden layers of a 64-64 tanh torso: three FMA-free multiply-add loops.
-template <class C>
+// With BF16 the observation, h1 and h2 are kept rounded: they are product
+// operands only.
+template <class C, bool BF16 = false>
 __device__ __forceinline__ void torso(const float* w1, const float* b1, const float* w2, const float* b2,
                                       const float (&obs)[C::F], float (&h1)[C::H1], float (&h2)[C::H2]) {
-  for (int j = 0; j < C::H1; ++j) h1[j] = tanhf(dense(w1 + j * C::F, obs, C::F) + b1[j]);
-  for (int j = 0; j < C::H2; ++j) h2[j] = tanhf(dense(w2 + j * C::H1, h1, C::H1) + b2[j]);
+  const float* x = obs;
+  float rounded[BF16 ? C::F : 1];
+  if constexpr (BF16) {
+#pragma unroll
+    for (int f = 0; f < C::F; ++f) rounded[f] = operand<true>(obs[f]);
+    x = rounded;
+  }
+  for (int j = 0; j < C::H1; ++j) h1[j] = operand<BF16>(tanhf(dense(w1 + j * C::F, x, C::F) + b1[j]));
+  for (int j = 0; j < C::H2; ++j) h2[j] = operand<BF16>(tanhf(dense(w2 + j * C::H1, h1, C::H1) + b2[j]));
 }
 
 // The deterministic actor of K5/K6: the mean clipped to the action box.
-template <class C>
+template <class C, bool BF16 = false>
 struct MeanActor {
   Actor<C> w;
   __device__ void operator()(int, const float (&obs)[C::F], float (&act)[C::A]) const {
     float h1[C::H1], h2[C::H2];
-    torso<C>(w.w1, w.b1, w.w2, w.b2, obs, h1, h2);
+    torso<C, BF16>(w.w1, w.b1, w.w2, w.b2, obs, h1, h2);
 #pragma unroll
     for (int i = 0; i < C::A; ++i)
       act[i] = fminf(fmaxf(dense(w.w3 + i * C::H2, h2, C::H2) + w.b3[i], w.low[i]), w.high[i]);
@@ -778,7 +802,8 @@ __global__ void gen_policy_day_kernel(const float* __restrict__ price, const flo
 
 // K6: num_days Philox actor days per env, battery carried across days;
 // stats (3, B) = sum and sum of squares of day returns, final battery SoC.
-template <class C>
+// BF16: the mlp_dtype option (weights rounded by the wrapper).
+template <class C, bool BF16>
 __global__ void gen_policy_multiday_kernel(const float* __restrict__ price, const float* __restrict__ price_norm,
                                            int P, const float* __restrict__ rad_norm, int S,
                                            const float* __restrict__ solar, uint32_t seed, int num_days,
@@ -791,7 +816,7 @@ __global__ void gen_policy_multiday_kernel(const float* __restrict__ price, cons
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 
-  const MeanActor<C> policy{Actor<C>(smem)};
+  const MeanActor<C, BF16> policy{Actor<C>(smem)};
   float batt = kBattInit;
   float rew_total = 0.0f, sq_total = 0.0f;
   Carry<C> c;
@@ -878,83 +903,91 @@ __global__ void ppo_collect_day_kernel(const float* __restrict__ price, const fl
   }
 }
 
-// ------------------------------------------------------------ DDPG actor ---
+// ----------------------------------------------------------- block actor ---
 
-constexpr int kDdpgEnvs = 32;     // envs per block: one per lane
-constexpr int kDdpgThreads = 256;  // threads per block: 8 warps share the products
-constexpr int kDdpgRows = 4;      // output rows per thread and pass of dense_block
+constexpr int kBlockEnvs = 32;     // envs per block: one per lane
+constexpr int kBlockThreads = 256;  // threads per block: 8 warps share the products
+constexpr int kBlockRows = 4;      // output rows per thread and pass of dense_block
 
-// Shared-memory activations of the block's envs, feature-major: x[f * kDdpgEnvs + e].
+// The actor kinds, NG_ACTOR's values: the PPO actor (tanh torso, the mean
+// clipped to the box) and the DDPG actor (ReLU torso, tanh-squashed head).
+enum ActorKind : int { kPpoActor = 0, kDdpgActor = 1 };
+
+// Shared-memory activations of the block's envs, feature-major: x[f * kBlockEnvs + e].
 template <class C>
-struct DdpgShared {
+struct BlockShared {
   float *xs, *h1, *h2, *act;
-  __device__ explicit DdpgShared(float* s) {
+  __device__ explicit BlockShared(float* s) {
     xs = s;
-    h1 = xs + C::F * kDdpgEnvs;
-    h2 = h1 + C::H1 * kDdpgEnvs;
-    act = h2 + C::H2 * kDdpgEnvs;
+    h1 = xs + C::F * kBlockEnvs;
+    h2 = h1 + C::H1 * kBlockEnvs;
+    act = h2 + C::H2 * kBlockEnvs;
   }
 };
 
 template <class C>
-constexpr int ddpg_shared_floats() {
-  return (C::F + C::H1 + C::H2 + C::A) * kDdpgEnvs;
+constexpr int block_shared_floats() {
+  return (C::F + C::H1 + C::H2 + C::A) * kBlockEnvs;
 }
 
-// y[j][e] = relu(sum_k w[j][k] x[k][e] + b[j]) for the block's envs.  A warp
-// takes kDdpgRows rows for its 32 lanes (one env each): the weight reads are
-// warp-uniform (one broadcast load), the activation reads conflict-free.
-template <int J, int K>
-__device__ __forceinline__ void dense_relu_block(const float* __restrict__ w, const float* __restrict__ bias,
-                                                 const float* x, float* y) {
-  const int lane = threadIdx.x % kDdpgEnvs, warp = threadIdx.x / kDdpgEnvs;
-  const int warps = blockDim.x / kDdpgEnvs;
-  for (int j0 = warp * kDdpgRows; j0 < J; j0 += warps * kDdpgRows) {
-    const float* row[kDdpgRows];
-    float acc[kDdpgRows];
+// y[j][e] = act(sum_k w[j][k] x[k][e] + b[j]) for the block's envs, kept
+// rounded with BF16 (y is a product operand only).  A warp takes kBlockRows
+// rows for its 32 lanes (one env each): the weight reads are warp-uniform
+// (one broadcast load), the activation reads conflict-free.
+template <int J, int K, int KIND, bool BF16>
+__device__ __forceinline__ void dense_block(const float* __restrict__ w, const float* __restrict__ bias,
+                                            const float* x, float* y) {
+  const int lane = threadIdx.x % kBlockEnvs, warp = threadIdx.x / kBlockEnvs;
+  const int warps = blockDim.x / kBlockEnvs;
+  for (int j0 = warp * kBlockRows; j0 < J; j0 += warps * kBlockRows) {
+    const float* row[kBlockRows];
+    float acc[kBlockRows];
     const float x0 = x[lane];
 #pragma unroll
-    for (int r = 0; r < kDdpgRows; ++r) {
+    for (int r = 0; r < kBlockRows; ++r) {
       row[r] = w + static_cast<int64_t>(min(j0 + r, J - 1)) * K;
       acc[r] = __ldg(row[r]) * x0;
     }
 #pragma unroll 4
     for (int k = 1; k < K; ++k) {
-      const float xv = x[k * kDdpgEnvs + lane];
+      const float xv = x[k * kBlockEnvs + lane];
 #pragma unroll
-      for (int r = 0; r < kDdpgRows; ++r) acc[r] = acc[r] + __ldg(row[r] + k) * xv;
+      for (int r = 0; r < kBlockRows; ++r) acc[r] = acc[r] + __ldg(row[r] + k) * xv;
     }
 #pragma unroll
-    for (int r = 0; r < kDdpgRows; ++r) {
+    for (int r = 0; r < kBlockRows; ++r) {
       if (j0 + r < J) {
         const float v = acc[r] + __ldg(bias + j0 + r);
-        y[(j0 + r) * kDdpgEnvs + lane] = v > 0.0f ? v : 0.0f;
+        const float a = KIND == kPpoActor ? tanhf(v) : (v > 0.0f ? v : 0.0f);
+        y[(j0 + r) * kBlockEnvs + lane] = operand<BF16>(a);
       }
     }
   }
 }
 
-// The block-level DDPG actor, a Policy of policy_step: every thread of the
-// block calls it at step t with its lane's observation.  Warp 0 stages the
-// observations, the block computes both hidden layers and the head
-// a = low + (tanh(mu) + 1)·0.5·(high − low) (pallas_gen_policy_rollout.py:148-154,
-// no clip), then K9's a = clip(a + ou[t], low, high) (pallas_collect.py:133-149);
-// each thread reads back its lane's action.  With `record`, warp 0's lanes
-// write obs (T, F, B), the action (T, A, B) and next_obs[t-1] = obs[t].
-template <class C>
-struct DdpgBlockActor {
+// The block-level actor, a Policy of policy_step: every thread of the block
+// calls it at step t with its lane's observation.  Warp 0 stages the
+// observations, the block computes both hidden layers and the head, and each
+// thread reads back its lane's action.  The PPO head is the mean clipped to
+// the box (pallas_gen_policy_rollout.py:143-147); the DDPG head is
+// a = low + (tanh(mu) + 1)·0.5·(high − low) (:148-154, no clip), then K9's
+// a = clip(a + ou[t], low, high) (pallas_collect.py:133-149).  With `record`,
+// warp 0's lanes write obs (T, F, B), the action (T, A, B) and
+// next_obs[t-1] = obs[t].
+template <class C, int KIND, bool BF16 = false>
+struct BlockActor {
   Actor<C> w;  // views of the packed block in global memory
-  DdpgShared<C> s;
+  BlockShared<C> s;
   const float* ou;  // (T, A, B) exploration noise, or nullptr
   float *obs_out, *act_out, *next_out;  // K9's trajectory, or nullptr
   int64_t B, b0, b;
   bool writes;  // warp 0, and a lane inside the batch
 
   __device__ void operator()(int t, const float (&obs)[C::F], float (&act)[C::A]) const {
-    const int lane = threadIdx.x % kDdpgEnvs;
-    if (threadIdx.x < kDdpgEnvs) {
+    const int lane = threadIdx.x % kBlockEnvs;
+    if (threadIdx.x < kBlockEnvs) {
 #pragma unroll
-      for (int f = 0; f < C::F; ++f) s.xs[f * kDdpgEnvs + lane] = obs[f];
+      for (int f = 0; f < C::F; ++f) s.xs[f * kBlockEnvs + lane] = operand<BF16>(obs[f]);
     }
     if (writes && obs_out != nullptr) {
 #pragma unroll
@@ -964,27 +997,32 @@ struct DdpgBlockActor {
       }
     }
     __syncthreads();
-    dense_relu_block<C::H1, C::F>(w.w1, w.b1, s.xs, s.h1);
+    dense_block<C::H1, C::F, KIND, BF16>(w.w1, w.b1, s.xs, s.h1);
     __syncthreads();
-    dense_relu_block<C::H2, C::H1>(w.w2, w.b2, s.h1, s.h2);
+    dense_block<C::H2, C::H1, KIND, BF16>(w.w2, w.b2, s.h1, s.h2);
     __syncthreads();
-    for (int i = threadIdx.x; i < C::A * kDdpgEnvs; i += blockDim.x) {
-      const int a = i / kDdpgEnvs, e = i % kDdpgEnvs;
+    for (int i = threadIdx.x; i < C::A * kBlockEnvs; i += blockDim.x) {
+      const int a = i / kBlockEnvs, e = i % kBlockEnvs;
       const float* row = w.w3 + a * C::H2;
       float acc = __ldg(row) * s.h2[e];
-      for (int k = 1; k < C::H2; ++k) acc = acc + __ldg(row + k) * s.h2[k * kDdpgEnvs + e];
+      for (int k = 1; k < C::H2; ++k) acc = acc + __ldg(row + k) * s.h2[k * kBlockEnvs + e];
       const float mu = acc + __ldg(w.b3 + a);
       const float lo = __ldg(w.low + a), hi = __ldg(w.high + a);
-      float v = lo + ((tanhf(mu) + 1.0f) * 0.5f) * (hi - lo);
-      if (ou != nullptr) {
-        const int64_t be = b0 + e < B ? b0 + e : B - 1;
-        v = fminf(fmaxf(v + ou[(static_cast<int64_t>(t) * C::A + a) * B + be], lo), hi);
+      float v;
+      if (KIND == kPpoActor) {
+        v = fminf(fmaxf(mu, lo), hi);
+      } else {
+        v = lo + ((tanhf(mu) + 1.0f) * 0.5f) * (hi - lo);
+        if (ou != nullptr) {
+          const int64_t be = b0 + e < B ? b0 + e : B - 1;
+          v = fminf(fmaxf(v + ou[(static_cast<int64_t>(t) * C::A + a) * B + be], lo), hi);
+        }
       }
-      s.act[a * kDdpgEnvs + e] = v;
+      s.act[a * kBlockEnvs + e] = v;
     }
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < C::A; ++i) act[i] = s.act[i * kDdpgEnvs + lane];
+    for (int i = 0; i < C::A; ++i) act[i] = s.act[i * kBlockEnvs + lane];
     if (writes && act_out != nullptr) {
 #pragma unroll
       for (int i = 0; i < C::A; ++i) act_out[(static_cast<int64_t>(t) * C::A + i) * B + b] = act[i];
@@ -992,34 +1030,43 @@ struct DdpgBlockActor {
   }
 };
 
-// Lane geometry of a DDPG block: the env of this thread's lane (tail lanes
-// mirror the last env and write nothing).
-struct DdpgLane {
+// Lane geometry of a block-actor block: the env of this thread's lane (tail
+// lanes mirror the last env and write nothing).
+struct BlockLane {
   int64_t b0, b;
   bool writes;
-  __device__ DdpgLane(int B) {
-    const int lane = threadIdx.x % kDdpgEnvs;
-    b0 = static_cast<int64_t>(blockIdx.x) * kDdpgEnvs;
+  __device__ BlockLane(int B) {
+    const int lane = threadIdx.x % kBlockEnvs;
+    b0 = static_cast<int64_t>(blockIdx.x) * kBlockEnvs;
     b = b0 + lane < B ? b0 + lane : static_cast<int64_t>(B) - 1;
-    writes = threadIdx.x < kDdpgEnvs && b0 + lane < B;
+    writes = threadIdx.x < kBlockEnvs && b0 + lane < B;
   }
 };
 
-// K5, actor="ddpg": outputs as gen_policy_day_kernel.
-template <class C>
-__global__ void __launch_bounds__(kDdpgThreads)
-gen_policy_day_ddpg_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
-                           const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
-                           const float* __restrict__ u, const float* __restrict__ batt_soc,
-                           const float* __restrict__ pv_shift, const float* __restrict__ weights,
-                           float* __restrict__ rewards, float* __restrict__ actions,
-                           float* __restrict__ soc_final, float* __restrict__ batt_final, int B, Dims d) {
+// The evaluation actor of a block: its views of the weights and of the
+// shared memory after the traces, no noise, no trajectory.
+template <class C, int KIND, bool BF16>
+__device__ __forceinline__ BlockActor<C, KIND, BF16> block_actor(const float* weights, const SharedTraces& s,
+                                                                 int T, int B, const BlockLane& l) {
+  return BlockActor<C, KIND, BF16>{Actor<C>(weights), BlockShared<C>(s.solar + T), nullptr, nullptr, nullptr,
+                                   nullptr, B, l.b0, l.b, l.writes};
+}
+
+// K5 with the block actor (actor="ddpg", or a PPO torso too large for
+// MeanActor): outputs as gen_policy_day_kernel.
+template <class C, int KIND>
+__global__ void __launch_bounds__(kBlockThreads)
+gen_policy_day_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                            const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                            const float* __restrict__ u, const float* __restrict__ batt_soc,
+                            const float* __restrict__ pv_shift, const float* __restrict__ weights,
+                            float* __restrict__ rewards, float* __restrict__ actions,
+                            float* __restrict__ soc_final, float* __restrict__ batt_final, int B, Dims d) {
   extern __shared__ float smem[];
   const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
   __syncthreads();
-  const DdpgLane l(B);
-  const DdpgBlockActor<C> policy{Actor<C>(weights), DdpgShared<C>(s.solar + d.T), nullptr, nullptr, nullptr,
-                                 nullptr, B, l.b0, l.b, l.writes};
+  const BlockLane l(B);
+  const auto policy = block_actor<C, KIND, false>(weights, s, d.T, B, l);
   const ExplicitDraws<C::N> src{u, B, l.b};
   const float pv = pv_shift[l.b];
   float batt = batt_soc[l.b];
@@ -1044,19 +1091,18 @@ gen_policy_day_ddpg_kernel(const float* __restrict__ price, const float* __restr
   batt_final[l.b] = batt;
 }
 
-// K6, actor="ddpg": outputs as gen_policy_multiday_kernel.
-template <class C>
-__global__ void __launch_bounds__(kDdpgThreads)
-gen_policy_multiday_ddpg_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
-                                const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
-                                uint32_t seed, int num_days, const float* __restrict__ weights,
-                                float* __restrict__ stats, int B, Dims d) {
+// K6 with the block actor: outputs as gen_policy_multiday_kernel.
+template <class C, int KIND, bool BF16>
+__global__ void __launch_bounds__(kBlockThreads)
+gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                                 const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                                 uint32_t seed, int num_days, const float* __restrict__ weights,
+                                 float* __restrict__ stats, int B, Dims d) {
   extern __shared__ float smem[];
   const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
   __syncthreads();
-  const DdpgLane l(B);
-  const DdpgBlockActor<C> policy{Actor<C>(weights), DdpgShared<C>(s.solar + d.T), nullptr, nullptr, nullptr,
-                                 nullptr, B, l.b0, l.b, l.writes};
+  const BlockLane l(B);
+  const auto policy = block_actor<C, KIND, BF16>(weights, s, d.T, B, l);
   float batt = kBattInit;
   float rew_total = 0.0f, sq_total = 0.0f;
   Carry<C> c;
@@ -1098,7 +1144,7 @@ gen_policy_multiday_ddpg_kernel(const float* __restrict__ price, const float* __
 // next_obs (T, F, B) (next_obs[t] = obs[t+1], the day-end observe at T-1)
 // and batt (B).
 template <class C, bool SEEDED>
-__global__ void __launch_bounds__(kDdpgThreads)
+__global__ void __launch_bounds__(kBlockThreads)
 ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
                         const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
                         const float* __restrict__ u, uint32_t seed, const float* __restrict__ ou,
@@ -1109,9 +1155,9 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
   extern __shared__ float smem[];
   const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
   __syncthreads();
-  const DdpgLane l(B);
-  const DdpgBlockActor<C> policy{Actor<C>(weights), DdpgShared<C>(s.solar + d.T), ou, obs_out, act_out,
-                                 next_out, B, l.b0, l.b, l.writes};
+  const BlockLane l(B);
+  const BlockActor<C, kDdpgActor> policy{Actor<C>(weights), BlockShared<C>(s.solar + d.T), ou, obs_out, act_out,
+                                         next_out, B, l.b0, l.b, l.writes};
   const uint2 key = make_uint2(seed, static_cast<uint32_t>(l.b));
   float pv;
   if constexpr (SEEDED) {
@@ -1219,38 +1265,25 @@ __global__ void rbc_day_rollout_kernel(const float* __restrict__ price, const fl
   for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = prev_col[n];
 }
 
-// K11b: one day of the PPO actor's clipped mean from a given state, with
+// K11b's day of env b: the PPO actor's clipped mean from a given state, with
 // bidirectional charger and BESS physics; rewards (T, B), actions (T, A, B),
 // soc_final (N, B) (pallas_policy_rollout.py:40-183).  The observation at
 // t = 0 takes its SoC rows from the state's column 0, the penalty at t = 0
-// the column L-1.
-template <class C>
-__global__ void policy_day_rollout_kernel(const float* __restrict__ price, const float* __restrict__ price_norm,
-                                          int P, const float* __restrict__ rad_norm, int S,
-                                          const float* __restrict__ solar, const float* __restrict__ tables,
-                                          const float* __restrict__ prev_col0, const float* __restrict__ pmask0,
-                                          const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
-                                          const float* __restrict__ weights, float* __restrict__ rewards,
-                                          float* __restrict__ actions, float* __restrict__ soc_final, int B,
-                                          int T, float dt) {
-  extern __shared__ float smem[];
-  load_block(smem, weights, C::WEIGHTS);
-  const SharedTraces s = load_traces(smem + C::WEIGHTS, rad_norm, S, price_norm, P, price, solar, T);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
+// the column L-1.  Every thread of a block-actor block runs it (the policy
+// needs the whole block); only `writes` threads store.
+template <class C, class Policy>
+__device__ __forceinline__ void policy_day_from_tables(const SharedTraces& s, const DayTablesView& tab,
+                                                       const float* prev_col0, const float* pmask0, float batt,
+                                                       float pv, const Policy& policy, bool writes,
+                                                       float* rewards, float* actions, float* soc_final,
+                                                       int64_t B, int64_t b, int T, float dt) {
   constexpr int N = C::N;
-  const MeanActor<C> policy{Actor<C>(smem)};
-  const DayTablesView tab{tables, static_cast<int64_t>(T) * N * B, B, b, N};
   float prev_col[N], pmask[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     prev_col[n] = prev_col0[static_cast<int64_t>(n) * B + b];
     pmask[n] = pmask0[static_cast<int64_t>(n) * B + b];
   }
-  const float pv = pv_shift[b];
-  float batt = batt_soc[b];
   float obs[C::F], act[C::A];
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
@@ -1286,13 +1319,56 @@ __global__ void policy_day_rollout_kernel(const float* __restrict__ price, const
     rows.p_used = 0.0f;
     rows.dod = 0.0f;
     if (C::BATT) battery_physics(act[N], batt, dt, rows);
+    if (!writes) continue;
     const float cost = policy_cost<C>(rows, s.solar[t], s.price[t], pv, dt) + kWVeh * pen_sum;
     rewards[static_cast<int64_t>(t) * B + b] = -cost;
 #pragma unroll
     for (int i = 0; i < C::A; ++i) actions[(static_cast<int64_t>(t) * C::A + i) * B + b] = act[i];
   }
+  if (!writes) return;
 #pragma unroll
   for (int n = 0; n < N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = prev_col[n];
+}
+
+// K11b with MeanActor: one thread per env, the actor block in shared memory.
+template <class C>
+__global__ void policy_day_rollout_kernel(const float* __restrict__ price, const float* __restrict__ price_norm,
+                                          int P, const float* __restrict__ rad_norm, int S,
+                                          const float* __restrict__ solar, const float* __restrict__ tables,
+                                          const float* __restrict__ prev_col0, const float* __restrict__ pmask0,
+                                          const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                                          const float* __restrict__ weights, float* __restrict__ rewards,
+                                          float* __restrict__ actions, float* __restrict__ soc_final, int B,
+                                          int T, float dt) {
+  extern __shared__ float smem[];
+  load_block(smem, weights, C::WEIGHTS);
+  const SharedTraces s = load_traces(smem + C::WEIGHTS, rad_norm, S, price_norm, P, price, solar, T);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const DayTablesView tab{tables, static_cast<int64_t>(T) * C::N * B, B, b, C::N};
+  policy_day_from_tables<C>(s, tab, prev_col0, pmask0, batt_soc[b], pv_shift[b], MeanActor<C>{Actor<C>(smem)},
+                            true, rewards, actions, soc_final, B, b, T, dt);
+}
+
+// K11b with the block actor (a PPO torso too large for MeanActor).
+template <class C>
+__global__ void __launch_bounds__(kBlockThreads)
+policy_day_rollout_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                                const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                                const float* __restrict__ tables, const float* __restrict__ prev_col0,
+                                const float* __restrict__ pmask0, const float* __restrict__ batt_soc,
+                                const float* __restrict__ pv_shift, const float* __restrict__ weights,
+                                float* __restrict__ rewards, float* __restrict__ actions,
+                                float* __restrict__ soc_final, int B, int T, float dt) {
+  extern __shared__ float smem[];
+  const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, T);
+  __syncthreads();
+  const BlockLane l(B);
+  const DayTablesView tab{tables, static_cast<int64_t>(T) * C::N * B, B, l.b, C::N};
+  policy_day_from_tables<C>(s, tab, prev_col0, pmask0, batt_soc[l.b], pv_shift[l.b],
+                            block_actor<C, kPpoActor, false>(weights, s, T, B, l), l.writes, rewards, actions,
+                            soc_final, B, l.b, T, dt);
 }
 
 }  // namespace ngk

@@ -18,7 +18,7 @@ int ngk_ddpg_actor_size() { return ngd::Mlp<NG_F, NG_A, NG_H1, NG_H2>::P; }
 int ngk_ddpg_critic_size() { return ngd::Mlp<NG_F + NG_A, 1, NG_H1, NG_H2>::P; }
 
 // ptrs: the device pointers of ngd::StepArgs in declaration order (33);
-// ints: M, the actor's Adam step, the critic's Adam step;
+// ints: M, the actor's Adam step, the critic's Adam step, bf16 (the matmul_dtype option);
 // floats: gamma, 2/M, 1/M, tau, 1 - tau, lr, b1, 1 - b1, log b1, b2, 1 - b2, log b2, eps.
 int ngk_ddpg_step(void* const* ptrs, const int* ints, const float* floats, void* stream) {
   auto f = [&](int i) { return static_cast<float*>(ptrs[i]); };
@@ -59,6 +59,7 @@ int ngk_ddpg_step(void* const* ptrs, const int* ints, const float* floats, void*
   p.M = ints[0];
   p.t_actor_step = ints[1];
   p.t_critic_step = ints[2];
+  p.bf16 = ints[3] != 0;
   p.gamma = floats[0];
   p.two_inv_m = floats[1];
   p.inv_m = floats[2];

@@ -27,12 +27,26 @@
 // Bound: the products, about 2.7e6 flops per sample and step (G x M samples
 // per update), in float32 outside the tensor cores; Adam and polyak move
 // about 8 MB per step.
+//
+// The bf16 operand option (DDPGSweepHypers.matmul_dtype,
+// pallas_ddpg_sweep.py:105-135, 153-154) is gemm_kernel's template flag:
+// every product in the step casts both operands (target bootstrap, critic
+// forward and backward, actor forward, the critic's input gradient, actor
+// backward), so the block rounds each A and B element as it stages it into
+// shared memory (operand.cuh).  The epilogues read f32 aux: the ReLU masks,
+// the squash, tanh_u, the TD error, Adam, polyak and the bias column sums
+// stay f32.  The tensor cores are not used: their accumulation order is not
+// the twin's.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "operand.cuh"
+
 namespace ngd {
+
+using ngo::operand;
 
 constexpr int kTileM = 64, kTileN = 64, kTileK = 16;
 constexpr int kGemmThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
@@ -112,7 +126,9 @@ __device__ __forceinline__ float epilogue(const Epi& e, float acc, int m, int n)
   }
 }
 
-// C = epilogue(A B): a block per 64 x 64 tile of C, k in chunks of 16 in order.
+// C = epilogue(A B): a block per 64 x 64 tile of C, k in chunks of 16 in order;
+// with BF16 the staged A and B elements are rounded to bf16 values.
+template <bool BF16>
 __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(Gemm g, Epi e) {
   __shared__ float as[kTileK][kTileM + 1];
   __shared__ float bs[kTileK][kTileN + 1];
@@ -130,13 +146,13 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(Gemm g, Epi e) {
       const int mm = g.ak == 1 ? i / kTileK : i % kTileM;
       const int kk = g.ak == 1 ? i % kTileK : i / kTileM;
       const int m = m0 + mm, k = k0 + kk;
-      as[kk][mm] = (m < g.M && k < g.K) ? g.a[m * g.am + k * g.ak] : 0.0f;
+      as[kk][mm] = (m < g.M && k < g.K) ? operand<BF16>(g.a[m * g.am + k * g.ak]) : 0.0f;
     }
     for (int i = threadIdx.x; i < kTileN * kTileK; i += kGemmThreads) {
       const int nn = g.bn == 1 ? i % kTileN : i / kTileK;
       const int kk = g.bn == 1 ? i / kTileN : i % kTileK;
       const int n = n0 + nn, k = k0 + kk;
-      bs[kk][nn] = (n < g.N && k < g.K) ? g.b[k * g.bk + n * g.bn] : 0.0f;
+      bs[kk][nn] = (n < g.N && k < g.K) ? operand<BF16>(g.b[k * g.bk + n * g.bn]) : 0.0f;
     }
     __syncthreads();
     const int kmax = min(kTileK, g.K - k0);
@@ -232,16 +248,27 @@ struct StepArgs {
   float* metrics_row;  // (2)
   // ngk_ddpg_step's ptrs array lists the pointers above in this order
   int M, t_actor_step, t_critic_step;
+  bool bf16;  // the matmul_dtype option
   float gamma, two_inv_m, inv_m, tau, one_minus_tau;
   AdamArgs adam;
 };
 
 inline dim3 tiles(int M, int N) { return dim3((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM); }
 
-inline void gemm(cudaStream_t s, const float* a, int64_t am, int64_t ak, const float* b, int64_t bk, int64_t bn,
+// The stream of a step's launches and its operand type.
+struct Ctx {
+  cudaStream_t s;
+  bool bf16;
+};
+
+inline void gemm(const Ctx& x, const float* a, int64_t am, int64_t ak, const float* b, int64_t bk, int64_t bn,
                  float* c, int64_t cm, int M, int N, int K, Epi e) {
   const Gemm g{a, am, ak, b, bk, bn, c, cm, 1, M, N, K};
-  gemm_kernel<<<tiles(M, N), kGemmThreads, 0, s>>>(g, e);
+  if (x.bf16) {
+    gemm_kernel<true><<<tiles(M, N), kGemmThreads, 0, x.s>>>(g, e);
+  } else {
+    gemm_kernel<false><<<tiles(M, N), kGemmThreads, 0, x.s>>>(g, e);
+  }
 }
 
 inline Epi epi(int kind, const float* bias = nullptr) {
@@ -258,20 +285,20 @@ inline Epi mask(const float* aux, int64_t xm) {
   return e;
 }
 
-inline void colsum(cudaStream_t s, const float* x, int M, int N, float* out) {
-  colsum_kernel<<<(N + kVecThreads - 1) / kVecThreads, kVecThreads, 0, s>>>(x, M, N, N, out);
+inline void colsum(const Ctx& x, const float* v, int M, int N, float* out) {
+  colsum_kernel<<<(N + kVecThreads - 1) / kVecThreads, kVecThreads, 0, x.s>>>(v, M, N, N, out);
 }
 
 // Forward of the two hidden layers of `net` on x (M, in) with row stride ldx.
 template <class L>
-void hidden_fwd(cudaStream_t s, const float* net, const float* x, int64_t ldx, int in, int M, int H1, int H2,
+void hidden_fwd(const Ctx& s, const float* net, const float* x, int64_t ldx, int in, int M, int H1, int H2,
                 float* h1, float* h2) {
   gemm(s, x, ldx, 1, net + L::W1, 1, in, h1, H1, M, H1, in, epi(kBiasRelu, net + L::B1));
   gemm(s, h1, H1, 1, net + L::W2, 1, H1, h2, H2, M, H2, H1, epi(kBiasRelu, net + L::B2));
 }
 
 // Weight and bias gradients of one layer: grad W (out, in) = G^T X, grad b = colsum G.
-inline void layer_grads(cudaStream_t s, const float* g, int out, const float* x, int64_t ldx, int in, int M,
+inline void layer_grads(const Ctx& s, const float* g, int out, const float* x, int64_t ldx, int in, int M,
                         float* gw, float* gb) {
   gemm(s, g, 1, out, x, ldx, 1, gw, in, out, in, M, epi(kNone));
   colsum(s, g, M, out, gb);
@@ -279,11 +306,12 @@ inline void layer_grads(cudaStream_t s, const float* g, int out, const float* x,
 
 // One gradient step (pallas_ddpg_sweep.py:138-232, in its order).
 template <int F, int A, int H1, int H2>
-void ddpg_step(const StepArgs& p, cudaStream_t s) {
+void ddpg_step(const StepArgs& p, cudaStream_t stream) {
   using Ac = Mlp<F, A, H1, H2>;
   using Cr = Mlp<F + A, 1, H1, H2>;
   constexpr int FC = F + A;
   const int M = p.M;
+  const Ctx s{stream, p.bf16};
 
   // ---- target bootstrap: y = r + gamma (1 - d) Q'(s', mu'(s')) ----
   hidden_fwd<Ac>(s, p.t_actor, p.xa_next, FC, F, M, H1, H2, p.a1, p.a2);
@@ -313,8 +341,8 @@ void ddpg_step(const StepArgs& p, cudaStream_t s) {
   layer_grads(s, p.g1, H1, p.xa, FC, FC, M, p.c_grad + Cr::W1, p.c_grad + Cr::B1);
   AdamArgs ha = p.adam;
   ha.t = p.t_critic_step;
-  adam_kernel<<<(Cr::P + kVecThreads - 1) / kVecThreads, kVecThreads, 0, s>>>(p.critic, p.c_mu, p.c_nu,
-                                                                                p.c_grad, Cr::P, ha);
+  adam_kernel<<<(Cr::P + kVecThreads - 1) / kVecThreads, kVecThreads, 0, stream>>>(p.critic, p.c_mu, p.c_nu,
+                                                                                     p.c_grad, Cr::P, ha);
 
   // ---- actor step through the updated critic ----
   hidden_fwd<Ac>(s, p.actor, p.xa_pi, FC, F, M, H1, H2, p.a1, p.a2);
@@ -341,15 +369,15 @@ void ddpg_step(const StepArgs& p, cudaStream_t s) {
   gemm(s, p.g2, H2, 1, p.actor + Ac::W2, H1, 1, p.g1, H1, M, H1, H2, mask(p.a1, H1));
   layer_grads(s, p.g1, H1, p.xa_pi, FC, F, M, p.a_grad + Ac::W1, p.a_grad + Ac::B1);
   ha.t = p.t_actor_step;
-  adam_kernel<<<(Ac::P + kVecThreads - 1) / kVecThreads, kVecThreads, 0, s>>>(p.actor, p.a_mu, p.a_nu,
-                                                                                p.a_grad, Ac::P, ha);
+  adam_kernel<<<(Ac::P + kVecThreads - 1) / kVecThreads, kVecThreads, 0, stream>>>(p.actor, p.a_mu, p.a_nu,
+                                                                                     p.a_grad, Ac::P, ha);
 
   // ---- polyak on both targets, then the step's metrics ----
-  polyak_kernel<<<(Ac::P + kVecThreads - 1) / kVecThreads, kVecThreads, 0, s>>>(p.t_actor, p.actor, Ac::P,
-                                                                                  p.one_minus_tau, p.tau);
-  polyak_kernel<<<(Cr::P + kVecThreads - 1) / kVecThreads, kVecThreads, 0, s>>>(p.t_critic, p.critic, Cr::P,
-                                                                                  p.one_minus_tau, p.tau);
-  metrics_kernel<<<1, 32, 0, s>>>(p.cerr, p.q_pi, M, p.inv_m, p.metrics_row);
+  polyak_kernel<<<(Ac::P + kVecThreads - 1) / kVecThreads, kVecThreads, 0, stream>>>(
+      p.t_actor, p.actor, Ac::P, p.one_minus_tau, p.tau);
+  polyak_kernel<<<(Cr::P + kVecThreads - 1) / kVecThreads, kVecThreads, 0, stream>>>(
+      p.t_critic, p.critic, Cr::P, p.one_minus_tau, p.tau);
+  metrics_kernel<<<1, 32, 0, stream>>>(p.cerr, p.q_pi, M, p.inv_m, p.metrics_row);
 }
 
 }  // namespace ngd

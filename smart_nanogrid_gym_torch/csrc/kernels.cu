@@ -7,6 +7,11 @@
 //   0 the PPO actor (K5/K6 and the collection kernels K1/K2), 1 the DDPG
 //   actor (K5/K6 actor="ddpg" and the collection kernel K9).
 // Both kinds carry the RBC kernels K7/K8 and K11a; the PPO kind K11b.
+// The PPO actor's design is fixed per library (kBlockActor): MeanActor, one
+// thread per env with the f32 actor block in shared memory, when the block
+// leaves kTraceReserve bytes for the traces; the block-level product
+// otherwise (the 256x256 torso).  K6 takes the bf16 operand option as an
+// argument (one template instance each), so it adds no library.
 // Every entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
 #include "day_step.cuh"
@@ -24,18 +29,52 @@ constexpr int kThreads = 128;
 // envs spreads over 128 SMs (each thread runs a whole day, so a block's
 // shared-memory pipe serves few warps).
 constexpr int kCollectThreads = 32;
+constexpr size_t kMaxSmem = 232448;     // dynamic shared memory one H100 block may use
+constexpr size_t kTraceReserve = 16384;  // room kept for the traces (S + P + 2T floats)
+constexpr bool kBlockActor =
+    NG_ACTOR == ngk::kDdpgActor || C::WEIGHTS * sizeof(float) + kTraceReserve > kMaxSmem;
 
 inline dim3 grid_for(int B, int threads = kThreads) { return dim3((B + threads - 1) / threads); }
 
 inline ngk::Dims dims(int T, int k4, int k10, int k1, float dt) { return ngk::Dims{T, k4, k10, k1, dt}; }
 
-template <class Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  if (bytes > 48 * 1024) {
-    return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(bytes)));
+// Launch `kernel` with `smem` bytes of dynamic shared memory (raising the
+// kernel's limit above 48 KB first).
+template <class... Params, class... Args>
+int launch(void (*kernel)(Params...), dim3 grid, int threads, size_t smem, void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return 0;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of the two actor designs: the f32 actor block (block =
+// false) or the block's activations (block = true), then the traces.
+size_t actor_smem(bool block, int S, int P, int T) {
+  const int floats = block ? ngk::block_shared_floats<C>() : C::WEIGHTS;
+  return static_cast<size_t>(floats + S + P + 2 * T) * sizeof(float);
+}
+
+dim3 actor_grid(bool block, int B) { return block ? grid_for(B, ngk::kBlockEnvs) : grid_for(B); }
+
+int actor_threads(bool block) { return block ? ngk::kBlockThreads : kThreads; }
+
+template <bool BF16>
+int gen_policy_multiday(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
+                        const float* solar, unsigned int seed, int num_days, const float* weights, float* stats,
+                        int B, const ngk::Dims& d, void* stream) {
+  const size_t smem = actor_smem(kBlockActor, S, P, d.T);
+  if constexpr (kBlockActor) {
+    return launch(ngk::gen_policy_multiday_block_kernel<C, NG_ACTOR, BF16>, actor_grid(true, B),
+                  actor_threads(true), smem, stream, price, price_norm, P, rad_norm, S, solar, seed, num_days,
+                  weights, stats, B, d);
+  } else {
+    return launch(ngk::gen_policy_multiday_kernel<C, BF16>, actor_grid(false, B), actor_threads(false), smem,
+                  stream, price, price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats, B, d);
+  }
 }
 
 }  // namespace
@@ -44,31 +83,59 @@ extern "C" {
 
 int ngk_weights_size() { return C::WEIGHTS; }
 
+int ngk_block_actor() { return kBlockActor ? 1 : 0; }
+
 int ngk_gen_rbc_day(const float* price, const float* rad_norm, int S, const float* solar, const float* u,
                     const float* batt_soc, const float* pv_shift, float* rewards, float* soc_final, int B, int T,
                     int k4, int k10, int k1, float dt, void* stream) {
-  const size_t smem = static_cast<size_t>(S + 2 * T) * sizeof(float);
-  ngk::gen_rbc_day_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      price, rad_norm, S, solar, u, batt_soc, pv_shift, rewards, soc_final, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
+  return launch(ngk::gen_rbc_day_kernel<C>, grid_for(B), kThreads, static_cast<size_t>(S + 2 * T) * sizeof(float),
+                stream, price, rad_norm, S, solar, u, batt_soc, pv_shift, rewards, soc_final, B,
+                dims(T, k4, k10, k1, dt));
 }
 
 int ngk_gen_rbc_multiday(const float* price, const float* rad_norm, int S, const float* solar, unsigned int seed,
                          int num_days, float* stats, int B, int T, int k4, int k10, int k1, float dt,
                          void* stream) {
-  const size_t smem = static_cast<size_t>(S + 2 * T) * sizeof(float);
-  ngk::gen_rbc_multiday_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      price, rad_norm, S, solar, seed, num_days, stats, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
+  return launch(ngk::gen_rbc_multiday_kernel<C>, grid_for(B), kThreads,
+                static_cast<size_t>(S + 2 * T) * sizeof(float), stream, price, rad_norm, S, solar, seed, num_days,
+                stats, B, dims(T, k4, k10, k1, dt));
 }
 
 int ngk_rbc_day_rollout(const float* price, const float* rad_norm, int S, const float* solar, const float* tables,
                         const float* prev_col, const float* pmask, const float* batt_soc, const float* pv_shift,
                         float* rewards, float* soc_final, int B, int T, float dt, void* stream) {
-  const size_t smem = static_cast<size_t>(S + 2 * T) * sizeof(float);
-  ngk::rbc_day_rollout_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      price, rad_norm, S, solar, tables, prev_col, pmask, batt_soc, pv_shift, rewards, soc_final, B, T, dt);
-  return static_cast<int>(cudaGetLastError());
+  return launch(ngk::rbc_day_rollout_kernel<C>, grid_for(B), kThreads,
+                static_cast<size_t>(S + 2 * T) * sizeof(float), stream, price, rad_norm, S, solar, tables,
+                prev_col, pmask, batt_soc, pv_shift, rewards, soc_final, B, T, dt);
+}
+
+// K5 and K6 for either actor; the kernel follows the library's design.
+int ngk_gen_policy_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
+                       const float* solar, const float* u, const float* batt_soc, const float* pv_shift,
+                       const float* weights, float* rewards, float* actions, float* soc_final, float* batt_final,
+                       int B, int T, int k4, int k10, int k1, float dt, void* stream) {
+  const size_t smem = actor_smem(kBlockActor, S, P, T);
+  const ngk::Dims d = dims(T, k4, k10, k1, dt);
+  if constexpr (kBlockActor) {
+    return launch(ngk::gen_policy_day_block_kernel<C, NG_ACTOR>, actor_grid(true, B), actor_threads(true), smem,
+                  stream, price, price_norm, P, rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions,
+                  soc_final, batt_final, B, d);
+  } else {
+    return launch(ngk::gen_policy_day_kernel<C>, actor_grid(false, B), actor_threads(false), smem, stream, price,
+                  price_norm, P, rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final,
+                  batt_final, B, d);
+  }
+}
+
+// bf16 != 0: the mlp_dtype option, the weights already rounded to bf16 values.
+int ngk_gen_policy_multiday(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
+                            const float* solar, unsigned int seed, int num_days, const float* weights,
+                            float* stats, int B, int T, int k4, int k10, int k1, float dt, int bf16, void* stream) {
+  const ngk::Dims d = dims(T, k4, k10, k1, dt);
+  return bf16 ? gen_policy_multiday<true>(price, price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats,
+                                          B, d, stream)
+              : gen_policy_multiday<false>(price, price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats,
+                                           B, d, stream);
 }
 
 #if NG_ACTOR == 0
@@ -79,115 +146,61 @@ int ngk_policy_day_rollout(const float* price, const float* price_norm, int P, c
                            const float* solar, const float* tables, const float* prev_col, const float* pmask,
                            const float* batt_soc, const float* pv_shift, const float* weights, float* rewards,
                            float* actions, float* soc_final, int B, int T, float dt, void* stream) {
-  const size_t smem = static_cast<size_t>(C::WEIGHTS + S + P + 2 * T) * sizeof(float);
-  const int err = set_smem(ngk::policy_day_rollout_kernel<C>, smem);
-  if (err != 0) return err;
-  ngk::policy_day_rollout_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      price, price_norm, P, rad_norm, S, solar, tables, prev_col, pmask, batt_soc, pv_shift, weights, rewards,
-      actions, soc_final, B, T, dt);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = actor_smem(kBlockActor, S, P, T);
+  if constexpr (kBlockActor) {
+    return launch(ngk::policy_day_rollout_block_kernel<C>, actor_grid(true, B), actor_threads(true), smem, stream,
+                  price, price_norm, P, rad_norm, S, solar, tables, prev_col, pmask, batt_soc, pv_shift, weights,
+                  rewards, actions, soc_final, B, T, dt);
+  } else {
+    return launch(ngk::policy_day_rollout_kernel<C>, actor_grid(false, B), actor_threads(false), smem, stream,
+                  price, price_norm, P, rad_norm, S, solar, tables, prev_col, pmask, batt_soc, pv_shift, weights,
+                  rewards, actions, soc_final, B, T, dt);
+  }
 }
 
-int ngk_gen_policy_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
-                       const float* solar, const float* u, const float* batt_soc, const float* pv_shift,
-                       const float* weights, float* rewards, float* actions, float* soc_final, float* batt_final,
-                       int B, int T, int k4, int k10, int k1, float dt, void* stream) {
-  const size_t smem = static_cast<size_t>(C::WEIGHTS + S + P + 2 * T) * sizeof(float);
-  const int err = set_smem(ngk::gen_policy_day_kernel<C>, smem);
-  if (err != 0) return err;
-  ngk::gen_policy_day_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      price, price_norm, P, rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final,
-      batt_final, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int ngk_gen_policy_multiday(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
-                            const float* solar, unsigned int seed, int num_days, const float* weights,
-                            float* stats, int B, int T, int k4, int k10, int k1, float dt, void* stream) {
-  const size_t smem = static_cast<size_t>(C::WEIGHTS + S + P + 2 * T) * sizeof(float);
-  const int err = set_smem(ngk::gen_policy_multiday_kernel<C>, smem);
-  if (err != 0) return err;
-  ngk::gen_policy_multiday_kernel<C><<<grid_for(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      price, price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
-}
-
+// K1/K2 hold the actor-critic in shared memory: a block-design library
+// (its actor alone too large for that) has no collection kernel, and
+// ops/collect.py refuses such a torso before it reaches here.
 int ngk_ppo_collect_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                         const float* solar, const float* u, const float* normals, const float* batt_soc,
                         const float* pv_shift, const float* weights, float* obs, float* act, float* logp,
                         float* value, float* rewards, float* batt_final, int B, int T, int k4, int k10, int k1,
                         float dt, void* stream) {
-  const size_t smem = static_cast<size_t>(C::COLLECT_WEIGHTS + S + P + 2 * T) * sizeof(float);
-  const int err = set_smem(ngk::ppo_collect_day_kernel<C, false>, smem);
-  if (err != 0) return err;
-  ngk::ppo_collect_day_kernel<C, false>
-      <<<grid_for(B, kCollectThreads), kCollectThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          price, price_norm, P, rad_norm, S, solar, u, normals, 0u, batt_soc, pv_shift, weights, obs, act, logp,
-          value, rewards, batt_final, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (kBlockActor) {
+    return static_cast<int>(cudaErrorNotSupported);
+  } else {
+    return launch(ngk::ppo_collect_day_kernel<C, false>, grid_for(B, kCollectThreads), kCollectThreads,
+                  static_cast<size_t>(C::COLLECT_WEIGHTS + S + P + 2 * T) * sizeof(float), stream, price,
+                  price_norm, P, rad_norm, S, solar, u, normals, 0u, batt_soc, pv_shift, weights, obs, act, logp,
+                  value, rewards, batt_final, B, dims(T, k4, k10, k1, dt));
+  }
 }
 
 int ngk_ppo_collect_day_seeded(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                                const float* solar, unsigned int seed, const float* batt_soc, const float* weights,
                                float* obs, float* act, float* logp, float* value, float* rewards,
                                float* batt_final, int B, int T, int k4, int k10, int k1, float dt, void* stream) {
-  const size_t smem = static_cast<size_t>(C::COLLECT_WEIGHTS + S + P + 2 * T) * sizeof(float);
-  const int err = set_smem(ngk::ppo_collect_day_kernel<C, true>, smem);
-  if (err != 0) return err;
-  ngk::ppo_collect_day_kernel<C, true>
-      <<<grid_for(B, kCollectThreads), kCollectThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          price, price_norm, P, rad_norm, S, solar, nullptr, nullptr, seed, batt_soc, nullptr, weights, obs, act,
-          logp, value, rewards, batt_final, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
+  const float* none = nullptr;
+  if constexpr (kBlockActor) {
+    return static_cast<int>(cudaErrorNotSupported);
+  } else {
+    return launch(ngk::ppo_collect_day_kernel<C, true>, grid_for(B, kCollectThreads), kCollectThreads,
+                  static_cast<size_t>(C::COLLECT_WEIGHTS + S + P + 2 * T) * sizeof(float), stream, price,
+                  price_norm, P, rad_norm, S, solar, none, none, seed, batt_soc, none, weights, obs, act, logp,
+                  value, rewards, batt_final, B, dims(T, k4, k10, k1, dt));
+  }
 }
 
-#else  // NG_ACTOR == 1: the DDPG actor, a block of kDdpgThreads threads per kDdpgEnvs envs
-
-// the block's activations and traces (ops/gen_policy_rollout.py::check_ddpg_torso
-// refuses torsos for which this exceeds a block's shared memory)
-static size_t ddpg_smem_bytes(int S, int P, int T) {
-  return static_cast<size_t>(ngk::ddpg_shared_floats<C>() + S + P + 2 * T) * sizeof(float);
-}
-
-int ngk_gen_policy_day_ddpg(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
-                            const float* solar, const float* u, const float* batt_soc, const float* pv_shift,
-                            const float* weights, float* rewards, float* actions, float* soc_final,
-                            float* batt_final, int B, int T, int k4, int k10, int k1, float dt, void* stream) {
-  const size_t smem = ddpg_smem_bytes(S, P, T);
-  const int err = set_smem(ngk::gen_policy_day_ddpg_kernel<C>, smem);
-  if (err != 0) return err;
-  ngk::gen_policy_day_ddpg_kernel<C>
-      <<<grid_for(B, ngk::kDdpgEnvs), ngk::kDdpgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          price, price_norm, P, rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final,
-          batt_final, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int ngk_gen_policy_multiday_ddpg(const float* price, const float* price_norm, int P, const float* rad_norm,
-                                 int S, const float* solar, unsigned int seed, int num_days, const float* weights,
-                                 float* stats, int B, int T, int k4, int k10, int k1, float dt, void* stream) {
-  const size_t smem = ddpg_smem_bytes(S, P, T);
-  const int err = set_smem(ngk::gen_policy_multiday_ddpg_kernel<C>, smem);
-  if (err != 0) return err;
-  ngk::gen_policy_multiday_ddpg_kernel<C>
-      <<<grid_for(B, ngk::kDdpgEnvs), ngk::kDdpgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          price, price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
-}
+#else  // NG_ACTOR == 1: the DDPG collection kernel K9, a block of kBlockThreads threads per kBlockEnvs envs
 
 int ngk_ddpg_collect_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                          const float* solar, const float* u, const float* ou, const float* batt_soc,
                          const float* pv_shift, const float* weights, float* obs, float* act, float* rewards,
                          float* next_obs, float* batt_final, int B, int T, int k4, int k10, int k1, float dt,
                          void* stream) {
-  const size_t smem = ddpg_smem_bytes(S, P, T);
-  const int err = set_smem(ngk::ddpg_collect_day_kernel<C, false>, smem);
-  if (err != 0) return err;
-  ngk::ddpg_collect_day_kernel<C, false>
-      <<<grid_for(B, ngk::kDdpgEnvs), ngk::kDdpgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          price, price_norm, P, rad_norm, S, solar, u, 0u, ou, batt_soc, pv_shift, weights, obs, act, rewards,
-          next_obs, batt_final, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
+  return launch(ngk::ddpg_collect_day_kernel<C, false>, actor_grid(true, B), actor_threads(true),
+                actor_smem(true, S, P, T), stream, price, price_norm, P, rad_norm, S, solar, u, 0u, ou, batt_soc,
+                pv_shift, weights, obs, act, rewards, next_obs, batt_final, B, dims(T, k4, k10, k1, dt));
 }
 
 int ngk_ddpg_collect_day_seeded(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
@@ -195,14 +208,10 @@ int ngk_ddpg_collect_day_seeded(const float* price, const float* price_norm, int
                                 const float* weights, float* obs, float* act, float* rewards, float* next_obs,
                                 float* batt_final, int B, int T, int k4, int k10, int k1, float dt,
                                 void* stream) {
-  const size_t smem = ddpg_smem_bytes(S, P, T);
-  const int err = set_smem(ngk::ddpg_collect_day_kernel<C, true>, smem);
-  if (err != 0) return err;
-  ngk::ddpg_collect_day_kernel<C, true>
-      <<<grid_for(B, ngk::kDdpgEnvs), ngk::kDdpgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          price, price_norm, P, rad_norm, S, solar, nullptr, seed, ou, batt_soc, nullptr, weights, obs, act,
-          rewards, next_obs, batt_final, B, dims(T, k4, k10, k1, dt));
-  return static_cast<int>(cudaGetLastError());
+  const float* none = nullptr;
+  return launch(ngk::ddpg_collect_day_kernel<C, true>, actor_grid(true, B), actor_threads(true),
+                actor_smem(true, S, P, T), stream, price, price_norm, P, rad_norm, S, solar, none, seed, ou,
+                batt_soc, none, weights, obs, act, rewards, next_obs, batt_final, B, dims(T, k4, k10, k1, dt));
 }
 
 #endif  // NG_ACTOR

@@ -26,12 +26,24 @@
 // parameters in shared memory; rows are padded to kTile + 1 floats so that
 // the warps' column reads hit distinct banks.  Multiply-adds are written out
 // (the build uses --fmad=false).
+//
+// The bf16 operand option (SweepHypers.matmul_dtype, pallas_ppo_sweep.py:191-206)
+// is the template flag BF16, chosen at launch: both operands of every network
+// product (the forward of both torsos, lanedot, subdot and gW1) are rounded
+// where they enter the product (operand.cuh), the weight matrices once as
+// the block loads them.  The tile keeps f32 activations, because the tanh
+// derivative 1 - y^2, the loss, the clip and Adam read f32 values.  The
+// tensor cores are not used: their accumulation order is not the twin's.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "operand.cuh"
+
 namespace ngs {
+
+using ngo::operand;
 
 constexpr int kTile = 32;          // samples per tile (one per lane)
 constexpr int kRow = kTile + 1;    // padded row of a feature-major tile
@@ -51,6 +63,12 @@ struct Net {
   static constexpr int LOG_STD = VB3 + 1;
   static constexpr int P = LOG_STD + A;       // parameter count
   static constexpr int PARTIAL = P + 3;       // + policy loss, squared value error, approx KL sums
+
+  // element i of the flat parameters belongs to a weight matrix (a product operand)
+  __device__ static bool is_weight(int i) {
+    return (i >= PW1 && i < PB1) || (i >= PW2 && i < PB2) || (i >= PW3 && i < PB3) || (i >= VW1 && i < VB1) ||
+           (i >= VW2 && i < VB2) || (i >= VW3 && i < VB3);
+  }
 };
 
 // Where the samples of the minibatch live.
@@ -115,20 +133,22 @@ constexpr size_t grad_smem_bytes() {
   return (static_cast<size_t>(N::P) + N::PARTIAL) * sizeof(float) + sizeof(Tile<N>);
 }
 
-// sum_k w[k] * x[k * kRow] for k = 0..K-1, in index order
-template <int K>
+// sum_k w[k] * x[k * kRow] for k = 0..K-1, in index order; the weights are
+// rounded already, x is rounded here with BF16
+template <int K, bool BF16>
 __device__ __forceinline__ float dot_col(const float* w, int wstride, const float* x) {
-  float acc = w[0] * x[0];
+  float acc = w[0] * operand<BF16>(x[0]);
 #pragma unroll 8
-  for (int k = 1; k < K; ++k) acc = acc + w[k * wstride] * x[k * kRow];
+  for (int k = 1; k < K; ++k) acc = acc + w[k * wstride] * operand<BF16>(x[k * kRow]);
   return acc;
 }
 
-// sum over the tile of a[s] * b[s], in sample order
+// sum over the tile of a[s] * b[s], in sample order (both operands rounded with BF16)
+template <bool BF16>
 __device__ __forceinline__ float tile_dot(const float* a, const float* b) {
-  float acc = a[0] * b[0];
+  float acc = operand<BF16>(a[0]) * operand<BF16>(b[0]);
 #pragma unroll
-  for (int s = 1; s < kTile; ++s) acc = acc + a[s] * b[s];
+  for (int s = 1; s < kTile; ++s) acc = acc + operand<BF16>(a[s]) * operand<BF16>(b[s]);
   return acc;
 }
 
@@ -141,7 +161,7 @@ __device__ __forceinline__ float tile_sum(const float* a) {
 
 // The gradient of block blockIdx.x's samples [m0, m1) of minibatch g:
 // partials[blockIdx.x] = (13 gradient leaves flat, sum -min_pg, sum verr^2, sum KL).
-template <class N>
+template <class N, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1)
 ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block, float lo, float hi,
                  float vf_coef, float inv_m, float* __restrict__ partials) {
@@ -150,7 +170,9 @@ ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block
   float* acc = w + N::P;             // gradient + metric sums (PARTIAL)
   Tile<N>& tl = *reinterpret_cast<Tile<N>*>(acc + N::PARTIAL);
   const int tid = threadIdx.x;
-  for (int i = tid; i < N::P; i += kThreads) w[i] = params[i];
+  for (int i = tid; i < N::P; i += kThreads) {
+    w[i] = BF16 && N::is_weight(i) ? operand<true>(params[i]) : params[i];
+  }
   for (int i = tid; i < N::PARTIAL; i += kThreads) acc[i] = 0.0f;
 
   const float neg_inv_m = -inv_m;
@@ -194,7 +216,8 @@ ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block
     for (int i = tid; i < 2 * N::H1 * kTile; i += kThreads) {
       const int net = i / (N::H1 * kTile), rem = i % (N::H1 * kTile), j = rem / kTile, s = rem % kTile;
       const int W = net ? N::VW1 : N::PW1, Bi = net ? N::VB1 : N::PB1;
-      (net ? tl.y1v : tl.y1p)[j * kRow + s] = tanhf(dot_col<N::F>(w + W + j * N::F, 1, tl.x + s) + w[Bi + j]);
+      const float z = dot_col<N::F, BF16>(w + W + j * N::F, 1, tl.x + s) + w[Bi + j];
+      (net ? tl.y1v : tl.y1p)[j * kRow + s] = tanhf(z);
     }
     __syncthreads();
     // ---- hidden layer 2 ----
@@ -202,16 +225,17 @@ ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block
       const int net = i / (N::H2 * kTile), rem = i % (N::H2 * kTile), j = rem / kTile, s = rem % kTile;
       const int W = net ? N::VW2 : N::PW2, Bi = net ? N::VB2 : N::PB2;
       const float* y1 = net ? tl.y1v : tl.y1p;
-      (net ? tl.y2v : tl.y2p)[j * kRow + s] = tanhf(dot_col<N::H1>(w + W + j * N::H1, 1, y1 + s) + w[Bi + j]);
+      const float z = dot_col<N::H1, BF16>(w + W + j * N::H1, 1, y1 + s) + w[Bi + j];
+      (net ? tl.y2v : tl.y2p)[j * kRow + s] = tanhf(z);
     }
     __syncthreads();
     // ---- outputs: the action mean (A) and the value ----
     for (int i = tid; i < (N::A + 1) * kTile; i += kThreads) {
       const int a = i / kTile, s = i % kTile;
       if (a < N::A) {
-        tl.mean[a * kRow + s] = dot_col<N::H2>(w + N::PW3 + a * N::H2, 1, tl.y2p + s) + w[N::PB3 + a];
+        tl.mean[a * kRow + s] = dot_col<N::H2, BF16>(w + N::PW3 + a * N::H2, 1, tl.y2p + s) + w[N::PB3 + a];
       } else {
-        tl.value[s] = dot_col<N::H2>(w + N::VW3, 1, tl.y2v + s) + w[N::VB3];
+        tl.value[s] = dot_col<N::H2, BF16>(w + N::VW3, 1, tl.y2v + s) + w[N::VB3];
       }
     }
     __syncthreads();
@@ -260,9 +284,7 @@ ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block
         int e = i;
         if (e < nW3p) {  // gW3p[a][k] (row-major a, k)
           const int a = e / N::H2, k = e % N::H2;
-          float sum = tl.gmean[a * kRow] * tl.y2p[k * kRow];
-#pragma unroll
-          for (int s = 1; s < kTile; ++s) sum = sum + tl.gmean[a * kRow + s] * tl.y2p[k * kRow + s];
+          const float sum = tile_dot<BF16>(tl.gmean + a * kRow, tl.y2p + k * kRow);
           acc[N::PW3 + e] += sum;
           continue;
         }
@@ -273,7 +295,7 @@ ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block
         }
         e -= nB3p;
         if (e < nW3v) {
-          acc[N::VW3 + e] += tile_dot(tl.gval, tl.y2v + e * kRow);
+          acc[N::VW3 + e] += tile_dot<BF16>(tl.gval, tl.y2v + e * kRow);
           continue;
         }
         e -= nW3v;
@@ -303,9 +325,9 @@ ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block
         const int net = e / (N::H2 * kTile), rem = e % (N::H2 * kTile), k = rem / kTile, s = rem % kTile;
         float back;
         if (net == 0) {
-          back = dot_col<N::A>(w + N::PW3 + k, N::H2, tl.gmean + s);
+          back = dot_col<N::A, BF16>(w + N::PW3 + k, N::H2, tl.gmean + s);
         } else {
-          back = w[N::VW3 + k] * tl.gval[s];
+          back = w[N::VW3 + k] * operand<BF16>(tl.gval[s]);
         }
         const float y = (net ? tl.y2v : tl.y2p)[k * kRow + s];
         (net ? tl.g2v : tl.g2p)[k * kRow + s] = back * (1.0f - y * y);
@@ -323,7 +345,7 @@ ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block
         const float* y1 = net ? tl.y1v : tl.y1p;
         if (e < nW2) {  // gW2[k][j]
           const int k = e / N::H1, j = e % N::H1;
-          acc[(net ? N::VW2 : N::PW2) + e] += tile_dot(g2 + k * kRow, y1 + j * kRow);
+          acc[(net ? N::VW2 : N::PW2) + e] += tile_dot<BF16>(g2 + k * kRow, y1 + j * kRow);
           continue;
         }
         e -= nW2;
@@ -333,7 +355,7 @@ ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block
         }
         e -= N::H2;
         const int j = e / kTile, s = e % kTile;
-        const float back = dot_col<N::H2>(w + (net ? N::VW2 : N::PW2) + j, N::H1, g2 + s);
+        const float back = dot_col<N::H2, BF16>(w + (net ? N::VW2 : N::PW2) + j, N::H1, g2 + s);
         const float y = y1[j * kRow + s];
         (net ? tl.g1v : tl.g1p)[j * kRow + s] = back * (1.0f - y * y);
       }
@@ -349,7 +371,7 @@ ppo_grad_partial(const float* __restrict__ params, Data d, int samples_per_block
         const float* g1 = net ? tl.g1v : tl.g1p;
         if (e < nW1) {  // gW1[j][f]
           const int j = e / N::F, f = e % N::F;
-          acc[(net ? N::VW1 : N::PW1) + e] += tile_dot(g1 + j * kRow, tl.x + f * kRow);
+          acc[(net ? N::VW1 : N::PW1) + e] += tile_dot<BF16>(g1 + j * kRow, tl.x + f * kRow);
         } else {
           acc[(net ? N::VB1 : N::PB1) + e - nW1] += tile_sum(g1 + (e - nW1) * kRow);
         }

@@ -7,9 +7,11 @@ count, config flags, actor hidden sizes and kind: the PPO actor's library
 holds K5/K6, K1/K2 and K11b, the DDPG actor's K5/K6 ``actor="ddpg"`` and K9,
 both K7/K8 and K11a),
 ``sweep.cu`` (the PPO update sweep K3/K4) and ``ddpg_sweep.cu`` (the DDPG
-update sweep K10) once per network shape.  Libraries land in ``build/torch_kernels/`` at the root of the
-checkout, named by the flags and a digest of the sources and nvcc flags, so
-an edited source rebuilds.  They are loaded with ``ctypes``; every launch goes
+update sweep K10) once per network shape.  The bf16 operand options (K6's
+``mlp_dtype``, the sweeps' ``matmul_dtype``) are launch arguments of the
+same libraries.  Libraries land in ``build/torch_kernels/`` at the root of
+the checkout, named by the flags and a digest of the sources and nvcc flags,
+so an edited source rebuilds.  They are loaded with ``ctypes``; every launch goes
 on PyTorch's current stream and its ``cudaGetLastError()`` is checked.
 
 ``launch_counts`` counts the launches of each kernel by name: a wrapper adds
@@ -34,7 +36,8 @@ from ..core.config import NanogridConfig
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("day_step.cuh", "kernels.cu", "ppo_sweep.cuh", "sweep.cu", "ddpg_sweep.cuh", "ddpg_sweep.cu")
+SOURCES = ("operand.cuh", "day_step.cuh", "kernels.cu", "ppo_sweep.cuh", "sweep.cu", "ddpg_sweep.cuh",
+           "ddpg_sweep.cu")
 # --fmad=false: no FMA contraction, so the kernels round like their twins;
 # IEEE division stays on (no --use_fast_math).
 NVCC_FLAGS = (
@@ -47,19 +50,19 @@ ACTORS = {"ppo": 0, "ddpg": 1}
 launch_counts: Counter = Counter()
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_POLICY_DAY = (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
-_POLICY_MULTIDAY = (_P, _P, _I, _P, _I, _P, _U, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P)
-_RBC_SIGNATURES = {
+_DAY_SIGNATURES = {
     "ngk_weights_size": (),
+    "ngk_block_actor": (),
     "ngk_gen_rbc_day": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_rbc_multiday": (_P, _P, _I, _P, _U, _I, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_rbc_day_rollout": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "ngk_gen_policy_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # ..., dt, bf16, stream
+    "ngk_gen_policy_multiday": (_P, _P, _I, _P, _I, _P, _U, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 _PPO_SIGNATURES = {
-    **_RBC_SIGNATURES,
+    **_DAY_SIGNATURES,
     "ngk_collect_weights_size": (),
-    "ngk_gen_policy_day": _POLICY_DAY,
-    "ngk_gen_policy_multiday": _POLICY_MULTIDAY,
     "ngk_policy_day_rollout": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "ngk_ppo_collect_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _P),
@@ -67,9 +70,7 @@ _PPO_SIGNATURES = {
                                    _I, _I, _I, _I, _I, _F, _P),
 }
 _DDPG_SIGNATURES = {
-    **_RBC_SIGNATURES,
-    "ngk_gen_policy_day_ddpg": _POLICY_DAY,
-    "ngk_gen_policy_multiday_ddpg": _POLICY_MULTIDAY,
+    **_DAY_SIGNATURES,
     "ngk_ddpg_collect_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _F, _P),
     "ngk_ddpg_collect_day_seeded": (_P, _P, _I, _P, _I, _P, _U, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -77,8 +78,9 @@ _DDPG_SIGNATURES = {
 }
 _SWEEP_SIGNATURES = {
     "ngk_sweep_params_size": (),
+    # ..., vf_coef, inv_m, bf16, stream
     "ngk_ppo_grad_partial": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
-                             _F, _F, _F, _F, _P),
+                             _F, _F, _F, _F, _I, _P),
     "ngk_ppo_adam_update": (_P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 _DDPG_SWEEP_SIGNATURES = {

@@ -32,12 +32,14 @@ from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
 from . import _build
 from .gen_policy_rollout import (
+    MAX_SHARED_BYTES,
     ActorWeights,
     check_policy_config,
     dense,
     gen_policy_step,
     policy_day_costs,
     policy_kwargs,
+    trace_floats,
 )
 from .gen_rollout import F32, W_VEH, Traces, fresh_carry, kernel_device, kernel_traces, \
     pv_shift_from_uniform, sum_rows
@@ -142,6 +144,18 @@ def _hidden(weights: CollectWeights) -> tuple[int, int]:
     return weights.pi.w1.shape[0], weights.pi.w2.shape[0]
 
 
+def check_collect_block(config: NanogridConfig, traces: Traces, weights: CollectWeights) -> None:
+    """Raise before any launch when the actor-critic and the traces exceed a
+    block's shared memory, which K1/K2 hold them in: the learner's 64×64
+    torsos fit, a 256×256 pair does not."""
+    need = 4 * (weights.packed().numel() + trace_floats(config, traces))
+    if need > MAX_SHARED_BYTES:
+        hidden = _hidden(weights)
+        raise ValueError(f"the collection kernels hold the actor-critic in shared memory: torsos "
+                         f"{hidden[0]}x{hidden[1]} and the traces need {need} bytes per block, more than "
+                         f"{MAX_SHARED_BYTES}; use collect_impl='plain'")
+
+
 def _block(weights: CollectWeights, lib) -> torch.Tensor:
     block = weights.packed()
     if block.numel() != lib.ngk_collect_weights_size():
@@ -178,6 +192,7 @@ def ppo_collect_day(config: NanogridConfig, params: NanogridParams, net, uniform
     pv = _build.check_f32(pv_shift, "pv_shift")
     batt = _build.check_f32(batt_soc.contiguous(), "batt_soc")
     outs = _outputs(config, B, device)
+    check_collect_block(config, traces, weights)
     lib = _build.library(config, device, _hidden(weights))
     _build.launch(
         "ppo_collect_day", lib.ngk_ppo_collect_day,
@@ -223,6 +238,7 @@ def ppo_collect_day_seeded(config: NanogridConfig, params: NanogridParams, net, 
 
     batt = _build.check_f32(batt_soc.contiguous(), "batt_soc")
     outs = _outputs(config, batch, device)
+    check_collect_block(config, traces, weights)
     lib = _build.library(config, device, _hidden(weights))
     _build.launch(
         "ppo_collect_day_seeded", lib.ngk_ppo_collect_day_seeded,

@@ -37,7 +37,7 @@ from .gen_policy_rollout import (
     ActorWeights,
     _packed,
     actor_weights,
-    check_ddpg_torso,
+    check_block_torso,
     check_policy_config,
     ddpg_action,
     gen_policy_step,
@@ -144,7 +144,7 @@ def _check_ou(config: NanogridConfig, ou_seq: torch.Tensor, B: int) -> None:
 
 def _library(config, traces, weights, device):
     hidden = _hidden(weights)
-    check_ddpg_torso(config, hidden, traces)
+    check_block_torso(config, hidden, traces)
     return _build.library(config, device, hidden, "ddpg")
 
 

@@ -1,7 +1,7 @@
 """The DDPG update sweep: kernel K10 with its plain twin.
 
 Replaces ``smart_nanogrid_gym_tpu/ops/pallas_ddpg_sweep.py``
-(``ddpg_sweep_pallas``, f32 operands): all ``G`` gradient steps of one DDPG
+(``ddpg_sweep_pallas``): all ``G`` gradient steps of one DDPG
 update over pre-gathered replay minibatches ``(G, M, feat)``.  Each step,
 in the JAX kernel's order (:24-32, :138-232):
 
@@ -19,9 +19,17 @@ bias correction is ``1 − exp(t·log b)``, the kernel's, not optax's ``1 −
 bᵗ``.  Each network travels as its 6 leaves
 (:func:`..solvers.networks.ddpg_leaves`); the kernels see them packed flat.
 
+``DDPGSweepHypers.matmul_dtype=torch.bfloat16`` is the JAX kernel's bf16
+operand option (pallas_ddpg_sweep.py:105-135, 153-154): both operands of
+every product of the step are rounded to bf16 (the target bootstrap, the
+critic's forward and backward, the actor's forward, the critic's input
+gradient and the actor's backward) and the products accumulate in f32.  The
+ReLU masks ``y > 0`` read f32 values; the squash, ``tanh_u``, the TD error,
+the bias column sums, Adam and polyak stay f32.
+
 On CUDA tensors :func:`ddpg_sweep` launches ``csrc/ddpg_sweep.cuh``'s
 sequence of kernels once per gradient step (one ``ngk_ddpg_step`` call, one
-count of ``ddpg_sweep``); on CPU tensors it runs :func:`ddpg_sweep_plain`,
+count of ``ddpg_sweep``, or ``ddpg_sweep_bf16``); on CPU tensors it runs :func:`ddpg_sweep_plain`,
 which writes every product and sum in the kernels' order: products summed
 over their reduction index in index order from the first product, bias
 gradients and the loss sums in sample order.
@@ -37,7 +45,7 @@ import torch
 
 from . import _build
 from .gen_policy_rollout import relu
-from .gen_rollout import kernel_device
+from .gen_rollout import bf16_operands, kernel_device, round_bf16
 from .ppo_sweep import AdamState, adam_update_plain
 
 F32 = torch.float32
@@ -46,8 +54,7 @@ N_POINTERS = 33  # ngd::StepArgs' device pointers
 
 
 class DDPGSweepHypers(NamedTuple):
-    """Hyperparameters of one sweep (``DDPGSweepHypers`` without the bf16
-    operand option, which is not ported)."""
+    """Hyperparameters of one sweep (``DDPGSweepHypers``, pallas_ddpg_sweep.py:49-60)."""
 
     lr: float
     gamma: float
@@ -55,6 +62,9 @@ class DDPGSweepHypers(NamedTuple):
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
+    # operand dtype of the products: None / torch.float32 exact, torch.bfloat16
+    # rounds both operands (f32 accumulation)
+    matmul_dtype: object = None
 
 
 def flat(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -75,9 +85,12 @@ def _f32(x: float) -> float:
 
 # ------------------------------------------------------------- the twin ---
 
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """``a (M, K) @ b (K, N)`` with each output summed over ``k`` in index
-    order, from the first product (``gemm_kernel``)."""
+    order, from the first product (``gemm_kernel``); with ``bf16`` both
+    operands are rounded to bf16 first."""
+    if bf16:
+        a, b = round_bf16(a), round_bf16(b)
     acc = a[:, 0:1] * b[0:1]
     for k in range(1, a.shape[1]):
         acc = acc + a[:, k:k + 1] * b[k:k + 1]
@@ -96,10 +109,10 @@ def _mask(y: torch.Tensor) -> torch.Tensor:
     return (y > 0).to(y.dtype)
 
 
-def _hidden(leaves, x):
+def _hidden(leaves, x, bf16):
     w1, b1, w2, b2 = leaves[:4]
-    h1 = relu(_mm(x, w1.T) + b1)
-    return h1, relu(_mm(h1, w2.T) + b2)
+    h1 = relu(_mm(x, w1.T, bf16) + b1)
+    return h1, relu(_mm(h1, w2.T, bf16) + b2)
 
 
 def _squash(u, low, high):
@@ -107,10 +120,10 @@ def _squash(u, low, high):
     return low + (th + 1.0) * (0.5 * (high - low)), th
 
 
-def _layer_grads(g, x):
+def _layer_grads(g, x, bf16):
     """Weight and bias gradients of a layer from its output gradient ``g (M,
     out)`` and input ``x (M, in)``."""
-    return _mm(g.T, x), _colsum(g)
+    return _mm(g.T, x, bf16), _colsum(g)
 
 
 def ddpg_sweep_plain(actor, critic, t_actor, t_critic, a_adam: AdamState, c_adam: AdamState,
@@ -126,42 +139,43 @@ def ddpg_sweep_plain(actor, critic, t_actor, t_critic, a_adam: AdamState, c_adam
     two_inv_m = _f32(np.float32(2.0) * np.float32(1.0 / M))
     one_minus_tau = _f32(np.float32(1.0) - np.float32(hp.tau))
     neg_inv = torch.full((M, 1), -inv_m, dtype=F32, device=b_obs.device)
+    bf16 = bf16_operands(hp.matmul_dtype)
     rows = []
     for g in range(G):
         obs, act, rew, nxt, done = (x[g].to(F32) for x in (b_obs, b_act, b_rew, b_next, b_done))
         A_, C_, TA, TC = (unflat(v, like) for v, like in ((pa, like_a), (pc, like_c), (ta, like_a), (tc, like_c)))
         # ---- target bootstrap ----
-        _, ta2 = _hidden(TA, nxt)
-        next_action, _ = _squash(_mm(ta2, TA[4].T) + TA[5], low, high)
-        _, tq2 = _hidden(TC, torch.cat([nxt, next_action], dim=1))
-        y = rew + (hp.gamma * (1.0 - done)) * (_mm(tq2, TC[4].T) + TC[5])[:, 0]
+        _, ta2 = _hidden(TA, nxt, bf16)
+        next_action, _ = _squash(_mm(ta2, TA[4].T, bf16) + TA[5], low, high)
+        _, tq2 = _hidden(TC, torch.cat([nxt, next_action], dim=1), bf16)
+        y = rew + (hp.gamma * (1.0 - done)) * (_mm(tq2, TC[4].T, bf16) + TC[5])[:, 0]
         # ---- critic step ----
         xa = torch.cat([obs, act], dim=1)
-        q1, q2 = _hidden(C_, xa)
-        cerr = (_mm(q2, C_[4].T) + C_[5])[:, 0] - y
+        q1, q2 = _hidden(C_, xa, bf16)
+        cerr = (_mm(q2, C_[4].T, bf16) + C_[5])[:, 0] - y
         gq = (two_inv_m * cerr)[:, None]
-        gw3, gb3 = _layer_grads(gq, q2)
-        g2 = _mm(gq, C_[4]) * _mask(q2)
-        gw2, gb2 = _layer_grads(g2, q1)
-        g1 = _mm(g2, C_[2]) * _mask(q1)
-        gw1, gb1 = _layer_grads(g1, xa)
+        gw3, gb3 = _layer_grads(gq, q2, bf16)
+        g2 = _mm(gq, C_[4], bf16) * _mask(q2)
+        gw2, gb2 = _layer_grads(g2, q1, bf16)
+        g1 = _mm(g2, C_[2], bf16) * _mask(q1)
+        gw1, gb1 = _layer_grads(g1, xa, bf16)
         grads = torch.cat([x.reshape(-1) for x in (gw1, gb1, gw2, gb2, gw3, gb3)])
         pc, cm, cn = adam_update_plain(pc, cm, cn, grads, c_adam.count + g + 1, hp)
         # ---- actor step through the updated critic ----
         C_ = unflat(pc, like_c)
-        a1, a2 = _hidden(A_, obs)
-        a_pi, th = _squash(_mm(a2, A_[4].T) + A_[5], low, high)
+        a1, a2 = _hidden(A_, obs, bf16)
+        a_pi, th = _squash(_mm(a2, A_[4].T, bf16) + A_[5], low, high)
         xa_pi = torch.cat([obs, a_pi], dim=1)
-        p1, p2 = _hidden(C_, xa_pi)
-        q_pi = (_mm(p2, C_[4].T) + C_[5])[:, 0]
-        h2g = _mm(neg_inv, C_[4]) * _mask(p2)
-        h1g = _mm(h2g, C_[2]) * _mask(p1)
-        g_u = (_mm(h1g, C_[0][:, F:]) * (0.5 * (high - low))) * (1.0 - th * th)
-        gw3, gb3 = _layer_grads(g_u, a2)
-        g2 = _mm(g_u, A_[4]) * _mask(a2)
-        gw2, gb2 = _layer_grads(g2, a1)
-        g1 = _mm(g2, A_[2]) * _mask(a1)
-        gw1, gb1 = _layer_grads(g1, obs)
+        p1, p2 = _hidden(C_, xa_pi, bf16)
+        q_pi = (_mm(p2, C_[4].T, bf16) + C_[5])[:, 0]
+        h2g = _mm(neg_inv, C_[4], bf16) * _mask(p2)
+        h1g = _mm(h2g, C_[2], bf16) * _mask(p1)
+        g_u = (_mm(h1g, C_[0][:, F:], bf16) * (0.5 * (high - low))) * (1.0 - th * th)
+        gw3, gb3 = _layer_grads(g_u, a2, bf16)
+        g2 = _mm(g_u, A_[4], bf16) * _mask(a2)
+        gw2, gb2 = _layer_grads(g2, a1, bf16)
+        g1 = _mm(g2, A_[2], bf16) * _mask(a1)
+        gw1, gb1 = _layer_grads(g1, obs, bf16)
         grads = torch.cat([x.reshape(-1) for x in (gw1, gb1, gw2, gb2, gw3, gb3)])
         pa, am, an = adam_update_plain(pa, am, an, grads, a_adam.count + g + 1, hp)
         # ---- polyak, metrics ----
@@ -237,12 +251,14 @@ def ddpg_sweep(actor, critic, t_actor, t_critic, a_adam: AdamState, c_adam: Adam
         hp.gamma, _f32(np.float32(2.0) * np.float32(1.0 / M)), inv_m, hp.tau,
         _f32(np.float32(1.0) - np.float32(hp.tau)), hp.lr, hp.adam_b1, 1.0 - hp.adam_b1,
         _f32(np.log(hp.adam_b1)), hp.adam_b2, 1.0 - hp.adam_b2, _f32(np.log(hp.adam_b2)), hp.adam_eps)
+    bf16 = bf16_operands(hp.matmul_dtype)
+    name = "ddpg_sweep_bf16" if bf16 else "ddpg_sweep"
     for g in range(G):
         tensors = (*nets[:4], *moments, *grads, xa[g], rew[g], done[g], neg_inv, xa_next[g], xa_pi[g], *box,
                    *h1, *h2, g1, g2, *vecs, *per_action, metrics[g])
         ptrs = (ctypes.c_void_p * N_POINTERS)(*(t.data_ptr() for t in tensors))
-        ints = (ctypes.c_int * 3)(M, a_adam.count + g + 1, c_adam.count + g + 1)
-        _build.launch("ddpg_sweep", lib.ngk_ddpg_step, ptrs, ints, floats, device=device)
+        ints = (ctypes.c_int * 4)(M, a_adam.count + g + 1, c_adam.count + g + 1, int(bf16))
+        _build.launch(name, lib.ngk_ddpg_step, ptrs, ints, floats, device=device)
     la, lc = list(actor), list(critic)
     am, an, cm, cn = moments
     return (unflat(nets[0], la), unflat(nets[1], lc), unflat(nets[2], la), unflat(nets[3], lc),

@@ -16,12 +16,23 @@ by ``tanh`` with no clip, pallas_gen_policy_rollout.py:148-154):
   across days; returns ``stats (3, B)``: Σ day return, Σ (day return)², final
   battery SoC.
 
-The bf16 operand option of the JAX kernels is not ported yet.  The twins
-mirror the Pallas step body; the actor's products run as multiply-add loops
-in input order, the order the CUDA kernels use.  The DDPG actor is a
-block-level product in the CUDA kernels (``csrc/day_step.cuh``,
-``DdpgBlockActor``): its shared memory holds the block's activations, which
-bounds the torso (:func:`check_ddpg_torso`).
+K6 takes the JAX kernel's bf16 operand option, ``mlp_dtype`` (for both
+actors; K5 has none, as in the JAX package): the weight matrices are rounded
+to bf16 (:func:`actor_weights`), the observation, h1 and h2 right before
+their products, and the products accumulate in f32; biases, tanh, ReLU, the
+clip and the squash stay f32 (pallas_gen_policy_rollout.py:140-154,
+404-420).
+
+The twins mirror the Pallas step body; the actor's products run as
+multiply-add loops in input order, the order the CUDA kernels use, so the
+kernels are bit-equal to them (the product of two bf16 values is exact in
+f32).  The DDPG actor, and a PPO torso whose f32 block does not fit in
+shared memory beside the traces (the bench's 256×256), run as a block-level
+product in the CUDA kernels (``csrc/day_step.cuh``, ``BlockActor``): the
+library of the torso says which (``ngk_block_actor``), its launches count
+under ``*_block`` names, and the block's activations in shared memory bound
+the torso (:func:`check_block_torso`).  K6 refuses torsos of more than 768
+hidden units, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ from . import _build
 from .gen_rollout import (
     BATT_INIT_SOC,
     F32,
+    bf16_operands,
+    round_bf16,
     GRID_W,
     MAX_P,
     EFF,
@@ -65,8 +78,9 @@ if TYPE_CHECKING:
     from ..solvers.networks import ActorCritic, DDPGActor
 
 B_CAP, B_MAXP, B_EFF = 80.0, 44.0, 0.95
-DDPG_ENVS_PER_BLOCK = 32             # kDdpgEnvs in csrc/day_step.cuh
+BLOCK_ENVS = 32                      # kBlockEnvs in csrc/day_step.cuh
 MAX_SHARED_BYTES = 232_448           # dynamic shared memory one H100 block may use
+MAX_HIDDEN_SUM = 768                 # K6's torso limit (pallas_gen_policy_rollout.py:590-596)
 
 
 class ActorWeights(NamedTuple):
@@ -87,10 +101,11 @@ class ActorWeights(NamedTuple):
 
 
 def actor_weights(config: NanogridConfig, net: ActorCritic | DDPGActor, device: torch.device,
-                  actor: str = "ppo") -> ActorWeights:
+                  actor: str = "ppo", mlp_dtype=torch.float32) -> ActorWeights:
     """The actor torso of ``net`` (``pi`` of an :class:`ActorCritic` for
     ``actor="ppo"``, ``mu`` of a :class:`DDPGActor` for ``"ddpg"``) and the
-    action bounds as f32 on ``device``."""
+    action bounds as f32 on ``device``; with ``mlp_dtype=torch.bfloat16``
+    the weight matrices hold their bf16 roundings (``_actor_blocks``)."""
     if actor not in _build.ACTORS:
         raise ValueError(f"actor must be one of {tuple(_build.ACTORS)}, got {actor!r}")
     pi = getattr(net, "pi" if actor == "ppo" else "mu", None)
@@ -106,29 +121,38 @@ def actor_weights(config: NanogridConfig, net: ActorCritic | DDPGActor, device: 
     def t(x):
         return x.detach().to(device=device, dtype=F32).contiguous()
 
+    bf16 = bf16_operands(mlp_dtype)
+
+    def weight(x):
+        return round_bf16(t(x)) if bf16 else t(x)
+
     layers = [getattr(pi, f"Dense_{i}") for i in range(3)]
     low, high = config.action_bounds()
     return ActorWeights(
-        t(layers[0].weight), t(layers[0].bias)[:, None],
-        t(layers[1].weight), t(layers[1].bias)[:, None],
-        t(layers[2].weight), t(layers[2].bias)[:, None],
+        weight(layers[0].weight), t(layers[0].bias)[:, None],
+        weight(layers[1].weight), t(layers[1].bias)[:, None],
+        weight(layers[2].weight), t(layers[2].bias)[:, None],
         torch.as_tensor(low, device=device)[:, None], torch.as_tensor(high, device=device)[:, None],
     )
 
 
-def dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``w @ x + b`` as a multiply-add loop over the input in index order."""
+def dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """``w @ x + b`` as a multiply-add loop over the input in index order;
+    with ``bf16`` the operand ``x`` is rounded to bf16 first (``w`` holds
+    bf16 values already)."""
+    if bf16:
+        x = round_bf16(x)
     acc = w[:, 0:1] * x[0:1]
     for k in range(1, w.shape[1]):
         acc = acc + w[:, k:k + 1] * x[k:k + 1]
     return acc + b
 
 
-def actor_mean(w: ActorWeights, obs: torch.Tensor) -> torch.Tensor:
+def actor_mean(w: ActorWeights, obs: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """Deterministic PPO action ``(A, B)`` for observations ``(F, B)``."""
-    h1 = torch.tanh(dense(w.w1, w.b1, obs))
-    h2 = torch.tanh(dense(w.w2, w.b2, h1))
-    return torch.clamp(dense(w.w3, w.b3, h2), w.low, w.high)
+    h1 = torch.tanh(dense(w.w1, w.b1, obs, bf16))
+    h2 = torch.tanh(dense(w.w2, w.b2, h1, bf16))
+    return torch.clamp(dense(w.w3, w.b3, h2, bf16), w.low, w.high)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -136,26 +160,32 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def ddpg_action(w: ActorWeights, obs: torch.Tensor) -> torch.Tensor:
+def ddpg_action(w: ActorWeights, obs: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """Deterministic DDPG action ``(A, B)`` for observations ``(F, B)``:
     ``low + (tanh(mu) + 1)·0.5·(high − low)``, no clip."""
-    h1 = relu(dense(w.w1, w.b1, obs))
-    h2 = relu(dense(w.w2, w.b2, h1))
-    return w.low + (torch.tanh(dense(w.w3, w.b3, h2)) + 1.0) * 0.5 * (w.high - w.low)
+    h1 = relu(dense(w.w1, w.b1, obs, bf16))
+    h2 = relu(dense(w.w2, w.b2, h1, bf16))
+    return w.low + (torch.tanh(dense(w.w3, w.b3, h2, bf16)) + 1.0) * 0.5 * (w.high - w.low)
 
 
-def _policy(actor: str):
-    return actor_mean if actor == "ppo" else ddpg_action
+def _policy(actor: str, weights: ActorWeights, bf16: bool = False):
+    return functools.partial(actor_mean if actor == "ppo" else ddpg_action, weights, bf16=bf16)
 
 
-def check_ddpg_torso(config: NanogridConfig, hidden: tuple[int, int], traces: Traces) -> None:
-    """Raise for a DDPG torso whose block activations (obs, both hidden
-    layers and the actions of 32 envs) and traces exceed a block's shared
-    memory (the port's counterpart of the JAX kernel's VMEM guard)."""
-    floats = ((config.obs_dim + hidden[0] + hidden[1] + config.num_actions) * DDPG_ENVS_PER_BLOCK
-              + traces.rad_norm.numel() + traces.price_norm.numel() + 2 * config.steps_per_day)
+def trace_floats(config: NanogridConfig, traces: Traces) -> int:
+    """Floats of the traces a day kernel keeps in shared memory."""
+    return traces.rad_norm.numel() + traces.price_norm.numel() + 2 * config.steps_per_day
+
+
+def check_block_torso(config: NanogridConfig, hidden: tuple[int, int], traces: Traces) -> None:
+    """Raise for a torso whose block activations (obs, both hidden layers and
+    the actions of 32 envs) and traces exceed a block's shared memory, in the
+    block-level design (the port's counterpart of the JAX kernel's VMEM
+    guard)."""
+    floats = ((config.obs_dim + hidden[0] + hidden[1] + config.num_actions) * BLOCK_ENVS
+              + trace_floats(config, traces))
     if 4 * floats > MAX_SHARED_BYTES:
-        raise ValueError(f"DDPG actor torso {hidden[0]}x{hidden[1]} needs {4 * floats} bytes of shared "
+        raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} needs {4 * floats} bytes of shared "
                          f"memory per block, more than {MAX_SHARED_BYTES}; use the plain engine")
 
 
@@ -286,25 +316,34 @@ def check_policy_config(config: NanogridConfig, params: NanogridParams, kernel: 
                          "use the plain engine for other lookaheads")
 
 
-def _policy_library(config, device, hidden, actor, traces, name):
-    """The library of the actor and the kernel's name in it (the DDPG
-    variants carry a ``_ddpg`` suffix and their own launch count)."""
-    if actor == "ddpg":
-        check_ddpg_torso(config, hidden, traces)
-        return _build.library(config, device, hidden, "ddpg"), f"{name}_ddpg"
-    return _build.library(config, device, hidden), name
+def policy_library(config, device, hidden, actor, traces, name, bf16=False):
+    """The library of the actor and the launch-count name of the kernel it
+    runs: ``name`` with ``_block`` for a PPO torso in the block-level design,
+    ``_ddpg`` for the DDPG actor and ``_bf16`` for bf16 operands.  Raises a
+    ``ValueError`` naming the limit for a torso the design cannot hold."""
+    lib = _build.library(config, device, hidden, actor)
+    block = bool(lib.ngk_block_actor())
+    if block:
+        check_block_torso(config, hidden, traces)
+    elif 4 * (lib.ngk_weights_size() + trace_floats(config, traces)) > MAX_SHARED_BYTES:
+        raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} and the traces need more than "
+                         f"{MAX_SHARED_BYTES} bytes of shared memory per block")
+    suffix = "_ddpg" if actor == "ddpg" else ("_block" if block else "")
+    return lib, name + suffix + ("_bf16" if bf16 else "")
 
 
 # --------------------------------------------------------------------- K5 ---
 
 def gen_policy_day_plain(config, traces: Traces, weights: ActorWeights, uniforms, pv_shift, batt_soc,
-                         actor: str = "ppo"):
-    """Plain twin of K5 on f32 tensors."""
+                         actor: str = "ppo", mlp_dtype=torch.float32):
+    """Plain twin of K5 on f32 tensors.  ``mlp_dtype`` runs K6's step body
+    under its bf16 option on explicit days (K5 itself has none), with
+    ``weights`` from :func:`actor_weights` with the same ``mlp_dtype``."""
     T = config.steps_per_day
     kw = policy_kwargs(config)
     B = pv_shift.shape[0]
     carry = fresh_carry(kw["N"], B, pv_shift.device, kw["diff_caps"], kw["req_soc"])
-    policy = functools.partial(_policy(actor), weights)
+    policy = _policy(actor, weights, bf16_operands(mlp_dtype))
     rows_list, actions = [], []
     for t in range(T):
         rows, act, carry, batt_soc = gen_policy_step(
@@ -350,9 +389,9 @@ def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCri
     actions = torch.empty((T, A, B), dtype=F32, device=device)
     soc_final = torch.empty((N, B), dtype=F32, device=device)
     batt_final = torch.empty((B,), dtype=F32, device=device)
-    lib, name = _policy_library(config, device, net.hidden, actor, traces, "gen_policy_day")
+    lib, name = policy_library(config, device, net.hidden, actor, traces, "gen_policy_day")
     _build.launch(
-        name, getattr(lib, f"ngk_{name}"),
+        name, lib.ngk_gen_policy_day,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
         traces.rad_norm.numel(), traces.solar, u, batt, pv, _packed(weights, lib),
         rewards, actions, soc_final, batt_final, B, *_build.day_dims(config), device=device,
@@ -363,14 +402,16 @@ def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCri
 # --------------------------------------------------------------------- K6 ---
 
 def gen_policy_multiday_plain(config, traces: Traces, weights: ActorWeights, num_days: int,
-                              seed: int, batch: int, actor: str = "ppo"):
-    """Plain twin of K6: ``stats (3, batch)``, same Philox draws as the kernel."""
+                              seed: int, batch: int, actor: str = "ppo", mlp_dtype=torch.float32):
+    """Plain twin of K6: ``stats (3, batch)``, same Philox draws as the kernel;
+    with bf16 ``mlp_dtype``, ``weights`` come from :func:`actor_weights`
+    with the same ``mlp_dtype``."""
     T = config.steps_per_day
     kw = policy_kwargs(config)
     N = kw["N"]
     device = traces.price.device
     batt_soc = torch.full((batch,), BATT_INIT_SOC, dtype=F32, device=device)
-    policy = functools.partial(_policy(actor), weights)
+    policy = _policy(actor, weights, bf16_operands(mlp_dtype))
     rew_total = torch.zeros(batch, dtype=F32, device=device)
     sq_total = torch.zeros(batch, dtype=F32, device=device)
     for day in range(num_days):
@@ -394,26 +435,34 @@ def gen_policy_multiday_plain(config, traces: Traces, weights: ActorWeights, num
 
 
 def gen_policy_multiday(config: NanogridConfig, params: NanogridParams, net: ActorCritic | DDPGActor,
-                        num_days: int, seed: int, batch: int, actor: str = "ppo"):
+                        num_days: int, seed: int, batch: int, actor: str = "ppo", mlp_dtype=torch.float32):
     """``num_days`` fresh actor-driven days × ``batch`` envs in one launch (K6).
 
     Runs on the device of ``params``; the battery starts at 0.5 and carries
-    across days; ``actor`` as for :func:`gen_policy_day`.  Returns ``stats
-    (3, batch)``: Σ day return, Σ (day return)², final battery SoC.
+    across days; ``actor`` as for :func:`gen_policy_day`.  ``mlp_dtype``:
+    the operand dtype of the actor's products, ``torch.float32`` (exact) or
+    ``torch.bfloat16`` (weights, observation, h1 and h2 rounded to bf16,
+    products accumulated in f32).  Torsos of more than 768 hidden units
+    raise ``ValueError``.  Returns ``stats (3, batch)``: Σ day return, Σ
+    (day return)², final battery SoC.
     """
     check_policy_config(config, params, "gen_policy_multiday", battery_init=True)
+    if sum(net.hidden) > MAX_HIDDEN_SUM:  # before any launch, as the JAX kernel checks it
+        raise ValueError(f"gen_policy_multiday: actor torso {net.hidden[0]}x{net.hidden[1]} exceeds "
+                         f"{MAX_HIDDEN_SUM} hidden units (the JAX kernel's VMEM budget); use the plain engine")
+    bf16 = bf16_operands(mlp_dtype)
     device = params.device
     traces = kernel_traces(params, device)
-    weights = actor_weights(config, net, device, actor)
+    weights = actor_weights(config, net, device, actor, mlp_dtype)
     if not kernel_device(params.price):
-        return gen_policy_multiday_plain(config, traces, weights, num_days, seed, batch, actor)
+        return gen_policy_multiday_plain(config, traces, weights, num_days, seed, batch, actor, mlp_dtype)
 
     stats = torch.empty((3, batch), dtype=F32, device=device)
-    lib, name = _policy_library(config, device, net.hidden, actor, traces, "gen_policy_multiday")
+    lib, name = policy_library(config, device, net.hidden, actor, traces, "gen_policy_multiday", bf16)
     _build.launch(
-        name, getattr(lib, f"ngk_{name}"),
+        name, lib.ngk_gen_policy_multiday,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
         traces.rad_norm.numel(), traces.solar, seed & 0xFFFFFFFF, num_days, _packed(weights, lib),
-        stats, batch, *_build.day_dims(config), device=device,
+        stats, batch, *_build.day_dims(config), int(bf16), device=device,
     )
     return stats

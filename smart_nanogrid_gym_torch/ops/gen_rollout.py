@@ -272,6 +272,22 @@ def kernel_device(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def bf16_operands(dtype) -> bool:
+    """Whether a kernel's operand-dtype option (``mlp_dtype``,
+    ``matmul_dtype``) asks for bf16 products: None or ``torch.float32`` is
+    exact f32, ``torch.bfloat16`` rounds the product operands."""
+    if dtype is None or dtype == torch.float32:
+        return False
+    if dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"operand dtype must be None, torch.float32 or torch.bfloat16, got {dtype!r}")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 value (ties to even), as f32."""
+    return x.to(torch.bfloat16).to(F32)
+
+
 # --------------------------------------------------------------------- K7 ---
 
 def gen_rbc_day_plain(config, traces: Traces, uniforms, pv_shift, batt_soc):

@@ -5,7 +5,9 @@ the deterministic PPO actor (the ``pi`` torso's mean, clipped to the action
 box) rolls the day of a batched :class:`EnvState` with the full charger and
 BESS physics, both branches.  The tables are those of K11a
 (:func:`.rollout.state_tables`); the kernel (``policy_day_rollout_kernel`` in
-``csrc/day_step.cuh``) runs K5's actor on them, one thread per env.  Kept
+``csrc/day_step.cuh``) runs K5's actor on them, one thread per env, or the
+block-level actor (``policy_day_rollout_block_kernel``, counted as
+``policy_day_rollout_block``) for a torso too large for that.  Kept
 as the JAX kernel has them: the observation at t=0 takes its SoC rows from
 the state's column 0, the penalty the column L-1; the charger discharge flag
 is inverted (``calc >= 0``), the BESS's is not.
@@ -33,6 +35,7 @@ from .gen_policy_rollout import (
     charger_flows,
     charger_physics,
     policy_day_costs,
+    policy_library,
     policy_obs,
 )
 from .gen_rollout import (
@@ -85,9 +88,9 @@ def launch_policy_day(config: NanogridConfig, traces: Traces, weights: ActorWeig
     rewards = torch.empty((T, B), dtype=F32, device=device)
     actions = torch.empty((T, A, B), dtype=F32, device=device)
     soc_final = torch.empty((N, B), dtype=F32, device=device)
-    lib = _build.library(config, device, hidden)
+    lib, name = policy_library(config, device, hidden, "ppo", traces, "policy_day_rollout")
     _build.launch(
-        "policy_day_rollout", lib.ngk_policy_day_rollout,
+        name, lib.ngk_policy_day_rollout,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm, traces.rad_norm.numel(),
         traces.solar, *st, _packed(weights, lib), rewards, actions, soc_final, B, T, config.time_interval,
         device=device,

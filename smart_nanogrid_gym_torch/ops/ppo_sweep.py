@@ -22,10 +22,22 @@ SB3-default actor-critic (separate 64-64 tanh torsos, state-independent
 On CUDA tensors both launch the kernels of ``csrc/ppo_sweep.cuh``, two per
 gradient step: ``ppo_grad_partial`` (each block one partial gradient of its
 samples) and ``ppo_adam_update`` (the partials summed in block order, clip,
-Adam).  On CPU tensors they run :func:`ppo_sweep_plain`, which computes the
+Adam), counted under the wrapper's name (``_bf16`` appended for bf16
+operands).  On CPU tensors they run :func:`ppo_sweep_plain`, which computes the
 same hand-written backward with matrix products.  Both keep the JAX
 kernel's two derivative conventions: ``jnp.minimum``'s balanced tie (0.5/0.5
 at ``pg1 == pg2``) and the strict clip-region indicator ``lo < ratio < hi``.
+
+``SweepHypers.matmul_dtype=torch.bfloat16`` is the JAX kernel's bf16
+operand option (pallas_ppo_sweep.py:191-206): both operands of every
+network product are rounded to bf16 and the products accumulate in f32 —
+the forward of both torsos and every backward product (the weight
+gradients, the input gradients through W3 and W2, and gW1).  Everything
+else stays f32: the tanh derivative ``1 − y²`` reads the f32 activations,
+and the log-prob, ratio, clip, metric sums, bias gradients, global-norm clip
+and Adam run in f32, so the master parameters stay f32.  These are
+operand-only semantics, the kernel path's; the learner's plain sweep casts
+the whole flax apply instead (``solvers/ppo.py``).
 
 Parameters travel as the 13 leaves of
 :func:`..solvers.networks.actor_critic_leaves`; the kernels see them packed
@@ -41,7 +53,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .gen_rollout import kernel_device
+from .gen_rollout import bf16_operands, kernel_device, round_bf16
 
 F32 = torch.float32
 N_PARAMS = 13
@@ -54,8 +66,7 @@ ADAM_THREADS = 1024    # threads of the ppo_adam_update block (kAdamThreads)
 
 
 class SweepHypers(NamedTuple):
-    """Hyperparameters of one sweep (``pallas_ppo_sweep.py:67-83`` without
-    the bf16 operand option, which is not ported)."""
+    """Hyperparameters of one sweep (``pallas_ppo_sweep.py:67-83``)."""
 
     lr: float
     clip_eps: float
@@ -65,6 +76,9 @@ class SweepHypers(NamedTuple):
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
+    # operand dtype of the network products: None / torch.float32 exact,
+    # torch.bfloat16 rounds both operands (f32 accumulation)
+    matmul_dtype: object = None
 
 
 class AdamState(NamedTuple):
@@ -156,21 +170,26 @@ def grad_step_plain(leaves, obs, act, old_logp, nadv, ret, hp: SweepHypers):
     hand-written backward of ``_sweep_kernel`` (pallas_ppo_sweep.py:229-295),
     every product and sum in the order of ``ppo_grad_partial``.  Returns the
     13 gradient leaves (without the entropy term) and the sums ``(policy
-    loss, value loss, approx KL)`` times ``M``."""
+    loss, value loss, approx KL)`` times ``M``.  With bf16 ``matmul_dtype``
+    every product operand (``op`` below) is rounded to bf16."""
     pW1, pb1, pW2, pb2, pW3, pb3, vW1, vb1, vW2, vb2, vW3, vb3, log_std = leaves
     M = obs.shape[0]
     inv_m = _scalar(1.0 / M, obs)
     x, act = obs.T, act.T  # feature-major, as the kernel's tiles
+    op = round_bf16 if bf16_operands(hp.matmul_dtype) else (lambda t: t)
 
     def col(b):
         return b[:, None]
 
-    y1p = torch.tanh(_dot_rows(pW1, x) + col(pb1))
-    y2p = torch.tanh(_dot_rows(pW2, y1p) + col(pb2))
-    mean = _dot_rows(pW3, y2p) + col(pb3)
-    y1v = torch.tanh(_dot_rows(vW1, x) + col(vb1))
-    y2v = torch.tanh(_dot_rows(vW2, y1v) + col(vb2))
-    value = (_dot_rows(vW3, y2v) + col(vb3))[0]
+    def dot(w, v):
+        return _dot_rows(op(w), op(v))
+
+    y1p = torch.tanh(dot(pW1, x) + col(pb1))
+    y2p = torch.tanh(dot(pW2, y1p) + col(pb2))
+    mean = dot(pW3, y2p) + col(pb3)
+    y1v = torch.tanh(dot(vW1, x) + col(vb1))
+    y2v = torch.tanh(dot(vW2, y1v) + col(vb2))
+    value = (dot(vW3, y2v) + col(vb3))[0]
 
     var = col(torch.exp(2.0 * log_std))
     diff = act - mean
@@ -196,12 +215,12 @@ def grad_step_plain(leaves, obs, act, old_logp, nadv, ret, hp: SweepHypers):
     g_value = ((hp.vf_coef * inv_m) * verr)[None]
 
     def weight_grad(g, y):  # (out, M), (in, M) -> (out, in)
-        return _kernel_order_sum(g[:, None, :] * y[None, :, :])
+        return _kernel_order_sum(op(g)[:, None, :] * op(y)[None, :, :])
 
-    g2p = _dot_rows(pW3.T, g_mean) * (1.0 - y2p * y2p)
-    g1p = _dot_rows(pW2.T, g2p) * (1.0 - y1p * y1p)
-    g2v = (vW3.T * g_value) * (1.0 - y2v * y2v)
-    g1v = _dot_rows(vW2.T, g2v) * (1.0 - y1v * y1v)
+    g2p = dot(pW3.T, g_mean) * (1.0 - y2p * y2p)
+    g1p = dot(pW2.T, g2p) * (1.0 - y1p * y1p)
+    g2v = (op(vW3.T) * op(g_value)) * (1.0 - y2v * y2v)
+    g1v = dot(vW2.T, g2v) * (1.0 - y1v * y1v)
     grads = []
     for g1, g2, g3, y1, y2 in ((g1p, g2p, g_mean, y1p, y2p), (g1v, g2v, g_value, y1v, y2v)):
         grads += [weight_grad(g1, x), _kernel_order_sum(g1), weight_grad(g2, y1), _kernel_order_sum(g2),
@@ -430,10 +449,12 @@ def _launch_sweep(name, params, adam, hp, layout, data, block_perm, stats, *, G,
     lo, hi = float(np.float32(1.0 - hp.clip_eps)), float(np.float32(1.0 + hp.clip_eps))
     adam_consts = (hp.adam_b1, 1.0 - hp.adam_b1, float(np.float32(np.log(hp.adam_b1))),
                    hp.adam_b2, 1.0 - hp.adam_b2, float(np.float32(np.log(hp.adam_b2))), hp.adam_eps)
+    bf16 = bf16_operands(hp.matmul_dtype)
+    name = name + ("_bf16" if bf16 else "")
     for g in range(G):
         _build.launch(name, lib.ngk_ppo_grad_partial, p, obs, act, logp, adv, ret, perm, st,
                       layout, g, G, K, granule, M, lanes, partials, nb, spb,
-                      lo, hi, hp.vf_coef, 1.0 / M, device=device)
+                      lo, hi, hp.vf_coef, 1.0 / M, int(bf16), device=device)
         _build.launch(name, lib.ngk_ppo_adam_update, p, mu, nu, partials, nb, metrics,
                       g, adam.count + g + 1, 1.0 / M, hp.lr, hp.max_grad_norm, -hp.ent_coef,
                       *adam_consts, device=device)

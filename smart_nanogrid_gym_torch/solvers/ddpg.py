@@ -28,8 +28,14 @@ instead.  The kernel path's OU gaussians have the shape ``(T, A, B)``, the
 plain path's ``(T, B, A)``, as in the JAX learner (ddpg.py:210-220): the two
 streams are not comparable across implementations.  The replay buffer is
 updated in place (at B = 4096 it holds 1.2 GB).  The learner runs on the card
-unless it is given ``device="cpu"``.  Multi-device meshes and
-``update_matmul_dtype`` are not ported and raise ``NotImplementedError``.
+unless it is given ``device="cpu"``.  Multi-device meshes are not ported and
+raise ``NotImplementedError``.
+
+``update_matmul_dtype=torch.bfloat16`` follows the JAX learner per path:
+``sweep_impl="kernel"`` hands it to K10 and its twin (both operands of every
+product rounded to bf16, f32 accumulation, ``ops/ddpg_sweep.py``);
+``sweep_impl="plain"`` ignores it, as the JAX XLA scan does
+(``_train_body``, ddpg.py:349-389, never reads it), and trains in f32.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..core.rollout import fused_day_rollout
 from ..core.transition import draw_pv_shift, reset, step
 from ..ops.ddpg_collect import ddpg_collect_day_seeded
 from ..ops.ddpg_sweep import DDPGSweepHypers, ddpg_sweep
+from ..ops.gen_rollout import bf16_operands
 from ..ops.param_guard import check_baked_params
 from ..ops.ppo_sweep import AdamState, zeros_adam
 from .networks import DDPG_HIDDEN, DDPGActor, DDPGCritic, ddpg_leaves
@@ -69,7 +76,8 @@ class DDPGConfig:
     gradient_steps: int = 24
     sweep_impl: str = "plain"
     collect_impl: str = "plain"
-    # mixed-precision sweep operands: not ported (None or torch.float32 only)
+    # operand dtype of K10's products: None / torch.float32, or torch.bfloat16;
+    # the plain sweep ignores it, as the JAX XLA scan does
     update_matmul_dtype: object | None = None
 
 
@@ -149,8 +157,7 @@ class DDPGLearner:
             raise NotImplementedError("multi-device training is not ported yet")
         self.env_config = env_config
         self.cfg = ddpg_config or DDPGConfig()
-        if self.cfg.update_matmul_dtype not in (None, torch.float32):
-            raise NotImplementedError("update_matmul_dtype (mixed-precision sweep) is not ported yet")
+        self._bf16 = bf16_operands(self.cfg.update_matmul_dtype)
         for field in ("collect_impl", "sweep_impl"):
             if getattr(self.cfg, field) not in IMPLS:
                 raise ValueError(f"DDPGConfig.{field} must be one of {IMPLS}, got "
@@ -215,7 +222,8 @@ class DDPGLearner:
     # ------------------------------------------------------------- pieces --
 
     def _hypers(self) -> DDPGSweepHypers:
-        return DDPGSweepHypers(lr=self.cfg.learning_rate, gamma=self.cfg.gamma, tau=self.cfg.tau)
+        return DDPGSweepHypers(lr=self.cfg.learning_rate, gamma=self.cfg.gamma, tau=self.cfg.tau,
+                               matmul_dtype=torch.bfloat16 if self._bf16 else None)
 
     def _to_device(self, x: torch.Tensor) -> torch.Tensor:
         """A host tensor on the learner's device without waiting for the card."""

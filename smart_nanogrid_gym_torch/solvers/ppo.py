@@ -18,12 +18,28 @@ Two implementations, chosen per phase as the JAX ``PPOConfig`` chooses them
   out; ``sweep_impl="kernel"``: K3 (``"block"`` scheme) or K4 (``"env"``
   scheme) of ``ops/ppo_sweep.py``.
 
+``update_matmul_dtype=torch.bfloat16`` keeps each path's JAX semantics, and
+the two differ:
+
+- ``sweep_impl="plain"`` (the XLA ``_loss``, ppo.py:316-327): the params and
+  the observations are cast to bf16 and the whole actor-critic apply runs in
+  bf16 as flax runs it: each ``Dense`` rounds its product to bf16, then adds
+  the bf16 bias in bf16; tanh runs on bf16 values; ``log_std`` is the
+  bf16-rounded parameter; the outputs are cast back to f32, and autograd
+  carries the gradients back through the casts into the f32 master params;
+- ``sweep_impl="kernel"``: K3/K4's operand-only rounding
+  (``SweepHypers.matmul_dtype``, ``ops/ppo_sweep.py``): both operands of
+  every product rounded, the products accumulated in f32, everything else
+  f32.
+
+The collection and GAE run in f32 either way.
+
 Every random draw (the days, the action noise, the Philox seeds, the
 minibatch permutations) comes from the state's host ``torch.Generator``, so an
 update never waits on the card; a test passes JAX's own draws through
 :class:`PlainDraws` instead.  The learner runs on the card unless it is given
-``device="cpu"``.  Multi-device meshes and ``update_matmul_dtype`` are not
-ported and raise ``NotImplementedError``.
+``device="cpu"``.  Multi-device meshes are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ from ..core.params import NanogridParams
 from ..core.rollout import fused_day_rollout
 from ..core.transition import draw_pv_shift, reset
 from ..ops.collect import ppo_collect_day_seeded
+from ..ops.gen_rollout import bf16_operands
 from ..ops.param_guard import check_baked_params
 from ..ops.ppo_sweep import (
     AdamState,
@@ -70,7 +87,8 @@ class PPOConfig:
     num_epochs: int = 10
     num_minibatches: int = 4
     rollout_days: int = 1
-    # mixed-precision sweep operands: not ported (None or torch.float32 only)
+    # operand dtype of the update sweep: None / torch.float32, or
+    # torch.bfloat16 (each sweep_impl with its JAX semantics, module docstring)
     update_matmul_dtype: object | None = None
     sweep_impl: str = "plain"
     # "env" (per-epoch permutation of envs), "block" (of sample blocks of
@@ -134,6 +152,23 @@ def apply_actor_critic(leaves, obs):
     return mean, log_std, value[..., 0]
 
 
+def apply_actor_critic_bf16(leaves, obs):
+    """``apply_actor_critic`` as the JAX ``_loss`` runs it under a bf16
+    ``update_matmul_dtype``: params and obs cast to bf16, each layer a bf16
+    product (rounded once) followed by a separate bf16 bias add (rounded
+    again) as flax's ``Dense`` computes it, tanh on bf16 values; the outputs
+    cast back to f32.  Gradients reach the f32 leaves through the casts."""
+    pW1, pb1, pW2, pb2, pW3, pb3, vW1, vb1, vW2, vb2, vW3, vb3, log_std = (x.to(torch.bfloat16) for x in leaves)
+    x = obs.to(torch.bfloat16)
+
+    def dense(h, w, b):
+        return torch.matmul(h, w.T) + b
+
+    mean = dense(torch.tanh(dense(torch.tanh(dense(x, pW1, pb1)), pW2, pb2)), pW3, pb3)
+    value = dense(torch.tanh(dense(torch.tanh(dense(x, vW1, vb1)), vW2, vb2)), vW3, vb3)
+    return mean.to(F32), log_std.to(F32), value[..., 0].to(F32)
+
+
 class PPOLearner:
     """The PPO learner for one env config on one device."""
 
@@ -143,8 +178,7 @@ class PPOLearner:
             raise NotImplementedError("multi-device training is not ported yet")
         self.env_config = env_config
         self.ppo = ppo_config or PPOConfig()
-        if self.ppo.update_matmul_dtype not in (None, torch.float32):
-            raise NotImplementedError("update_matmul_dtype (mixed-precision sweep) is not ported yet")
+        self._bf16 = bf16_operands(self.ppo.update_matmul_dtype)
         for field in ("collect_impl", "sweep_impl"):
             if getattr(self.ppo, field) not in IMPLS:
                 raise ValueError(f"PPOConfig.{field} must be one of {IMPLS}, got "
@@ -187,7 +221,8 @@ class PPOLearner:
     def _hypers(self) -> SweepHypers:
         return SweepHypers(lr=self.ppo.learning_rate, clip_eps=self.ppo.clip_eps,
                            vf_coef=self.ppo.vf_coef, ent_coef=self.ppo.entropy_coef,
-                           max_grad_norm=self.ppo.max_grad_norm)
+                           max_grad_norm=self.ppo.max_grad_norm,
+                           matmul_dtype=torch.bfloat16 if self._bf16 else None)
 
     def _resolved_scheme(self) -> str:
         s = self.ppo.minibatch_scheme
@@ -222,7 +257,8 @@ class PPOLearner:
         return advantages, advantages + values
 
     def _loss(self, params, obs, actions, old_logp, old_values, advantages, returns):
-        mean, log_std, values = apply_actor_critic(params, obs)
+        apply = apply_actor_critic_bf16 if self._bf16 else apply_actor_critic
+        mean, log_std, values = apply(params, obs)
         logp = _gaussian_logp(mean, log_std, actions)
         ratio = torch.exp(logp - old_logp)
         norm_adv = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)

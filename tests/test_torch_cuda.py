@@ -30,7 +30,7 @@ from smart_nanogrid_gym_torch.ops.collect import (
     ppo_collect_day_plain,
     ppo_collect_day_seeded_plain,
 )
-from smart_nanogrid_gym_torch.ops.ppo_sweep import SweepHypers, ppo_sweep_plain, zeros_adam
+from smart_nanogrid_gym_torch.ops.ppo_sweep import SweepHypers, ppo_sweep_plain, ppo_sweep_streamed_plain, zeros_adam
 from smart_nanogrid_gym_torch.solvers.networks import actor_critic_leaves
 from smart_nanogrid_gym_torch.solvers.ppo import PPOConfig, PPOLearner
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
@@ -400,3 +400,115 @@ def test_tables_in_kernels_reject_f64_states(cuda):
     state, _ = SmartNanogridTorch(config).reset_batch(params, 64, torch.Generator(device=cuda).manual_seed(0))
     with pytest.raises(ValueError, match="float32"):
         rbc_day_rollout(config, params, state)
+
+
+# ------------------------------------------------ bf16 options, 256x256 ---
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("actor", ["ppo", "ddpg"])
+def test_k6_bf16_matches_twin(cuda, actor):
+    """K6 with ``mlp_dtype=bf16`` against its twin (the PPO 64x64 actor and
+    the DDPG 400-300 one), 2 days at B=300; bf16 products are exact in f32,
+    so the kernels meet their twins as in f32."""
+    config = DDPG_CONFIGS["v2x-b-pv"]
+    params = make_params(config, torch.float32, cuda)
+    traces = kernel_traces(params, cuda)
+    net = shifted_actor(config, 13, cuda) if actor == "ppo" else shifted_ddpg_actor(config, 13, cuda)
+    weights = actor_weights(config, net, cuda, actor, mlp_dtype=BF16)
+    reset_launch_counts()
+    stats = gen_policy_multiday(config, params, net, 2, 17, 300, actor=actor, mlp_dtype=BF16)
+    want = gen_policy_multiday_plain(config, traces, weights, 2, 17, 300, actor=actor, mlp_dtype=BF16)
+    torch.testing.assert_close(stats, want, rtol=2e-4, atol=1e-2)
+    assert not torch.equal(stats, gen_policy_multiday(config, params, net, 2, 17, 300, actor=actor))
+    name = "gen_policy_multiday" + ("_ddpg" if actor == "ddpg" else "")
+    assert dict(launch_counts) == {f"{name}_bf16": 1, name: 1}
+
+
+def test_policy_kernels_at_256x256_match_twins(cuda):
+    """The bench's 256x256 PPO torso runs the block-level actor in K5, K6 (f32
+    and bf16) and K11b, against their twins at B=300."""
+    from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout, policy_day_rollout_plain
+    from smart_nanogrid_gym_torch.ops.rollout import state_tables
+
+    config = TABLES_IN_CONFIGS["b-pv-8ch"]
+    params = make_params(config, torch.float32, cuda)
+    traces = kernel_traces(params, cuda)
+    torch.manual_seed(3)
+    net = ActorCritic(config.obs_dim, config.num_actions, (256, 256)).to(cuda)
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.dim() == 1:
+                p.add_(0.05)
+    weights = actor_weights(config, net, cuda)
+    u, pv = _inputs(config, 8, 300, cuda)
+    reset_launch_counts()
+    for got, want in zip(gen_policy_day(config, params, net, u, pv),
+                         gen_policy_day_plain(config, traces, weights, u, pv, torch.full_like(pv, 0.5))):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    for mm in (None, BF16):
+        torch.testing.assert_close(gen_policy_multiday(config, params, net, 2, 5, 300, mlp_dtype=mm),
+                                   gen_policy_multiday_plain(config, traces, actor_weights(config, net, cuda,
+                                                                                           mlp_dtype=mm),
+                                                             2, 5, 300, mlp_dtype=mm), rtol=2e-4, atol=1e-2)
+    state = _day_states(config, params, 300, cuda)[1]
+    for got, want in zip(policy_day_rollout(config, params, state, net),
+                         policy_day_rollout_plain(config, traces, weights, state_tables(config, params, state))):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert dict(launch_counts) == {"gen_policy_day_block": 1, "gen_policy_multiday_block": 1,
+                                   "gen_policy_multiday_block_bf16": 1, "policy_day_rollout_block": 1}
+
+
+def test_sweep_kernels_bf16_match_twins(cuda):
+    """K4 (M = 300, ragged) and K3 (featlane) with ``matmul_dtype=bf16``, G = 4,
+    against their twins at the f32 sweep bar; a rerun is bit-identical."""
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    F, A = config.obs_dim, config.num_actions
+    leaves = _leaves(config, 5, cuda)
+    adam = zeros_adam(leaves)
+    hp = HYPERS._replace(matmul_dtype=BF16)
+    reset_launch_counts()
+    obs, act, logp, adv, ret = _sweep_data((4, 300), F, A, cuda, 1)
+    got = ppo_sweep(leaves, adam, obs, act, logp, adv, ret, hp)
+    want = ppo_sweep_plain(leaves, adam, zip(obs, act, logp, adv, ret), hp)
+    for g, w in zip(got[0] + got[1].mu + got[1].nu + [got[2]], want[0] + want[1].mu + want[1].nu + [want[2]]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    T, B, granule = 6, 128, 32
+    data = _sweep_data((T, B), F, A, cuda, 2)
+    data = (data[0].permute(0, 2, 1).contiguous(), data[1].permute(0, 2, 1).contiguous()) + data[2:]
+    block_perm = torch.stack([torch.randperm(T * B // granule, generator=torch.Generator().manual_seed(g))[:6]
+                              for g in range(4)])
+    got = ppo_sweep_streamed(leaves, adam, *data, block_perm, granule, hp)
+    # the twin on the card: a bf16 operand rounds on the card's tanh, which the CPU's may flip
+    want = ppo_sweep_streamed_plain(leaves, adam, *data, block_perm, granule, hp)
+    for g, w in zip(got[0] + [got[2]], want[0] + [want[2]]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    again = ppo_sweep_streamed(leaves, adam, *data, block_perm, granule, hp)
+    assert all(torch.equal(g, a) for g, a in zip(got[0], again[0]))
+    assert dict(launch_counts) == {"ppo_sweep_bf16": 8, "ppo_sweep_streamed_bf16": 16}
+
+
+def test_ddpg_sweep_kernel_bf16_matches_twin(cuda):
+    """K10 with ``matmul_dtype=bf16`` over G = 3 steps of a ragged minibatch
+    (M = 200) with the 400-300 networks, against its twin."""
+    from smart_nanogrid_gym_torch.ops.ddpg_sweep import DDPGSweepHypers, ddpg_sweep, ddpg_sweep_plain
+    from smart_nanogrid_gym_torch.solvers.networks import DDPGCritic, ddpg_leaves
+
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    F, A = config.obs_dim, config.num_actions
+    actor = [x.detach() for x in ddpg_leaves(shifted_ddpg_actor(config, 5, cuda))]
+    critic = [x.detach().to(cuda) for x in ddpg_leaves(DDPGCritic(F, A, generator=torch.Generator().manual_seed(6)))]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    G, M = 3, 200
+    data = (torch.randn((G, M, F), generator=gen, device=cuda), torch.rand((G, M, A), generator=gen, device=cuda),
+            -torch.rand((G, M), generator=gen, device=cuda) * 10, torch.randn((G, M, F), generator=gen, device=cuda),
+            (torch.rand((G, M), generator=gen, device=cuda) < 0.05).float())
+    low, high = (torch.as_tensor(b, device=cuda) for b in config.action_bounds())
+    hp = DDPGSweepHypers(lr=1e-3, gamma=0.99, tau=5e-3, matmul_dtype=BF16)
+    args = (actor, critic, actor, critic, zeros_adam(actor), zeros_adam(critic), *data, low, high, hp)
+    reset_launch_counts()
+    got, want = ddpg_sweep(*args), ddpg_sweep_plain(*args)
+    for g, w in zip(got[0] + got[1] + got[2] + got[3] + [got[6]], want[0] + want[1] + want[2] + want[3] + [want[6]]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    assert dict(launch_counts) == {"ddpg_sweep_bf16": G}

@@ -186,8 +186,9 @@ def test_partial_day_collect_fallback():
 
 def test_learner_rejects_what_is_not_ported_or_not_a_whole_day():
     params = make_params(CFG, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError):
-        DDPGLearner(CFG, DDPGConfig(update_matmul_dtype=torch.bfloat16), device="cpu")
+    for impl in ("plain", "kernel"):  # the bf16 sweep option is accepted (the plain sweep ignores it)
+        bf16 = DDPGLearner(CFG, DDPGConfig(update_matmul_dtype=torch.bfloat16, sweep_impl=impl), device="cpu")
+        assert bf16._hypers().matmul_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError):
         DDPGLearner(CFG, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="sweep_impl"):

@@ -53,22 +53,22 @@ def inputs(G, seed):
     return actor, critic, jax.tree.map(np.asarray, a_params), jax.tree.map(np.asarray, c_params), batches
 
 
-def port_sweep(a_params, c_params, batches, impl=ddpg_sweep_plain):
+def port_sweep(a_params, c_params, batches, impl=ddpg_sweep_plain, hp=None):
     a = mlp_leaves_from_flax(a_params, "mu")
     c = mlp_leaves_from_flax(c_params, "q")
     low, high = (torch.as_tensor(b) for b in CFG.action_bounds())
     out = impl(a, c, a, c, zeros_adam(a), zeros_adam(c), *(torch.from_numpy(x) for x in batches), low, high,
-               DDPGSweepHypers(lr=LR, gamma=GAMMA, tau=TAU))
+               hp or DDPGSweepHypers(lr=LR, gamma=GAMMA, tau=TAU))
     return ddpg_state_to_jax(*out[:6]), out[6].numpy()
 
 
-def pallas_sweep(a_params, c_params, batches):
+def pallas_sweep(a_params, c_params, batches, hp=None):
     zeros = functools.partial(jax.tree.map, jnp.zeros_like)
     low, high = CFG.action_bounds()
     with jax.enable_x64(False):
         out = ddpg_sweep_pallas(a_params, c_params, a_params, c_params, 0, zeros(a_params), zeros(a_params),
                                 0, zeros(c_params), zeros(c_params), *(jnp.asarray(x) for x in batches),
-                                jnp.asarray(low), jnp.asarray(high), JaxHypers(lr=LR, gamma=GAMMA, tau=TAU),
+                                jnp.asarray(low), jnp.asarray(high), hp or JaxHypers(lr=LR, gamma=GAMMA, tau=TAU),
                                 interpret=True)
     actor, critic, ta, tc, (a_count, a_mu, a_nu), (c_count, c_mu, c_nu), metrics = out
     return {"actor_params": actor, "critic_params": critic, "target_actor_params": ta,

@@ -1,8 +1,9 @@
 """The port runs without JAX or the JAX package: importing it, rolling a
-day, running one PPO and one DDPG training update, a DDPG at-scale
-evaluation, the tables-in day twins, the gym adapter and the vector env on
-the CPU leave ``jax`` and ``smart_nanogrid_gym_tpu`` out of ``sys.modules``,
-and no file of the port imports them.  The port's copies of the JAX-free tables equal the JAX
+day, running one PPO and one DDPG training update (and a bf16 one of each
+learner path), a DDPG at-scale evaluation, K6's bf16 twin, the tables-in
+day twins, the gym adapter and the vector env on the CPU leave ``jax`` and
+``smart_nanogrid_gym_tpu`` out of ``sys.modules``, and no file of the port
+imports them.  The port's copies of the JAX-free tables equal the JAX
 package's."""
 
 import os
@@ -65,6 +66,18 @@ assert state.update_step == 1 and bool(torch.isfinite(metrics.critic_loss))
 low, high = config.action_bounds()
 actor = DDPGActor(config.obs_dim, config.num_actions, low, high)
 assert evaluate_policy_at_scale(config, params, actor, 1, 8, algorithm="ddpg")["total_days"] == 8
+# the bf16 options: K6's mlp_dtype for both actors, a bf16 update of each learner path
+for n, kind in ((net, "ppo"), (actor, "ddpg")):
+    assert gen_policy_multiday(config, params, n, 1, 0, 8, actor=kind, mlp_dtype=torch.bfloat16).shape == (3, 8)
+for impl in ("plain", "kernel"):
+    learner = PPOLearner(config, PPOConfig(num_epochs=1, num_minibatches=2, collect_impl=impl, sweep_impl=impl,
+                                           update_matmul_dtype=torch.bfloat16), device="cpu")
+    state, metrics = learner.build_train_step()(learner.init(0, params, 128 if impl == "kernel" else 8), params)
+    assert bool(torch.isfinite(metrics.policy_loss)) and state.params[0].dtype == torch.float32
+    ddpg = DDPGLearner(config, DDPGConfig(buffer_days=1, gradient_steps=1, batch_size=16, collect_impl=impl,
+                                          sweep_impl=impl, update_matmul_dtype=torch.bfloat16), device="cpu")
+    state, metrics = ddpg.build_train_step()(ddpg.init(0, params, 8), params)
+    assert bool(torch.isfinite(metrics.critic_loss)) and state.actor[0].dtype == torch.float32
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "smart_nanogrid_gym_tpu")]
 assert not loaded, loaded

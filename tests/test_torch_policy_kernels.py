@@ -26,7 +26,7 @@ from smart_nanogrid_gym_torch.core.transition import reset
 from smart_nanogrid_gym_torch.ops import gen_policy_day
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
     actor_weights,
-    check_ddpg_torso,
+    check_block_torso,
     gen_policy_day_plain,
     gen_policy_multiday_plain,
 )
@@ -169,8 +169,8 @@ def test_ddpg_actor_option_rejects_the_wrong_network_and_large_torsos():
     with pytest.raises(ValueError, match="actor must be"):
         gen_policy_day(ART4, params, net, torch.from_numpy(u), torch.from_numpy(pv), actor="sac")
     traces = kernel_traces(params, torch.device("cpu"))
-    check_ddpg_torso(ART4, (400, 300), traces)
+    check_block_torso(ART4, (400, 300), traces)
     with pytest.raises(ValueError, match="shared memory"):
-        check_ddpg_torso(ART4, (1024, 1024), traces)
+        check_block_torso(ART4, (1024, 1024), traces)
 
 

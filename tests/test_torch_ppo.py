@@ -178,8 +178,11 @@ def test_kernel_path_rejects_what_the_jax_package_rejects():
                          device="cpu")
     with pytest.raises(ValueError, match="not divisible"):
         learner.build_train_step()(learner.init(0, params, 128), params)
-    with pytest.raises(NotImplementedError):
-        PPOLearner(CFG, PPOConfig(update_matmul_dtype=torch.bfloat16), device="cpu")
+    for impl in ("plain", "kernel"):  # the bf16 sweep option is accepted on both paths
+        bf16 = PPOLearner(CFG, PPOConfig(update_matmul_dtype=torch.bfloat16, sweep_impl=impl), device="cpu")
+        assert bf16._hypers().matmul_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="operand dtype"):
+        PPOLearner(CFG, PPOConfig(update_matmul_dtype=torch.float16), device="cpu")
     with pytest.raises(NotImplementedError):
         PPOLearner(CFG, mesh=object(), device="cpu")
 

@@ -187,6 +187,28 @@ def flax_ddpg_actor(config, seed: int, hidden=(400, 300), shift: bool = True):
     return params
 
 
+def assert_bf16_close(got, want, f32, rtol, atol, bound, msg, share=0.999, ratio=0.5):
+    """The contract of the bf16 tests (tests/test_torch_bf16_*.py) on lists
+    of float arrays: ``got`` the port's bf16 result, ``want`` JAX's bf16
+    result, ``f32`` the f32 result of the same computation.
+
+    A bf16 twin rounds its product operands as the JAX kernel does but sums
+    in another order than XLA, so an operand near a bf16 rounding boundary
+    can round one way in one package and the other way in the other.  So:
+    at least ``share`` of the entries keep the relation "the port is as
+    close to JAX's bf16 result as the f32 result is", within the f32
+    tolerance (``rtol``, ``atol``); every entry lies within ``bound`` of
+    JAX's; and the summed absolute distance to JAX's bf16 result is below
+    ``ratio`` times the f32 result's, so the test tells that bf16 happened.
+    """
+    g, w, f = (np.concatenate([np.asarray(x, np.float64).reshape(-1) for x in xs]) for xs in (got, want, f32))
+    relation = np.abs(g - w) <= np.abs(f - w) + atol + rtol * np.abs(w)
+    assert relation.mean() >= share, (msg, relation.mean())
+    np.testing.assert_allclose(g, w, rtol=0, atol=bound, err_msg=msg)
+    d_port, d_f32 = np.abs(g - w).sum(), np.abs(f - w).sum()
+    assert d_port < ratio * d_f32, (msg, d_port, d_f32)
+
+
 if __name__ == "__main__":
     print(write_artifact_npz())
     print(write_ddpg_artifact_npz())
