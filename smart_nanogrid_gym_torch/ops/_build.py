@@ -78,15 +78,16 @@ _DDPG_SIGNATURES = {
 }
 _SWEEP_SIGNATURES = {
     "ngk_sweep_params_size": (),
-    # ..., vf_coef, inv_m, bf16, stream
-    "ngk_ppo_grad_partial": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
-                             _F, _F, _F, _F, _I, _P),
-    "ngk_ppo_adam_update": (_P, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    "ngk_sweep_slices": (),
+    "ngk_sweep_grid_blocks": (),
+    "ngk_ppo_sweep": (_P, _P, _P, _P),  # ptrs, ints, floats, stream
 }
 _DDPG_SWEEP_SIGNATURES = {
     "ngk_ddpg_actor_size": (),
     "ngk_ddpg_critic_size": (),
-    "ngk_ddpg_step": (_P, _P, _P, _P),
+    "ngk_ddpg_scratch_floats": (_I,),
+    "ngk_ddpg_grid_blocks": (),
+    "ngk_ddpg_sweep": (_P, _P, _P, _P),
 }
 _LIBRARIES: dict[Path, ctypes.CDLL] = {}
 

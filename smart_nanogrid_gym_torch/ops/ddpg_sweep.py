@@ -28,11 +28,14 @@ ReLU masks ``y > 0`` read f32 values; the squash, ``tanh_u``, the TD error,
 the bias column sums, Adam and polyak stay f32.
 
 On CUDA tensors :func:`ddpg_sweep` launches ``csrc/ddpg_sweep.cuh``'s
-sequence of kernels once per gradient step (one ``ngk_ddpg_step`` call, one
-count of ``ddpg_sweep``, or ``ddpg_sweep_bf16``); on CPU tensors it runs :func:`ddpg_sweep_plain`,
-which writes every product and sum in the kernels' order: products summed
-over their reduction index in index order from the first product, bias
-gradients and the loss sums in sample order.
+persistent cooperative kernel once per update (one ``ngk_ddpg_sweep`` call
+for all ``G`` steps, one count of ``ddpg_sweep``, or ``ddpg_sweep_bf16``);
+on CPU tensors it runs :func:`ddpg_sweep_plain`, which writes every product
+and sum in the f32 kernel's order: products summed over their reduction
+index in index order from the first product, bias gradients and the loss
+sums in sample order.  With bf16 the kernel's products run on the tensor
+cores, whose accumulation order is their own: the twin then matches the
+kernel to a stated tolerance (``tests/test_torch_cuda.py``), not bit for bit.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from .ppo_sweep import AdamState, adam_update_plain
 
 F32 = torch.float32
 N_LEAVES = 6
-N_POINTERS = 33  # ngd::StepArgs' device pointers
+N_POINTERS = 20  # ngd::Sweep's device pointers
 
 
 class DDPGSweepHypers(NamedTuple):
@@ -87,8 +90,8 @@ def _f32(x: float) -> float:
 
 def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """``a (M, K) @ b (K, N)`` with each output summed over ``k`` in index
-    order, from the first product (``gemm_kernel``); with ``bf16`` both
-    operands are rounded to bf16 first."""
+    order, from the first product (a tile of the f32 kernel); with ``bf16``
+    both operands are rounded to bf16 first."""
     if bf16:
         a, b = round_bf16(a), round_bf16(b)
     acc = a[:, 0:1] * b[0:1]
@@ -98,7 +101,7 @@ def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool = False) -> torch.Tensor:
 
 
 def _colsum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the leading (sample) axis in sample order (``colsum_kernel``)."""
+    """Sum over the leading (sample) axis in sample order (the kernel's ones-row product)."""
     acc = x[0]
     for m in range(1, x.shape[0]):
         acc = acc + x[m]
@@ -241,24 +244,18 @@ def ddpg_sweep(actor, critic, t_actor, t_critic, a_adam: AdamState, c_adam: Adam
     neg_inv = torch.full((M,), -inv_m, **f32)
     box = [x.to(**f32).contiguous() for x in (low, high)]
     grads = [torch.empty(n, **f32) for n in sizes]
-    h1 = [torch.empty((M, H1), **f32) for _ in range(3)]
-    h2 = [torch.empty((M, H2), **f32) for _ in range(3)]
-    g1, g2 = torch.empty((M, H1), **f32), torch.empty((M, H2), **f32)
-    vecs = [torch.empty(M, **f32) for _ in range(4)]  # y, gq, cerr, q_pi
-    per_action = [torch.empty((M, A), **f32) for _ in range(2)]  # tanh_u, g_u
+    scratch = torch.empty(lib.ngk_ddpg_scratch_floats(M), **f32)
     metrics = torch.empty((G, 2), **f32)
     floats = (ctypes.c_float * 13)(
         hp.gamma, _f32(np.float32(2.0) * np.float32(1.0 / M)), inv_m, hp.tau,
         _f32(np.float32(1.0) - np.float32(hp.tau)), hp.lr, hp.adam_b1, 1.0 - hp.adam_b1,
         _f32(np.log(hp.adam_b1)), hp.adam_b2, 1.0 - hp.adam_b2, _f32(np.log(hp.adam_b2)), hp.adam_eps)
     bf16 = bf16_operands(hp.matmul_dtype)
-    name = "ddpg_sweep_bf16" if bf16 else "ddpg_sweep"
-    for g in range(G):
-        tensors = (*nets[:4], *moments, *grads, xa[g], rew[g], done[g], neg_inv, xa_next[g], xa_pi[g], *box,
-                   *h1, *h2, g1, g2, *vecs, *per_action, metrics[g])
-        ptrs = (ctypes.c_void_p * N_POINTERS)(*(t.data_ptr() for t in tensors))
-        ints = (ctypes.c_int * 4)(M, a_adam.count + g + 1, c_adam.count + g + 1, int(bf16))
-        _build.launch(name, lib.ngk_ddpg_step, ptrs, ints, floats, device=device)
+    tensors = (*nets, *moments, *grads, xa, rew, done, xa_next, xa_pi, neg_inv, *box, scratch, metrics)
+    ptrs = (ctypes.c_void_p * N_POINTERS)(*(t.data_ptr() for t in tensors))
+    ints = (ctypes.c_int * 5)(G, M, a_adam.count, c_adam.count, int(bf16))
+    _build.launch("ddpg_sweep_bf16" if bf16 else "ddpg_sweep", lib.ngk_ddpg_sweep, ptrs, ints, floats,
+                  device=device)
     la, lc = list(actor), list(critic)
     am, an, cm, cn = moments
     return (unflat(nets[0], la), unflat(nets[1], lc), unflat(nets[2], la), unflat(nets[3], lc),

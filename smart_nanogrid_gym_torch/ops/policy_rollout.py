@@ -103,7 +103,8 @@ def policy_day_rollout(config: NanogridConfig, params: NanogridParams, state: En
     ``state`` (K11b).
 
     ``net`` is an :class:`ActorCritic` (only its ``pi`` torso runs);
-    ``state`` is at day start for every env; ``params`` are unbatched.
+    ``state`` is at day start for every env; ``params`` are unbatched or
+    batched with equal rows (:func:`.rollout.one_row`).
     Returns ``(rewards (T, B), actions (T, A, B), soc_final (N, B))``; any
     batch size works.
     """

@@ -19,14 +19,19 @@ SB3-default actor-critic (separate 64-64 tanh torsos, state-independent
 - :func:`ppo_sweep` (K4, ``ppo_sweep_pallas``): pre-gathered minibatches
   ``(G, M, feat)`` with pre-normalised advantages.
 
-On CUDA tensors both launch the kernels of ``csrc/ppo_sweep.cuh``, two per
-gradient step: ``ppo_grad_partial`` (each block one partial gradient of its
-samples) and ``ppo_adam_update`` (the partials summed in block order, clip,
-Adam), counted under the wrapper's name (``_bf16`` appended for bf16
-operands).  On CPU tensors they run :func:`ppo_sweep_plain`, which computes the
-same hand-written backward with matrix products.  Both keep the JAX
-kernel's two derivative conventions: ``jnp.minimum``'s balanced tie (0.5/0.5
-at ``pg1 == pg2``) and the strict clip-region indicator ``lo < ratio < hi``.
+On CUDA tensors both launch ``csrc/ppo_sweep.cuh``'s persistent cooperative
+kernel once per update (one count under the wrapper's name, ``_bf16``
+appended for bf16 operands): for each gradient step, every block first
+computes the partial gradient of a fixed range of the minibatch's samples,
+then the partials are summed in range order slice by slice, and every block
+takes the global norm from the slices' sums of squares and applies the
+clip and Adam to its part.  On CPU tensors they run :func:`ppo_sweep_plain`,
+which computes the same hand-written backward with matrix products in the
+kernel's summation order (:func:`_kernel_order_sum`,
+:func:`_adam_block_norm`, from the partition constants below).  Both keep
+the JAX kernel's two derivative conventions: ``jnp.minimum``'s balanced tie
+(0.5/0.5 at ``pg1 == pg2``) and the strict clip-region indicator ``lo <
+ratio < hi``.
 
 ``SweepHypers.matmul_dtype=torch.bfloat16`` is the JAX kernel's bf16
 operand option (pallas_ppo_sweep.py:191-206): both operands of every
@@ -37,7 +42,10 @@ else stays f32: the tanh derivative ``1 − y²`` reads the f32 activations,
 and the log-prob, ratio, clip, metric sums, bias gradients, global-norm clip
 and Adam run in f32, so the master parameters stay f32.  These are
 operand-only semantics, the kernel path's; the learner's plain sweep casts
-the whole flax apply instead (``solvers/ppo.py``).
+the whole flax apply instead (``solvers/ppo.py``).  On the card the large
+products run on the bf16 tensor cores, which sum in their own order: there
+the twin matches the kernel to a stated tolerance (``tests/test_torch_cuda.py``),
+not bit for bit; in f32 it matches bit for bit.
 
 Parameters travel as the 13 leaves of
 :func:`..solvers.networks.actor_critic_leaves`; the kernels see them packed
@@ -46,6 +54,7 @@ into one flat f32 vector (:func:`flatten_leaves`).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Iterable, NamedTuple, Sequence
 
@@ -60,9 +69,11 @@ N_PARAMS = 13
 LOG_2PI = float(np.float32(np.log(2.0 * np.pi)))
 ENTROPY_CONST = float(np.float32(0.5 * np.log(2.0 * np.pi * np.e)))
 LAYOUTS = {"featlane": 0, "sample": 1, "gathered": 2}
-GRAD_TILE = 32         # samples per tile of ppo_grad_partial (kTile in csrc/ppo_sweep.cuh)
-MAX_GRAD_BLOCKS = 64   # partial gradients per step, summed by ppo_adam_update
-ADAM_THREADS = 1024    # threads of the ppo_adam_update block (kAdamThreads)
+# The sweep kernel's partition (kTile, kMaxRanges, kSlices in csrc/ppo_sweep.cuh).
+# Constants, not the card's occupancy: the twin writes the same summation order.
+GRAD_TILE = 64         # samples per tile of a range's partial gradient
+MAX_GRAD_BLOCKS = 128  # sample ranges (partial gradients) per step at most
+NORM_SLICES = 128      # slices of the reduction over ranges and of the global norm
 
 
 class SweepHypers(NamedTuple):
@@ -139,7 +150,7 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
 
 def _dot_rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``w @ x`` for ``x (K, M)`` as products summed over K in index order
-    (``dot_col`` of csrc/ppo_sweep.cuh)."""
+    (``feat_by_sample`` of csrc/ppo_sweep.cuh)."""
     acc = w[:, 0:1] * x[0:1]
     for k in range(1, w.shape[1]):
         acc = acc + w[:, k:k + 1] * x[k:k + 1]
@@ -147,9 +158,9 @@ def _dot_rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_order_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis (the minibatch's ``M`` samples) in the order
-    ``ppo_grad_partial`` and ``ppo_adam_update`` add: within each tile of
-    ``GRAD_TILE`` samples, then the tiles of a block, then the blocks."""
+    """Sum over the last axis (the minibatch's ``M`` samples) in the sweep
+    kernel's order: within each tile of ``GRAD_TILE`` samples, then the
+    tiles of a range, then the ranges (:func:`grad_blocks`)."""
     M = x.shape[-1]
     nb = grad_blocks(M)
     spb = math.ceil(M / nb)
@@ -157,7 +168,7 @@ def _kernel_order_sum(x: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     x = torch.nn.functional.pad(x, (0, nb * spb - M)).reshape(*lead, nb, spb)
     x = torch.nn.functional.pad(x, (0, tiles * GRAD_TILE - spb)).reshape(*lead, nb, tiles, GRAD_TILE)
-    for _ in range(3):  # the lanes of a tile, the tiles of a block, the blocks
+    for _ in range(3):  # the samples of a tile, the tiles of a range, the ranges
         acc = x[..., 0]
         for i in range(1, x.shape[-1]):
             acc = acc + x[..., i]
@@ -168,7 +179,7 @@ def _kernel_order_sum(x: torch.Tensor) -> torch.Tensor:
 def grad_step_plain(leaves, obs, act, old_logp, nadv, ret, hp: SweepHypers):
     """Gradient of one minibatch (``M`` samples, sample-major) by the
     hand-written backward of ``_sweep_kernel`` (pallas_ppo_sweep.py:229-295),
-    every product and sum in the order of ``ppo_grad_partial``.  Returns the
+    every product and sum in the sweep kernel's order.  Returns the
     13 gradient leaves (without the entropy term) and the sums ``(policy
     loss, value loss, approx KL)`` times ``M``.  With bf16 ``matmul_dtype``
     every product operand (``op`` below) is rounded to bf16."""
@@ -232,26 +243,26 @@ def grad_step_plain(leaves, obs, act, old_logp, nadv, ret, hp: SweepHypers):
 
 
 def _adam_block_norm(grads: torch.Tensor) -> torch.Tensor:
-    """The global norm in ``ppo_adam_update``'s order: each of its threads
-    sums the squares of its elements (stride ``ADAM_THREADS``), a shuffle
-    tree adds the lanes of a warp, then the warps are added in order."""
-    per = math.ceil(grads.numel() / ADAM_THREADS)
-    g = torch.nn.functional.pad(grads, (0, per * ADAM_THREADS - grads.numel())).reshape(per, ADAM_THREADS)
-    sq = g[0] * g[0]
-    for k in range(1, per):
-        sq = sq + g[k] * g[k]
-    lanes = sq.reshape(ADAM_THREADS // 32, 32)
-    for off in (16, 8, 4, 2, 1):
-        lanes = lanes[:, :off] + lanes[:, off:2 * off]
-    total = lanes[0, 0]
-    for w in range(1, lanes.shape[0]):
-        total = total + lanes[w, 0]
+    """The global norm in the sweep kernel's order: the ``P`` gradient
+    elements are cut into slices of ``ceil(P / NORM_SLICES)``; each slice sums
+    its squares in element order, then the slices' sums are added in slice
+    order."""
+    n = grads.numel()
+    size = math.ceil(n / NORM_SLICES)
+    slices = math.ceil(n / size)
+    g = torch.nn.functional.pad(grads, (0, slices * size - n)).reshape(slices, size)
+    sq = g[:, 0] * g[:, 0]
+    for k in range(1, size):
+        sq = sq + g[:, k] * g[:, k]
+    total = sq[0]
+    for i in range(1, slices):
+        total = total + sq[i]
     return torch.sqrt(total)
 
 
 def adam_step_plain(params, mu, nu, grads, t: int, hp: SweepHypers):
-    """Clip by global norm and one Adam step on flat vectors, as the kernel's
-    last chunk does it (pallas_ppo_sweep.py:297-324): the norm trigger is
+    """Clip by global norm and one Adam step on flat vectors, as the JAX
+    kernel's last chunk does it (pallas_ppo_sweep.py:297-324): the norm trigger is
     ``norm < max_norm``, the bias correction ``1 − exp(t·log b)``, eps outside
     the sqrt.  ``grads`` already carries the entropy term."""
     g_norm = _adam_block_norm(grads)
@@ -416,7 +427,7 @@ def ppo_sweep(params, adam: AdamState, obs_g, act_g, logp_g, nadv_g, ret_g, hype
 # ------------------------------------------------------ the CUDA launch ---
 
 def grad_blocks(M: int) -> int:
-    """Blocks of ``ppo_grad_partial`` per gradient step: one per
+    """Sample ranges (partial gradients) per gradient step: one per
     ``GRAD_TILE`` samples, at most ``MAX_GRAD_BLOCKS``; the partition is a
     function of ``M`` alone, so reruns sum in the same order."""
     return max(1, min(MAX_GRAD_BLOCKS, math.ceil(M / GRAD_TILE)))
@@ -440,24 +451,23 @@ def _launch_sweep(name, params, adam, hp, layout, data, block_perm, stats, *, G,
         raise ValueError(f"{p.numel()} parameters, the sweep library expects {n_params}")
     mu, nu = flatten_leaves(adam.mu).to(device), flatten_leaves(adam.nu).to(device)
     nb = grad_blocks(M)
-    spb = math.ceil(M / nb)
-    partials = torch.empty((nb, n_params + 3), dtype=F32, device=device)
-    metrics = torch.empty((G, 4), dtype=F32, device=device)
+    f32 = dict(dtype=F32, device=device)
+    partials = torch.empty((nb, n_params + 3), **f32)
+    grad = torch.empty(n_params, **f32)
+    slice_sq = torch.empty(lib.ngk_sweep_slices(), **f32)
+    metrics = torch.empty((G, 4), **f32)
     null = torch.empty(0, device=device)
     perm = block_perm if block_perm is not None else null
     st = stats if stats is not None else null
-    lo, hi = float(np.float32(1.0 - hp.clip_eps)), float(np.float32(1.0 + hp.clip_eps))
-    adam_consts = (hp.adam_b1, 1.0 - hp.adam_b1, float(np.float32(np.log(hp.adam_b1))),
-                   hp.adam_b2, 1.0 - hp.adam_b2, float(np.float32(np.log(hp.adam_b2))), hp.adam_eps)
     bf16 = bf16_operands(hp.matmul_dtype)
-    name = name + ("_bf16" if bf16 else "")
-    for g in range(G):
-        _build.launch(name, lib.ngk_ppo_grad_partial, p, obs, act, logp, adv, ret, perm, st,
-                      layout, g, G, K, granule, M, lanes, partials, nb, spb,
-                      lo, hi, hp.vf_coef, 1.0 / M, int(bf16), device=device)
-        _build.launch(name, lib.ngk_ppo_adam_update, p, mu, nu, partials, nb, metrics,
-                      g, adam.count + g + 1, 1.0 / M, hp.lr, hp.max_grad_norm, -hp.ent_coef,
-                      *adam_consts, device=device)
+    tensors = (p, mu, nu, obs, act, logp, adv, ret, perm, st, partials, grad, slice_sq, metrics)
+    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    ints = (ctypes.c_int * 10)(layout, G, K, granule, M, lanes, nb, math.ceil(M / nb), adam.count, int(bf16))
+    floats = (ctypes.c_float * 14)(
+        float(np.float32(1.0 - hp.clip_eps)), float(np.float32(1.0 + hp.clip_eps)), hp.vf_coef, 1.0 / M, hp.lr,
+        hp.max_grad_norm, -hp.ent_coef, hp.adam_b1, 1.0 - hp.adam_b1, float(np.float32(np.log(hp.adam_b1))),
+        hp.adam_b2, 1.0 - hp.adam_b2, float(np.float32(np.log(hp.adam_b2))), hp.adam_eps)
+    _build.launch(name + ("_bf16" if bf16 else ""), lib.ngk_ppo_sweep, ptrs, ints, floats, device=device)
     like = list(params)
     return (unflatten_leaves(p, like),
             AdamState(adam.count + G, unflatten_leaves(mu, like), unflatten_leaves(nu, like)),

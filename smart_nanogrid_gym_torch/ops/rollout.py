@@ -64,15 +64,32 @@ class StateTables(NamedTuple):
         return StateTables(*(_build.check_f32(x, name) for x, name in zip(self, self._fields)))
 
 
+def one_row(params: NanogridParams) -> NanogridParams:
+    """Unbatched ``params``, or row 0 of batched ones whose rows all equal it.
+
+    The tables-in kernels take one set of traces and constants.  JAX's
+    callers pass params broadcast over the batch (bench.py:380-381), and
+    JAX's kernels read env 0's row whatever the others hold
+    (pallas_rollout.py:167-170); here rows that differ raise ``ValueError``.
+    """
+    if not params.batched:
+        return params
+    row = NanogridParams(*(x[0] for x in params))
+    same = torch.stack([(x == r).all() for x, r in zip(params, row)]).cpu()  # one device sync
+    if not bool(same.all()):
+        names = [n for n, ok in zip(params._fields, same.tolist()) if not ok]
+        raise ValueError(f"the tables-in kernels take one set of params; {', '.join(names)} differ across envs")
+    return row
+
+
 def state_tables(config: NanogridConfig, params: NanogridParams, state: EnvState) -> StateTables:
     """The day tables of ``state`` in the kernels' ``(T, N, B)`` layout.
 
     Raises unless every env is at day start (``state.t == 0``): the tables
-    cover columns 0..T-1 of the day.  ``params`` must be unbatched: the
-    kernels take one set of traces.
+    cover columns 0..T-1 of the day.  ``params`` are unbatched, or batched
+    with every row equal (:func:`one_row`).
     """
-    if params.batched:
-        raise ValueError("the tables-in kernels take unbatched params (one price and solar trace)")
+    params = one_row(params)
     if not bool((state.t == 0).all()):
         raise ValueError("the tables-in kernels roll a day from its start: every env needs state.t == 0")
     day = build_day_tables(config, params, state)
@@ -127,7 +144,8 @@ def rbc_day_rollout(config: NanogridConfig, params: NanogridParams, state: EnvSt
     """Roll one RBC day of the batched ``state`` (K11a).
 
     ``state`` is at day start for every env (a reset state, or one rolled
-    over from the previous day); ``params`` are unbatched.  Returns
+    over from the previous day); ``params`` are unbatched, or batched with
+    equal rows as JAX's callers pass them (:func:`one_row`).  Returns
     ``(rewards (T, B), soc_final (N, B))``; any batch size works.
     """
     _require_rbc_config(config)

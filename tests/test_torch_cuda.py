@@ -45,7 +45,7 @@ from smart_nanogrid_gym_torch.ops.gen_rollout import (
 )
 from smart_nanogrid_gym_torch.solvers.networks import ActorCritic
 
-from torch_parity import kernel_inputs
+from torch_parity import assert_bf16_close, kernel_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -192,7 +192,7 @@ def test_sweep_kernels_match_twin(cuda):
     want = ppo_sweep_plain(leaves, adam, zip(obs, act, logp, adv, ret), HYPERS)
     for g, w in zip(got[0] + got[1].mu + got[1].nu + [got[2]], want[0] + want[1].mu + want[1].nu + [want[2]]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
-    assert launch_counts["ppo_sweep"] == 8
+    assert launch_counts["ppo_sweep"] == 1  # one cooperative launch per update
 
     T, B, granule = 6, 128, 32
     featlane = _sweep_data((T, B), F, A, cuda, 2)
@@ -222,7 +222,7 @@ def test_kernel_learner_launches_one_collection_and_two_per_step(cuda):
     reset_launch_counts()
     state, metrics = step(state, params)
     torch.cuda.synchronize()
-    assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "ppo_sweep_streamed": 2 * 8}
+    assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "ppo_sweep_streamed": 1}
     assert all(bool(torch.isfinite(x)) for x in metrics)
 
 
@@ -327,7 +327,7 @@ def test_ddpg_sweep_kernel_matches_twin(cuda):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
     again = ddpg_sweep(*args)
     assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(again)))
-    assert got[4].count == got[5].count == G and launch_counts["ddpg_sweep"] == 2 * G
+    assert got[4].count == got[5].count == G and launch_counts["ddpg_sweep"] == 2  # one launch per call
 
 
 def test_ddpg_kernel_learner_launches_one_collection_and_one_per_step(cuda):
@@ -342,7 +342,7 @@ def test_ddpg_kernel_learner_launches_one_collection_and_one_per_step(cuda):
     reset_launch_counts()
     state, metrics = step(state, params)
     torch.cuda.synchronize()
-    assert dict(launch_counts) == {"ddpg_collect_day_seeded": 1, "ddpg_sweep": 4}
+    assert dict(launch_counts) == {"ddpg_collect_day_seeded": 1, "ddpg_sweep": 1}
     assert all(bool(torch.isfinite(x)) for x in metrics)
     assert state.buffer.filled == config.steps_per_day
 
@@ -462,18 +462,31 @@ def test_policy_kernels_at_256x256_match_twins(cuda):
 
 def test_sweep_kernels_bf16_match_twins(cuda):
     """K4 (M = 300, ragged) and K3 (featlane) with ``matmul_dtype=bf16``, G = 4,
-    against their twins at the f32 sweep bar; a rerun is bit-identical."""
+    against their twins.  The large products run on the bf16 tensor cores,
+    whose accumulation order is not the twin's, so the kernels state a
+    tolerance (``assert_bf16_close``, its f32 reference the f32 kernel): at
+    least 99 % of the entries as close to the bf16 twin as the f32 result is
+    (rtol 1e-4, atol 1e-6), parameters within 4·G·lr and moments within 1e-2
+    of the twin, the summed distance below half the f32 result's; metrics at
+    rtol 1e-3.  A rerun is bit-identical."""
     config = COLLECT_CONFIGS["b-pv-8ch"]
     F, A = config.obs_dim, config.num_actions
     leaves = _leaves(config, 5, cuda)
     adam = zeros_adam(leaves)
     hp = HYPERS._replace(matmul_dtype=BF16)
+
+    def check(got, want, f32, msg):
+        for label, pick, bound in (("params", lambda o: o[0], 4 * 4 * hp.lr),
+                                   ("moments", lambda o: o[1].mu + o[1].nu, 1e-2)):
+            g, w, f = ([x.cpu().numpy() for x in pick(o)] for o in (got, want, f32))
+            assert_bf16_close(g, w, f, 1e-4, 1e-6, bound, f"{msg} {label}", share=0.99)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-6)
+
     reset_launch_counts()
     obs, act, logp, adv, ret = _sweep_data((4, 300), F, A, cuda, 1)
-    got = ppo_sweep(leaves, adam, obs, act, logp, adv, ret, hp)
-    want = ppo_sweep_plain(leaves, adam, zip(obs, act, logp, adv, ret), hp)
-    for g, w in zip(got[0] + got[1].mu + got[1].nu + [got[2]], want[0] + want[1].mu + want[1].nu + [want[2]]):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    check(ppo_sweep(leaves, adam, obs, act, logp, adv, ret, hp),
+          ppo_sweep_plain(leaves, adam, zip(obs, act, logp, adv, ret), hp),
+          ppo_sweep(leaves, adam, obs, act, logp, adv, ret, HYPERS), "K4 bf16")
     T, B, granule = 6, 128, 32
     data = _sweep_data((T, B), F, A, cuda, 2)
     data = (data[0].permute(0, 2, 1).contiguous(), data[1].permute(0, 2, 1).contiguous()) + data[2:]
@@ -481,17 +494,24 @@ def test_sweep_kernels_bf16_match_twins(cuda):
                               for g in range(4)])
     got = ppo_sweep_streamed(leaves, adam, *data, block_perm, granule, hp)
     # the twin on the card: a bf16 operand rounds on the card's tanh, which the CPU's may flip
-    want = ppo_sweep_streamed_plain(leaves, adam, *data, block_perm, granule, hp)
-    for g, w in zip(got[0] + [got[2]], want[0] + [want[2]]):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    check(got, ppo_sweep_streamed_plain(leaves, adam, *data, block_perm, granule, hp),
+          ppo_sweep_streamed(leaves, adam, *data, block_perm, granule, HYPERS), "K3 bf16")
     again = ppo_sweep_streamed(leaves, adam, *data, block_perm, granule, hp)
     assert all(torch.equal(g, a) for g, a in zip(got[0], again[0]))
-    assert dict(launch_counts) == {"ppo_sweep_bf16": 8, "ppo_sweep_streamed_bf16": 16}
+    assert dict(launch_counts) == {"ppo_sweep_bf16": 1, "ppo_sweep": 1, "ppo_sweep_streamed_bf16": 2,
+                                   "ppo_sweep_streamed": 1}
 
 
 def test_ddpg_sweep_kernel_bf16_matches_twin(cuda):
     """K10 with ``matmul_dtype=bf16`` over G = 3 steps of a ragged minibatch
-    (M = 200) with the 400-300 networks, against its twin."""
+    (M = 200) with the 400-300 networks, against its twin.  The kernel's
+    products run on the bf16 tensor cores, whose accumulation order is not
+    the twin's, so it states a tolerance (``assert_bf16_close``, its f32
+    reference the f32 kernel): at least 99 % of the entries are as close to
+    the bf16 twin as the f32 result is (rtol 1e-4, atol 1e-6), the
+    parameters lie within 4·G·lr of the twin and the moments within 1e-2,
+    and the summed distance is below half the f32 result's.  A rerun is
+    bit-identical."""
     from smart_nanogrid_gym_torch.ops.ddpg_sweep import DDPGSweepHypers, ddpg_sweep, ddpg_sweep_plain
     from smart_nanogrid_gym_torch.solvers.networks import DDPGCritic, ddpg_leaves
 
@@ -509,6 +529,18 @@ def test_ddpg_sweep_kernel_bf16_matches_twin(cuda):
     args = (actor, critic, actor, critic, zeros_adam(actor), zeros_adam(critic), *data, low, high, hp)
     reset_launch_counts()
     got, want = ddpg_sweep(*args), ddpg_sweep_plain(*args)
-    for g, w in zip(got[0] + got[1] + got[2] + got[3] + [got[6]], want[0] + want[1] + want[2] + want[3] + [want[6]]):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
-    assert dict(launch_counts) == {"ddpg_sweep_bf16": G}
+    f32 = ddpg_sweep(*args[:-1], hp._replace(matmul_dtype=None))
+
+    def params(out):
+        return [x.cpu().numpy() for x in out[0] + out[1] + out[2] + out[3]]
+
+    def moments(out):
+        return [x.cpu().numpy() for x in out[4].mu + out[4].nu + out[5].mu + out[5].nu]
+
+    assert_bf16_close(params(got), params(want), params(f32), 1e-4, 1e-6, 4 * G * hp.lr, "K10 bf16 params",
+                      share=0.99)
+    assert_bf16_close(moments(got), moments(want), moments(f32), 1e-4, 1e-6, 1e-2, "K10 bf16 moments", share=0.99)
+    torch.testing.assert_close(got[6], want[6], rtol=1e-2, atol=1e-3)
+    again = ddpg_sweep(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1] + [got[6]], again[0] + again[1] + [again[6]]))
+    assert dict(launch_counts) == {"ddpg_sweep_bf16": 2, "ddpg_sweep": 1}

@@ -81,6 +81,24 @@ def test_rbc_day_twin_matches_pallas(name, continued):
     np.testing.assert_allclose(soc.numpy(), np.asarray(soc_ref), rtol=2e-5, atol=1e-5)
 
 
+def test_rbc_day_twin_takes_batched_params_as_bench_passes_them():
+    """bench.py:380-381 calls K11a with params broadcast over the batch;
+    the port takes them (every row equal) and matches JAX's kernel there."""
+    config = RBC_CONFIGS["b-pv"]
+    bparams, states = jax_states(config, 3)
+    rew_ref, soc_ref = pallas_rbc_day_rollout(config, bparams, states, interpret=True)
+    params = make_params(config, torch.float32, "cpu")
+    batched = SmartNanogridTorch(config).broadcast_params(params, B)
+    state = state_to_torch(states)
+    rew, soc = rbc_day_rollout(config, batched, state)
+    np.testing.assert_allclose(rew.numpy(), np.asarray(rew_ref), rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(soc.numpy(), np.asarray(soc_ref), rtol=2e-5, atol=1e-5)
+    net = actor_critic_from_flax(shifted_flax_actor(config, 13))
+    got, want = (policy_day_rollout(config, p, state, net) for p in (batched, params))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("name", list(POLICY_CONFIGS))
 def test_policy_day_twin_matches_pallas(name):
     config = POLICY_CONFIGS[name]
@@ -138,8 +156,13 @@ def test_tables_in_wrappers_reject_what_the_kernels_do_not_take():
         rbc_day_rollout(config, params, mid_day)
     with pytest.raises(ValueError, match="state.t == 0"):
         policy_day_rollout(config, params, mid_day, net)
-    with pytest.raises(ValueError, match="unbatched"):
-        rbc_day_rollout(config, SmartNanogridTorch(config).broadcast_params(params, 8), state)
+    hetero = SmartNanogridTorch(config).broadcast_params(params, 8)
+    hetero = hetero._replace(price=hetero.price.clone())
+    hetero.price[3] += 1.0
+    with pytest.raises(ValueError, match="price differ across envs"):
+        rbc_day_rollout(config, hetero, state)
+    with pytest.raises(ValueError, match="price differ across envs"):
+        policy_day_rollout(config, hetero, state, net)
     with pytest.raises(ValueError, match="non-v2x"):
         rbc_day_rollout(POLICY_CONFIGS["v2x-b-pv"], params, state)
     short = NanogridConfig(num_chargers=8, lookahead=2)

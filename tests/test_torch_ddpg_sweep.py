@@ -167,3 +167,19 @@ def test_sweep_wrapper_takes_the_twin_on_the_cpu_and_checks_shapes():
     with pytest.raises(ValueError, match="the data has"):
         ddpg_sweep(a, c, a, c, zeros_adam(a), zeros_adam(c), obs, act[:, :, :2], rew, nxt, done,
                    torch.zeros(2), torch.ones(2), hp)
+
+
+def test_phase_profiler_instruments_the_current_kernel():
+    """``tools/profile_k10_phases.py`` patches the K10 sources by text: every
+    anchor it needs is there once, and its phase names follow the kernel's
+    ``PhaseId`` order."""
+    import re
+
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.tools.profile_k10_phases import PHASES, instrument
+
+    cuh, cu = ((_build.CSRC / name).read_text() for name in ("ddpg_sweep.cuh", "ddpg_sweep.cu"))
+    timed, entry = instrument(cuh, cu)
+    assert timed.count("= clock_ns();") == 3 and "ngk_phase_clock" in entry
+    enum = cuh[cuh.index("enum PhaseId"):cuh.index("  kPhases,")]
+    assert tuple(re.findall(r"^\s+k(\w+?)(?: = 0)?,", enum, re.M)) == PHASES

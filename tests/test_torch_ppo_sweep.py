@@ -28,7 +28,12 @@ from smart_nanogrid_gym_tpu.solvers.networks import ActorCritic as FlaxActorCrit
 from smart_nanogrid_gym_tpu.solvers.ppo import PPOLearner as JaxPPOLearner
 
 from smart_nanogrid_gym_torch.ops.ppo_sweep import (
+    GRAD_TILE,
+    MAX_GRAD_BLOCKS,
+    NORM_SLICES,
     SweepHypers,
+    _adam_block_norm,
+    _kernel_order_sum,
     flatten_leaves,
     grad_step_plain,
     minibatch_stats,
@@ -176,3 +181,43 @@ def test_streamed_rejects_bad_blocks():
     with pytest.raises(ValueError, match="not divisible"):
         ppo_sweep_streamed(leaves, zeros_adam(leaves), *data, torch.tensor([[0]]), 48,
                            SweepHypers(**HP), data_layout="sample")
+
+
+@pytest.mark.parametrize("M", [1, 50, 300, 3072, 9000])
+def test_kernel_order_sum_follows_the_partition(M):
+    """The twin's sample sums against a loop written from the partition
+    constants: samples in order within a tile of GRAD_TILE, the tiles of a
+    range in order, then the ranges (at most MAX_GRAD_BLOCKS of
+    ceil(M / ranges) samples; the last may be short or empty)."""
+    x = np.random.default_rng(M).standard_normal((2, M)).astype(np.float32)
+    ranges = max(1, min(MAX_GRAD_BLOCKS, -(-M // GRAD_TILE)))
+    per_range = -(-M // ranges)
+    want = []
+    for row in x:
+        total = None
+        for r in range(ranges):
+            part = np.float32(0.0)
+            for t0 in range(r * per_range, min(M, (r + 1) * per_range), GRAD_TILE):
+                tile = row[t0:min(t0 + GRAD_TILE, (r + 1) * per_range, M)]
+                acc = tile[0]
+                for v in tile[1:]:
+                    acc = acc + v
+                part = acc if t0 == r * per_range else part + acc
+            total = part if total is None else total + part
+        want.append(total)
+    np.testing.assert_array_equal(_kernel_order_sum(torch.from_numpy(x)).numpy(), np.array(want, np.float32))
+
+
+def test_adam_block_norm_follows_the_slices():
+    """The twin's global norm against a loop written from NORM_SLICES: each
+    slice of ceil(P / NORM_SLICES) elements sums its squares in order, then
+    the slices' sums are added in order (P of the 64x64 actor-critic)."""
+    g = (1e-2 * np.random.default_rng(1).standard_normal(12_307)).astype(np.float32)
+    size = -(-g.size // NORM_SLICES)
+    total = None
+    for start in range(0, g.size, size):
+        sq = g[start] * g[start]
+        for v in g[start + 1:start + size]:
+            sq = sq + v * v
+        total = sq if total is None else total + sq
+    assert _adam_block_norm(torch.from_numpy(g)).item() == np.sqrt(total)
