@@ -46,9 +46,12 @@ cooperative launch per update), the statistics of the in-kernel draws
 against the plain engine, that training raises the mean day return, and
 times each kernel against its twin and its bound; the f32 kernels must equal
 their twins, the bf16 sweeps, whose products run on the tensor cores, must
-meet the tolerance of ``tensor_core_close``.  Beside K10 it times the 28
-products of its update as ``torch.matmul`` calls (cuBLAS, f32 with TF32 off
-and bf16), a yardstick the port never calls.  Any failure raises and exits
+meet the tolerance of ``tensor_core_close``; the collection kernels K1, K2
+and K9 are held to ``torch.equal`` at B=4096 (phases 8 and 14).  Beside K10
+it times the 28 products of its update as ``torch.matmul`` calls (cuBLAS,
+f32 with TF32 off and bf16), and beside K2 and K9 seeded the products of a
+collection day the same way: yardsticks of the products only, which the
+port never calls.  Any failure raises and exits
 non-zero.  The last lines are the card (``nvidia-smi`` name and power
 limit), one JSON object with the kernels, and ``{"ok": true, "device": ...}``.
 """
@@ -157,6 +160,15 @@ def compare(name: str, got, want, rtol: float, atol: float, against: str = "twin
     return err
 
 
+def check_equal(name: str, got, want, names) -> None:
+    """Every output bit-equal to the twin's: the collection kernels sum in
+    their twins' order, with no FMA."""
+    for label, g, w in zip(names, got, want):
+        check(torch.equal(g, w), f"{name} {label}: not bit-equal to the twin "
+                                 f"(max |d| {float((g - w).abs().max()):.3e})")
+    print(f"{name}: every output bit-equal to the twin ({', '.join(names)})")
+
+
 def tensor_core_close(name: str, got, want, ref, n_params: int, param_bound: float) -> float:
     """A tensor-core sweep row (its outputs: ``n_params`` parameter leaves,
     the moment leaves, the metrics) against its bf16 twin, under
@@ -216,6 +228,38 @@ def k10_products_ms(args, dtype) -> float:
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         return cuda_ms(update, 3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def collect_products_ms(config, hidden: tuple[int, int], critic: bool, device) -> float:
+    """The yardstick beside K2 and K9 seeded: the products of a collection
+    day at B=4096, one ``torch.matmul`` (cuBLAS, f32 with TF32 off) per layer
+    and step: the actor's three layers (and with ``critic`` the value
+    torso's three) for each of the T steps, by CUDA events.  It covers the
+    products only (no bias, activation, head, draws, physics or writes, and
+    none of the kernel's fusion); the port never calls it."""
+    F, A, T = config.obs_dim, config.num_actions, config.steps_per_day
+    H1, H2 = hidden
+    gen = torch.Generator(device=device).manual_seed(31)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x, h1, h2 = r(BENCH_BATCH, F), r(BENCH_BATCH, H1), r(BENCH_BATCH, H2)
+    torsos = [(r(F, H1), r(H1, H2), r(H2, A))] + ([(r(F, H1), r(H1, H2), r(H2, 1))] if critic else [])
+
+    def day():
+        for _ in range(T):
+            for w1, w2, w3 in torsos:
+                torch.matmul(x, w1)
+                torch.matmul(h1, w2)
+                torch.matmul(h2, w3)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(day, 5)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
@@ -350,6 +394,7 @@ def collect_twin_checks(cfg, params, leaves, u, pv, device, errors):
               + ", ".join(f"{n} {float((g - w).abs().max()):.3e}" for n, g, w in zip(names, got, want)))
         key = "ppo_collect_day" if name.startswith("K1") else "ppo_collect_day_seeded"
         errors[key] = compare(f"phase 8 {name}", got, want, rtol=2e-4, atol=2e-4)
+        check_equal(f"phase 8 {name}", got, want, names)
     return normals, batt
 
 
@@ -653,6 +698,7 @@ def ddpg_twin_checks(art_cfg, art_params, ddpg_art, u4, pv4, cfg, params, u, pv,
         print(f"phase 14 K9 {key} (8ch b-pv, B={BENCH_BATCH}, 400-300) max |d| per output: "
               + ", ".join(f"{n} {float((g - w).abs().max()):.3e}" for n, g, w in zip(names, got, want)))
         errors[key] = compare(f"phase 14 K9 {key}", got, want, rtol=2e-4, atol=2e-4)
+        check_equal(f"phase 14 K9 {key}", got, want, names)
     return learner, leaves, ou, batt, explicit
 
 
@@ -1824,12 +1870,25 @@ def main() -> None:
     for name, ms in library.items():
         print(f"K10 yardstick {name}: the 28 products of each of 24 steps as torch.matmul (cuBLAS, products "
               f"only) {ms:.4f} ms per update, the kernel {times[name][1]:.4f} ms (whole update) on {card}")
+    library["ppo_collect_day_seeded"] = collect_products_ms(rbc_cfg, (64, 64), True, device)
+    library["ddpg_collect_day_seeded"] = collect_products_ms(rbc_cfg, DDPG_HIDDEN, False, device)
+    for name, label in (("ppo_collect_day_seeded", "K2: the actor-critic's 6"),
+                        ("ddpg_collect_day_seeded", "K9 seeded: the 400-300 actor's 3")):
+        print(f"{label} products of each of 24 steps as torch.matmul at B={BENCH_BATCH} (cuBLAS f32, products "
+              f"only) {library[name]:.4f} ms per day, the kernel {times[name][1]:.4f} ms (wrapper, whole day) "
+              f"on {card}")
 
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
     check(not jax_modules, f"the port loaded JAX modules: {jax_modules[:5]}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     least = bounds(rbc_cfg, art_cfg, timing_days, ddpg_days)
+    T8, F8, A8 = rbc_cfg.steps_per_day, rbc_cfg.obs_dim, rbc_cfg.num_actions
+    for name, ops in (("ppo_collect_day_seeded", (mlp_flops(F8, A8, 64, 64) + mlp_flops(F8, 1, 64, 64)) * T8),
+                      ("ddpg_collect_day_seeded", mlp_flops(F8, A8, *DDPG_HIDDEN) * T8)):
+        # without FMA a multiply and an add are an instruction each, at half the FMA rate
+        print(f"{name}: FMA-free floor of the products {ops * BENCH_BATCH / (F32_OPS_PER_S / 2) * 1e3:.4f} ms "
+              f"(B={BENCH_BATCH}), bound {least[name][0]:.4f} ms ({least[name][1]}, FMA counted)")
     kernels = []
     # each kernel's launches in the run of the main path it belongs to
     paths = ((TRAIN_REPLACES, train_launches), (REPLACES, launches), (DDPG_REPLACES, ddpg_eval_launches),

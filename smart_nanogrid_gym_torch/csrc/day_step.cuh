@@ -36,15 +36,12 @@
 // seed with two kinds of its own for the action normals (5, 6: Box-Muller of
 // two uniforms) and one for the PV shift (7).  ops/philox.py is the twin.
 //
-// The collection kernel (K1/K2) is K5's step body with the stochastic
-// actor-critic in place of the deterministic actor (the Policy parameter of
-// policy_step, the counterpart of the JAX policy_override): both 64-64 tanh
-// torsos, one after the other in the same hidden arrays, the Gaussian
-// log-prob, and the trajectory writes, coalesced across envs in the (T, ., B)
-// layout.  It is bound by the two torsos' multiply-adds, about 2.4e4 flops
-// per env-step; its 14.5 MB of writes at B=4096 take a tenth of that time.
+// The collection kernels (K1/K2 with the stochastic actor-critic, K9 with
+// the DDPG actor plus OU noise) run K5's step body once per env in an env
+// warp and the products on the block's other warps as register-tiled f32
+// products: see "collection kernels" below.
 //
-// The DDPG actor (K5/K6 actor="ddpg", K9) is SB3's 400-300 ReLU torso:
+// The DDPG actor of K5/K6 (actor="ddpg") is SB3's 400-300 ReLU torso:
 // 129-133k floats, more than a block's 227 KB of shared memory, and 700
 // hidden floats a thread would spill.  So it runs as a block-level product
 // (BlockActor): a block takes kBlockEnvs = 32 envs with kBlockThreads
@@ -482,45 +479,6 @@ struct MeanActor {
   }
 };
 
-// The stochastic actor-critic of K1/K2 (_collect_policy, pallas_collect.py:85-116):
-// a_raw = mean + exp(log_std) * normal; writes obs, a_raw, logp and value of
-// step t for env b, and hands the env the action clipped to the box.
-template <class C, class Noise>
-struct CollectActor {
-  Actor<C> pi;
-  Critic<C> vf;
-  const float* log_std;
-  Noise noise;
-  float *obs_out, *act_out, *logp_out, *val_out;
-  int64_t B, b;
-
-  __device__ void operator()(int t, const float (&obs)[C::F], float (&act)[C::A]) const {
-    float h1[C::H1], h2[C::H2], mean[C::A], normal[C::A];
-    torso<C>(pi.w1, pi.b1, pi.w2, pi.b2, obs, h1, h2);
-#pragma unroll
-    for (int i = 0; i < C::A; ++i) mean[i] = dense(pi.w3 + i * C::H2, h2, C::H2) + pi.b3[i];
-    torso<C>(vf.w1, vf.b1, vf.w2, vf.b2, obs, h1, h2);
-    const float value = dense(vf.w3, h2, C::H2) + vf.b3[0];
-    noise.draw(t, normal);
-    float logp = 0.0f;
-#pragma unroll
-    for (int i = 0; i < C::A; ++i) {
-      const float sd = expf(log_std[i]);
-      const float a_raw = mean[i] + sd * normal[i];
-      const float diff = a_raw - mean[i];
-      const float var = sd * sd;
-      const float term = -0.5f * (diff * diff / var + 2.0f * log_std[i] + kLog2Pi);
-      logp = i == 0 ? term : logp + term;
-      act_out[(static_cast<int64_t>(t) * C::A + i) * B + b] = a_raw;
-      act[i] = fminf(fmaxf(a_raw, pi.low[i]), pi.high[i]);
-    }
-#pragma unroll
-    for (int f = 0; f < C::F; ++f) obs_out[(static_cast<int64_t>(t) * C::F + f) * B + b] = obs[f];
-    logp_out[static_cast<int64_t>(t) * B + b] = logp;
-    val_out[static_cast<int64_t>(t) * B + b] = value;
-  }
-};
-
 struct PolicyRows {
   float flows, p_used, dod;
 };
@@ -590,62 +548,80 @@ __device__ __forceinline__ void final_observe(const Dims& d, const Carry<C>& c, 
   if (C::BATT) obs[base + 2 * C::N] = batt_soc;
 }
 
-// One actor step (_gen_policy_step + _gen_policy_physics): observation, the
-// policy (obs -> action clipped to the box), bidirectional physics.
-template <class C, class Src, class Policy>
-__device__ PolicyRows policy_step(int t, const Dims& d, const Src& src, Carry<C>& c, float& batt_soc,
-                                  const float* rad_norm, const float* price_norm, float pv_shift,
-                                  const Policy& policy, float (&act)[C::A], float (&pen)[C::N]) {
+// What the physics half of an actor step needs from its observation half.
+template <class C>
+struct StepState {
+  bool occupied[C::N];
+  float soc_eff[C::N], cap_eff[C::N], safe_cap[C::N];
+};
+
+// The observation half of an actor step (_gen_policy_step): the draws of
+// step t, the schedule columns, the observation (F,), the vehicle penalty
+// and the generation-carry update.
+template <class C, class Src>
+__device__ __forceinline__ void observe_step(int t, const Dims& d, const Src& src, Carry<C>& c, float batt_soc,
+                                             const float* rad_norm, const float* price_norm, float pv_shift,
+                                             float (&obs)[C::F], StepState<C>& st, float (&pen)[C::N]) {
   constexpr int N = C::N;
   StepDraws<C> u;
   u.fill(src, t, d);
   const int o = t > 0 ? t - 1 : 0;
-
-  // ---- observation (F,) and the per-charger state the physics needs ----
-  float obs[C::F];
   const int base = observe_traces<C>(o, rad_norm, price_norm, pv_shift, obs);
-  bool occupied[N];
-  float soc_eff[N], cap_eff[N], safe_cap[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const Column k = generate_column<C>(t, n, u, c);
     const float pmask = t == 0 ? k.mask_col : c.pmask[n];
     obs[base + n] = t == 0 ? (k.arrives ? k.soc_t : 0.0f) : c.prev_col[n];
     obs[base + N + n] = (t == 0 ? k.dep_col : c.prev_depcol[n]) / 24.0f;
-    occupied[n] = k.occupied;
-    soc_eff[n] = k.arrives ? k.soc_t : c.prev_col[n];
+    st.occupied[n] = k.occupied;
+    st.soc_eff[n] = k.arrives ? k.soc_t : c.prev_col[n];
     if (C::DIFF_CAPS) {
-      cap_eff[n] = k.arrives ? k.cap_col : c.prev_capcol[n];
-      safe_cap[n] = cap_eff[n] > 0.0f ? cap_eff[n] : 1.0f;
+      st.cap_eff[n] = k.arrives ? k.cap_col : c.prev_capcol[n];
+      st.safe_cap[n] = st.cap_eff[n] > 0.0f ? st.cap_eff[n] : 1.0f;
     } else {
-      cap_eff[n] = k.occ_f * kDefaultCap;
-      safe_cap[n] = kDefaultCap;
+      st.cap_eff[n] = k.occ_f * kDefaultCap;
+      st.safe_cap[n] = kDefaultCap;
     }
     pen[n] = vehicle_penalty<C>(n, pmask, c);
     advance_carry<C>(n, k, c);
   }
   if (C::BATT) obs[base + 2 * N] = batt_soc;
+}
 
-  policy(t, obs, act);
-
-  // ---- charger physics, both branches (inverted discharge flag quirk) ----
+// The physics half (_gen_policy_physics): bidirectional charger physics
+// (the inverted discharge flag quirk) and the BESS under the action.
+template <class C>
+__device__ __forceinline__ PolicyRows physics_step(const StepState<C>& st, const float (&act)[C::A], Carry<C>& c,
+                                                   float& batt_soc, float dt) {
   float charging = 0.0f, discharging = 0.0f;
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const ChargerFlow f = charger_physics(act[n], soc_eff[n], cap_eff[n], safe_cap[n], occupied[n], d.dt);
-    c.prev_col[n] = occupied[n] ? f.soc_new : 0.0f;
+  for (int n = 0; n < C::N; ++n) {
+    const ChargerFlow f = charger_physics(act[n], st.soc_eff[n], st.cap_eff[n], st.safe_cap[n], st.occupied[n], dt);
+    c.prev_col[n] = st.occupied[n] ? f.soc_new : 0.0f;
     const float pos = f.power > 0.0f ? f.power : 0.0f;
     const float neg = f.power < 0.0f ? f.power : 0.0f;
     charging = n == 0 ? pos : charging + pos;
     discharging = n == 0 ? neg : discharging + neg;
   }
-
   PolicyRows rows;
   rows.flows = charging + discharging;
   rows.p_used = 0.0f;
   rows.dod = 0.0f;
-  if (C::BATT) battery_physics(act[N], batt_soc, d.dt, rows);
+  if (C::BATT) battery_physics(act[C::N], batt_soc, dt, rows);
   return rows;
+}
+
+// One actor step (_gen_policy_step + _gen_policy_physics): observation, the
+// policy (obs -> action clipped to the box), bidirectional physics.
+template <class C, class Src, class Policy>
+__device__ PolicyRows policy_step(int t, const Dims& d, const Src& src, Carry<C>& c, float& batt_soc,
+                                  const float* rad_norm, const float* price_norm, float pv_shift,
+                                  const Policy& policy, float (&act)[C::A], float (&pen)[C::N]) {
+  float obs[C::F];
+  StepState<C> st;
+  observe_step<C>(t, d, src, c, batt_soc, rad_norm, price_norm, pv_shift, obs, st, pen);
+  policy(t, obs, act);
+  return physics_step<C>(st, act, c, batt_soc, d.dt);
 }
 
 // Cost of one actor step without the vehicle penalty (_policy_day_rewards).
@@ -849,60 +825,6 @@ __global__ void gen_policy_multiday_kernel(const float* __restrict__ price, cons
   stats[2 * static_cast<int64_t>(B) + b] = batt;
 }
 
-// One collection day of env b under the stochastic actor-critic (K1/K2).
-template <class C, class Src, class Noise>
-__device__ void collect_day(const Dims& d, const Src& src, const Noise& noise, float pv, float batt,
-                            const SharedTraces& s, const float* smem, float* obs_out, float* act_out,
-                            float* logp_out, float* val_out, float* rew_out, float* batt_out, int64_t B,
-                            int64_t b) {
-  const CollectActor<C, Noise> policy{Actor<C>(smem), Critic<C>(smem + C::WEIGHTS),
-                                      smem + C::WEIGHTS + C::VF_WEIGHTS, noise,
-                                      obs_out, act_out, logp_out, val_out, B, b};
-  Carry<C> c;
-  c.clear();
-  float act[C::A], pen[C::N];
-#pragma unroll 1
-  for (int t = 0; t < d.T; ++t) {
-    const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
-    float pen_sum = pen[0];
-#pragma unroll
-    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
-    const float cost = policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt) + kWVeh * pen_sum;
-    rew_out[static_cast<int64_t>(t) * B + b] = -cost;
-  }
-  batt_out[b] = batt;
-}
-
-// K1 (SEEDED false): explicit uniforms u (T, 5, N, B), normals (T, A, B) and
-// pv_shift (B,).  K2 (SEEDED true): every draw from Philox keyed by (seed, b).
-// Outputs obs (T, F, B), act_raw (T, A, B), logp/value/rewards (T, B), batt (B).
-template <class C, bool SEEDED>
-__global__ void ppo_collect_day_kernel(const float* __restrict__ price, const float* __restrict__ price_norm,
-                                       int P, const float* __restrict__ rad_norm, int S,
-                                       const float* __restrict__ solar, const float* __restrict__ u,
-                                       const float* __restrict__ normals, uint32_t seed,
-                                       const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
-                                       const float* __restrict__ weights, float* __restrict__ obs_out,
-                                       float* __restrict__ act_out, float* __restrict__ logp_out,
-                                       float* __restrict__ val_out, float* __restrict__ rew_out,
-                                       float* __restrict__ batt_out, int B, Dims d) {
-  extern __shared__ float smem[];
-  load_block(smem, weights, C::COLLECT_WEIGHTS);
-  const SharedTraces s = load_traces(smem + C::COLLECT_WEIGHTS, rad_norm, S, price_norm, P, price, solar, d.T);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  if constexpr (SEEDED) {
-    const uint2 key = make_uint2(seed, static_cast<uint32_t>(b));
-    collect_day<C>(d, PhiloxDraws<C::N>{key, 0u}, PhiloxNormals<C::A>{key}, collect_pv_shift(key), batt_soc[b],
-                   s, smem, obs_out, act_out, logp_out, val_out, rew_out, batt_out, B, b);
-  } else {
-    collect_day<C>(d, ExplicitDraws<C::N>{u, B, b}, ExplicitNormals<C::A>{normals, B, b}, pv_shift[b],
-                   batt_soc[b], s, smem, obs_out, act_out, logp_out, val_out, rew_out, batt_out, B, b);
-  }
-}
-
 // ----------------------------------------------------------- block actor ---
 
 constexpr int kBlockEnvs = 32;     // envs per block: one per lane
@@ -970,31 +892,17 @@ __device__ __forceinline__ void dense_block(const float* __restrict__ w, const f
 // observations, the block computes both hidden layers and the head, and each
 // thread reads back its lane's action.  The PPO head is the mean clipped to
 // the box (pallas_gen_policy_rollout.py:143-147); the DDPG head is
-// a = low + (tanh(mu) + 1)·0.5·(high − low) (:148-154, no clip), then K9's
-// a = clip(a + ou[t], low, high) (pallas_collect.py:133-149).  With `record`,
-// warp 0's lanes write obs (T, F, B), the action (T, A, B) and
-// next_obs[t-1] = obs[t].
+// a = low + (tanh(mu) + 1)·0.5·(high − low) (:148-154, no clip).
 template <class C, int KIND, bool BF16 = false>
 struct BlockActor {
   Actor<C> w;  // views of the packed block in global memory
   BlockShared<C> s;
-  const float* ou;  // (T, A, B) exploration noise, or nullptr
-  float *obs_out, *act_out, *next_out;  // K9's trajectory, or nullptr
-  int64_t B, b0, b;
-  bool writes;  // warp 0, and a lane inside the batch
 
-  __device__ void operator()(int t, const float (&obs)[C::F], float (&act)[C::A]) const {
+  __device__ void operator()(int, const float (&obs)[C::F], float (&act)[C::A]) const {
     const int lane = threadIdx.x % kBlockEnvs;
     if (threadIdx.x < kBlockEnvs) {
 #pragma unroll
       for (int f = 0; f < C::F; ++f) s.xs[f * kBlockEnvs + lane] = operand<BF16>(obs[f]);
-    }
-    if (writes && obs_out != nullptr) {
-#pragma unroll
-      for (int f = 0; f < C::F; ++f) {
-        obs_out[(static_cast<int64_t>(t) * C::F + f) * B + b] = obs[f];
-        if (t > 0) next_out[(static_cast<int64_t>(t - 1) * C::F + f) * B + b] = obs[f];
-      }
     }
     __syncthreads();
     dense_block<C::H1, C::F, KIND, BF16>(w.w1, w.b1, s.xs, s.h1);
@@ -1008,25 +916,12 @@ struct BlockActor {
       for (int k = 1; k < C::H2; ++k) acc = acc + __ldg(row + k) * s.h2[k * kBlockEnvs + e];
       const float mu = acc + __ldg(w.b3 + a);
       const float lo = __ldg(w.low + a), hi = __ldg(w.high + a);
-      float v;
-      if (KIND == kPpoActor) {
-        v = fminf(fmaxf(mu, lo), hi);
-      } else {
-        v = lo + ((tanhf(mu) + 1.0f) * 0.5f) * (hi - lo);
-        if (ou != nullptr) {
-          const int64_t be = b0 + e < B ? b0 + e : B - 1;
-          v = fminf(fmaxf(v + ou[(static_cast<int64_t>(t) * C::A + a) * B + be], lo), hi);
-        }
-      }
-      s.act[a * kBlockEnvs + e] = v;
+      s.act[a * kBlockEnvs + e] =
+          KIND == kPpoActor ? fminf(fmaxf(mu, lo), hi) : lo + ((tanhf(mu) + 1.0f) * 0.5f) * (hi - lo);
     }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < C::A; ++i) act[i] = s.act[i * kBlockEnvs + lane];
-    if (writes && act_out != nullptr) {
-#pragma unroll
-      for (int i = 0; i < C::A; ++i) act_out[(static_cast<int64_t>(t) * C::A + i) * B + b] = act[i];
-    }
   }
 };
 
@@ -1044,12 +939,10 @@ struct BlockLane {
 };
 
 // The evaluation actor of a block: its views of the weights and of the
-// shared memory after the traces, no noise, no trajectory.
+// shared memory after the traces.
 template <class C, int KIND, bool BF16>
-__device__ __forceinline__ BlockActor<C, KIND, BF16> block_actor(const float* weights, const SharedTraces& s,
-                                                                 int T, int B, const BlockLane& l) {
-  return BlockActor<C, KIND, BF16>{Actor<C>(weights), BlockShared<C>(s.solar + T), nullptr, nullptr, nullptr,
-                                   nullptr, B, l.b0, l.b, l.writes};
+__device__ __forceinline__ BlockActor<C, KIND, BF16> block_actor(const float* weights, const SharedTraces& s, int T) {
+  return BlockActor<C, KIND, BF16>{Actor<C>(weights), BlockShared<C>(s.solar + T)};
 }
 
 // K5 with the block actor (actor="ddpg", or a PPO torso too large for
@@ -1066,7 +959,7 @@ gen_policy_day_block_kernel(const float* __restrict__ price, const float* __rest
   const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
   __syncthreads();
   const BlockLane l(B);
-  const auto policy = block_actor<C, KIND, false>(weights, s, d.T, B, l);
+  const auto policy = block_actor<C, KIND, false>(weights, s, d.T);
   const ExplicitDraws<C::N> src{u, B, l.b};
   const float pv = pv_shift[l.b];
   float batt = batt_soc[l.b];
@@ -1102,7 +995,7 @@ gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* _
   const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
   __syncthreads();
   const BlockLane l(B);
-  const auto policy = block_actor<C, KIND, BF16>(weights, s, d.T, B, l);
+  const auto policy = block_actor<C, KIND, BF16>(weights, s, d.T);
   float batt = kBattInit;
   float rew_total = 0.0f, sq_total = 0.0f;
   Carry<C> c;
@@ -1136,15 +1029,695 @@ gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* _
   stats[2 * static_cast<int64_t>(B) + l.b] = batt;
 }
 
+// ---------------------------------------------------- collection kernels ---
+//
+// K1/K2 and K9, redesigned for Hopper.  A block takes kCollectEnvs = 32 envs
+// and has two kinds of warp.  Warp 0, the env warp, runs the step body once
+// per env, one env per lane: the draws, the generation, the observation, the
+// physics, the penalty and the trajectory writes, coalesced across envs in
+// the (T, ., B) layouts; tail lanes (B not a multiple of 32) mirror the last
+// env and write nothing.  The product warps compute the torsos' products for
+// the block's envs: each product thread owns an R x V register tile (R output
+// rows x V envs) of y[j][e] = act(sum_k w[j][k] x[k][e] + b[j]), reading the
+// weights k-major (one float4 holds 4 rows of one k) and the activations
+// feature-major (one float4 holds 4 envs of one k) from shared memory, so a
+// weight read serves V envs and an activation read R rows.  Every output sums
+// k in index order with the product and the add rounded apart (no FMA, no
+// split-K): the order of the twin's dense(), so the kernels stay bit-equal to
+// their twins.  The head's outputs (A, and K1/K2's value) cannot be split
+// over k either; they go over the product threads in 1 x HV tiles, and the
+// threads that own them apply the DDPG squash, OU add and clip, or the PPO
+// mean, raw action, log-prob term and value.  The two kinds of warp meet at
+// two block barriers a step (observations staged; actions ready); the product
+// warps meet among themselves between layers.
+//
+// K1/K2 hold the whole actor-critic in shared memory for the day, turned
+// k-major when the block starts, pi's and vf's rows side by side; the critic
+// runs while the env warp steps (see K1 / K2 below).  K9's 400-300 actor
+// (534 KB) does not fit: the wrapper packs W1 and W2 k-major
+// (ops/ddpg_collect.py) and the env warp, idle while the products run,
+// streams them through a kRingStages-stage shared-memory ring in chunks of
+// kRingRows k-rows, one bulk copy of the Tensor Memory Accelerator a chunk,
+// with a full and an empty mbarrier a stage (see WeightRing).  The stream
+// runs on across layers and steps (the weights do not change during the
+// day), so each weight leaves L2 once per block-step and a step's first
+// chunks arrive while the env warp runs the step body.  Both kernels are
+// bound by the FMA-free multiply-adds of their products: 2.4e4 operations
+// per env-step for K1/K2, 2.7e5 for K9.
+
+constexpr int kCollectEnvs = 32;  // envs per block: one per lane of the env warp
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The block barrier (every warp) and the product warps' own barrier, in the
+// non-aligned form: the env warp and the product warps reach them from
+// different code.
+__device__ __forceinline__ void sync_block() { asm volatile("barrier.sync 0;" ::: "memory"); }
+
+template <int THREADS>
+__device__ __forceinline__ void sync_products() {
+  asm volatile("barrier.sync 1, %0;" ::"n"(THREADS) : "memory");
+}
+
+template <int KIND>
+__device__ __forceinline__ float activate(float v) {
+  return KIND == kPpoActor ? tanhf(v) : (v > 0.0f ? v : 0.0f);
+}
+
+// N consecutive floats of shared memory as float4s (N a multiple of 4) or float2s.
+template <int N>
+__device__ __forceinline__ void load_vec(const float* src, float (&dst)[N]) {
+  static_assert(N % 2 == 0, "a tile is read as float4s or float2s");
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 f = *reinterpret_cast<const float4*>(src + 4 * q);
+      dst[4 * q] = f.x;
+      dst[4 * q + 1] = f.y;
+      dst[4 * q + 2] = f.z;
+      dst[4 * q + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q) {
+      const float2 f = *reinterpret_cast<const float2*>(src + 2 * q);
+      dst[2 * q] = f.x;
+      dst[2 * q + 1] = f.y;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* dst, const float (&src)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      *reinterpret_cast<float4*>(dst + 4 * q) = make_float4(src[4 * q], src[4 * q + 1], src[4 * q + 2], src[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q) *reinterpret_cast<float2*>(dst + 2 * q) = make_float2(src[2 * q], src[2 * q + 1]);
+  }
+}
+
+// A product thread's R x V register tile.
+template <int R, int V>
+struct Tile {
+  static_assert(R % 4 == 0, "a tile's weights are read as float4s");
+  float acc[R][V];
+
+  // n k-rows of the k-major weights w (ldw floats a k-row; w points at the
+  // tile's first row) against the feature-major activations x (x points at
+  // the tile's first env and its first k-row).  `first`: the first k-row is
+  // the sum's first term.
+  __device__ __forceinline__ void accumulate(const float* w, int ldw, const float* x, int n, bool first) {
+    int k = 0;
+    if (first) {
+      float wv[R], xv[V];
+      load_vec(w, wv);
+      load_vec(x, xv);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[r][v] = wv[r] * xv[v];
+      k = 1;
+    }
+#pragma unroll 4
+    for (; k < n; ++k) {
+      float wv[R], xv[V];
+      load_vec(w + k * ldw, wv);
+      load_vec(x + k * kCollectEnvs, xv);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[r][v] = acc[r][v] + wv[r] * xv[v];
+    }
+  }
+
+  // y[j][e] = act(acc + b[j]) for the tile's rows below J (y points at the
+  // tile's first env, feature-major).
+  template <int KIND>
+  __device__ __forceinline__ void store(const float* bias, int j0, int J, float* y) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = j0 + r;
+      if (j >= J) continue;
+      float out[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) out[v] = activate<KIND>(acc[r][v] + bias[j]);
+      store_vec(y + j * kCollectEnvs, out);
+    }
+  }
+};
+
+// The env of an env-warp lane: tail lanes mirror the last env and write nothing.
+struct CollectLane {
+  int64_t b0, b;
+  bool active;
+  __device__ CollectLane(int B) {
+    b0 = static_cast<int64_t>(blockIdx.x) * kCollectEnvs;
+    active = b0 + threadIdx.x < B;
+    b = active ? b0 + threadIdx.x : static_cast<int64_t>(B) - 1;
+  }
+};
+
+// The draws of the collection kernels for the thread that stores them:
+// explicit (u (T, 5, N, B), K1's normals (T, A, B)) or Philox keyed by
+// (seed, b) (K2, K9 seeded), for env b.
+template <class C, bool SEEDED>
+struct CollectSource {
+  const float *u, *normals;
+  uint32_t seed;
+  int64_t B;
+
+  __device__ void draw(int64_t b, int t, int kind, float (&out)[C::N]) const {
+    if constexpr (SEEDED) {
+      PhiloxDraws<C::N>{make_uint2(seed, static_cast<uint32_t>(b)), 0u}.draw(t, kind, out);
+    } else {
+      ExplicitDraws<C::N>{u, B, b}.draw(t, kind, out);
+    }
+  }
+  __device__ void normal(int64_t b, int t, float (&out)[C::A]) const {
+    if constexpr (SEEDED) {
+      PhiloxNormals<C::A>{make_uint2(seed, static_cast<uint32_t>(b))}.draw(t, out);
+    } else {
+      ExplicitNormals<C::A>{normals, B, b}.draw(t, out);
+    }
+  }
+};
+
+constexpr int kDrawKinds = 5;  // arrival, SoC, capacity, requested SoC, departure
+
+// A step's generation draws of the block's envs in shared memory, two slots
+// of (kDrawKinds, N, kCollectEnvs) by the step's parity: the product warps
+// store step t + 1's while the env warp reads step t's.
+template <class C>
+struct SharedDraws {
+  float* base;
+  __device__ float* slot(int t) const { return base + (t & 1) * kDrawKinds * C::N * kCollectEnvs; }
+  // StepDraws' source on the env warp: lane e reads draws[t & 1][kind][n][e]
+  __device__ void draw(int t, int kind, float (&out)[C::N]) const {
+    const float* d = slot(t) + kind * C::N * kCollectEnvs + threadIdx.x;
+#pragma unroll
+    for (int n = 0; n < C::N; ++n) out[n] = d[n * kCollectEnvs];
+  }
+};
+
+// Step t's draws of the block's envs into shared memory, one thread a
+// (kind, env) (every kind: StepDraws reads the ones it needs); with
+// `normals`, K1/K2's action normals too, one thread an env, into normals
+// (A, kCollectEnvs).  Tail envs mirror the last env.
+template <class C, bool SEEDED, int THREADS>
+__device__ __forceinline__ void store_draws(const SharedDraws<C>& draws, float* normals,
+                                            const CollectSource<C, SEEDED>& src, int p, int t, int64_t b0) {
+  constexpr int E = kCollectEnvs, N = C::N, A = C::A;
+  const int tasks = (kDrawKinds + (normals != nullptr ? 1 : 0)) * E;
+  for (int i = p; i < tasks; i += THREADS) {
+    const int kind = i / E, e = i % E;
+    const int64_t b = b0 + e < src.B ? b0 + e : src.B - 1;
+    if (kind < kDrawKinds) {
+      float out[N];
+      src.draw(b, t, kind, out);
+      float* d = draws.slot(t) + kind * N * E + e;
+#pragma unroll
+      for (int n = 0; n < N; ++n) d[n * E] = out[n];
+    } else {
+      float out[A];
+      src.normal(b, t, out);
+#pragma unroll
+      for (int a = 0; a < A; ++a) normals[a * E + e] = out[a];
+    }
+  }
+}
+
+// ------------------------------------------------------------- K1 / K2 ---
+//
+// A step of K1/K2 runs in two windows.  Between the block barriers of step t
+// the product warps compute pi's torso and head: the env warp needs only the
+// action.  After the second barrier the env warp runs the physics of step t
+// and the observation of step t + 1 while the product warps compute vf's
+// torso and the value of step t, and the draws of step t + 1 (the generation
+// uniforms and the action normals, Philox or explicit) into shared memory.
+// The observations, normals and draws are double-buffered by the step's
+// parity, so that no window reads what the other writes.
+
+constexpr int kPpoProductThreads = 256;  // 8 product warps
+constexpr int kPpoCollectThreads = kCollectEnvs + kPpoProductThreads;
+constexpr int kPpoTileRows = 4, kPpoTileEnvs = 2, kPpoHeadEnvs = 2;
+
+// K1/K2's shared memory: the actor-critic k-major (pi's rows at [0, P), vf's
+// at [P, 2P), pad rows zero), the head rows (A means, then the value), the
+// biases, log_std and the box, then the block's activations and draws.
+template <class C>
+struct PpoCollectShared {
+  static constexpr int E = kCollectEnvs, A = C::A, N = C::N;
+  static constexpr int P1 = round_up(C::H1, kPpoTileRows), P2 = round_up(C::H2, kPpoTileRows);
+  static constexpr int HEAD_LD = C::H2 + 1;  // odd: a warp's two head rows sit in different banks
+  static constexpr int FLOATS = C::F * 2 * P1 + C::H1 * 2 * P2 + (2 * C::F + 2 * P1 + 2 * P2) * E +
+                                (A + 1) * HEAD_LD + 2 * P1 + 2 * P2 + (A + 1) + 3 * A + 4 * A * E +
+                                2 * kDrawKinds * N * E;
+  float *w1, *w2, *xs, *h1, *h2, *head, *b1, *b2, *b3, *log_std, *low, *high, *noise, *term, *act, *draws;
+
+  __device__ explicit PpoCollectShared(float* s) {
+    w1 = s;  // (F, 2 P1), then every vector-read array at a multiple of 4 floats
+    w2 = w1 + C::F * 2 * P1;
+    xs = w2 + C::H1 * 2 * P2;  // two slots of (F, E)
+    h1 = xs + 2 * C::F * E;
+    h2 = h1 + 2 * P1 * E;
+    head = h2 + 2 * P2 * E;
+    b1 = head + (A + 1) * HEAD_LD;
+    b2 = b1 + 2 * P1;
+    b3 = b2 + 2 * P2;
+    log_std = b3 + A + 1;
+    low = log_std + A;
+    high = low + A;
+    noise = high + A;  // two slots of (A, E)
+    term = noise + 2 * A * E;
+    act = term + A * E;
+    draws = act + A * E;  // two slots of (kDrawKinds, N, E)
+  }
+
+  __device__ float* obs_slot(int t) const { return xs + (t & 1) * C::F * E; }
+  __device__ float* noise_slot(int t) const { return noise + (t & 1) * A * E; }
+
+  // The packed block (layout of Cfg::COLLECT_WEIGHTS) into the layout above.
+  __device__ void load(const float* weights) const {
+    const Actor<C> pi(weights);
+    const Critic<C> vf(weights + C::WEIGHTS);
+    for (int i = threadIdx.x; i < C::F * 2 * P1; i += blockDim.x) {
+      const int k = i / (2 * P1), j = i % (2 * P1), r = j % P1;
+      w1[i] = r < C::H1 ? (j < P1 ? pi.w1 : vf.w1)[r * C::F + k] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < C::H1 * 2 * P2; i += blockDim.x) {
+      const int k = i / (2 * P2), j = i % (2 * P2), r = j % P2;
+      w2[i] = r < C::H2 ? (j < P2 ? pi.w2 : vf.w2)[r * C::H1 + k] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < (A + 1) * C::H2; i += blockDim.x) {
+      const int a = i / C::H2, k = i % C::H2;
+      head[a * HEAD_LD + k] = a < A ? pi.w3[a * C::H2 + k] : vf.w3[k];
+    }
+    for (int j = threadIdx.x; j < 2 * P1; j += blockDim.x) {
+      const int r = j % P1;
+      b1[j] = r < C::H1 ? (j < P1 ? pi.b1 : vf.b1)[r] : 0.0f;
+    }
+    for (int j = threadIdx.x; j < 2 * P2; j += blockDim.x) {
+      const int r = j % P2;
+      b2[j] = r < C::H2 ? (j < P2 ? pi.b2 : vf.b2)[r] : 0.0f;
+    }
+    for (int a = threadIdx.x; a < A + 1; a += blockDim.x) b3[a] = a < A ? pi.b3[a] : vf.b3[0];
+    for (int a = threadIdx.x; a < A; a += blockDim.x) {
+      log_std[a] = weights[C::WEIGHTS + C::VF_WEIGHTS + a];
+      low[a] = pi.low[a];
+      high[a] = pi.high[a];
+    }
+  }
+};
+
+// One torso's hidden layers over the step's observations (side 0: pi,
+// side 1: vf), R x V tiles over the product threads.
+template <class C>
+__device__ __forceinline__ void ppo_torso(const PpoCollectShared<C>& s, int p, int t, int side) {
+  using S = PpoCollectShared<C>;
+  constexpr int E = kCollectEnvs, R = kPpoTileRows, V = kPpoTileEnvs, EG = E / V;
+  for (int i = p; i < (S::P1 / R) * EG; i += kPpoProductThreads) {
+    const int j0 = side * S::P1 + (i / EG) * R, e0 = (i % EG) * V;
+    Tile<R, V> tile;
+    tile.accumulate(s.w1 + j0, 2 * S::P1, s.obs_slot(t) + e0, C::F, true);
+    tile.template store<kPpoActor>(s.b1, j0, 2 * S::P1, s.h1 + e0);
+  }
+  sync_products<kPpoProductThreads>();
+  for (int i = p; i < (S::P2 / R) * EG; i += kPpoProductThreads) {
+    const int j0 = side * S::P2 + (i / EG) * R, e0 = (i % EG) * V;
+    Tile<R, V> tile;
+    tile.accumulate(s.w2 + j0, 2 * S::P2, s.h1 + side * S::P1 * E + e0, C::H1, true);
+    tile.template store<kPpoActor>(s.b2, j0, 2 * S::P2, s.h2 + e0);
+  }
+  sync_products<kPpoProductThreads>();
+}
+
+// Head row a's sums (a < A: pi's means, a = A: vf's value) for HV envs from e0.
+template <class C, int HV>
+__device__ __forceinline__ void ppo_head_row(const PpoCollectShared<C>& s, int a, int e0, float (&out)[HV]) {
+  using S = PpoCollectShared<C>;
+  constexpr int E = kCollectEnvs;
+  const float* w = s.head + a * S::HEAD_LD;
+  const float* x = s.h2 + (a < C::A ? 0 : S::P2 * E) + e0;
+  float acc[HV];
+#pragma unroll
+  for (int v = 0; v < HV; ++v) acc[v] = w[0] * x[v];
+#pragma unroll 16
+  for (int k = 1; k < C::H2; ++k)
+#pragma unroll
+    for (int v = 0; v < HV; ++v) acc[v] = acc[v] + w[k] * x[k * E + v];
+#pragma unroll
+  for (int v = 0; v < HV; ++v) out[v] = acc[v] + s.b3[a];
+}
+
+// The product warps' first window of step t: pi's torso and head.  The
+// head's owners write a_raw (T, A, B) and leave the clipped action and each
+// action's log-prob term in shared memory for the env warp.
+template <class C>
+__device__ __forceinline__ void ppo_policy_products(const PpoCollectShared<C>& s, int p, int t, float* act_out,
+                                                    int64_t B, int64_t b0) {
+  constexpr int E = kCollectEnvs, A = C::A, HV = kPpoHeadEnvs, HG = E / HV;
+  ppo_torso<C>(s, p, t, 0);
+  const float* noise = s.noise_slot(t);
+  for (int i = p; i < A * HG; i += kPpoProductThreads) {
+    const int a = i / HG, e0 = (i % HG) * HV;
+    float mean[HV];
+    ppo_head_row<C, HV>(s, a, e0, mean);
+#pragma unroll
+    for (int v = 0; v < HV; ++v) {
+      const int e = e0 + v;
+      const float sd = expf(s.log_std[a]);
+      const float a_raw = mean[v] + sd * noise[a * E + e];
+      const float diff = a_raw - mean[v];
+      const float var = sd * sd;
+      s.term[a * E + e] = -0.5f * (diff * diff / var + 2.0f * s.log_std[a] + kLog2Pi);
+      s.act[a * E + e] = fminf(fmaxf(a_raw, s.low[a]), s.high[a]);
+      if (b0 + e < B) act_out[(static_cast<int64_t>(t) * A + a) * B + b0 + e] = a_raw;
+    }
+  }
+}
+
+// The product warps' second window of step t: vf's torso and the value (T, B).
+template <class C>
+__device__ __forceinline__ void ppo_value_products(const PpoCollectShared<C>& s, int p, int t, float* val_out,
+                                                   int64_t B, int64_t b0) {
+  ppo_torso<C>(s, p, t, 1);
+  if (p < kCollectEnvs) {
+    float value[1];
+    ppo_head_row<C, 1>(s, C::A, p, value);
+    if (b0 + p < B) val_out[static_cast<int64_t>(t) * B + b0 + p] = value[0];
+  }
+}
+
+// The env warp's collection day (K1/K2): per step the observation into
+// shared memory and obs (T, F, B); after the policy the log-prob (T, B), the
+// physics and the reward (T, B).
+template <class C>
+__device__ __forceinline__ void ppo_env_day(const Dims& d, float pv, float batt, const SharedTraces& tr,
+                                            const PpoCollectShared<C>& s, const CollectLane& l, float* obs_out,
+                                            float* logp_out, float* rew_out, float* batt_out, int64_t B) {
+  constexpr int E = kCollectEnvs;
+  const int lane = threadIdx.x;
+  const SharedDraws<C> src{s.draws};
+  Carry<C> c;
+  c.clear();
+#pragma unroll 1
+  for (int t = 0; t < d.T; ++t) {
+    float obs[C::F], pen[C::N];
+    StepState<C> st;
+    observe_step<C>(t, d, src, c, batt, tr.rad_norm, tr.price_norm, pv, obs, st, pen);
+    float* xs = s.obs_slot(t);
+#pragma unroll
+    for (int f = 0; f < C::F; ++f) xs[f * E + lane] = obs[f];
+    if (l.active) {
+#pragma unroll
+      for (int f = 0; f < C::F; ++f) obs_out[(static_cast<int64_t>(t) * C::F + f) * B + l.b] = obs[f];
+    }
+    sync_block();  // the observations are staged
+    sync_block();  // the policy is done
+    float act[C::A], logp = 0.0f;
+#pragma unroll
+    for (int a = 0; a < C::A; ++a) {
+      act[a] = s.act[a * E + lane];
+      const float term = s.term[a * E + lane];
+      logp = a == 0 ? term : logp + term;
+    }
+    const PolicyRows r = physics_step<C>(st, act, c, batt, d.dt);
+    if (!l.active) continue;
+    float pen_sum = pen[0];
+#pragma unroll
+    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
+    const float cost = policy_cost<C>(r, tr.solar[t], tr.price[t], pv, d.dt) + kWVeh * pen_sum;
+    logp_out[static_cast<int64_t>(t) * B + l.b] = logp;
+    rew_out[static_cast<int64_t>(t) * B + l.b] = -cost;
+  }
+  if (l.active) batt_out[l.b] = batt;
+}
+
+// K1 (SEEDED false): explicit uniforms u (T, 5, N, B), normals (T, A, B) and
+// pv_shift (B,).  K2 (SEEDED true): every draw from Philox keyed by (seed, b).
+// Outputs obs (T, F, B), act_raw (T, A, B), logp/value/rewards (T, B), batt (B).
+// A block of kPpoCollectThreads threads per kCollectEnvs envs.
+template <class C, bool SEEDED>
+__global__ void __launch_bounds__(kPpoCollectThreads)
+ppo_collect_day_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                       const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                       const float* __restrict__ u, const float* __restrict__ normals, uint32_t seed,
+                       const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                       const float* __restrict__ weights, float* __restrict__ obs_out, float* __restrict__ act_out,
+                       float* __restrict__ logp_out, float* __restrict__ val_out, float* __restrict__ rew_out,
+                       float* __restrict__ batt_out, int B, Dims d) {
+  extern __shared__ float4 collect_smem[];
+  float* smem = reinterpret_cast<float*>(collect_smem);
+  const PpoCollectShared<C> s(smem);
+  s.load(weights);
+  const SharedTraces tr =
+      load_traces(smem + PpoCollectShared<C>::FLOATS, rad_norm, S, price_norm, P, price, solar, d.T);
+  const CollectLane l(B);
+  const CollectSource<C, SEEDED> src{u, normals, seed, B};
+  const SharedDraws<C> draws{s.draws};
+  store_draws<C, SEEDED, kPpoCollectThreads>(draws, s.noise_slot(0), src, threadIdx.x, 0, l.b0);
+  __syncthreads();
+  if (threadIdx.x >= kCollectEnvs) {
+    const int p = threadIdx.x - kCollectEnvs;
+#pragma unroll 1
+    for (int t = 0; t < d.T; ++t) {
+      if (t + 1 < d.T) store_draws<C, SEEDED, kPpoProductThreads>(draws, s.noise_slot(t + 1), src, p, t + 1, l.b0);
+      if (t > 0) ppo_value_products<C>(s, p, t - 1, val_out, B, l.b0);
+      sync_block();
+      ppo_policy_products<C>(s, p, t, act_out, B, l.b0);
+      sync_block();
+    }
+    ppo_value_products<C>(s, p, d.T - 1, val_out, B, l.b0);
+    return;
+  }
+  float pv;
+  if constexpr (SEEDED) {
+    pv = collect_pv_shift(make_uint2(seed, static_cast<uint32_t>(l.b)));
+  } else {
+    pv = pv_shift[l.b];
+  }
+  ppo_env_day<C>(d, pv, batt_soc[l.b], tr, s, l, obs_out, logp_out, rew_out, batt_out, B);
+}
+
+// ------------------------------------------------------------------ K9 ---
+
+constexpr int kDdpgProductThreads = 352;  // 11 product warps
+constexpr int kDdpgCollectThreads = kCollectEnvs + kDdpgProductThreads;
+constexpr int kRingStages = 3;  // chunks in shared memory: one summed, two in flight
+constexpr int kRingRows = 16;   // k-rows of a chunk
+constexpr int kRingBarrierFloats = 4 * kRingStages;  // a full and an empty mbarrier (8 bytes) a stage
+
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One bulk copy by the Tensor Memory Accelerator (16-byte aligned, a multiple
+// of 16 bytes), completing on `bar` by its bytes.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               ::"r"(smem_address(dst)), "l"(src), "r"(bytes), "r"(smem_address(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;" ::"r"(smem_address(bar)), "r"(count) : "memory");
+}
+
+// Arrive on `bar` and expect `bytes` more of bulk copies in its phase.
+__device__ __forceinline__ void mbarrier_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared.b64 _, [%1], %0;" ::"r"(bytes), "r"(smem_address(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 state;\n\tmbarrier.arrive.shared.b64 state, [%0];\n\t}"
+               ::"r"(smem_address(bar)) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n\tWAIT:\n\tmbarrier.try_wait.parity.shared.b64 done, [%0], %1;\n\t@!done bra WAIT;\n\t}"
+      ::"r"(smem_address(bar)), "r"(parity) : "memory");
+}
+
+// K9's geometry.  The packed block (ops/ddpg_collect.py::k9_block): W1
+// k-major (F, P1) and W2 k-major (H1, P2), each k-row padded with zeros to
+// whole tiles, so that a chunk of k-rows is one contiguous bulk copy; then
+// b1, b2, W3 (A, H2), b3, low, high.
+template <class C>
+struct DdpgCollect {
+  static constexpr int E = kCollectEnvs, A = C::A;
+  // 400-300: 200 tiles in one round, 600 in two, so that each of the 4 schedulers carries at most
+  // 5 tile-rounds of 16 outputs in layer 2 (the env warp sits on scheduler 0 beside 2 product warps)
+  static constexpr int R1 = 8, V1 = 8, R2 = 4, V2 = 4;
+  static constexpr int P1 = round_up(C::H1, R1), P2 = round_up(C::H2, R2);  // a layer's k-row in the ring
+  static constexpr int STAGE = kRingRows * (P1 > P2 ? P1 : P2);
+  static constexpr int NC1 = (C::F + kRingRows - 1) / kRingRows, NC2 = (C::H1 + kRingRows - 1) / kRingRows;
+  static constexpr int NC = NC1 + NC2;  // chunks a step
+  static constexpr int TILES1 = (P1 / R1) * (E / V1), TILES2 = (P2 / R2) * (E / V2);
+  static constexpr int ROUNDS1 = (TILES1 + kDdpgProductThreads - 1) / kDdpgProductThreads;
+  static constexpr int ROUNDS2 = (TILES2 + kDdpgProductThreads - 1) / kDdpgProductThreads;
+  static constexpr int W2 = C::F * P1, B1 = W2 + C::H1 * P2, B2 = B1 + C::H1, W3 = B2 + C::H2;
+  static constexpr int BLOCK = W3 + A * C::H2 + 3 * A;  // the packed block's floats
+  static_assert(P1 % 4 == 0 && P2 % 4 == 0, "a chunk and its start are whole 16-byte units");
+  static constexpr int FLOATS = kRingBarrierFloats + kRingStages * STAGE + (C::F + P1 + P2) * E + A * C::H2 +
+                                C::H1 + C::H2 + 3 * A + A * E + 2 * kDrawKinds * C::N * E;
+};
+
+// K9's shared memory: the ring's barriers and stages, the activations, the
+// head, the biases and the draws.
+template <class C>
+struct DdpgCollectShared {
+  using G = DdpgCollect<C>;
+  uint64_t *full, *empty;
+  float *ring, *xs, *h1, *h2, *w3, *b1, *b2, *b3, *low, *high, *act, *draws;
+
+  __device__ explicit DdpgCollectShared(float* s) {
+    full = reinterpret_cast<uint64_t*>(s);
+    empty = full + kRingStages;
+    ring = s + kRingBarrierFloats;
+    xs = ring + kRingStages * G::STAGE;
+    h1 = xs + C::F * G::E;
+    h2 = h1 + G::P1 * G::E;
+    w3 = h2 + G::P2 * G::E;
+    b1 = w3 + C::A * C::H2;
+    b2 = b1 + C::H1;
+    b3 = b2 + C::H2;
+    low = b3 + C::A;
+    high = low + C::A;
+    act = high + C::A;
+    draws = act + C::A * G::E;
+  }
+
+  __device__ void load(const float* weights) const {
+    for (int i = threadIdx.x; i < C::A * C::H2; i += blockDim.x) w3[i] = weights[G::W3 + i];
+    for (int i = threadIdx.x; i < C::H1; i += blockDim.x) b1[i] = weights[G::B1 + i];
+    for (int i = threadIdx.x; i < C::H2; i += blockDim.x) b2[i] = weights[G::B2 + i];
+    for (int i = threadIdx.x; i < C::A; i += blockDim.x) {
+      b3[i] = weights[G::W3 + C::A * C::H2 + i];
+      low[i] = weights[G::W3 + C::A * C::H2 + C::A + i];
+      high[i] = weights[G::W3 + C::A * C::H2 + 2 * C::A + i];
+    }
+  }
+};
+
+// K9's weight stream: chunk g of the day (g mod NC: the first NC1 chunks of
+// a step are W1's k-rows, the rest W2's) goes to stage g mod kRingStages.
+// The env warp fills the ring, while the product warps compute: its lane 0
+// issues one bulk copy a chunk (the Tensor Memory Accelerator) completing
+// on the stage's `full` mbarrier by its bytes.  Each product warp waits on `full`, sums
+// the chunk and arrives on the stage's `empty` mbarrier; the env warp waits
+// on `empty` before it refills the stage.  So the product warps never wait
+// for each other inside a layer: they drift apart by up to kRingStages - 1
+// chunks.
+template <class C>
+struct WeightRing {
+  using G = DdpgCollect<C>;
+  const float* weights;
+  float* stages;
+  uint64_t *full, *empty;
+
+  // One thread, before the block's first barrier; the fence makes the
+  // initialised barriers visible to the bulk copies' completions.
+  __device__ void init() const {
+    for (int q = 0; q < kRingStages; ++q) {
+      mbarrier_init(full + q, 1);
+      mbarrier_init(empty + q, kDdpgProductThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // The env warp: chunk g into its stage, once the stage's previous chunk is summed.
+  __device__ __forceinline__ void fill(int g) const {
+    const int stage = g % kRingStages, use = g / kRingStages, c = g % G::NC;
+    if (use > 0) mbarrier_wait(empty + stage, (use - 1) & 1);
+    if (threadIdx.x != 0) return;
+    const bool w1 = c < G::NC1;
+    const int k0 = (w1 ? c : c - G::NC1) * kRingRows;
+    const int floats = w1 ? min(kRingRows, C::F - k0) * G::P1 : min(kRingRows, C::H1 - k0) * G::P2;
+    const unsigned bytes = static_cast<unsigned>(floats * sizeof(float));
+    mbarrier_arrive_expect_tx(full + stage, bytes);
+    bulk_copy(stages + stage * G::STAGE, weights + (w1 ? k0 * G::P1 : G::W2 + k0 * G::P2), bytes, full + stage);
+  }
+
+  // A product warp: chunk g once it has landed, and the stage handed back.
+  __device__ __forceinline__ const float* acquire(int g) const {
+    mbarrier_wait(full + g % kRingStages, (g / kRingStages) & 1);
+    return stages + (g % kRingStages) * G::STAGE;
+  }
+  __device__ __forceinline__ void release(int g) const {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbarrier_arrive(empty + g % kRingStages);
+  }
+};
+
+// One layer of K9 through the ring: the J x K product of the k-major weight
+// chunks (LD floats a k-row in the ring) against x (K, E), ReLU, into y; p is
+// the product thread's index.
+template <class C, int R, int V, int ROUNDS, int TILES, int J, int K, int LD>
+__device__ __forceinline__ void ddpg_layer(const WeightRing<C>& ring, int& g, int p, const float* x,
+                                           const float* bias, float* y) {
+  constexpr int EG = kCollectEnvs / V;
+  Tile<R, V> tiles[ROUNDS];
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += kRingRows, ++g) {
+    const float* stage = ring.acquire(g);
+    const int n = min(kRingRows, K - k0);
+#pragma unroll
+    for (int q = 0; q < ROUNDS; ++q) {
+      const int i = p + q * kDdpgProductThreads;
+      if (i < TILES)
+        tiles[q].accumulate(stage + (i / EG) * R, LD, x + k0 * kCollectEnvs + (i % EG) * V, n, k0 == 0);
+    }
+    ring.release(g);
+  }
+#pragma unroll
+  for (int q = 0; q < ROUNDS; ++q) {
+    const int i = p + q * kDdpgProductThreads;
+    if (i < TILES) tiles[q].template store<kDdpgActor>(bias, (i / EG) * R, J, y + (i % EG) * V);
+  }
+  sync_products<kDdpgProductThreads>();
+}
+
+// The product warps' part of K9's step t (p: the product thread's index):
+// both hidden layers through the ring, then the head, whose owners squash it, add the step's OU noise,
+// clip, and write the action (T, A, B) and into shared memory.
+template <class C>
+__device__ __forceinline__ void ddpg_products(const DdpgCollectShared<C>& s, const WeightRing<C>& ring, int& g,
+                                              int p, int t, const float* ou, float* act_out, int64_t B,
+                                              int64_t b0) {
+  using G = DdpgCollect<C>;
+  constexpr int E = kCollectEnvs, A = C::A;
+  ddpg_layer<C, G::R1, G::V1, G::ROUNDS1, G::TILES1, C::H1, C::F, G::P1>(ring, g, p, s.xs, s.b1, s.h1);
+  ddpg_layer<C, G::R2, G::V2, G::ROUNDS2, G::TILES2, C::H2, C::H1, G::P2>(ring, g, p, s.h1, s.b2, s.h2);
+  for (int i = p; i < A * E; i += kDdpgProductThreads) {
+    const int a = i / E, e = i % E;
+    const float* w = s.w3 + a * C::H2;
+    float acc = w[0] * s.h2[e];
+#pragma unroll 16
+    for (int k = 1; k < C::H2; ++k) acc = acc + w[k] * s.h2[k * E + e];
+    const float mu = acc + s.b3[a];
+    const float lo = s.low[a], hi = s.high[a];
+    const int64_t be = b0 + e < B ? b0 + e : B - 1;
+    const float v = lo + ((tanhf(mu) + 1.0f) * 0.5f) * (hi - lo);
+    const float clipped = fminf(fmaxf(v + ou[(static_cast<int64_t>(t) * A + a) * B + be], lo), hi);
+    s.act[a * E + e] = clipped;
+    if (b0 + e < B) act_out[(static_cast<int64_t>(t) * A + a) * B + b0 + e] = clipped;
+  }
+}
+
 // K9 (SEEDED false): explicit uniforms u (T, 5, N, B) and pv_shift (B,).
 // K9 seeded: the day's uniforms and PV shift from Philox keyed by (seed, b),
 // with K2's kinds (day 0, kinds 0-4 and 7), so that K2 and K9 generate the
 // same days at the same seed.  The OU noise ou (T, A, B) is explicit in both.
 // Outputs obs (T, F, B), the clipped action (T, A, B), rewards (T, B),
 // next_obs (T, F, B) (next_obs[t] = obs[t+1], the day-end observe at T-1)
-// and batt (B).
+// and batt (B).  A block of kDdpgCollectThreads threads per kCollectEnvs envs.
 template <class C, bool SEEDED>
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void __launch_bounds__(kDdpgCollectThreads)
 ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
                         const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
                         const float* __restrict__ u, uint32_t seed, const float* __restrict__ ou,
@@ -1152,43 +1725,78 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
                         const float* __restrict__ weights, float* __restrict__ obs_out,
                         float* __restrict__ act_out, float* __restrict__ rew_out, float* __restrict__ next_out,
                         float* __restrict__ batt_out, int B, Dims d) {
-  extern __shared__ float smem[];
-  const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
+  constexpr int E = kCollectEnvs;
+  extern __shared__ float4 collect_smem[];
+  float* smem = reinterpret_cast<float*>(collect_smem);
+  const DdpgCollectShared<C> s(smem);
+  s.load(weights);
+  const SharedTraces tr = load_traces(smem + DdpgCollect<C>::FLOATS, rad_norm, S, price_norm, P, price, solar, d.T);
+  const CollectLane l(B);
+  const SharedDraws<C> draws{s.draws};
+  const CollectSource<C, SEEDED> src{u, nullptr, seed, B};
+  const WeightRing<C> ring{weights, s.ring, s.full, s.empty};
+  if (threadIdx.x == 0) ring.init();
+  store_draws<C, SEEDED, kDdpgCollectThreads>(draws, nullptr, src, threadIdx.x, 0, l.b0);
   __syncthreads();
-  const BlockLane l(B);
-  const BlockActor<C, kDdpgActor> policy{Actor<C>(weights), BlockShared<C>(s.solar + d.T), ou, obs_out, act_out,
-                                         next_out, B, l.b0, l.b, l.writes};
-  const uint2 key = make_uint2(seed, static_cast<uint32_t>(l.b));
+  if (threadIdx.x >= kCollectEnvs) {
+    const int p = threadIdx.x - kCollectEnvs;
+    int g = 0;
+#pragma unroll 1
+    for (int t = 0; t < d.T; ++t) {
+      if (t + 1 < d.T) store_draws<C, SEEDED, kDdpgProductThreads>(draws, nullptr, src, p, t + 1, l.b0);
+      sync_block();
+      ddpg_products<C>(s, ring, g, p, t, ou, act_out, B, l.b0);
+      sync_block();
+    }
+    return;
+  }
+  // the env warp fills the ring ahead of the products: the first chunks now,
+  // each step's others (and the next step's first) while the products sum
+  int filled = 0;
+  for (; filled < kRingStages - 1; ++filled) ring.fill(filled);
+  const int lane = threadIdx.x;
   float pv;
   if constexpr (SEEDED) {
-    pv = collect_pv_shift(key);
+    pv = collect_pv_shift(make_uint2(seed, static_cast<uint32_t>(l.b)));
   } else {
     pv = pv_shift[l.b];
   }
   float batt = batt_soc[l.b];
   Carry<C> c;
   c.clear();
-  float act[C::A], pen[C::N];
 #pragma unroll 1
   for (int t = 0; t < d.T; ++t) {
-    PolicyRows r;
-    if constexpr (SEEDED) {
-      r = policy_step<C>(t, d, PhiloxDraws<C::N>{key, 0u}, c, batt, s.rad_norm, s.price_norm, pv, policy, act,
-                         pen);
-    } else {
-      r = policy_step<C>(t, d, ExplicitDraws<C::N>{u, B, l.b}, c, batt, s.rad_norm, s.price_norm, pv, policy,
-                         act, pen);
+    float obs[C::F], pen[C::N];
+    StepState<C> st;
+    observe_step<C>(t, d, draws, c, batt, tr.rad_norm, tr.price_norm, pv, obs, st, pen);
+#pragma unroll
+    for (int f = 0; f < C::F; ++f) s.xs[f * E + lane] = obs[f];
+    if (l.active) {
+#pragma unroll
+      for (int f = 0; f < C::F; ++f) {
+        obs_out[(static_cast<int64_t>(t) * C::F + f) * B + l.b] = obs[f];
+        if (t > 0) next_out[(static_cast<int64_t>(t - 1) * C::F + f) * B + l.b] = obs[f];
+      }
     }
-    if (!l.writes) continue;
+    sync_block();  // the observations are staged
+#pragma unroll 1
+    for (; filled < min((t + 1) * DdpgCollect<C>::NC + kRingStages - 1, d.T * DdpgCollect<C>::NC); ++filled)
+      ring.fill(filled);  // no chunk beyond the day
+    sync_block();  // the actions are ready
+    float act[C::A];
+#pragma unroll
+    for (int a = 0; a < C::A; ++a) act[a] = s.act[a * E + lane];
+    const PolicyRows r = physics_step<C>(st, act, c, batt, d.dt);
+    if (!l.active) continue;
     float pen_sum = pen[0];
 #pragma unroll
     for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
-    const float cost = policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt) + kWVeh * pen_sum;
+    const float cost = policy_cost<C>(r, tr.solar[t], tr.price[t], pv, d.dt) + kWVeh * pen_sum;
     rew_out[static_cast<int64_t>(t) * B + l.b] = -cost;
   }
-  if (!l.writes) return;
+  if (!l.active) return;
   float obs[C::F];
-  final_observe<C>(d, c, batt, s.rad_norm, s.price_norm, pv, obs);
+  final_observe<C>(d, c, batt, tr.rad_norm, tr.price_norm, pv, obs);
 #pragma unroll
   for (int f = 0; f < C::F; ++f) next_out[(static_cast<int64_t>(d.T - 1) * C::F + f) * B + l.b] = obs[f];
   batt_out[l.b] = batt;
@@ -1367,7 +1975,7 @@ policy_day_rollout_block_kernel(const float* __restrict__ price, const float* __
   const BlockLane l(B);
   const DayTablesView tab{tables, static_cast<int64_t>(T) * C::N * B, B, l.b, C::N};
   policy_day_from_tables<C>(s, tab, prev_col0, pmask0, batt_soc[l.b], pv_shift[l.b],
-                            block_actor<C, kPpoActor, false>(weights, s, T, B, l), l.writes, rewards, actions,
+                            block_actor<C, kPpoActor, false>(weights, s, T), l.writes, rewards, actions,
                             soc_final, B, l.b, T, dt);
 }
 

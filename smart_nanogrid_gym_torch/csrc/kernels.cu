@@ -25,10 +25,6 @@ namespace {
 
 using C = ngk::Cfg<NG_N, NG_PV != 0, NG_BATT != 0, NG_PMODE, NG_DIFF_CAPS != 0, NG_REQ_SOC != 0, NG_H1, NG_H2>;
 constexpr int kThreads = 128;
-// The collection kernel keeps one warp per block, so that a batch of 4096
-// envs spreads over 128 SMs (each thread runs a whole day, so a block's
-// shared-memory pipe serves few warps).
-constexpr int kCollectThreads = 32;
 constexpr size_t kMaxSmem = 232448;     // dynamic shared memory one H100 block may use
 constexpr size_t kTraceReserve = 16384;  // room kept for the traces (S + P + 2T floats)
 constexpr bool kBlockActor =
@@ -61,6 +57,15 @@ size_t actor_smem(bool block, int S, int P, int T) {
 dim3 actor_grid(bool block, int B) { return block ? grid_for(B, ngk::kBlockEnvs) : grid_for(B); }
 
 int actor_threads(bool block) { return block ? ngk::kBlockThreads : kThreads; }
+
+// The collection kernels: one block per kCollectEnvs envs, their shared
+// memory (ppo_collect_day_kernel's or ddpg_collect_day_kernel's layout),
+// then the traces.
+dim3 collect_grid(int B) { return grid_for(B, ngk::kCollectEnvs); }
+
+size_t collect_smem(int floats, int S, int P, int T) {
+  return static_cast<size_t>(floats + S + P + 2 * T) * sizeof(float);
+}
 
 template <bool BF16>
 int gen_policy_multiday(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
@@ -140,7 +145,9 @@ int ngk_gen_policy_multiday(const float* price, const float* price_norm, int P, 
 
 #if NG_ACTOR == 0
 
+// The collection kernel's weight block and its shared memory before the traces (floats).
 int ngk_collect_weights_size() { return C::COLLECT_WEIGHTS; }
+int ngk_collect_smem_floats() { return ngk::PpoCollectShared<C>::FLOATS; }
 
 int ngk_policy_day_rollout(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                            const float* solar, const float* tables, const float* prev_col, const float* pmask,
@@ -169,9 +176,9 @@ int ngk_ppo_collect_day(const float* price, const float* price_norm, int P, cons
   if constexpr (kBlockActor) {
     return static_cast<int>(cudaErrorNotSupported);
   } else {
-    return launch(ngk::ppo_collect_day_kernel<C, false>, grid_for(B, kCollectThreads), kCollectThreads,
-                  static_cast<size_t>(C::COLLECT_WEIGHTS + S + P + 2 * T) * sizeof(float), stream, price,
-                  price_norm, P, rad_norm, S, solar, u, normals, 0u, batt_soc, pv_shift, weights, obs, act, logp,
+    return launch(ngk::ppo_collect_day_kernel<C, false>, collect_grid(B), ngk::kPpoCollectThreads,
+                  collect_smem(ngk::PpoCollectShared<C>::FLOATS, S, P, T), stream, price, price_norm, P,
+                  rad_norm, S, solar, u, normals, 0u, batt_soc, pv_shift, weights, obs, act, logp,
                   value, rewards, batt_final, B, dims(T, k4, k10, k1, dt));
   }
 }
@@ -184,23 +191,29 @@ int ngk_ppo_collect_day_seeded(const float* price, const float* price_norm, int 
   if constexpr (kBlockActor) {
     return static_cast<int>(cudaErrorNotSupported);
   } else {
-    return launch(ngk::ppo_collect_day_kernel<C, true>, grid_for(B, kCollectThreads), kCollectThreads,
-                  static_cast<size_t>(C::COLLECT_WEIGHTS + S + P + 2 * T) * sizeof(float), stream, price,
-                  price_norm, P, rad_norm, S, solar, none, none, seed, batt_soc, none, weights, obs, act, logp,
+    return launch(ngk::ppo_collect_day_kernel<C, true>, collect_grid(B), ngk::kPpoCollectThreads,
+                  collect_smem(ngk::PpoCollectShared<C>::FLOATS, S, P, T), stream, price, price_norm, P,
+                  rad_norm, S, solar, none, none, seed, batt_soc, none, weights, obs, act, logp,
                   value, rewards, batt_final, B, dims(T, k4, k10, k1, dt));
   }
 }
 
-#else  // NG_ACTOR == 1: the DDPG collection kernel K9, a block of kBlockThreads threads per kBlockEnvs envs
+#else  // NG_ACTOR == 1: the DDPG collection kernel K9
+
+// K9's weight block holds W1 and W2 k-major, their k-rows padded
+// (ops/ddpg_collect.py::k9_block).
+int ngk_collect_weights_size() { return ngk::DdpgCollect<C>::BLOCK; }
+int ngk_collect_smem_floats() { return ngk::DdpgCollect<C>::FLOATS; }
 
 int ngk_ddpg_collect_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                          const float* solar, const float* u, const float* ou, const float* batt_soc,
                          const float* pv_shift, const float* weights, float* obs, float* act, float* rewards,
                          float* next_obs, float* batt_final, int B, int T, int k4, int k10, int k1, float dt,
                          void* stream) {
-  return launch(ngk::ddpg_collect_day_kernel<C, false>, actor_grid(true, B), actor_threads(true),
-                actor_smem(true, S, P, T), stream, price, price_norm, P, rad_norm, S, solar, u, 0u, ou, batt_soc,
-                pv_shift, weights, obs, act, rewards, next_obs, batt_final, B, dims(T, k4, k10, k1, dt));
+  return launch(ngk::ddpg_collect_day_kernel<C, false>, collect_grid(B), ngk::kDdpgCollectThreads,
+                collect_smem(ngk::DdpgCollect<C>::FLOATS, S, P, T), stream, price, price_norm, P, rad_norm, S,
+                solar, u, 0u, ou, batt_soc, pv_shift, weights, obs, act, rewards, next_obs, batt_final, B,
+                dims(T, k4, k10, k1, dt));
 }
 
 int ngk_ddpg_collect_day_seeded(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
@@ -209,9 +222,10 @@ int ngk_ddpg_collect_day_seeded(const float* price, const float* price_norm, int
                                 float* batt_final, int B, int T, int k4, int k10, int k1, float dt,
                                 void* stream) {
   const float* none = nullptr;
-  return launch(ngk::ddpg_collect_day_kernel<C, true>, actor_grid(true, B), actor_threads(true),
-                actor_smem(true, S, P, T), stream, price, price_norm, P, rad_norm, S, solar, none, seed, ou,
-                batt_soc, none, weights, obs, act, rewards, next_obs, batt_final, B, dims(T, k4, k10, k1, dt));
+  return launch(ngk::ddpg_collect_day_kernel<C, true>, collect_grid(B), ngk::kDdpgCollectThreads,
+                collect_smem(ngk::DdpgCollect<C>::FLOATS, S, P, T), stream, price, price_norm, P, rad_norm, S,
+                solar, none, seed, ou, batt_soc, none, weights, obs, act, rewards, next_obs, batt_final, B,
+                dims(T, k4, k10, k1, dt));
 }
 
 #endif  // NG_ACTOR

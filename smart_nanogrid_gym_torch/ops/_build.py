@@ -11,8 +11,9 @@ update sweep K10) once per network shape.  The bf16 operand options (K6's
 ``mlp_dtype``, the sweeps' ``matmul_dtype``) are launch arguments of the
 same libraries.  Libraries land in ``build/torch_kernels/`` at the root of
 the checkout, named by the flags and a digest of the sources and nvcc flags,
-so an edited source rebuilds.  They are loaded with ``ctypes``; every launch goes
-on PyTorch's current stream and its ``cudaGetLastError()`` is checked.
+which is computed once per process: an edited source rebuilds in a new
+process.  They are loaded with ``ctypes``; every launch goes on PyTorch's
+current stream and its ``cudaGetLastError()`` is checked.
 
 ``launch_counts`` counts the launches of each kernel by name: a wrapper adds
 one where it launches its kernel, and nowhere else.
@@ -21,6 +22,7 @@ one where it launches its kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -53,6 +55,8 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DAY_SIGNATURES = {
     "ngk_weights_size": (),
     "ngk_block_actor": (),
+    "ngk_collect_weights_size": (),
+    "ngk_collect_smem_floats": (),
     "ngk_gen_rbc_day": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_rbc_multiday": (_P, _P, _I, _P, _U, _I, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_rbc_day_rollout": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
@@ -62,7 +66,6 @@ _DAY_SIGNATURES = {
 }
 _PPO_SIGNATURES = {
     **_DAY_SIGNATURES,
-    "ngk_collect_weights_size": (),
     "ngk_policy_day_rollout": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "ngk_ppo_collect_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _P),
@@ -148,13 +151,21 @@ def _signatures(flags: dict[str, int]) -> dict:
     return _DDPG_SWEEP_SIGNATURES if source == "ddpg_sweep.cu" else _SWEEP_SIGNATURES
 
 
-def library_path(flags: dict[str, int]) -> Path:
+@functools.lru_cache(maxsize=1)
+def source_digest() -> str:
+    """The digest of the nvcc flags and the ``csrc/`` sources, read once per
+    process: every launch reaches :func:`library_path`, so an edited source
+    takes effect in a new process."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
+    return digest.hexdigest()[:12]
+
+
+def library_path(flags: dict[str, int]) -> Path:
     tag = "_".join(f"{k[3:].lower()}{v}" for k, v in flags.items())
     stem = Path(_source(flags)).stem
-    return BUILD_DIR / f"libngk_{stem}_{tag}_{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"libngk_{stem}_{tag}_{source_digest()}.so"
 
 
 def compile_library(flags: dict[str, int]) -> tuple[Path, float]:

@@ -32,14 +32,13 @@ from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
 from . import _build
 from .gen_policy_rollout import (
-    MAX_SHARED_BYTES,
     ActorWeights,
+    check_collect_block,
     check_policy_config,
     dense,
     gen_policy_step,
     policy_day_costs,
     policy_kwargs,
-    trace_floats,
 )
 from .gen_rollout import F32, W_VEH, Traces, fresh_carry, kernel_device, kernel_traces, \
     pv_shift_from_uniform, sum_rows
@@ -144,16 +143,13 @@ def _hidden(weights: CollectWeights) -> tuple[int, int]:
     return weights.pi.w1.shape[0], weights.pi.w2.shape[0]
 
 
-def check_collect_block(config: NanogridConfig, traces: Traces, weights: CollectWeights) -> None:
-    """Raise before any launch when the actor-critic and the traces exceed a
-    block's shared memory, which K1/K2 hold them in: the learner's 64×64
-    torsos fit, a 256×256 pair does not."""
-    need = 4 * (weights.packed().numel() + trace_floats(config, traces))
-    if need > MAX_SHARED_BYTES:
-        hidden = _hidden(weights)
-        raise ValueError(f"the collection kernels hold the actor-critic in shared memory: torsos "
-                         f"{hidden[0]}x{hidden[1]} and the traces need {need} bytes per block, more than "
-                         f"{MAX_SHARED_BYTES}; use collect_impl='plain'")
+def _library(config, traces, weights, device):
+    """The library of K1/K2, whose shared memory holds the actor-critic: the
+    learner's 64×64 torsos fit, a 256×256 pair does not."""
+    hidden = _hidden(weights)
+    lib = _build.library(config, device, hidden)
+    check_collect_block(config, traces, lib, hidden)
+    return lib
 
 
 def _block(weights: CollectWeights, lib) -> torch.Tensor:
@@ -192,8 +188,7 @@ def ppo_collect_day(config: NanogridConfig, params: NanogridParams, net, uniform
     pv = _build.check_f32(pv_shift, "pv_shift")
     batt = _build.check_f32(batt_soc.contiguous(), "batt_soc")
     outs = _outputs(config, B, device)
-    check_collect_block(config, traces, weights)
-    lib = _build.library(config, device, _hidden(weights))
+    lib = _library(config, traces, weights, device)
     _build.launch(
         "ppo_collect_day", lib.ngk_ppo_collect_day,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
@@ -238,8 +233,7 @@ def ppo_collect_day_seeded(config: NanogridConfig, params: NanogridParams, net, 
 
     batt = _build.check_f32(batt_soc.contiguous(), "batt_soc")
     outs = _outputs(config, batch, device)
-    check_collect_block(config, traces, weights)
-    lib = _build.library(config, device, _hidden(weights))
+    lib = _library(config, traces, weights, device)
     _build.launch(
         "ppo_collect_day_seeded", lib.ngk_ppo_collect_day_seeded,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,

@@ -35,9 +35,8 @@ from ..core.params import NanogridParams
 from . import _build
 from .gen_policy_rollout import (
     ActorWeights,
-    _packed,
     actor_weights,
-    check_block_torso,
+    check_collect_block,
     check_policy_config,
     ddpg_action,
     gen_policy_step,
@@ -142,10 +141,34 @@ def _check_ou(config: NanogridConfig, ou_seq: torch.Tensor, B: int) -> None:
         raise ValueError(f"ou_seq must be {want}, got {tuple(ou_seq.shape)}")
 
 
+# K9's k-rows of W1 and W2 are padded to whole tiles of its two layers
+# (csrc/day_step.cuh::DdpgCollect: R1 = 8 and R2 = 4 rows)
+PAD1, PAD2 = 8, 4
+
+
+def _k_major(w: torch.Tensor, pad: int) -> torch.Tensor:
+    """``w (J, K)`` transposed to ``(K, J)`` with each k-row padded with zeros to a multiple of ``pad``."""
+    return nn.functional.pad(w.T, (0, -w.shape[0] % pad))
+
+
+def k9_block(weights: ActorWeights, lib) -> torch.Tensor:
+    """The actor in K9's layout: ``W1`` and ``W2`` k-major with their k-rows
+    padded, so that the kernel streams each chunk of k-rows through its
+    shared-memory ring as one bulk copy, then ``b1, b2, W3, b3, low, high``."""
+    w = weights
+    parts = (_k_major(w.w1, PAD1), _k_major(w.w2, PAD2), w.b1, w.b2, w.w3, w.b3, w.low, w.high)
+    block = torch.cat([x.reshape(-1) for x in parts]).contiguous()
+    if block.numel() != lib.ngk_collect_weights_size():
+        raise ValueError(f"actor block has {block.numel()} floats, the kernel library "
+                         f"expects {lib.ngk_collect_weights_size()}")
+    return block
+
+
 def _library(config, traces, weights, device):
     hidden = _hidden(weights)
-    check_block_torso(config, hidden, traces)
-    return _build.library(config, device, hidden, "ddpg")
+    lib = _build.library(config, device, hidden, "ddpg")
+    check_collect_block(config, traces, lib, hidden)
+    return lib
 
 
 def ddpg_collect_day(config: NanogridConfig, params: NanogridParams, net, uniforms: torch.Tensor,
@@ -179,7 +202,7 @@ def ddpg_collect_day(config: NanogridConfig, params: NanogridParams, net, unifor
     _build.launch(
         "ddpg_collect_day", lib.ngk_ddpg_collect_day,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
-        traces.rad_norm.numel(), traces.solar, u, ou, batt, pv, _packed(weights, lib), *outs,
+        traces.rad_norm.numel(), traces.solar, u, ou, batt, pv, k9_block(weights, lib), *outs,
         B, *_build.day_dims(config), device=device,
     )
     return outs
@@ -224,7 +247,7 @@ def ddpg_collect_day_seeded(config: NanogridConfig, params: NanogridParams, net,
     _build.launch(
         "ddpg_collect_day_seeded", lib.ngk_ddpg_collect_day_seeded,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
-        traces.rad_norm.numel(), traces.solar, int(seed) & 0xFFFFFFFF, ou, batt, _packed(weights, lib),
+        traces.rad_norm.numel(), traces.solar, int(seed) & 0xFFFFFFFF, ou, batt, k9_block(weights, lib),
         *outs, batch, *_build.day_dims(config), device=device,
     )
     return outs

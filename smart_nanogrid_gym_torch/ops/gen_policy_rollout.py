@@ -189,6 +189,18 @@ def check_block_torso(config: NanogridConfig, hidden: tuple[int, int], traces: T
                          f"memory per block, more than {MAX_SHARED_BYTES}; use the plain engine")
 
 
+def check_collect_block(config: NanogridConfig, traces: Traces, lib, hidden: tuple[int, int]) -> None:
+    """Raise before any launch when a collection kernel's shared memory (the
+    library's ``ngk_collect_smem_floats``: K1/K2's actor-critic or K9's
+    weight ring, the block's activations and draws) and the traces exceed a
+    block's."""
+    need = 4 * (lib.ngk_collect_smem_floats() + trace_floats(config, traces))
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"torsos {hidden[0]}x{hidden[1]} and the traces need {need} bytes of shared memory "
+                         f"per block in the collection kernel, more than {MAX_SHARED_BYTES}; "
+                         f"use collect_impl='plain'")
+
+
 def policy_obs(traces: Traces, o: int, pv_shift, soc_rows, dep_o, batt_soc, *, pv: bool, batt: bool):
     """The observation ``(F, B)`` at trace offset ``o``: radiation and price
     now and three steps ahead, the SoC rows, the departure rows / 24 and the

@@ -11,6 +11,7 @@ f32 twin, which meets JAX's f32 kernel at the f32 tolerance
 """
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -23,13 +24,15 @@ from smart_nanogrid_gym_tpu.core import NanogridConfig, make_params as jax_make_
 from smart_nanogrid_gym_tpu.solvers.networks import ActorCritic as FlaxActorCritic
 
 from smart_nanogrid_gym_torch.core.params import make_params
-from smart_nanogrid_gym_torch.ops.collect import check_collect_block, collect_weights
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
+    MAX_SHARED_BYTES,
     actor_weights,
     check_block_torso,
+    check_collect_block,
     gen_policy_day_plain,
     gen_policy_multiday,
     gen_policy_multiday_plain,
+    trace_floats,
 )
 from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces, pv_shift_from_uniform
 from smart_nanogrid_gym_torch.ops.philox import day_uniforms
@@ -112,8 +115,10 @@ def test_k5_twin_at_256x256_matches_pallas():
 
 def test_torso_limits_raise_before_any_launch():
     """K6 refuses h1 + h2 > 768 as the JAX kernel does (on the CPU too, before
-    any launch); the block design's shared-memory check names its limit; K1/K2
-    refuse a 256×256 actor-critic, whose block exceeds a block's shared memory."""
+    any launch); the block design's shared-memory check names its limit; the
+    collection kernels refuse a block whose shared memory, as the kernel
+    library reports it, and the traces exceed a block's (the 256×256
+    actor-critic on the card: tests/test_torch_cuda.py)."""
     params = make_params(B8, torch.float32, "cpu")
     with pytest.raises(ValueError, match="768"):
         gen_policy_multiday(B8, params, ActorCritic(B8.obs_dim, B8.num_actions, (512, 512)), 1, 0, 8)
@@ -123,9 +128,9 @@ def test_torso_limits_raise_before_any_launch():
     check_block_torso(B8, (256, 256), traces)
     with pytest.raises(ValueError, match="232448"):
         check_block_torso(B8, (1024, 1024), traces)
-    check_collect_block(B8, traces, collect_weights(B8, ActorCritic(B8.obs_dim, B8.num_actions), CPU))
+    room = MAX_SHARED_BYTES // 4 - trace_floats(B8, traces)
+    check_collect_block(B8, traces, SimpleNamespace(ngk_collect_smem_floats=lambda: room), (64, 64))
     with pytest.raises(ValueError, match="collect_impl='plain'"):
-        check_collect_block(B8, traces, collect_weights(B8, ActorCritic(B8.obs_dim, B8.num_actions, (256, 256)),
-                                                        CPU))
+        check_collect_block(B8, traces, SimpleNamespace(ngk_collect_smem_floats=lambda: room + 1), (256, 256))
     with pytest.raises(ValueError, match="operand dtype"):
         gen_policy_multiday(B8, params, ActorCritic(B8.obs_dim, B8.num_actions), 1, 0, 8, mlp_dtype=torch.float16)

@@ -31,6 +31,10 @@ from smart_nanogrid_gym_torch.utils.weights import leaves_from_flax
 
 B8 = NanogridConfig(num_chargers=8, pv_system=True, battery_system=True, penalty_mode="sparse")
 BASIC4 = NanogridConfig(num_chargers=4, pv_system=False, battery_system=False, penalty_mode="sparse")
+TWO_HOUR4 = NanogridConfig(num_chargers=4, pv_system=True, battery_system=True, penalty_mode="sparse",
+                           time_interval=2.0)
+K1_TOLS = {"obs": (1e-6, 1e-6), "act": (1e-5, 1e-5), "logp": (1e-4, 1e-4), "value": (1e-4, 1e-5),
+           "rewards": (1e-5, 1e-5), "batt": (1e-6, 1e-7)}  # tests/test_collect_kernel.py:98-109
 
 
 def collect_inputs(config, batch, seed):
@@ -62,9 +66,21 @@ def test_k1_twin_matches_pallas_collect():
         ref = pallas_ppo_collect_day(B8, jax_make_params(B8, dtype=jnp.float32), flax_params,
                                      *(jnp.asarray(x) for x in (u, normals, pv, batt)), interpret=True)
     got = port_collect(B8, inputs)
-    tols = {"obs": (1e-6, 1e-6), "act": (1e-5, 1e-5), "logp": (1e-4, 1e-4), "value": (1e-4, 1e-5),
-            "rewards": (1e-5, 1e-5), "batt": (1e-6, 1e-7)}
-    for (name, (rtol, atol)), g, r in zip(tols.items(), got, ref):
+    for (name, (rtol, atol)), g, r in zip(K1_TOLS.items(), got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=rtol, atol=atol, err_msg=name)
+
+
+def test_k1_twin_matches_pallas_collect_two_hours():
+    """Off the 1 h grid: 12 steps of 2 h (departure offsets 2/5/0 steps), 4
+    chargers, at the smallest batch the JAX kernel takes (128 lanes)."""
+    inputs = collect_inputs(TWO_HOUR4, 128, 5)
+    u, normals, pv, batt, flax_params = inputs
+    with jax.enable_x64(False):
+        ref = pallas_ppo_collect_day(TWO_HOUR4, jax_make_params(TWO_HOUR4, dtype=jnp.float32), flax_params,
+                                     *(jnp.asarray(x) for x in (u, normals, pv, batt)), interpret=True)
+    got = port_collect(TWO_HOUR4, inputs)
+    assert got[0].shape == (12, TWO_HOUR4.obs_dim, 128)
+    for (name, (rtol, atol)), g, r in zip(K1_TOLS.items(), got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=rtol, atol=atol, err_msg=name)
 
 

@@ -4,7 +4,8 @@ Marked ``cuda``: each test skips without a CUDA device (and needs ``nvcc``
 to build the kernels at first use).  The file imports no JAX, so it also
 runs on a machine that has only PyTorch: ``python -m pytest
 tests/test_torch_cuda.py -m cuda``.  Batches of 300 leave a ragged last
-block of threads.
+block of threads; the collection kernels are also held at 1, 33 and 8192
+envs, bit for bit.
 """
 
 import numpy as np
@@ -142,7 +143,19 @@ COLLECT_CONFIGS = {
     "b-pv-8ch": NanogridConfig(num_chargers=8, pv_system=True, battery_system=True),
     "basic-4ch-dense": NanogridConfig(num_chargers=4, pv_system=False, battery_system=False,
                                       penalty_mode="dense", requested_state_of_charge=True),
+    "b-pv-2h": NanogridConfig(num_chargers=6, time_interval=2.0, penalty_mode="on_departure"),
 }
+# batches of 1 and 33 leave a block of one env and a ragged one; 300 spans ten blocks;
+# 8192 is 256 blocks of 32 envs, more than one wave of the 132 SMs
+COLLECT_BATCHES = (1, 33, 300, 8192)
+
+
+def assert_equal_outputs(got, want, names):
+    """Every output bit-equal to the twin's (the collection kernels sum in
+    the twin's order, with no FMA)."""
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, name
+        assert torch.equal(g, w), f"{name}: max |d| {float((g - w).abs().max()):.3e}"
 HYPERS = SweepHypers(lr=3e-4, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, max_grad_norm=0.5)
 
 
@@ -150,27 +163,40 @@ def _leaves(config, seed, device):
     return [x.detach() for x in actor_critic_leaves(shifted_actor(config, seed, device))]
 
 
+@pytest.mark.parametrize("batch", COLLECT_BATCHES)
 @pytest.mark.parametrize("name", list(COLLECT_CONFIGS))
-def test_collect_kernels_match_twins(cuda, name):
+def test_collect_kernels_match_twins(cuda, name, batch):
     config = COLLECT_CONFIGS[name]
     params = make_params(config, torch.float32, cuda)
     traces = kernel_traces(params, cuda)
     leaves = _leaves(config, 21, cuda)
     weights = collect_weights(config, leaves, cuda)
-    u, pv = _inputs(config, 7, 300, cuda)
+    u, pv = _inputs(config, 7, batch, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    normals = torch.randn((config.steps_per_day, config.num_actions, 300), generator=gen, device=cuda)
-    batt = torch.rand(300, generator=gen, device=cuda)
+    normals = torch.randn((config.steps_per_day, config.num_actions, batch), generator=gen, device=cuda)
+    batt = torch.rand(batch, generator=gen, device=cuda)
+    names = ("obs", "act_raw", "logp", "value", "rewards", "batt")
     reset_launch_counts()
-    out = ppo_collect_day(config, params, leaves, u, normals, pv, batt)
-    want = ppo_collect_day_plain(config, traces, weights, u, normals, pv, batt)
-    for got, ref in zip(out, want):
-        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
-    out = ppo_collect_day_seeded(config, params, leaves, 99, batt, 300)
-    want = ppo_collect_day_seeded_plain(config, traces, weights, 99, batt, 300)
-    for got, ref in zip(out, want):
-        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+    assert_equal_outputs(ppo_collect_day(config, params, leaves, u, normals, pv, batt),
+                         ppo_collect_day_plain(config, traces, weights, u, normals, pv, batt), names)
+    assert_equal_outputs(ppo_collect_day_seeded(config, params, leaves, 99, batt, batch),
+                         ppo_collect_day_seeded_plain(config, traces, weights, 99, batt, batch), names)
     assert launch_counts["ppo_collect_day"] == 1 and launch_counts["ppo_collect_day_seeded"] == 1
+
+
+def test_collect_kernels_refuse_blocks_beyond_shared_memory(cuda):
+    """K1/K2's shared memory, as the library reports it, holds the learner's
+    64x64 actor-critic but not a 256x256 one: that raises before any launch."""
+    from smart_nanogrid_gym_torch.ops import _build
+
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    params = make_params(config, torch.float32, cuda)
+    assert 4 * _build.library(config, cuda, (64, 64)).ngk_collect_smem_floats() < 232448
+    net = ActorCritic(config.obs_dim, config.num_actions, (256, 256)).to(cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="collect_impl='plain'"):
+        ppo_collect_day_seeded(config, params, net, 1, torch.rand(64, device=cuda), 64)
+    assert not launch_counts
 
 
 def _sweep_data(shape, F, A, device, seed):
@@ -271,27 +297,35 @@ def test_ddpg_policy_kernels_match_twins(cuda, name):
     assert dict(launch_counts) == {"gen_policy_day_ddpg": 1, "gen_policy_multiday_ddpg": 1}
 
 
-def test_ddpg_collect_kernels_match_twins(cuda):
+DDPG_COLLECT_CONFIGS = {
+    "b-pv-8ch": COLLECT_CONFIGS["b-pv-8ch"],
+    "b-pv-4ch": DDPG_CONFIGS["b-pv-4ch"],
+    "b-pv-2h": COLLECT_CONFIGS["b-pv-2h"],
+}
+
+
+@pytest.mark.parametrize("batch", COLLECT_BATCHES)
+@pytest.mark.parametrize("name", list(DDPG_COLLECT_CONFIGS))
+def test_ddpg_collect_kernels_match_twins(cuda, name, batch):
     from smart_nanogrid_gym_torch.ops.ddpg_collect import (
         ddpg_collect_day, ddpg_collect_day_plain, ddpg_collect_day_seeded, ddpg_collect_day_seeded_plain,
         ddpg_weights)
 
-    config = COLLECT_CONFIGS["b-pv-8ch"]
+    config = DDPG_COLLECT_CONFIGS[name]
     params = make_params(config, torch.float32, cuda)
     traces = kernel_traces(params, cuda)
     net = shifted_ddpg_actor(config, 21, cuda)
     weights = ddpg_weights(config, net, cuda)
-    u, pv = _inputs(config, 7, 300, cuda)
+    u, pv = _inputs(config, 7, batch, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    ou = 0.3 * torch.randn((config.steps_per_day, config.num_actions, 300), generator=gen, device=cuda)
-    batt = torch.rand(300, generator=gen, device=cuda)
+    ou = 0.3 * torch.randn((config.steps_per_day, config.num_actions, batch), generator=gen, device=cuda)
+    batt = torch.rand(batch, generator=gen, device=cuda)
+    names = ("obs", "act", "rewards", "next_obs", "batt")
     reset_launch_counts()
-    for got, want in ((ddpg_collect_day(config, params, net, u, ou, pv, batt),
-                       ddpg_collect_day_plain(config, traces, weights, u, ou, pv, batt)),
-                      (ddpg_collect_day_seeded(config, params, net, 99, ou, batt, 300),
-                       ddpg_collect_day_seeded_plain(config, traces, weights, 99, ou, batt, 300))):
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+    assert_equal_outputs(ddpg_collect_day(config, params, net, u, ou, pv, batt),
+                         ddpg_collect_day_plain(config, traces, weights, u, ou, pv, batt), names)
+    assert_equal_outputs(ddpg_collect_day_seeded(config, params, net, 99, ou, batt, batch),
+                         ddpg_collect_day_seeded_plain(config, traces, weights, 99, ou, batt, batch), names)
     assert dict(launch_counts) == {"ddpg_collect_day": 1, "ddpg_collect_day_seeded": 1}
 
 

@@ -8,6 +8,8 @@ in-kernel Philox numbers: its twin must equal the explicit twin fed the same
 draws, and K9 seeded and K2 generate the same day at the same seed.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +25,14 @@ from smart_nanogrid_gym_torch.core.rollout import fused_day_rollout
 from smart_nanogrid_gym_torch.core.transition import reset
 from smart_nanogrid_gym_torch.ops.collect import ppo_collect_day_seeded
 from smart_nanogrid_gym_torch.ops.ddpg_collect import (
+    check_collect_block,
     ddpg_collect_day,
     ddpg_collect_day_seeded,
     ddpg_weights,
+    k9_block,
 )
-from smart_nanogrid_gym_torch.ops.gen_rollout import pv_shift_from_uniform
+from smart_nanogrid_gym_torch.ops.gen_policy_rollout import MAX_SHARED_BYTES, trace_floats
+from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces, pv_shift_from_uniform
 from smart_nanogrid_gym_torch.ops.philox import collect_day_draws, collect_draws
 from smart_nanogrid_gym_torch.solvers.ddpg import actor_apply
 from smart_nanogrid_gym_torch.solvers.networks import mlp_leaves_from_flax
@@ -36,6 +41,10 @@ from torch_parity import flax_ddpg_actor
 
 B8 = NanogridConfig(num_chargers=8, pv_system=True, battery_system=True, penalty_mode="sparse")
 ART4 = NanogridConfig(num_chargers=4, pv_system=True, battery_system=True, penalty_mode="sparse")
+TWO_HOUR4 = NanogridConfig(num_chargers=4, pv_system=True, battery_system=True, penalty_mode="sparse",
+                           time_interval=2.0)
+K9_TOLS = {"obs": (1e-6, 1e-6), "act": (1e-5, 1e-5), "rewards": (1e-5, 1e-5), "next_obs": (1e-5, 1e-5),
+           "batt": (1e-5, 1e-6)}  # tests/test_collect_kernel.py:182-191
 
 
 def collect_inputs(config, batch, seed):
@@ -55,9 +64,21 @@ def test_k9_twin_matches_pallas_ddpg_collect():
                                       *(jnp.asarray(x) for x in (u, ou, pv, batt)), interpret=True)
     got = ddpg_collect_day(B8, make_params(B8, torch.float32, "cpu"), mlp_leaves_from_flax(flax_params, "mu"),
                            *(torch.from_numpy(x) for x in (u, ou, pv, batt)))
-    tols = {"obs": (1e-6, 1e-6), "act": (1e-5, 1e-5), "rewards": (1e-5, 1e-5), "next_obs": (1e-5, 1e-5),
-            "batt": (1e-5, 1e-6)}
-    for (name, (rtol, atol)), g, r in zip(tols.items(), got, ref):
+    for (name, (rtol, atol)), g, r in zip(K9_TOLS.items(), got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=rtol, atol=atol, err_msg=name)
+
+
+def test_k9_twin_matches_pallas_ddpg_collect_two_hours():
+    """Off the 1 h grid: 12 steps of 2 h (departure offsets 2/5/0 steps), 4
+    chargers, at the smallest batch the JAX kernel takes (128 lanes)."""
+    u, ou, pv, batt, flax_params = collect_inputs(TWO_HOUR4, 128, 4)
+    with jax.enable_x64(False):
+        ref = pallas_ddpg_collect_day(TWO_HOUR4, jax_make_params(TWO_HOUR4, dtype=jnp.float32), flax_params,
+                                      *(jnp.asarray(x) for x in (u, ou, pv, batt)), interpret=True)
+    got = ddpg_collect_day(TWO_HOUR4, make_params(TWO_HOUR4, torch.float32, "cpu"),
+                           mlp_leaves_from_flax(flax_params, "mu"), *(torch.from_numpy(x) for x in (u, ou, pv, batt)))
+    assert got[0].shape == (12, TWO_HOUR4.obs_dim, 128)
+    for (name, (rtol, atol)), g, r in zip(K9_TOLS.items(), got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=rtol, atol=atol, err_msg=name)
 
 
@@ -121,3 +142,30 @@ def test_k9_rejects_wrong_shapes():
                          torch.from_numpy(pv), torch.from_numpy(batt))
     with pytest.raises(ValueError, match="config needs"):
         ddpg_weights(B8, leaves, torch.device("cpu"))
+
+
+def test_k9_block_holds_w1_and_w2_k_major():
+    """K9 streams W1 and W2 k-major through its shared-memory ring, each chunk
+    one bulk copy: the block holds their transposes with each k-row padded
+    with zeros to 8 (W1) and 4 (W2) floats, then b1, b2, W3, b3 and the box;
+    the library's size is checked, and so is the block's shared memory
+    against the size the library reports."""
+    flax_params = flax_ddpg_actor(ART4, 2, hidden=(50, 30), shift=False)
+    w = ddpg_weights(ART4, mlp_leaves_from_flax(flax_params, "mu"), torch.device("cpu"))
+    (H1, F), H2 = w.w1.shape, w.w2.shape[0]
+    P1, P2 = 56, 32
+    tail = torch.cat([x.reshape(-1) for x in (w.b1, w.b2, w.w3, w.b3, w.low, w.high)])
+    size = F * P1 + H1 * P2 + tail.numel()
+    block = k9_block(w, SimpleNamespace(ngk_collect_weights_size=lambda: size))
+    w1 = block[:F * P1].reshape(F, P1)
+    w2 = block[F * P1:F * P1 + H1 * P2].reshape(H1, P2)
+    assert torch.equal(w1[:, :H1], w.w1.T) and not w1[:, H1:].any()
+    assert torch.equal(w2[:, :H2], w.w2.T) and not w2[:, H2:].any()
+    assert torch.equal(block[F * P1 + H1 * P2:], tail)
+    with pytest.raises(ValueError, match="expects"):
+        k9_block(w, SimpleNamespace(ngk_collect_weights_size=lambda: size + 1))
+    traces = kernel_traces(make_params(B8, torch.float32, "cpu"), "cpu")
+    room = MAX_SHARED_BYTES // 4 - trace_floats(B8, traces)
+    check_collect_block(B8, traces, SimpleNamespace(ngk_collect_smem_floats=lambda: room), (400, 300))
+    with pytest.raises(ValueError, match="shared memory"):
+        check_collect_block(B8, traces, SimpleNamespace(ngk_collect_smem_floats=lambda: room + 1), (1024, 1024))

@@ -141,3 +141,23 @@ def test_cpu_tensors_take_the_plain_path():
     reset_launch_counts()
     gen_rbc_multiday(config, make_params(config, torch.float32, "cpu"), 1, 0, 8)
     assert sum(launch_counts.values()) == 0
+
+
+def test_library_path_reads_the_sources_once_per_process(monkeypatch):
+    """Every launch names its library through ``library_path``: the digest of
+    the sources is read on a process's first call and never again."""
+    from pathlib import Path
+
+    from smart_nanogrid_gym_torch.ops import _build
+
+    _build.source_digest.cache_clear()
+    reads = []
+    read_bytes = Path.read_bytes
+    monkeypatch.setattr(Path, "read_bytes", lambda self: reads.append(self.name) or read_bytes(self))
+    flags = _build.config_flags(RBC_CONFIGS["b-pv-sparse"])
+    first = _build.library_path(flags)
+    assert sorted(reads) == sorted(_build.SOURCES)
+    reads.clear()
+    assert _build.library_path(flags) == first
+    assert _build.library_path(_build.config_flags(RBC_CONFIGS["basic-ondep"])) != first
+    assert reads == []
