@@ -46,12 +46,14 @@ cooperative launch per update), the statistics of the in-kernel draws
 against the plain engine, that training raises the mean day return, and
 times each kernel against its twin and its bound; the f32 kernels must equal
 their twins, the bf16 sweeps, whose products run on the tensor cores, must
-meet the tolerance of ``tensor_core_close``; the collection kernels K1, K2
-and K9 are held to ``torch.equal`` at B=4096 (phases 8 and 14).  Beside K10
-it times the 28 products of its update as ``torch.matmul`` calls (cuBLAS,
-f32 with TF32 off and bf16), and beside K2 and K9 seeded the products of a
-collection day the same way: yardsticks of the products only, which the
-port never calls.  Any failure raises and exits
+meet the tolerance of ``tensor_core_close``, and K6's bf16 block actor (also
+on the tensor cores) that of ``k6_bf16_close``; the collection kernels K1,
+K2 and K9 and K6's f32 block actor are held to ``torch.equal`` at B=4096
+(phases 8, 13, 14 and 24).  Beside K10 it times the 28 products of its
+update as ``torch.matmul`` calls (cuBLAS, f32 with TF32 off and bf16),
+beside K2 and K9 seeded the products of a collection day, and beside K6's
+four block-actor rows the actor's products of their days the same way:
+yardsticks of the products only, which the port never calls.  Any failure raises and exits
 non-zero.  The last lines are the card (``nvidia-smi`` name and power
 limit), one JSON object with the kernels, and ``{"ok": true, "device": ...}``.
 """
@@ -190,6 +192,55 @@ def tensor_core_close(name: str, got, want, ref, n_params: int, param_bound: flo
         err = max(err, worst)
     torch.testing.assert_close(got[-1], want[-1], rtol=1e-2, atol=1e-4, msg=lambda m: f"{name} metrics: {m}")
     return max(err, float((got[-1] - want[-1]).abs().max()))
+
+
+def k6_bf16_close(name: str, got, want, f32) -> float:
+    """K6's bf16 block actor (its hidden layers on the tensor cores) against
+    its bf16 twin, ``f32`` the f32 kernel's stats on the same days: for at
+    least 99 % of the envs the Σ day return and the final battery are as
+    close to the twin's as the f32 kernel's are (rtol 1e-4, atol 1e-6), and
+    the mean day return lies within 0.5 % of the twin's (tests/torch_parity.py
+    ``k6_bf16_close``).  Returns the max abs error."""
+    g, w, f = (x.double() for x in (got, want, f32))
+    check(g.shape == w.shape and bool(torch.isfinite(g).all()), f"{name}: shape or non-finite output")
+    shares = [float(((g[r] - w[r]).abs() <= (f[r] - w[r]).abs() + 1e-6 + 1e-4 * w[r].abs()).double().mean())
+              for r in (0, 2)]
+    rel = abs(float(g[0].sum() - w[0].sum())) / abs(float(w[0].sum()))
+    err = float((g - w).abs().max())
+    print(f"{name}: {shares[0]:.5f} of envs' returns and {shares[1]:.5f} of their batteries as close to the twin "
+          f"as f32 (limit 0.99), mean day return off by {rel:.3e} (limit 0.005), max |d| {err:.3e} "
+          f"(f32 kernel against the bf16 twin {float((f - w).abs().max()):.3e})")
+    check(min(shares) >= 0.99 and rel < 0.005, f"{name}: outside K6's bf16 contract")
+    return err
+
+
+def k6_products_ms(config, hidden: tuple[int, int], days: int, dtype) -> float:
+    """The yardstick beside K6's block-actor rows: the actor's three products
+    for each of the days x T steps at B=4096, one ``torch.matmul`` (cuBLAS,
+    f32 with TF32 off, or bf16) each, by CUDA events.  It covers the products
+    only (no bias, activation, head, draws or physics, and none of the
+    kernel's fusion); the port never calls it."""
+    F, A, T = config.obs_dim, config.num_actions, config.steps_per_day
+    gen = torch.Generator(device="cuda").manual_seed(37)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    x, h1, h2 = r(BENCH_BATCH, F), r(BENCH_BATCH, hidden[0]), r(BENCH_BATCH, hidden[1])
+    w1, w2, w3 = r(F, hidden[0]), r(hidden[0], hidden[1]), r(hidden[1], A)
+
+    def run():
+        for _ in range(days * T):
+            torch.matmul(x, w1)
+            torch.matmul(h1, w2)
+            torch.matmul(h2, w3)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(run, 3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def k10_products_ms(args, dtype) -> float:
@@ -676,11 +727,12 @@ def ddpg_twin_checks(art_cfg, art_params, ddpg_art, u4, pv4, cfg, params, u, pv,
         gen_policy_day(art_cfg, art_params, ddpg_art, u4, pv4, actor="ddpg"),
         gen_policy_day_plain(art_cfg, art_traces, w, u4, pv4, torch.full_like(pv4, 0.5), actor="ddpg"),
         rtol=2e-4, atol=2e-4)
+    k6_got = (gen_policy_multiday(art_cfg, art_params, ddpg_art, 2, 12, BENCH_BATCH, actor="ddpg"),)
+    k6_want = (gen_policy_multiday_plain(art_cfg, art_traces, w, 2, 12, BENCH_BATCH, actor="ddpg"),)
     errors["gen_policy_multiday_ddpg"] = compare(
-        "phase 13 K6 gen_policy_multiday actor=ddpg (DDPG artifact, B=4096 x 2 days)",
-        (gen_policy_multiday(art_cfg, art_params, ddpg_art, 2, 12, BENCH_BATCH, actor="ddpg"),),
-        (gen_policy_multiday_plain(art_cfg, art_traces, w, 2, 12, BENCH_BATCH, actor="ddpg"),),
+        "phase 13 K6 gen_policy_multiday actor=ddpg (DDPG artifact, B=4096 x 2 days)", k6_got, k6_want,
         rtol=2e-4, atol=1e-2)
+    check_equal("phase 13 K6 gen_policy_multiday actor=ddpg", k6_got, k6_want, ("stats",))
 
     learner = DDPGLearner(cfg, device=device)
     leaves = learner.init(7, params, BENCH_BATCH).actor
@@ -1293,6 +1345,14 @@ def bf16_rows(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big,
         "ddpg_sweep_bf16": ("G=24 x M=256, F=25 A=9 400-300, bf16 tensor cores", lambda: ddpg(ddpg_sweep(*d16)),
                             lambda: ddpg(ddpg_sweep_plain(*d16)), 3, None, None),
     }
+    # K6's bf16 block-actor rows: the f32 kernel on the same days
+    k6_f32 = {
+        "gen_policy_multiday_block_bf16": lambda: (gen_policy_multiday(
+            rbc_cfg, rbc_params, big, NEW_ROW_DAYS["gen_policy_multiday_block_bf16"], 12, BENCH_BATCH),),
+        "gen_policy_multiday_ddpg_bf16": lambda: (gen_policy_multiday(
+            art_cfg, art_params, ddpg_art, NEW_ROW_DAYS["gen_policy_multiday_ddpg_bf16"], 12, BENCH_BATCH,
+            actor="ddpg"),),
+    }
     # the tensor-core rows: parameter leaves, lr, G, the f32 kernel on the same inputs
     hp32, d32 = learner0._hypers(), ddpg_sweep_args[-1]
     f32_refs = {
@@ -1312,8 +1372,13 @@ def bf16_rows(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big,
         if name in f32_refs:  # tensor cores: a stated tolerance, not bit-equality
             n_params, lr, G, f32 = f32_refs[name]
             errors[name] = tensor_core_close(f"phase 24 {name} ({shape})", got, want, f32(), n_params, 4 * G * lr)
+        elif name in k6_f32:  # K6's block actor in bf16, on the tensor cores
+            errors[name] = k6_bf16_close(f"phase 24 {name} ({shape})", got[0], want[0], k6_f32[name]()[0])
+            check(torch.equal(got[0], kernel()[0]), f"{name}: a rerun is not bit-identical")
         else:
             errors[name] = compare(f"phase 24 {name} ({shape})", got, want, rtol=rtol, atol=atol)
+            if name == "gen_policy_multiday_block":
+                check_equal(f"phase 24 {name}", got, want, ("stats",))
         if name in ("ppo_sweep_streamed_bf16", "ddpg_sweep_bf16"):
             check(all(torch.equal(a, b) for a, b in zip(got, kernel())), f"{name}: a rerun is not bit-identical")
         times[name] = (shape, cuda_ms(kernel, repeats), start.elapsed_time(end))
@@ -1362,6 +1427,9 @@ def big_evaluation_main_path(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art,
     days = min(BIG_ROW_DAYS, max(1, int(ROW_SECONDS / per_day)))
     if days < BIG_ROW_DAYS:
         print(f"phase 25 bench row cut to {days} of {BIG_ROW_DAYS} days ({per_day * 1e3:.3f} ms a day in f32)")
+    else:
+        print(f"phase 25 bench row at its full {BIG_ROW_DAYS} days ({per_day * 1e3:.3f} ms a day in f32 on the "
+              f"{probe_days}-day probe, under ROW_SECONDS = {ROW_SECONDS})")
     rows = {}
     for tag, mm in (("f32", None), ("bf16", BF16)):
         torch.cuda.synchronize()
@@ -1463,9 +1531,11 @@ def bf16_training_main_path(cfg, params, device, card):
     return ppo_launches, ddpg_launches
 
 
-def bf16_device_times(rbc_cfg, rbc_params, big, featlane, gathered, state, learner, ddpg_sweep_args, card):
+def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art, big, featlane, gathered, state, learner,
+                      ddpg_sweep_args, card):
     """Phase 28: by the profiler, the device time of each bf16 row beside its
-    f32 counterpart's: K6 at 256x256 (B=4096, 2 days), K3, K4 and K10 per update."""
+    f32 counterpart's: K6 at 256x256 and with the DDPG artifact (B=4096, 2
+    days), K3, K4 and K10 per update."""
     from smart_nanogrid_gym_torch.ops.ddpg_sweep import ddpg_sweep
     from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_multiday
     from smart_nanogrid_gym_torch.ops.ppo_sweep import ppo_sweep, ppo_sweep_streamed
@@ -1484,6 +1554,12 @@ def bf16_device_times(rbc_cfg, rbc_params, big, featlane, gathered, state, learn
         ("gen_policy_multiday_block_bf16",
          lambda: gen_policy_multiday(rbc_cfg, rbc_params, big, days, 5, BENCH_BATCH, mlp_dtype=BF16),
          "gen_policy_multiday_block_kernel"),
+        ("gen_policy_multiday_ddpg",
+         lambda: gen_policy_multiday(art_cfg, art_params, ddpg_art, days, 5, BENCH_BATCH, actor="ddpg"),
+         "gen_policy_multiday_block_kernel"),
+        ("gen_policy_multiday_ddpg_bf16",
+         lambda: gen_policy_multiday(art_cfg, art_params, ddpg_art, days, 5, BENCH_BATCH, actor="ddpg",
+                                     mlp_dtype=BF16), "gen_policy_multiday_block_kernel"),
         ("ppo_sweep_streamed", lambda: ppo_sweep_streamed(p, o, *data, block_perm, slab, hp32), k3),
         ("ppo_sweep_streamed_bf16", lambda: ppo_sweep_streamed(p, o, *data, block_perm, slab, hp16), k3),
         ("ppo_sweep", lambda: ppo_sweep(p, o, *gathered, hp32), k3),
@@ -1495,6 +1571,7 @@ def bf16_device_times(rbc_cfg, rbc_params, big, featlane, gathered, state, learn
         device_times[name] = device_ms(fn, kernel, 3)
         print(f"phase 28 {name}: {device_times[name]:.4f} ms of device time per call (profiler) on {card}")
     for a, b in (("gen_policy_multiday_block_bf16", "gen_policy_multiday_block"),
+                 ("gen_policy_multiday_ddpg_bf16", "gen_policy_multiday_ddpg"),
                  ("ppo_sweep_streamed_bf16", "ppo_sweep_streamed"), ("ppo_sweep_bf16", "ppo_sweep"),
                  ("ddpg_sweep_bf16", "ddpg_sweep")):
         print(f"phase 28 {a} / {b}: device time ratio {device_times[a] / device_times[b]:.4f}")
@@ -1863,13 +1940,25 @@ def main() -> None:
     ddpg_timings(art_cfg, art_params, ddpg_art, u4, pv4, rbc_cfg, rbc_params, ddpg_learner, d_leaves, u, pv, d_ou,
                  d_batt, sweep_args, ddpg_state, card, times, ddpg_days)
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 28")
-    bf16_device_times(rbc_cfg, rbc_params, big, featlane, gathered, trained_state, learner, sweep_args, card)
+    bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art, big, featlane, gathered, trained_state,
+                      learner, sweep_args, card)
 
     library = {name: k10_products_ms(sweep_args, dtype) for name, dtype in
                (("ddpg_sweep", torch.float32), ("ddpg_sweep_bf16", BF16))}
     for name, ms in library.items():
         print(f"K10 yardstick {name}: the 28 products of each of 24 steps as torch.matmul (cuBLAS, products "
               f"only) {ms:.4f} ms per update, the kernel {times[name][1]:.4f} ms (whole update) on {card}")
+    for name, cfg, hidden, days, dtype in (
+            ("gen_policy_multiday_ddpg", art_cfg, DDPG_HIDDEN, ddpg_days, torch.float32),
+            ("gen_policy_multiday_ddpg_bf16", art_cfg, DDPG_HIDDEN, NEW_ROW_DAYS["gen_policy_multiday_ddpg_bf16"], BF16),
+            ("gen_policy_multiday_block", rbc_cfg, BIG_HIDDEN, NEW_ROW_DAYS["gen_policy_multiday_block"],
+             torch.float32),
+            ("gen_policy_multiday_block_bf16", rbc_cfg, BIG_HIDDEN, NEW_ROW_DAYS["gen_policy_multiday_block_bf16"],
+             BF16)):
+        library[name] = k6_products_ms(cfg, hidden, days, dtype)
+        print(f"K6 yardstick {name}: the actor's 3 products of each of {days} x 24 steps as torch.matmul at "
+              f"B={BENCH_BATCH} (cuBLAS {'bf16' if dtype == BF16 else 'f32'}, products only) {library[name]:.4f} "
+              f"ms, the kernel {times[name][1]:.4f} ms (wrapper, {times[name][0]}) on {card}")
     library["ppo_collect_day_seeded"] = collect_products_ms(rbc_cfg, (64, 64), True, device)
     library["ddpg_collect_day_seeded"] = collect_products_ms(rbc_cfg, DDPG_HIDDEN, False, device)
     for name, label in (("ppo_collect_day_seeded", "K2: the actor-critic's 6"),

@@ -8,8 +8,9 @@
 //   K6 pallas_gen_policy_rollout.py::pallas_gen_policy_multiday -> gen_policy_multiday_kernel<C, BF16>
 //   K1 pallas_collect.py::pallas_ppo_collect_day            -> ppo_collect_day_kernel<C, false>
 //   K2 pallas_collect.py::pallas_ppo_collect_day_seeded     -> ppo_collect_day_kernel<C, true>
-//   K5/K6 with actor="ddpg", or a PPO torso too large for   -> gen_policy_day_block_kernel<C, KIND>,
-//   shared memory                                              gen_policy_multiday_block_kernel<C, KIND, BF16>
+//   K5 with actor="ddpg", or a PPO torso too large for       -> gen_policy_day_block_kernel<C, KIND>
+//   shared memory
+//   K6 with actor="ddpg", or such a PPO torso                -> gen_policy_multiday_block_kernel<C, KIND, BF16>
 //   K9 pallas_collect.py::pallas_ddpg_collect_day(_seeded)  -> ddpg_collect_day_kernel<C, SEEDED>
 //   K11a pallas_rollout.py::pallas_rbc_day_rollout          -> rbc_day_rollout_kernel<C>
 //   K11b pallas_policy_rollout.py::pallas_policy_day_rollout -> policy_day_rollout_kernel<C>,
@@ -43,25 +44,28 @@
 //
 // The DDPG actor of K5/K6 (actor="ddpg") is SB3's 400-300 ReLU torso:
 // 129-133k floats, more than a block's 227 KB of shared memory, and 700
-// hidden floats a thread would spill.  So it runs as a block-level product
-// (BlockActor): a block takes kBlockEnvs = 32 envs with kBlockThreads
-// threads; every warp runs the same 32 envs' step body (one env per lane,
-// the redundant copies write nothing), warp 0 stages the observations in
-// shared memory, and all warps compute the hidden layers there, each thread
-// R output rows of one env, reading warp-uniform weight rows from global
-// memory (the whole actor stays in the 50 MB L2).  Each output's sum over
-// its inputs runs in index order, as the twin's dense() does.  It is bound
-// by the torso's multiply-adds, about 2.7e5 flops per env-step.  A PPO
-// actor whose f32 block does not fit beside the traces in shared memory
-// (the bench's 256x256 torso: 74,779 floats) takes the same design with
-// tanh hidden layers and the clipped mean as its head (kernels.cu chooses
-// per library); the 64x64 torsos keep MeanActor.
+// hidden floats a thread would spill.  So it runs as a block-level product.
+// K5 and K11b use BlockActor: a block takes kBlockEnvs = 32 envs with
+// kBlockThreads threads; every warp runs the same 32 envs' step body (one env
+// per lane, the redundant copies write nothing), warp 0 stages the
+// observations in shared memory, and all warps compute the hidden layers
+// there, each thread R output rows of one env, reading warp-uniform weight
+// rows from global memory (the whole actor stays in the 50 MB L2).  K6 uses
+// K9's design instead (see "K6 block actor" below): an env warp that runs
+// the step body once per env, register-tiled products, the weights streamed
+// through a shared-memory ring by TMA, and its bf16 option on the tensor
+// cores.  Each output's sum over its inputs runs in index order, as the
+// twin's dense() does (K6's bf16 option aside).  A PPO actor whose f32 block
+// does not fit beside the traces in shared memory (the bench's 256x256
+// torso: 74,779 floats) takes the same designs with tanh hidden layers and
+// the clipped mean as its head (kernels.cu chooses per library); the 64x64
+// torsos keep MeanActor.
 //
-// K6's bf16 option (mlp_dtype, pallas_gen_policy_rollout.py:140-154, 531):
-// the wrapper rounds w1..w3 to bf16 values (biases stay f32); the kernel
-// rounds the observation, h1 and h2 (every use of them is a product
-// operand) and accumulates the products in f32 (operand.cuh).  It is a
-// template flag of K6 chosen at launch, so no library is added.
+// K6's bf16 option (mlp_dtype, pallas_gen_policy_rollout.py:140-154, 531)
+// for MeanActor: the wrapper rounds w1..w3 to bf16 values (biases stay f32);
+// the kernel rounds the observation, h1 and h2 (every use of them is a
+// product operand) and accumulates the products in f32 (operand.cuh).  It
+// is a template flag of K6 chosen at launch, so no library is added.
 //
 // The tables-in kernels (K11a RBC, K11b the PPO actor's mean) roll one day of
 // a given state instead of generating it: the wrapper (ops/rollout.py) builds
@@ -75,6 +79,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "operand.cuh"
 
@@ -852,11 +857,10 @@ constexpr int block_shared_floats() {
   return (C::F + C::H1 + C::H2 + C::A) * kBlockEnvs;
 }
 
-// y[j][e] = act(sum_k w[j][k] x[k][e] + b[j]) for the block's envs, kept
-// rounded with BF16 (y is a product operand only).  A warp takes kBlockRows
-// rows for its 32 lanes (one env each): the weight reads are warp-uniform
-// (one broadcast load), the activation reads conflict-free.
-template <int J, int K, int KIND, bool BF16>
+// y[j][e] = act(sum_k w[j][k] x[k][e] + b[j]) for the block's envs.  A warp
+// takes kBlockRows rows for its 32 lanes (one env each): the weight reads are
+// warp-uniform (one broadcast load), the activation reads conflict-free.
+template <int J, int K, int KIND>
 __device__ __forceinline__ void dense_block(const float* __restrict__ w, const float* __restrict__ bias,
                                             const float* x, float* y) {
   const int lane = threadIdx.x % kBlockEnvs, warp = threadIdx.x / kBlockEnvs;
@@ -881,7 +885,7 @@ __device__ __forceinline__ void dense_block(const float* __restrict__ w, const f
       if (j0 + r < J) {
         const float v = acc[r] + __ldg(bias + j0 + r);
         const float a = KIND == kPpoActor ? tanhf(v) : (v > 0.0f ? v : 0.0f);
-        y[(j0 + r) * kBlockEnvs + lane] = operand<BF16>(a);
+        y[(j0 + r) * kBlockEnvs + lane] = a;
       }
     }
   }
@@ -893,7 +897,7 @@ __device__ __forceinline__ void dense_block(const float* __restrict__ w, const f
 // thread reads back its lane's action.  The PPO head is the mean clipped to
 // the box (pallas_gen_policy_rollout.py:143-147); the DDPG head is
 // a = low + (tanh(mu) + 1)·0.5·(high − low) (:148-154, no clip).
-template <class C, int KIND, bool BF16 = false>
+template <class C, int KIND>
 struct BlockActor {
   Actor<C> w;  // views of the packed block in global memory
   BlockShared<C> s;
@@ -902,12 +906,12 @@ struct BlockActor {
     const int lane = threadIdx.x % kBlockEnvs;
     if (threadIdx.x < kBlockEnvs) {
 #pragma unroll
-      for (int f = 0; f < C::F; ++f) s.xs[f * kBlockEnvs + lane] = operand<BF16>(obs[f]);
+      for (int f = 0; f < C::F; ++f) s.xs[f * kBlockEnvs + lane] = obs[f];
     }
     __syncthreads();
-    dense_block<C::H1, C::F, KIND, BF16>(w.w1, w.b1, s.xs, s.h1);
+    dense_block<C::H1, C::F, KIND>(w.w1, w.b1, s.xs, s.h1);
     __syncthreads();
-    dense_block<C::H2, C::H1, KIND, BF16>(w.w2, w.b2, s.h1, s.h2);
+    dense_block<C::H2, C::H1, KIND>(w.w2, w.b2, s.h1, s.h2);
     __syncthreads();
     for (int i = threadIdx.x; i < C::A * kBlockEnvs; i += blockDim.x) {
       const int a = i / kBlockEnvs, e = i % kBlockEnvs;
@@ -940,9 +944,9 @@ struct BlockLane {
 
 // The evaluation actor of a block: its views of the weights and of the
 // shared memory after the traces.
-template <class C, int KIND, bool BF16>
-__device__ __forceinline__ BlockActor<C, KIND, BF16> block_actor(const float* weights, const SharedTraces& s, int T) {
-  return BlockActor<C, KIND, BF16>{Actor<C>(weights), BlockShared<C>(s.solar + T)};
+template <class C, int KIND>
+__device__ __forceinline__ BlockActor<C, KIND> block_actor(const float* weights, const SharedTraces& s, int T) {
+  return BlockActor<C, KIND>{Actor<C>(weights), BlockShared<C>(s.solar + T)};
 }
 
 // K5 with the block actor (actor="ddpg", or a PPO torso too large for
@@ -959,7 +963,7 @@ gen_policy_day_block_kernel(const float* __restrict__ price, const float* __rest
   const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
   __syncthreads();
   const BlockLane l(B);
-  const auto policy = block_actor<C, KIND, false>(weights, s, d.T);
+  const auto policy = block_actor<C, KIND>(weights, s, d.T);
   const ExplicitDraws<C::N> src{u, B, l.b};
   const float pv = pv_shift[l.b];
   float batt = batt_soc[l.b];
@@ -982,51 +986,6 @@ gen_policy_day_block_kernel(const float* __restrict__ price, const float* __rest
 #pragma unroll
   for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + l.b] = c.prev_col[n];
   batt_final[l.b] = batt;
-}
-
-// K6 with the block actor: outputs as gen_policy_multiday_kernel.
-template <class C, int KIND, bool BF16>
-__global__ void __launch_bounds__(kBlockThreads)
-gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
-                                 const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
-                                 uint32_t seed, int num_days, const float* __restrict__ weights,
-                                 float* __restrict__ stats, int B, Dims d) {
-  extern __shared__ float smem[];
-  const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
-  __syncthreads();
-  const BlockLane l(B);
-  const auto policy = block_actor<C, KIND, BF16>(weights, s, d.T);
-  float batt = kBattInit;
-  float rew_total = 0.0f, sq_total = 0.0f;
-  Carry<C> c;
-  float act[C::A], pen[C::N], pen_acc[C::N];
-#pragma unroll 1
-  for (int day = 0; day < num_days; ++day) {
-    const PhiloxDraws<C::N> src{make_uint2(seed, static_cast<uint32_t>(l.b)), static_cast<uint32_t>(day)};
-    const float pv = src.pv_shift(d.T);
-    c.clear();
-#pragma unroll
-    for (int n = 0; n < C::N; ++n) pen_acc[n] = 0.0f;
-    float day_sum = 0.0f;
-#pragma unroll 1
-    for (int t = 0; t < d.T; ++t) {
-      const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
-#pragma unroll
-      for (int n = 0; n < C::N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
-      const float reward = -policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt);
-      day_sum = t == 0 ? reward : day_sum + reward;
-    }
-    float pen_total = pen_acc[0];
-#pragma unroll
-    for (int n = 1; n < C::N; ++n) pen_total = pen_total + pen_acc[n];
-    const float day_return = day_sum - kWVeh * pen_total;
-    rew_total = rew_total + day_return;
-    sq_total = sq_total + day_return * day_return;
-  }
-  if (!l.writes) return;
-  stats[l.b] = rew_total;
-  stats[static_cast<int64_t>(B) + l.b] = sq_total;
-  stats[2 * static_cast<int64_t>(B) + l.b] = batt;
 }
 
 // ---------------------------------------------------- collection kernels ---
@@ -1066,6 +1025,8 @@ gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* _
 // per env-step for K1/K2, 2.7e5 for K9.
 
 constexpr int kCollectEnvs = 32;  // envs per block: one per lane of the env warp
+constexpr int kMaxSmemBytes = 232448;      // dynamic shared memory one H100 block may use
+constexpr int kTraceReserveBytes = 16384;  // room kept for the traces (S + P + 2T floats)
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -1180,18 +1141,19 @@ struct CollectLane {
   }
 };
 
-// The draws of the collection kernels for the thread that stores them:
-// explicit (u (T, 5, N, B), K1's normals (T, A, B)) or Philox keyed by
-// (seed, b) (K2, K9 seeded), for env b.
+// The draws of the collection kernels (and K6's block actor) for the thread
+// that stores them: explicit (u (T, 5, N, B), K1's normals (T, A, B)) or
+// Philox keyed by (seed, b) (K2, K9 seeded: day 0; K6: its day), for env b.
 template <class C, bool SEEDED>
 struct CollectSource {
   const float *u, *normals;
   uint32_t seed;
   int64_t B;
+  uint32_t day = 0;
 
   __device__ void draw(int64_t b, int t, int kind, float (&out)[C::N]) const {
     if constexpr (SEEDED) {
-      PhiloxDraws<C::N>{make_uint2(seed, static_cast<uint32_t>(b)), 0u}.draw(t, kind, out);
+      PhiloxDraws<C::N>{make_uint2(seed, static_cast<uint32_t>(b)), day}.draw(t, kind, out);
     } else {
       ExplicitDraws<C::N>{u, B, b}.draw(t, kind, out);
     }
@@ -1222,13 +1184,14 @@ struct SharedDraws {
   }
 };
 
-// Step t's draws of the block's envs into shared memory, one thread a
-// (kind, env) (every kind: StepDraws reads the ones it needs); with
-// `normals`, K1/K2's action normals too, one thread an env, into normals
-// (A, kCollectEnvs).  Tail envs mirror the last env.
+// Step t's draws of the block's envs into shared memory (the slot of step
+// `slot`, t by default), one thread a (kind, env) (every kind: StepDraws
+// reads the ones it needs); with `normals`, K1/K2's action normals too, one
+// thread an env, into normals (A, kCollectEnvs).  Tail envs mirror the last env.
 template <class C, bool SEEDED, int THREADS>
 __device__ __forceinline__ void store_draws(const SharedDraws<C>& draws, float* normals,
-                                            const CollectSource<C, SEEDED>& src, int p, int t, int64_t b0) {
+                                            const CollectSource<C, SEEDED>& src, int p, int t, int64_t b0,
+                                            int slot = -1) {
   constexpr int E = kCollectEnvs, N = C::N, A = C::A;
   const int tasks = (kDrawKinds + (normals != nullptr ? 1 : 0)) * E;
   for (int i = p; i < tasks; i += THREADS) {
@@ -1237,7 +1200,7 @@ __device__ __forceinline__ void store_draws(const SharedDraws<C>& draws, float* 
     if (kind < kDrawKinds) {
       float out[N];
       src.draw(b, t, kind, out);
-      float* d = draws.slot(t) + kind * N * E + e;
+      float* d = draws.slot(slot < 0 ? t : slot) + kind * N * E + e;
 #pragma unroll
       for (int n = 0; n < N; ++n) d[n * E] = out[n];
     } else {
@@ -1504,11 +1467,10 @@ ppo_collect_day_kernel(const float* __restrict__ price, const float* __restrict_
 
 // ------------------------------------------------------------------ K9 ---
 
-constexpr int kDdpgProductThreads = 352;  // 11 product warps
+constexpr int kDdpgProductThreads = 352;  // 11 product warps (K9 and K6's block actor)
 constexpr int kDdpgCollectThreads = kCollectEnvs + kDdpgProductThreads;
-constexpr int kRingStages = 3;  // chunks in shared memory: one summed, two in flight
-constexpr int kRingRows = 16;   // k-rows of a chunk
-constexpr int kRingBarrierFloats = 4 * kRingStages;  // a full and an empty mbarrier (8 bytes) a stage
+constexpr int kRingStages = 3;  // K9's chunks in shared memory: one summed, two in flight
+constexpr int kRingRows = 16;   // k-rows of a chunk of K9
 
 __device__ __forceinline__ unsigned smem_address(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -1543,54 +1505,106 @@ __device__ __forceinline__ void mbarrier_wait(uint64_t* bar, unsigned parity) {
       ::"r"(smem_address(bar)), "r"(parity) : "memory");
 }
 
-// K9's geometry.  The packed block (ops/ddpg_collect.py::k9_block): W1
-// k-major (F, P1) and W2 k-major (H1, P2), each k-row padded with zeros to
-// whole tiles, so that a chunk of k-rows is one contiguous bulk copy; then
-// b1, b2, W3 (A, H2), b3, low, high.
-template <class C>
-struct DdpgCollect {
+// Block 0's step record of K6's block actor, kept only in a build with
+// -DNGK_K6_CLOCK=1 (tools/profile_k6.py): %globaltimer at the borders of
+// each step's parts and the product thread 0's time spent waiting for chunks.
+#ifdef NGK_K6_CLOCK
+constexpr int kK6ClockSlots = 8, kK6ClockSteps = 64;
+__device__ unsigned long long k6_clock[kK6ClockSteps * kK6ClockSlots];
+__device__ unsigned long long k6_ring_wait;
+
+__device__ __forceinline__ unsigned long long k6_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)::"memory");
+  return t;
+}
+#endif
+
+__device__ __forceinline__ void k6_stamp(int slot, int step) {
+#ifdef NGK_K6_CLOCK
+  if (blockIdx.x == 0 && step < kK6ClockSteps) k6_clock[step * kK6ClockSlots + slot] = k6_now();
+#endif
+}
+
+// The f32 weight stream of a ring actor (K9, K6's block actor).  The packed
+// block (ops/gen_policy_rollout.py::ring_block): W1 k-major (F, P1) and W2
+// k-major (H1, P2), each k-row padded with zeros to whole tiles of its layer
+// (R1 and R2 rows), so that ROWS k-rows are one contiguous bulk copy; then
+// b1, b2, W3 (A, H2), b3, low, high.  Chunk c of a step (c < NC1: W1's, else
+// W2's) starts at float chunk_offset(c) of the block.  A product thread owns
+// R x V register tiles, TILES of a layer over ROUNDS rounds.  The ring has
+// STAGES stages; with a stage for every chunk of a step (RESIDENT) the
+// weights are copied once.
+template <class C, int R1_, int V1_, int R2_, int V2_, int ROWS_, int STAGES_ = kRingStages>
+struct F32Ring {
+  using Config = C;
   static constexpr int E = kCollectEnvs, A = C::A;
-  // 400-300: 200 tiles in one round, 600 in two, so that each of the 4 schedulers carries at most
-  // 5 tile-rounds of 16 outputs in layer 2 (the env warp sits on scheduler 0 beside 2 product warps)
-  static constexpr int R1 = 8, V1 = 8, R2 = 4, V2 = 4;
+  static constexpr int R1 = R1_, V1 = V1_, R2 = R2_, V2 = V2_, ROWS = ROWS_;
   static constexpr int P1 = round_up(C::H1, R1), P2 = round_up(C::H2, R2);  // a layer's k-row in the ring
-  static constexpr int STAGE = kRingRows * (P1 > P2 ? P1 : P2);
-  static constexpr int NC1 = (C::F + kRingRows - 1) / kRingRows, NC2 = (C::H1 + kRingRows - 1) / kRingRows;
+  static constexpr int STAGE = ROWS * (P1 > P2 ? P1 : P2);
+  static constexpr int NC1 = (C::F + ROWS - 1) / ROWS, NC2 = (C::H1 + ROWS - 1) / ROWS;
   static constexpr int NC = NC1 + NC2;  // chunks a step
+  static constexpr int STAGES = STAGES_;
+  static constexpr bool RESIDENT = STAGES == NC;
   static constexpr int TILES1 = (P1 / R1) * (E / V1), TILES2 = (P2 / R2) * (E / V2);
   static constexpr int ROUNDS1 = (TILES1 + kDdpgProductThreads - 1) / kDdpgProductThreads;
   static constexpr int ROUNDS2 = (TILES2 + kDdpgProductThreads - 1) / kDdpgProductThreads;
   static constexpr int W2 = C::F * P1, B1 = W2 + C::H1 * P2, B2 = B1 + C::H1, W3 = B2 + C::H2;
   static constexpr int BLOCK = W3 + A * C::H2 + 3 * A;  // the packed block's floats
+  static constexpr int XS = C::F * E, H1S = P1 * E, H2S = P2 * E;  // activations, feature-major f32
   static_assert(P1 % 4 == 0 && P2 % 4 == 0, "a chunk and its start are whole 16-byte units");
-  static constexpr int FLOATS = kRingBarrierFloats + kRingStages * STAGE + (C::F + P1 + P2) * E + A * C::H2 +
-                                C::H1 + C::H2 + 3 * A + A * E + 2 * kDrawKinds * C::N * E;
+
+  __device__ static int chunk_offset(int c) { return c < NC1 ? c * ROWS * P1 : W2 + (c - NC1) * ROWS * P2; }
+  __device__ static int chunk_floats(int c) {
+    return c < NC1 ? min(ROWS, C::F - c * ROWS) * P1 : min(ROWS, C::H1 - (c - NC1) * ROWS) * P2;
+  }
 };
 
-// K9's shared memory: the ring's barriers and stages, the activations, the
-// head, the biases and the draws.
-template <class C>
-struct DdpgCollectShared {
-  using G = DdpgCollect<C>;
-  uint64_t *full, *empty;
-  float *ring, *xs, *h1, *h2, *w3, *b1, *b2, *b3, *low, *high, *act, *draws;
+// Shared memory of a ring actor before its kernel's own arrays: the ring's
+// barriers (a full and an empty mbarrier, 8 bytes each, a stage) and stages,
+// the activations, the head, the biases and the actions.
+template <class G>
+constexpr int ring_shared_floats() {
+  using C = typename G::Config;
+  return 4 * G::STAGES + G::STAGES * G::STAGE + G::XS + G::H1S + G::H2S + C::A * C::H2 + C::H1 + C::H2 +
+         3 * C::A + C::A * kCollectEnvs;
+}
 
-  __device__ explicit DdpgCollectShared(float* s) {
+// K9's geometry: 400-300: 200 tiles in one round, 600 in two, so that each of
+// the 4 schedulers carries at most 5 tile-rounds of 16 outputs in layer 2 (the
+// env warp sits on scheduler 0 beside 2 product warps); then the draws.
+template <class C>
+struct DdpgCollect : F32Ring<C, 8, 8, 4, 4, kRingRows> {
+  using G = F32Ring<C, 8, 8, 4, 4, kRingRows>;
+  static constexpr int FLOATS = ring_shared_floats<G>() + 2 * kDrawKinds * C::N * kCollectEnvs;
+};
+
+// A ring actor's shared memory (layout of ring_shared_floats): the ring's
+// barriers and stages, the activations, W3, the biases, the box and the
+// actions; `end` is the first float after them.
+template <class G>
+struct RingShared {
+  using C = typename G::Config;
+  uint64_t *full, *empty;
+  float *ring, *xs, *h1, *h2, *w3, *b1, *b2, *b3, *low, *high, *act;
+
+  __device__ explicit RingShared(float* s) {
     full = reinterpret_cast<uint64_t*>(s);
-    empty = full + kRingStages;
-    ring = s + kRingBarrierFloats;
-    xs = ring + kRingStages * G::STAGE;
-    h1 = xs + C::F * G::E;
-    h2 = h1 + G::P1 * G::E;
-    w3 = h2 + G::P2 * G::E;
+    empty = full + G::STAGES;
+    ring = s + 4 * G::STAGES;
+    xs = ring + G::STAGES * G::STAGE;
+    h1 = xs + G::XS;
+    h2 = h1 + G::H1S;
+    w3 = h2 + G::H2S;
     b1 = w3 + C::A * C::H2;
     b2 = b1 + C::H1;
     b3 = b2 + C::H2;
     low = b3 + C::A;
     high = low + C::A;
     act = high + C::A;
-    draws = act + C::A * G::E;
   }
+
+  __device__ float* end() const { return act + C::A * kCollectEnvs; }
 
   __device__ void load(const float* weights) const {
     for (int i = threadIdx.x; i < C::A * C::H2; i += blockDim.x) w3[i] = weights[G::W3 + i];
@@ -1604,18 +1618,19 @@ struct DdpgCollectShared {
   }
 };
 
-// K9's weight stream: chunk g of the day (g mod NC: the first NC1 chunks of
-// a step are W1's k-rows, the rest W2's) goes to stage g mod kRingStages.
-// The env warp fills the ring, while the product warps compute: its lane 0
-// issues one bulk copy a chunk (the Tensor Memory Accelerator) completing
-// on the stage's `full` mbarrier by its bytes.  Each product warp waits on `full`, sums
-// the chunk and arrives on the stage's `empty` mbarrier; the env warp waits
-// on `empty` before it refills the stage.  So the product warps never wait
-// for each other inside a layer: they drift apart by up to kRingStages - 1
-// chunks.
-template <class C>
+// The weight stream of a ring actor (G: its geometry): chunk g of the launch
+// (g mod NC: the first NC1 chunks of a step are W1's, the rest W2's) goes to
+// stage g mod STAGES.  The env warp fills the ring, while the product
+// warps compute: its lane 0 issues one bulk copy a chunk (the Tensor Memory
+// Accelerator) completing on the stage's `full` mbarrier by its bytes.  Each
+// product warp waits on `full`, sums the chunk and arrives on the stage's
+// `empty` mbarrier; the env warp waits on `empty` before it refills the
+// stage.  So the product warps never wait for each other inside a layer:
+// they drift apart by up to STAGES - 1 chunks.  A RESIDENT ring (a stage
+// for every chunk of a step) copies each chunk once: its first use waits on
+// `full`, every later use finds that phase complete.
+template <class G>
 struct WeightRing {
-  using G = DdpgCollect<C>;
   const float* weights;
   float* stages;
   uint64_t *full, *empty;
@@ -1623,7 +1638,7 @@ struct WeightRing {
   // One thread, before the block's first barrier; the fence makes the
   // initialised barriers visible to the bulk copies' completions.
   __device__ void init() const {
-    for (int q = 0; q < kRingStages; ++q) {
+    for (int q = 0; q < G::STAGES; ++q) {
       mbarrier_init(full + q, 1);
       mbarrier_init(empty + q, kDdpgProductThreads / 32);
     }
@@ -1632,40 +1647,45 @@ struct WeightRing {
 
   // The env warp: chunk g into its stage, once the stage's previous chunk is summed.
   __device__ __forceinline__ void fill(int g) const {
-    const int stage = g % kRingStages, use = g / kRingStages, c = g % G::NC;
+    if (G::RESIDENT && g >= G::NC) return;
+    const int stage = g % G::STAGES, use = g / G::STAGES, c = g % G::NC;
     if (use > 0) mbarrier_wait(empty + stage, (use - 1) & 1);
     if (threadIdx.x != 0) return;
-    const bool w1 = c < G::NC1;
-    const int k0 = (w1 ? c : c - G::NC1) * kRingRows;
-    const int floats = w1 ? min(kRingRows, C::F - k0) * G::P1 : min(kRingRows, C::H1 - k0) * G::P2;
-    const unsigned bytes = static_cast<unsigned>(floats * sizeof(float));
+    const unsigned bytes = static_cast<unsigned>(G::chunk_floats(c) * sizeof(float));
     mbarrier_arrive_expect_tx(full + stage, bytes);
-    bulk_copy(stages + stage * G::STAGE, weights + (w1 ? k0 * G::P1 : G::W2 + k0 * G::P2), bytes, full + stage);
+    bulk_copy(stages + stage * G::STAGE, weights + G::chunk_offset(c), bytes, full + stage);
   }
 
   // A product warp: chunk g once it has landed, and the stage handed back.
   __device__ __forceinline__ const float* acquire(int g) const {
-    mbarrier_wait(full + g % kRingStages, (g / kRingStages) & 1);
-    return stages + (g % kRingStages) * G::STAGE;
+#ifdef NGK_K6_CLOCK
+    const unsigned long long since = k6_now();
+#endif
+    mbarrier_wait(full + g % G::STAGES, G::RESIDENT ? 0 : (g / G::STAGES) & 1);
+#ifdef NGK_K6_CLOCK
+    if (blockIdx.x == 0 && threadIdx.x == kCollectEnvs) k6_ring_wait += k6_now() - since;
+#endif
+    return stages + (g % G::STAGES) * G::STAGE;
   }
   __device__ __forceinline__ void release(int g) const {
+    if (G::RESIDENT) return;
     __syncwarp();
-    if (threadIdx.x % 32 == 0) mbarrier_arrive(empty + g % kRingStages);
+    if (threadIdx.x % 32 == 0) mbarrier_arrive(empty + g % G::STAGES);
   }
 };
 
-// One layer of K9 through the ring: the J x K product of the k-major weight
-// chunks (LD floats a k-row in the ring) against x (K, E), ReLU, into y; p is
-// the product thread's index.
-template <class C, int R, int V, int ROUNDS, int TILES, int J, int K, int LD>
-__device__ __forceinline__ void ddpg_layer(const WeightRing<C>& ring, int& g, int p, const float* x,
+// One f32 layer through the ring: the J x K product of the k-major weight
+// chunks (LD floats a k-row in the ring) against x (K, E), activation KIND,
+// into y; p is the product thread's index.
+template <int KIND, class G, int R, int V, int ROUNDS, int TILES, int J, int K, int LD>
+__device__ __forceinline__ void ring_layer(const WeightRing<G>& ring, int& g, int p, const float* x,
                                            const float* bias, float* y) {
   constexpr int EG = kCollectEnvs / V;
   Tile<R, V> tiles[ROUNDS];
 #pragma unroll 1
-  for (int k0 = 0; k0 < K; k0 += kRingRows, ++g) {
+  for (int k0 = 0; k0 < K; k0 += G::ROWS, ++g) {
     const float* stage = ring.acquire(g);
-    const int n = min(kRingRows, K - k0);
+    const int n = min(G::ROWS, K - k0);
 #pragma unroll
     for (int q = 0; q < ROUNDS; ++q) {
       const int i = p + q * kDdpgProductThreads;
@@ -1677,7 +1697,7 @@ __device__ __forceinline__ void ddpg_layer(const WeightRing<C>& ring, int& g, in
 #pragma unroll
   for (int q = 0; q < ROUNDS; ++q) {
     const int i = p + q * kDdpgProductThreads;
-    if (i < TILES) tiles[q].template store<kDdpgActor>(bias, (i / EG) * R, J, y + (i % EG) * V);
+    if (i < TILES) tiles[q].template store<KIND>(bias, (i / EG) * R, J, y + (i % EG) * V);
   }
   sync_products<kDdpgProductThreads>();
 }
@@ -1686,13 +1706,13 @@ __device__ __forceinline__ void ddpg_layer(const WeightRing<C>& ring, int& g, in
 // both hidden layers through the ring, then the head, whose owners squash it, add the step's OU noise,
 // clip, and write the action (T, A, B) and into shared memory.
 template <class C>
-__device__ __forceinline__ void ddpg_products(const DdpgCollectShared<C>& s, const WeightRing<C>& ring, int& g,
-                                              int p, int t, const float* ou, float* act_out, int64_t B,
-                                              int64_t b0) {
+__device__ __forceinline__ void ddpg_products(const RingShared<DdpgCollect<C>>& s,
+                                              const WeightRing<DdpgCollect<C>>& ring, int& g, int p, int t,
+                                              const float* ou, float* act_out, int64_t B, int64_t b0) {
   using G = DdpgCollect<C>;
   constexpr int E = kCollectEnvs, A = C::A;
-  ddpg_layer<C, G::R1, G::V1, G::ROUNDS1, G::TILES1, C::H1, C::F, G::P1>(ring, g, p, s.xs, s.b1, s.h1);
-  ddpg_layer<C, G::R2, G::V2, G::ROUNDS2, G::TILES2, C::H2, C::H1, G::P2>(ring, g, p, s.h1, s.b2, s.h2);
+  ring_layer<kDdpgActor, G, G::R1, G::V1, G::ROUNDS1, G::TILES1, C::H1, C::F, G::P1>(ring, g, p, s.xs, s.b1, s.h1);
+  ring_layer<kDdpgActor, G, G::R2, G::V2, G::ROUNDS2, G::TILES2, C::H2, C::H1, G::P2>(ring, g, p, s.h1, s.b2, s.h2);
   for (int i = p; i < A * E; i += kDdpgProductThreads) {
     const int a = i / E, e = i % E;
     const float* w = s.w3 + a * C::H2;
@@ -1725,16 +1745,17 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
                         const float* __restrict__ weights, float* __restrict__ obs_out,
                         float* __restrict__ act_out, float* __restrict__ rew_out, float* __restrict__ next_out,
                         float* __restrict__ batt_out, int B, Dims d) {
+  using G = DdpgCollect<C>;
   constexpr int E = kCollectEnvs;
   extern __shared__ float4 collect_smem[];
   float* smem = reinterpret_cast<float*>(collect_smem);
-  const DdpgCollectShared<C> s(smem);
+  const RingShared<G> s(smem);
   s.load(weights);
-  const SharedTraces tr = load_traces(smem + DdpgCollect<C>::FLOATS, rad_norm, S, price_norm, P, price, solar, d.T);
+  const SharedTraces tr = load_traces(smem + G::FLOATS, rad_norm, S, price_norm, P, price, solar, d.T);
   const CollectLane l(B);
-  const SharedDraws<C> draws{s.draws};
+  const SharedDraws<C> draws{s.end()};
   const CollectSource<C, SEEDED> src{u, nullptr, seed, B};
-  const WeightRing<C> ring{weights, s.ring, s.full, s.empty};
+  const WeightRing<G> ring{weights, s.ring, s.full, s.empty};
   if (threadIdx.x == 0) ring.init();
   store_draws<C, SEEDED, kDdpgCollectThreads>(draws, nullptr, src, threadIdx.x, 0, l.b0);
   __syncthreads();
@@ -1753,7 +1774,7 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
   // the env warp fills the ring ahead of the products: the first chunks now,
   // each step's others (and the next step's first) while the products sum
   int filled = 0;
-  for (; filled < kRingStages - 1; ++filled) ring.fill(filled);
+  for (; filled < G::STAGES - 1; ++filled) ring.fill(filled);
   const int lane = threadIdx.x;
   float pv;
   if constexpr (SEEDED) {
@@ -1780,7 +1801,7 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
     }
     sync_block();  // the observations are staged
 #pragma unroll 1
-    for (; filled < min((t + 1) * DdpgCollect<C>::NC + kRingStages - 1, d.T * DdpgCollect<C>::NC); ++filled)
+    for (; filled < min((t + 1) * G::NC + G::STAGES - 1, d.T * G::NC); ++filled)
       ring.fill(filled);  // no chunk beyond the day
     sync_block();  // the actions are ready
     float act[C::A];
@@ -1800,6 +1821,381 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
 #pragma unroll
   for (int f = 0; f < C::F; ++f) next_out[(static_cast<int64_t>(d.T - 1) * C::F + f) * B + l.b] = obs[f];
   batt_out[l.b] = batt;
+}
+
+// ------------------------------------------------------- K6 block actor ---
+//
+// K6 (pallas_gen_policy_rollout.py::pallas_gen_policy_multiday) with an
+// actor too large for MeanActor: the DDPG 400-300 ReLU actor (actor="ddpg")
+// and the PPO torsos whose f32 block leaves too little shared memory (the
+// bench's 256x256 tanh torso).  K9's block: 32 envs, warp 0 the env warp and
+// the ring's producer, 11 product warps, the weights streamed through the
+// ring (they never change within a launch, so the stream runs on across
+// layers, steps and days), two block barriers a step.  The env warp runs the
+// step body once per env, keeping the carried battery, the penalty sums and
+// the day's return in its lanes' registers, and writes stats (3, B) once;
+// its draws (Philox keyed by (seed, b), counter (day, t, kind, group)) come
+// from shared memory, where the product warps store the next step's while
+// the env warp observes, as in K9.
+// The head's owners write the clipped PPO mean or the DDPG squash.
+//
+// f32: R x V register tiles (Tile) as K9, every output's sum over k in index
+// order with the product and the add rounded apart, so the kernel is
+// bit-equal to gen_policy_multiday_plain.  Bound: the torso's multiply-adds,
+// 2.6e5 (400-300) or 1.5e5 (256x256) flops per env-step, at the FMA-free
+// issue rate of its SM (bit-equality forbids the FMA).
+//
+// bf16 (mlp_dtype): the hidden layers on the tensor cores, mma.m16n8k16 with
+// rows the output units, columns 8 envs and k 16 inputs, f32 accumulators:
+// W1 and W2 are packed as bf16 A fragments (2 bytes a weight, half the f32
+// stream: ops/gen_policy_rollout.py::mma_fragments), the observation, h1 and
+// h2 rounded to bf16 as they are stored (as pairs of consecutive inputs, the
+// B fragments' words); biases and activations stay f32, and the head is a
+// scalar f32 sum of bf16 operands.  Its accumulation order is not the
+// twin's, so it states a tolerance (tests/test_torch_cuda.py).  The stream,
+// 240 KB a step for the 400-300 W2 from L2 into each of the 128 blocks at
+// B = 4096, goes through the same ring, with as many stages as shared memory
+// holds (k6_stages_from: 5 for the DDPG actor); the 256x256 torso's bf16 W1
+// and W2 (144 KB) stay resident, copied once.  The ring's waits and the env
+// warp's step body are timed by tools/profile_k6.py (PERF.md §6 has why no
+// thread-block cluster or larger block was taken).
+
+// The R x V tiles of an f32 layer of J output rows over the product threads:
+// the shape whose busiest warp scheduler issues the fewest instructions a
+// k-row (a tile-round is 2 R V FMA-free operations and R / 4 + V / 4 vector
+// loads), counted twice when fewer than 8 product warps have work (too few
+// to hide the loads' latency), among those with at most 64 accumulators a
+// thread.  400 rows: 4 x 4; 300: 4 x 4; 256: 4 x 8.
+struct TileShape {
+  int R, V;
+};
+
+constexpr int tile_rounds(int J, int R, int V) {
+  return ((J + R - 1) / R * (kCollectEnvs / V) + kDdpgProductThreads - 1) / kDdpgProductThreads;
+}
+
+constexpr int tile_cost(int J, int R, int V) {
+  const int tiles = (J + R - 1) / R * (kCollectEnvs / V);
+  int load[4] = {0, 0, 0, 0};
+  for (int w = 0; w < kDdpgProductThreads / 32; ++w) {
+    int rounds = 0;
+    for (int first = 32 * w; first < tiles; first += kDdpgProductThreads) ++rounds;
+    load[(w + 1) % 4] += rounds;  // product warp w is warp w + 1 of the block
+  }
+  int worst = 0;
+  for (int q = 0; q < 4; ++q) worst = load[q] > worst ? load[q] : worst;
+  const int cost = worst * (2 * R * V + R / 4 + V / 4);
+  return tiles > 7 * 32 ? cost : 2 * cost;
+}
+
+constexpr TileShape choose_tiles(int J) {
+  const TileShape shapes[4] = {{4, 4}, {4, 8}, {8, 4}, {8, 8}};
+  TileShape best = shapes[0];
+  int best_cost = -1;
+  for (const TileShape s : shapes) {
+    if (s.R * s.V * tile_rounds(J, s.R, s.V) > 64) continue;
+    const int cost = tile_cost(J, s.R, s.V);
+    if (best_cost < 0 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+constexpr int kFragFloats = 128;  // a warp's m16 x k16 bf16 A fragment: 32 lanes x 4 words
+constexpr int kPairLd = 40;       // words a row of bf16 pairs: 32 envs + 8, so a B fragment hits 32 banks
+
+// The bf16 weight stream of K6's block actor: the packed block holds W1 and
+// W2 as mma A fragments, k-step by k-step and within a k-step m-tile by
+// m-tile (ops/gen_policy_rollout.py::mma_fragments: KS x MT x 32 lanes x 4
+// words, zero-padded to 16 units and 16 inputs), CK k-steps a chunk; then
+// b1, b2, W3, b3, low, high as f32.  The activations are bf16 pairs: row kp
+// holds inputs 2 kp and 2 kp + 1 of the 32 envs (kPairLd words a row).
+template <class C, int CK_, int STAGES_ = kRingStages>
+struct Bf16Ring {
+  using Config = C;
+  static constexpr int E = kCollectEnvs, A = C::A, CK = CK_;
+  static constexpr int MT1 = (C::H1 + 15) / 16, MT2 = (C::H2 + 15) / 16;  // m-tiles of 16 units
+  static constexpr int KS1 = (C::F + 15) / 16, KS2 = MT1;  // k-steps of 16 inputs (h1's padded units)
+  static constexpr int STAGE = CK * (MT1 > MT2 ? MT1 : MT2) * kFragFloats;
+  static constexpr int NC1 = (KS1 + CK - 1) / CK, NC2 = (KS2 + CK - 1) / CK;
+  static constexpr int NC = NC1 + NC2;
+  static constexpr int STAGES = STAGES_;
+  static constexpr bool RESIDENT = STAGES == NC;
+  static constexpr int W2 = KS1 * MT1 * kFragFloats, B1 = W2 + KS2 * MT2 * kFragFloats, B2 = B1 + C::H1;
+  static constexpr int W3 = B2 + C::H2, BLOCK = W3 + A * C::H2 + 3 * A;
+  static constexpr int XS = KS1 * 8 * kPairLd, H1S = MT1 * 8 * kPairLd, H2S = MT2 * 8 * kPairLd;
+
+  __device__ static int chunk_offset(int c) {
+    return c < NC1 ? c * CK * MT1 * kFragFloats : W2 + (c - NC1) * CK * MT2 * kFragFloats;
+  }
+  __device__ static int chunk_floats(int c) {
+    return c < NC1 ? min(CK, KS1 - c * CK) * MT1 * kFragFloats : min(CK, KS2 - (c - NC1) * CK) * MT2 * kFragFloats;
+  }
+};
+
+// K6's layout for a chunk size (f32 k-rows or bf16 k-steps a chunk) and a
+// stage count: the ring actor's arrays, then two slots of a step's draws.
+template <class C, bool BF16, int CHUNK, int STAGES = kRingStages>
+struct K6Layout {
+  using G = std::conditional_t<BF16, Bf16Ring<C, CHUNK, STAGES>,
+                               F32Ring<C, choose_tiles(C::H1).R, choose_tiles(C::H1).V, choose_tiles(C::H2).R,
+                                       choose_tiles(C::H2).V, CHUNK, STAGES>>;
+  static constexpr int FLOATS = ring_shared_floats<G>() + 2 * kDrawKinds * C::N * kCollectEnvs;
+};
+
+// The env warp's draws of K6's step `step` in shared memory: the slot goes by
+// the launch's step (with an odd T, t's parity would repeat across a day's end).
+template <class C>
+struct SlotDraws {
+  SharedDraws<C> shared;
+  int step;
+  __device__ void draw(int, int kind, float (&out)[C::N]) const { shared.draw(step, kind, out); }
+};
+
+template <class C, bool BF16, int CHUNK, int STAGES = kRingStages>
+constexpr bool k6_fits() {
+  return 4 * K6Layout<C, BF16, CHUNK, STAGES>::FLOATS + kTraceReserveBytes <= kMaxSmemBytes;
+}
+
+// The largest chunk whose ring leaves room for the traces: 16 f32 k-rows or
+// 2 bf16 k-steps for every torso the JAX kernel takes but the widest.
+template <class C, bool BF16>
+constexpr int k6_chunk() {
+  if constexpr (BF16) {
+    return k6_fits<C, true, 2>() ? 2 : 1;
+  } else {
+    return k6_fits<C, false, 16>() ? 16
+           : k6_fits<C, false, 8>() ? 8
+           : k6_fits<C, false, 4>() ? 4
+           : k6_fits<C, false, 2>() ? 2
+                                    : 1;
+  }
+}
+
+// Then the most stages that fit, up to a stage for every chunk of a step
+// (the weights resident: the bench's 256x256 torso in bf16).
+template <class C, bool BF16, int CHUNK, int STAGES>
+constexpr int k6_stages_from() {
+  constexpr int NC = K6Layout<C, BF16, CHUNK>::G::NC;
+  if constexpr (STAGES >= NC || !k6_fits<C, BF16, CHUNK, STAGES + 1>()) {
+    return STAGES < NC ? STAGES : NC;
+  } else {
+    return k6_stages_from<C, BF16, CHUNK, STAGES + 1>();
+  }
+}
+
+template <class C, bool BF16>
+using K6 = K6Layout<C, BF16, k6_chunk<C, BF16>(), k6_stages_from<C, BF16, k6_chunk<C, BF16>(), kRingStages>()>;
+
+// One bf16 layer on the tensor cores: y = act(W x + b) for the block's 32
+// envs, W's fragments from the ring, x and y bf16 pairs.  Product warp w owns
+// m-tiles w, w + 11, ...: 16 units x the 4 n-tiles of 8 envs.  Units beyond J
+// (zero weights) are stored as 0.
+template <int KIND, class G, int MT, int KS, int J>
+__device__ __forceinline__ void mma_layer(const WeightRing<G>& ring, int& g, int p, const uint32_t* x,
+                                          const float* bias, uint32_t* y) {
+  constexpr int WARPS = kDdpgProductThreads / 32, ROUNDS = (MT + WARPS - 1) / WARPS, NT = kCollectEnvs / 8;
+  const int warp = p / 32, lane = p % 32, gq = lane >> 2, t = lane & 3;
+  float c[ROUNDS][NT][4];
+#pragma unroll
+  for (int q = 0; q < ROUNDS; ++q)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) c[q][nt][f] = 0.0f;
+#pragma unroll 1
+  for (int ks0 = 0; ks0 < KS; ks0 += G::CK, ++g) {
+    const uint4* stage = reinterpret_cast<const uint4*>(ring.acquire(g));
+#pragma unroll
+    for (int kk = 0; kk < G::CK; ++kk) {
+      if (ks0 + kk >= KS) break;
+      const uint32_t* xr = x + (8 * (ks0 + kk) + t) * kPairLd + gq;
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        b[nt][0] = xr[8 * nt];
+        b[nt][1] = xr[4 * kPairLd + 8 * nt];
+      }
+#pragma unroll
+      for (int q = 0; q < ROUNDS; ++q) {
+        const int mt = warp + q * WARPS;
+        if (mt >= MT) continue;
+        const uint4 a = stage[(kk * MT + mt) * 32 + lane];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) ngo::mma_bf16(c[q][nt], a.x, a.y, a.z, a.w, b[nt][0], b[nt][1]);
+      }
+    }
+    ring.release(g);
+  }
+  __nv_bfloat16* yh = reinterpret_cast<__nv_bfloat16*>(y);
+#pragma unroll
+  for (int q = 0; q < ROUNDS; ++q) {
+    const int mt = warp + q * WARPS;
+    if (mt >= MT) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int j = 16 * mt + gq + (f >= 2 ? 8 : 0), e = 8 * nt + 2 * t + (f & 1);
+        const float v = j < J ? activate<KIND>(c[q][nt][f] + bias[j]) : 0.0f;
+        yh[2 * ((j >> 1) * kPairLd + e) + (j & 1)] = __float2bfloat16_rn(v);
+      }
+  }
+  sync_products<kDdpgProductThreads>();
+}
+
+// The product warps' part of a K6 step (p: the product thread's index): both
+// hidden layers through the ring, then the head, whose owners write the
+// clipped PPO mean (pallas_gen_policy_rollout.py:143-147) or the DDPG action
+// low + (tanh(mu) + 1)·0.5·(high − low) (:148-154, no clip) into shared memory.
+template <class C, int KIND, bool BF16>
+__device__ __forceinline__ void block_actor_products(const RingShared<typename K6<C, BF16>::G>& sh,
+                                                     const WeightRing<typename K6<C, BF16>::G>& ring, int& g,
+                                                     int p, int step) {
+  using G = typename K6<C, BF16>::G;
+  constexpr int E = kCollectEnvs;
+  if constexpr (BF16) {
+    mma_layer<KIND, G, G::MT1, G::KS1, C::H1>(ring, g, p, reinterpret_cast<const uint32_t*>(sh.xs), sh.b1,
+                                              reinterpret_cast<uint32_t*>(sh.h1));
+    if (p == 0) k6_stamp(2, step);
+    mma_layer<KIND, G, G::MT2, G::KS2, C::H2>(ring, g, p, reinterpret_cast<const uint32_t*>(sh.h1), sh.b2,
+                                              reinterpret_cast<uint32_t*>(sh.h2));
+  } else {
+    ring_layer<KIND, G, G::R1, G::V1, G::ROUNDS1, G::TILES1, C::H1, C::F, G::P1>(ring, g, p, sh.xs, sh.b1, sh.h1);
+    if (p == 0) k6_stamp(2, step);
+    ring_layer<KIND, G, G::R2, G::V2, G::ROUNDS2, G::TILES2, C::H2, C::H1, G::P2>(ring, g, p, sh.h1, sh.b2, sh.h2);
+  }
+  if (p == 0) k6_stamp(3, step);
+  const __nv_bfloat16* h2 = reinterpret_cast<const __nv_bfloat16*>(sh.h2);
+  for (int i = p; i < C::A * E; i += kDdpgProductThreads) {
+    const int a = i / E, e = i % E;
+    const float* w = sh.w3 + a * C::H2;
+    float acc;
+    if constexpr (BF16) {  // h2[k][e] is half k & 1 of pair row k / 2
+      acc = w[0] * __bfloat162float(h2[2 * e]);
+#pragma unroll 16
+      for (int k = 1; k < C::H2; ++k) acc = acc + w[k] * __bfloat162float(h2[2 * ((k >> 1) * kPairLd + e) + (k & 1)]);
+    } else {
+      acc = w[0] * sh.h2[e];
+#pragma unroll 16
+      for (int k = 1; k < C::H2; ++k) acc = acc + w[k] * sh.h2[k * E + e];
+    }
+    const float mu = acc + sh.b3[a];
+    const float lo = sh.low[a], hi = sh.high[a];
+    sh.act[a * E + e] = KIND == kPpoActor ? fminf(fmaxf(mu, lo), hi) : lo + ((tanhf(mu) + 1.0f) * 0.5f) * (hi - lo);
+  }
+}
+
+// K6 with the block actor: num_days Philox actor days per env, the battery
+// carried across days; stats (3, B) = sum and sum of squares of day returns,
+// final battery SoC.  BF16: the mlp_dtype option on the tensor cores.  A
+// block of kDdpgCollectThreads threads per kCollectEnvs envs; tail lanes
+// mirror the last env and write nothing.
+template <class C, int KIND, bool BF16>
+__global__ void __launch_bounds__(kDdpgCollectThreads)
+gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                                 const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                                 uint32_t seed, int num_days, const float* __restrict__ weights,
+                                 float* __restrict__ stats, int B, Dims d) {
+  using L = K6<C, BF16>;
+  using G = typename L::G;
+  constexpr int E = kCollectEnvs, N = C::N;
+  extern __shared__ float4 collect_smem[];
+  float* smem = reinterpret_cast<float*>(collect_smem);
+  const RingShared<G> sh(smem);
+  sh.load(weights);
+  const SharedTraces tr = load_traces(smem + L::FLOATS, rad_norm, S, price_norm, P, price, solar, d.T);
+  const WeightRing<G> ring{weights, sh.ring, sh.full, sh.empty};
+  if (threadIdx.x == 0) ring.init();
+  const SharedDraws<C> draws{sh.end()};
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * E;
+  const int steps = num_days * d.T, chunks = steps * G::NC;
+  if (steps > 0)
+    store_draws<C, true, kDdpgCollectThreads>(draws, nullptr, CollectSource<C, true>{nullptr, nullptr, seed, B},
+                                              threadIdx.x, 0, b0, 0);
+  __syncthreads();
+  if (threadIdx.x >= kCollectEnvs) {
+    // the product warps: the next step's draws while the env warp observes, then the policy
+    const int p = threadIdx.x - kCollectEnvs;
+    int g = 0;
+#pragma unroll 1
+    for (int step = 0; step < steps; ++step) {
+      const int next = step + 1;
+      if (next < steps)
+        store_draws<C, true, kDdpgProductThreads>(
+            draws, nullptr, CollectSource<C, true>{nullptr, nullptr, seed, B, static_cast<uint32_t>(next / d.T)}, p,
+            next % d.T, b0, next);
+      if (p == 0) k6_stamp(6, step);
+      sync_block();
+      block_actor_products<C, KIND, BF16>(sh, ring, g, p, step);
+      if (p == 0) k6_stamp(4, step);
+#ifdef NGK_K6_CLOCK
+      if (blockIdx.x == 0 && p == 0 && step < kK6ClockSteps) k6_clock[step * kK6ClockSlots + 5] = k6_ring_wait;
+#endif
+      sync_block();
+    }
+    return;
+  }
+  // the env warp: the first chunks now, each step's others (and the next
+  // step's first) while the products sum
+  const BlockLane l(B);
+  const int lane = threadIdx.x;
+  int filled = 0;
+  for (; filled < min(G::STAGES - 1, chunks); ++filled) ring.fill(filled);
+  float batt = kBattInit, rew_total = 0.0f, sq_total = 0.0f;
+  Carry<C> c;
+#pragma unroll 1
+  for (int day = 0; day < num_days; ++day) {
+    const float pv = PhiloxDraws<N>{make_uint2(seed, static_cast<uint32_t>(l.b)), static_cast<uint32_t>(day)}
+                         .pv_shift(d.T);
+    c.clear();
+    float pen_acc[N], day_sum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < N; ++n) pen_acc[n] = 0.0f;
+#pragma unroll 1
+    for (int t = 0; t < d.T; ++t) {
+      const int step = day * d.T + t;
+      if (lane == 0) k6_stamp(0, step);
+      float obs[C::F], pen[N];
+      StepState<C> st;
+      observe_step<C>(t, d, SlotDraws<C>{draws, step}, c, batt, tr.rad_norm, tr.price_norm, pv, obs, st, pen);
+      if constexpr (BF16) {  // pairs of consecutive inputs, the padded ones zero
+        uint32_t* x = reinterpret_cast<uint32_t*>(sh.xs);
+#pragma unroll
+        for (int kp = 0; kp < G::KS1 * 8; ++kp)
+          x[kp * kPairLd + lane] = ngo::pack_bf16(2 * kp < C::F ? obs[2 * kp] : 0.0f,
+                                                  2 * kp + 1 < C::F ? obs[2 * kp + 1] : 0.0f);
+      } else {
+#pragma unroll
+        for (int f = 0; f < C::F; ++f) sh.xs[f * E + lane] = obs[f];
+      }
+      if (lane == 0) k6_stamp(1, step);
+      sync_block();  // observations staged
+#pragma unroll 1
+      for (; filled < min((step + 1) * G::NC + G::STAGES - 1, chunks); ++filled) ring.fill(filled);
+      sync_block();  // actions ready
+      float act[C::A];
+#pragma unroll
+      for (int a = 0; a < C::A; ++a) act[a] = sh.act[a * E + lane];
+      const PolicyRows r = physics_step<C>(st, act, c, batt, d.dt);
+#pragma unroll
+      for (int n = 0; n < N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
+      const float reward = -policy_cost<C>(r, tr.solar[t], tr.price[t], pv, d.dt);
+      day_sum = t == 0 ? reward : day_sum + reward;
+    }
+    float pen_total = pen_acc[0];
+#pragma unroll
+    for (int n = 1; n < N; ++n) pen_total = pen_total + pen_acc[n];
+    const float day_return = day_sum - kWVeh * pen_total;
+    rew_total = rew_total + day_return;
+    sq_total = sq_total + day_return * day_return;
+  }
+  if (!l.writes) return;
+  stats[l.b] = rew_total;
+  stats[static_cast<int64_t>(B) + l.b] = sq_total;
+  stats[2 * static_cast<int64_t>(B) + l.b] = batt;
 }
 
 // ------------------------------------------------------- tables-in days ---
@@ -1975,7 +2371,7 @@ policy_day_rollout_block_kernel(const float* __restrict__ price, const float* __
   const BlockLane l(B);
   const DayTablesView tab{tables, static_cast<int64_t>(T) * C::N * B, B, l.b, C::N};
   policy_day_from_tables<C>(s, tab, prev_col0, pmask0, batt_soc[l.b], pv_shift[l.b],
-                            block_actor<C, kPpoActor, false>(weights, s, T), l.writes, rewards, actions,
+                            block_actor<C, kPpoActor>(weights, s, T), l.writes, rewards, actions,
                             soc_final, B, l.b, T, dt);
 }
 

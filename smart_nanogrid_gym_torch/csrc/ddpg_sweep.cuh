@@ -65,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "operand.cuh"
+
 namespace ngd {
 
 namespace cg = cooperative_groups;
@@ -281,11 +283,6 @@ __device__ __forceinline__ void mac_f32(const Stage& s, int kmax, int ty, int tx
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // bf16 tensor cores: warp w owns rows 16 (w / 4).. + 15 and columns 8 (w % 4).. + 7 of
 // the tile, acc its m16n8 fragment (rows g, g + 8; columns 2 t, 2 t + 1); ksteps k-steps
 // of 16.
@@ -294,17 +291,13 @@ __device__ __forceinline__ void mac_bf16(const Stage& s, int ksteps, int warp, i
   const int r = (warp >> 2) * 16 + g, n = (warp & 3) * 8 + g;
   for (int ks = 0; ks < ksteps; ++ks) {
     const int k = ks * 16 + 2 * t;
-    const uint32_t a0 = pack_bf16(s.a[k][r], s.a[k + 1][r]);
-    const uint32_t a1 = pack_bf16(s.a[k][r + 8], s.a[k + 1][r + 8]);
-    const uint32_t a2 = pack_bf16(s.a[k + 8][r], s.a[k + 9][r]);
-    const uint32_t a3 = pack_bf16(s.a[k + 8][r + 8], s.a[k + 9][r + 8]);
-    const uint32_t b0 = pack_bf16(s.b[k][n], s.b[k + 1][n]);
-    const uint32_t b1 = pack_bf16(s.b[k + 8][n], s.b[k + 9][n]);
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    const uint32_t a0 = ngo::pack_bf16(s.a[k][r], s.a[k + 1][r]);
+    const uint32_t a1 = ngo::pack_bf16(s.a[k][r + 8], s.a[k + 1][r + 8]);
+    const uint32_t a2 = ngo::pack_bf16(s.a[k + 8][r], s.a[k + 9][r]);
+    const uint32_t a3 = ngo::pack_bf16(s.a[k + 8][r + 8], s.a[k + 9][r + 8]);
+    const uint32_t b0 = ngo::pack_bf16(s.b[k][n], s.b[k + 1][n]);
+    const uint32_t b1 = ngo::pack_bf16(s.b[k + 8][n], s.b[k + 9][n]);
+    ngo::mma_bf16(acc, a0, a1, a2, a3, b0, b1);
   }
 }
 

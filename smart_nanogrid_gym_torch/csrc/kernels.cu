@@ -9,9 +9,10 @@
 // Both kinds carry the RBC kernels K7/K8 and K11a; the PPO kind K11b.
 // The PPO actor's design is fixed per library (kBlockActor): MeanActor, one
 // thread per env with the f32 actor block in shared memory, when the block
-// leaves kTraceReserve bytes for the traces; the block-level product
-// otherwise (the 256x256 torso).  K6 takes the bf16 operand option as an
-// argument (one template instance each), so it adds no library.
+// leaves kTraceReserveBytes for the traces; the block-level product
+// otherwise (the 256x256 torso), K6's with K9's ring and layout
+// (gen_policy_multiday_block_kernel).  K6 takes the bf16 operand option as
+// an argument (one template instance each), so it adds no library.
 // Every entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
 #include "day_step.cuh"
@@ -25,10 +26,8 @@ namespace {
 
 using C = ngk::Cfg<NG_N, NG_PV != 0, NG_BATT != 0, NG_PMODE, NG_DIFF_CAPS != 0, NG_REQ_SOC != 0, NG_H1, NG_H2>;
 constexpr int kThreads = 128;
-constexpr size_t kMaxSmem = 232448;     // dynamic shared memory one H100 block may use
-constexpr size_t kTraceReserve = 16384;  // room kept for the traces (S + P + 2T floats)
 constexpr bool kBlockActor =
-    NG_ACTOR == ngk::kDdpgActor || C::WEIGHTS * sizeof(float) + kTraceReserve > kMaxSmem;
+    NG_ACTOR == ngk::kDdpgActor || C::WEIGHTS * sizeof(float) + ngk::kTraceReserveBytes > ngk::kMaxSmemBytes;
 
 inline dim3 grid_for(int B, int threads = kThreads) { return dim3((B + threads - 1) / threads); }
 
@@ -67,18 +66,20 @@ size_t collect_smem(int floats, int S, int P, int T) {
   return static_cast<size_t>(floats + S + P + 2 * T) * sizeof(float);
 }
 
+// K6: the block actor with K9's block (an env warp and 11 product warps per
+// kCollectEnvs envs, its ring and activations in shared memory), or MeanActor.
 template <bool BF16>
 int gen_policy_multiday(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                         const float* solar, unsigned int seed, int num_days, const float* weights, float* stats,
                         int B, const ngk::Dims& d, void* stream) {
-  const size_t smem = actor_smem(kBlockActor, S, P, d.T);
   if constexpr (kBlockActor) {
-    return launch(ngk::gen_policy_multiday_block_kernel<C, NG_ACTOR, BF16>, actor_grid(true, B),
-                  actor_threads(true), smem, stream, price, price_norm, P, rad_norm, S, solar, seed, num_days,
-                  weights, stats, B, d);
+    return launch(ngk::gen_policy_multiday_block_kernel<C, NG_ACTOR, BF16>, collect_grid(B),
+                  ngk::kDdpgCollectThreads, collect_smem(ngk::K6<C, BF16>::FLOATS, S, P, d.T), stream, price,
+                  price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats, B, d);
   } else {
-    return launch(ngk::gen_policy_multiday_kernel<C, BF16>, actor_grid(false, B), actor_threads(false), smem,
-                  stream, price, price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats, B, d);
+    return launch(ngk::gen_policy_multiday_kernel<C, BF16>, actor_grid(false, B), actor_threads(false),
+                  actor_smem(false, S, P, d.T), stream, price, price_norm, P, rad_norm, S, solar, seed, num_days,
+                  weights, stats, B, d);
   }
 }
 
@@ -89,6 +90,23 @@ extern "C" {
 int ngk_weights_size() { return C::WEIGHTS; }
 
 int ngk_block_actor() { return kBlockActor ? 1 : 0; }
+
+// K6's block actor (kBlockActor libraries): its packed block and its shared
+// memory before the traces (floats), f32 (bf16 = 0) or bf16, and the rows an
+// f32 k-row of layer 1 or 2 is padded to (ops/gen_policy_rollout.py::k6_block).
+int ngk_k6_weights_size(int bf16) { return bf16 ? ngk::K6<C, true>::G::BLOCK : ngk::K6<C, false>::G::BLOCK; }
+int ngk_k6_smem_floats(int bf16) { return bf16 ? ngk::K6<C, true>::FLOATS : ngk::K6<C, false>::FLOATS; }
+int ngk_k6_pad(int layer) { return layer == 1 ? ngk::K6<C, false>::G::R1 : ngk::K6<C, false>::G::R2; }
+
+#ifdef NGK_K6_CLOCK
+// tools/profile_k6.py: block 0's step record of the last launch, then the ring-wait counter reset.
+int ngk_k6_clock(unsigned long long* out) {
+  const unsigned long long zero = 0;
+  cudaError_t err = cudaMemcpyFromSymbol(out, ngk::k6_clock, sizeof(ngk::k6_clock));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(ngk::k6_ring_wait, &zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 int ngk_gen_rbc_day(const float* price, const float* rad_norm, int S, const float* solar, const float* u,
                     const float* batt_soc, const float* pv_shift, float* rewards, float* soc_final, int B, int T,

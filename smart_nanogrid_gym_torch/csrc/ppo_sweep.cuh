@@ -282,11 +282,6 @@ __device__ __forceinline__ float tile_sum(const float* a) {
   return acc;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // One warp on the bf16 tensor cores: c[nt] = the m16n8 fragment of block nt of
 // A (16 x 16 KSTEPS) B (16 KSTEPS x 8 NT), each operand rounded to bf16 from the
 // getters' f32 (ga(r, k) = A[r][k], gb(k, n) = B[k][n]), f32 accumulation
@@ -302,20 +297,16 @@ __device__ __forceinline__ void warp_mma(const GA& ga, const GB& gb, float (&c)[
 #pragma unroll
   for (int ks = 0; ks < KSTEPS; ++ks) {
     const int k = ks * 16 + 2 * t;
-    const uint32_t a0 = pack_bf16(ga(g, k), ga(g, k + 1));
-    const uint32_t a1 = pack_bf16(ga(g + 8, k), ga(g + 8, k + 1));
-    const uint32_t a2 = pack_bf16(ga(g, k + 8), ga(g, k + 9));
-    const uint32_t a3 = pack_bf16(ga(g + 8, k + 8), ga(g + 8, k + 9));
+    const uint32_t a0 = ngo::pack_bf16(ga(g, k), ga(g, k + 1));
+    const uint32_t a1 = ngo::pack_bf16(ga(g + 8, k), ga(g + 8, k + 1));
+    const uint32_t a2 = ngo::pack_bf16(ga(g, k + 8), ga(g, k + 9));
+    const uint32_t a3 = ngo::pack_bf16(ga(g + 8, k + 8), ga(g + 8, k + 9));
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int n = nt * 8 + g;
-      const uint32_t b0 = pack_bf16(gb(k, n), gb(k + 1, n));
-      const uint32_t b1 = pack_bf16(gb(k + 8, n), gb(k + 9, n));
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-          "{%0, %1, %2, %3};\n"
-          : "+f"(c[nt][0]), "+f"(c[nt][1]), "+f"(c[nt][2]), "+f"(c[nt][3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      const uint32_t b0 = ngo::pack_bf16(gb(k, n), gb(k + 1, n));
+      const uint32_t b1 = ngo::pack_bf16(gb(k + 8, n), gb(k + 9, n));
+      ngo::mma_bf16(c[nt], a0, a1, a2, a3, b0, b1);
     }
   }
 }

@@ -57,6 +57,9 @@ _DAY_SIGNATURES = {
     "ngk_block_actor": (),
     "ngk_collect_weights_size": (),
     "ngk_collect_smem_floats": (),
+    "ngk_k6_weights_size": (_I,),
+    "ngk_k6_smem_floats": (_I,),
+    "ngk_k6_pad": (_I,),
     "ngk_gen_rbc_day": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_rbc_multiday": (_P, _P, _I, _P, _U, _I, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_rbc_day_rollout": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),

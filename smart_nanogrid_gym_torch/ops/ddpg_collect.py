@@ -42,6 +42,7 @@ from .gen_policy_rollout import (
     gen_policy_step,
     policy_day_costs,
     policy_kwargs,
+    ring_block,
 )
 from .gen_rollout import F32, W_VEH, Traces, div, fresh_carry, kernel_device, kernel_traces, \
     pv_shift_from_uniform, sum_rows
@@ -146,18 +147,12 @@ def _check_ou(config: NanogridConfig, ou_seq: torch.Tensor, B: int) -> None:
 PAD1, PAD2 = 8, 4
 
 
-def _k_major(w: torch.Tensor, pad: int) -> torch.Tensor:
-    """``w (J, K)`` transposed to ``(K, J)`` with each k-row padded with zeros to a multiple of ``pad``."""
-    return nn.functional.pad(w.T, (0, -w.shape[0] % pad))
-
-
 def k9_block(weights: ActorWeights, lib) -> torch.Tensor:
-    """The actor in K9's layout: ``W1`` and ``W2`` k-major with their k-rows
-    padded, so that the kernel streams each chunk of k-rows through its
-    shared-memory ring as one bulk copy, then ``b1, b2, W3, b3, low, high``."""
-    w = weights
-    parts = (_k_major(w.w1, PAD1), _k_major(w.w2, PAD2), w.b1, w.b2, w.w3, w.b3, w.low, w.high)
-    block = torch.cat([x.reshape(-1) for x in parts]).contiguous()
+    """The actor in K9's layout (:func:`.gen_policy_rollout.ring_block`):
+    ``W1`` and ``W2`` k-major with their k-rows padded, so that the kernel
+    streams each chunk of k-rows through its shared-memory ring as one bulk
+    copy, then ``b1, b2, W3, b3, low, high``."""
+    block = ring_block(weights, PAD1, PAD2)
     if block.numel() != lib.ngk_collect_weights_size():
         raise ValueError(f"actor block has {block.numel()} floats, the kernel library "
                          f"expects {lib.ngk_collect_weights_size()}")

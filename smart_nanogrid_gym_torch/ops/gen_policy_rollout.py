@@ -28,11 +28,16 @@ multiply-add loops in input order, the order the CUDA kernels use, so the
 kernels are bit-equal to them (the product of two bf16 values is exact in
 f32).  The DDPG actor, and a PPO torso whose f32 block does not fit in
 shared memory beside the traces (the bench's 256×256), run as a block-level
-product in the CUDA kernels (``csrc/day_step.cuh``, ``BlockActor``): the
-library of the torso says which (``ngk_block_actor``), its launches count
-under ``*_block`` names, and the block's activations in shared memory bound
-the torso (:func:`check_block_torso`).  K6 refuses torsos of more than 768
-hidden units, as the JAX kernel does.
+product in the CUDA kernels (``csrc/day_step.cuh``): the library of the
+torso says which (``ngk_block_actor``), its launches count under ``*_block``
+names, and the block's activations in shared memory bound the torso
+(:func:`check_block_torso`).  K5 keeps ``BlockActor``; K6 runs K9's design
+(an env warp, register-tiled products, W1 and W2 streamed through a
+shared-memory ring in the layout of :func:`k6_block`, its shared memory
+checked by :func:`check_k6_block`), and its bf16 option there runs on the
+tensor cores, so that option meets its twin to a stated tolerance, not bit
+for bit.  K6 refuses torsos of more than 768 hidden units, as the JAX kernel
+does.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import functools
 from typing import TYPE_CHECKING, NamedTuple
 
 import torch
+from torch import nn
 
 from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
@@ -199,6 +205,67 @@ def check_collect_block(config: NanogridConfig, traces: Traces, lib, hidden: tup
         raise ValueError(f"torsos {hidden[0]}x{hidden[1]} and the traces need {need} bytes of shared memory "
                          f"per block in the collection kernel, more than {MAX_SHARED_BYTES}; "
                          f"use collect_impl='plain'")
+
+
+def check_k6_block(config: NanogridConfig, traces: Traces, lib, hidden: tuple[int, int], bf16: bool) -> None:
+    """Raise before any launch when K6's block-actor kernel's shared memory
+    (the library's ``ngk_k6_smem_floats``: its weight ring, the activations,
+    the head and the actions) and the traces exceed a block's."""
+    need = 4 * (lib.ngk_k6_smem_floats(int(bf16)) + trace_floats(config, traces))
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} and the traces need {need} bytes of shared memory "
+                         f"per block in gen_policy_multiday's block actor, more than {MAX_SHARED_BYTES}; "
+                         f"use the plain engine")
+
+
+def k_major(w: torch.Tensor, pad: int) -> torch.Tensor:
+    """``w (J, K)`` transposed to ``(K, J)`` with each k-row padded with zeros to a multiple of ``pad``."""
+    return nn.functional.pad(w.T, (0, -w.shape[0] % pad))
+
+
+def ring_block(weights: ActorWeights, pad1: int, pad2: int) -> torch.Tensor:
+    """The actor in the f32 weight-ring layout of K6's block actor and K9
+    (``csrc/day_step.cuh::F32Ring``): ``W1`` and ``W2`` k-major with their
+    k-rows padded to whole tiles (``pad1``, ``pad2`` rows), so that each
+    chunk of k-rows is one bulk copy, then ``b1, b2, W3, b3, low, high``."""
+    w = weights
+    parts = (k_major(w.w1, pad1), k_major(w.w2, pad2), w.b1, w.b2, w.w3, w.b3, w.low, w.high)
+    return torch.cat([x.reshape(-1) for x in parts]).contiguous()
+
+
+def mma_fragments(w: torch.Tensor) -> torch.Tensor:
+    """``w (J, K)`` (bf16 values) as the A fragments of ``mma.m16n8k16`` in
+    the order K6's bf16 kernel streams them (``csrc/day_step.cuh::Bf16Ring``):
+    zero-padded to 16-row m-tiles and 16-input k-steps; k-step by k-step, m-tile
+    by m-tile, lane ``(g, t)`` by lane, its words a0..a3 (rows g and g + 8,
+    inputs 2t, 2t + 1 and then 2t + 8, 2t + 9), each word two bf16 of
+    consecutive inputs, the lower input in the low half.  Returned as f32
+    words (2 bytes a weight)."""
+    J, K = w.shape
+    MT, KS = -(-J // 16), -(-K // 16)
+    padded = torch.zeros((MT * 16, KS * 16), dtype=torch.bfloat16, device=w.device)
+    padded[:J, :K] = w.to(torch.bfloat16)
+    # (mt, row half, g, ks, k half, t, pair) -> (ks, mt, g, t, k half, row half, pair)
+    frags = padded.reshape(MT, 2, 8, KS, 2, 4, 2).permute(3, 0, 2, 5, 4, 1, 6)
+    return frags.contiguous().reshape(-1).view(torch.float32)
+
+
+def k6_block(weights: ActorWeights, lib, bf16: bool) -> torch.Tensor:
+    """The actor in the layout of K6's block-actor kernel: the f32 ring
+    layout with the library's tile pads (``ngk_k6_pad``), or with ``bf16``
+    W1 and W2 as :func:`mma_fragments` (``weights`` from :func:`actor_weights`
+    with ``mlp_dtype=torch.bfloat16``) and the rest f32; checked against the
+    size the library reports."""
+    w = weights
+    if bf16:
+        parts = (mma_fragments(w.w1), mma_fragments(w.w2), w.b1, w.b2, w.w3, w.b3, w.low, w.high)
+        block = torch.cat([x.reshape(-1) for x in parts]).contiguous()
+    else:
+        block = ring_block(w, lib.ngk_k6_pad(1), lib.ngk_k6_pad(2))
+    if block.numel() != lib.ngk_k6_weights_size(int(bf16)):
+        raise ValueError(f"actor block has {block.numel()} floats, the kernel library "
+                         f"expects {lib.ngk_k6_weights_size(int(bf16))}")
+    return block
 
 
 def policy_obs(traces: Traces, o: int, pv_shift, soc_rows, dep_o, batt_soc, *, pv: bool, batt: bool):
@@ -471,10 +538,15 @@ def gen_policy_multiday(config: NanogridConfig, params: NanogridParams, net: Act
 
     stats = torch.empty((3, batch), dtype=F32, device=device)
     lib, name = policy_library(config, device, net.hidden, actor, traces, "gen_policy_multiday", bf16)
+    if lib.ngk_block_actor():
+        check_k6_block(config, traces, lib, net.hidden, bf16)
+        block = k6_block(weights, lib, bf16)
+    else:
+        block = _packed(weights, lib)
     _build.launch(
         name, lib.ngk_gen_policy_multiday,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
-        traces.rad_norm.numel(), traces.solar, seed & 0xFFFFFFFF, num_days, _packed(weights, lib),
+        traces.rad_norm.numel(), traces.solar, seed & 0xFFFFFFFF, num_days, block,
         stats, batch, *_build.day_dims(config), int(bf16), device=device,
     )
     return stats

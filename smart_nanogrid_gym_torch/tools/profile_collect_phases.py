@@ -95,9 +95,9 @@ def instrument(cuh: str, cu: str) -> tuple[str, str]:
                f"(ring, g, p, s.xs, s.b1, s.h1);\n  {_clock(PROD_LAYER1, prod)}\n")
     cuh = _sub(cuh, "(ring, g, p, s.h1, s.b2, s.h2);\n",
                f"(ring, g, p, s.h1, s.b2, s.h2);\n  {_clock(PROD_LAYER2, prod)}\n")
-    cuh = _sub(cuh, "    mbarrier_wait(full + g % kRingStages, (g / kRingStages) & 1);\n",
+    cuh = _sub(cuh, "    mbarrier_wait(full + g % G::STAGES, G::RESIDENT ? 0 : (g / G::STAGES) & 1);\n",
                "    const unsigned long long waited = ngc_now();\n"
-               "    mbarrier_wait(full + g % kRingStages, (g / kRingStages) & 1);\n"
+               "    mbarrier_wait(full + g % G::STAGES, G::RESIDENT ? 0 : (g / G::STAGES) & 1);\n"
                f"    if (blockIdx.x == 0 && threadIdx.x == {prod}) ngc_ring_wait += ngc_now() - waited;\n")
     cu = cu + ('\nextern "C" int ngk_collect_clock(unsigned long long* out) {\n'
                "  const unsigned long long zero = 0;\n"

@@ -5,8 +5,9 @@ Run from the root of the repository (it builds an instrumented K10 first):
     python3 -m smart_nanogrid_gym_torch.tools.profile_k10_phases [--bf16] [--updates 6]
 
 K10 runs a whole update as one cooperative launch, so the profiler sees one
-kernel.  This tool writes a copy of ``csrc/ddpg_sweep.cuh`` and
-``csrc/ddpg_sweep.cu`` into ``build/k10_phases/`` in which block 0 records
+kernel.  This tool writes a copy of ``csrc/ddpg_sweep.cuh``,
+``csrc/ddpg_sweep.cu`` and ``csrc/operand.cuh`` into ``build/k10_phases/``
+in which block 0 records
 ``%globaltimer`` after every grid barrier and after every phase's table is
 built (``instrument``), builds it with the package's nvcc flags, and runs
 ``ddpg_sweep`` on it at the bench shape (G=24, M=256, F=25, A=9, 400-300)
@@ -78,6 +79,7 @@ def build_instrumented(flags: dict[str, int]) -> ctypes.CDLL:
     cuh, cu = instrument((_build.CSRC / "ddpg_sweep.cuh").read_text(), (_build.CSRC / "ddpg_sweep.cu").read_text())
     (OUT_DIR / "ddpg_sweep.cuh").write_text(cuh)
     (OUT_DIR / "ddpg_sweep.cu").write_text(cu)
+    (OUT_DIR / "operand.cuh").write_text((_build.CSRC / "operand.cuh").read_text())
     lib_path = OUT_DIR / "libngk_k10_phases.so"
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()),
            "-o", str(lib_path), str(OUT_DIR / "ddpg_sweep.cu")]

@@ -1,0 +1,271 @@
+"""The layout of K6's block-actor kernel (``csrc/day_step.cuh``:
+``gen_policy_multiday_block_kernel``) on the CPU: the packing of its weight
+block, an emulation of its products in the kernel's order against the twin's
+``dense()``, and its shared-memory check.
+
+The kernel runs only on the card (tests/test_torch_cuda.py holds it against
+its twin there); what surrounds it is Python that runs here.  The f32 path
+sums each output over k in index order through R x V register tiles and the
+chunks of its weight ring: the emulation reads the packed block chunk by
+chunk, with the chunk offsets of ``F32Ring``, and must equal the twin bit for
+bit.  The bf16 path's mma fragments are decoded with the kernel's lane
+formulas and multiplied exactly (float64): that must meet the twin's f32 sums
+of the same bf16 operands to f32 rounding, since only the summation order
+differs.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from smart_nanogrid_gym_torch.core.config import NanogridConfig
+from smart_nanogrid_gym_torch.core.params import make_params
+from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
+    MAX_SHARED_BYTES,
+    actor_weights,
+    check_k6_block,
+    dense,
+    k6_block,
+    relu,
+    trace_floats,
+)
+from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+from smart_nanogrid_gym_torch.solvers.networks import ActorCritic, DDPGActor
+
+CPU = torch.device("cpu")
+B8 = NanogridConfig(num_chargers=8, pv_system=True, battery_system=True)
+ART4 = NanogridConfig(num_chargers=4, pv_system=True, battery_system=True)
+E = 32            # envs a block (kCollectEnvs)
+THREADS = 352     # product threads (kDdpgProductThreads)
+PAIR_LD = 40      # words a row of bf16 pairs (kPairLd)
+BF16 = torch.bfloat16
+# (config, actor, hidden): the DDPG artifact's 4ch and the bench 8ch at 400-300,
+# the bench's 256x256 PPO torso, one narrow DDPG torso
+SHAPES = {
+    "ddpg-4ch-400x300": (ART4, "ddpg", (400, 300)),
+    "ddpg-8ch-400x300": (B8, "ddpg", (400, 300)),
+    "ppo-8ch-256x256": (B8, "ppo", (256, 256)),
+    "ddpg-4ch-50x30": (ART4, "ddpg", (50, 30)),
+}
+
+
+def tile_cost(J: int, R: int, V: int) -> int:
+    """``csrc/day_step.cuh::tile_cost``: instructions a k-row on the busiest scheduler."""
+    tiles = -(-J // R) * (E // V)
+    load = [0, 0, 0, 0]
+    for w in range(THREADS // 32):
+        load[(w + 1) % 4] += len(range(32 * w, tiles, THREADS))
+    cost = max(load) * (2 * R * V + R // 4 + V // 4)
+    return cost if tiles > 7 * 32 else 2 * cost
+
+
+def choose_tiles(J: int) -> tuple[int, int]:
+    """``csrc/day_step.cuh::choose_tiles``: the R x V tiles of an f32 layer of J rows."""
+    best, best_cost = (4, 4), None
+    for R, V in ((4, 4), (4, 8), (8, 4), (8, 8)):
+        rounds = -(-(-(-J // R) * (E // V)) // THREADS)
+        if R * V * rounds > 64:
+            continue
+        cost = tile_cost(J, R, V)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = (R, V), cost
+    return best
+
+
+def _net(config, actor, hidden, seed):
+    gen = torch.Generator().manual_seed(seed)
+    if actor == "ddpg":
+        return DDPGActor(config.obs_dim, config.num_actions, *config.action_bounds(), hidden, generator=gen)
+    return ActorCritic(config.obs_dim, config.num_actions, hidden, generator=gen)
+
+
+def _weights(name, mlp_dtype=torch.float32, seed=3):
+    config, actor, hidden = SHAPES[name]
+    return config, actor, actor_weights(config, _net(config, actor, hidden, seed), CPU, actor, mlp_dtype)
+
+
+def _fake_library(w, bf16):
+    (H1, F), H2 = w.w1.shape, w.w2.shape[0]
+    pads = {1: choose_tiles(H1)[0], 2: choose_tiles(H2)[0]}
+    tail = sum(x.numel() for x in (w.b1, w.b2, w.w3, w.b3, w.low, w.high))
+    if bf16:
+        mt1, mt2, ks1 = -(-H1 // 16), -(-H2 // 16), -(-F // 16)
+        size = (ks1 * mt1 + mt1 * mt2) * 128 + tail
+    else:
+        size = F * (-(-H1 // pads[1]) * pads[1]) + H1 * (-(-H2 // pads[2]) * pads[2]) + tail
+    return SimpleNamespace(ngk_k6_pad=lambda layer: pads[layer], ngk_k6_weights_size=lambda _: size)
+
+
+def unpack_fragments(words: torch.Tensor, J: int, K: int) -> torch.Tensor:
+    """The inverse of ``gen_policy_rollout.mma_fragments``: ``(J, K)`` f32 from the fragment words."""
+    MT, KS = -(-J // 16), -(-K // 16)
+    frags = words.contiguous().view(BF16).reshape(KS, MT, 8, 4, 2, 2, 2)
+    # (ks, mt, g, t, k half, row half, pair) -> (mt, row half, g, ks, k half, t, pair)
+    return frags.permute(1, 5, 2, 0, 4, 3, 6).reshape(MT * 16, KS * 16)[:J, :K].float()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["ddpg-4ch-400x300", "ppo-8ch-256x256", "ddpg-4ch-50x30"])
+def test_k6_block_round_trips_to_actor_weights(name, bf16):
+    """The packed block holds W1 and W2 (k-major with each k-row padded to
+    the library's tile, or as bf16 mma fragments, 2 bytes a weight) and then
+    b1, b2, W3, b3 and the box unchanged; the size the library reports is
+    checked."""
+    config, actor, w = _weights(name, BF16 if bf16 else torch.float32)
+    (H1, F), H2 = w.w1.shape, w.w2.shape[0]
+    lib = _fake_library(w, bf16)
+    block = k6_block(w, lib, bf16)
+    tail = torch.cat([x.reshape(-1) for x in (w.b1, w.b2, w.w3, w.b3, w.low, w.high)])
+    if bf16:
+        n1, n2 = -(-F // 16) * -(-H1 // 16) * 128, -(-H1 // 16) * -(-H2 // 16) * 128
+        assert 4 * n1 == 2 * (-(-F // 16) * 16) * (-(-H1 // 16) * 16)  # 2 bytes a (padded) weight
+        assert torch.equal(unpack_fragments(block[:n1], H1, F), w.w1)
+        assert torch.equal(unpack_fragments(block[n1:n1 + n2], H2, H1), w.w2)
+    else:
+        P1, P2 = (-(-h // lib.ngk_k6_pad(i)) * lib.ngk_k6_pad(i) for i, h in ((1, H1), (2, H2)))
+        n1, n2 = F * P1, H1 * P2
+        w1, w2 = block[:n1].reshape(F, P1), block[n1:n1 + n2].reshape(H1, P2)
+        assert torch.equal(w1[:, :H1], w.w1.T) and not w1[:, H1:].any()
+        assert torch.equal(w2[:, :H2], w.w2.T) and not w2[:, H2:].any()
+    assert torch.equal(block[n1 + n2:], tail)
+    wrong = SimpleNamespace(ngk_k6_pad=lib.ngk_k6_pad, ngk_k6_weights_size=lambda _: block.numel() + 1)
+    with pytest.raises(ValueError, match="expects"):
+        k6_block(w, wrong, bf16)
+
+
+def ring_layer(block: np.ndarray, offset: int, rows: int, P: int, K: int, J: int, R: int, V: int,
+               x: np.ndarray, bias: np.ndarray, act) -> np.ndarray:
+    """``F32Ring``'s layer as the kernel runs it: chunk by chunk of ``rows``
+    k-rows (each read from the packed block at its chunk offset), within a
+    chunk k by k, the R x V tiles of each round of the product threads; each
+    sum starts at its first product and adds the next in f32, product and add
+    apart.  Returns ``act(acc + b)`` for the J rows (P padded)."""
+    tiles = [(i // (E // V) * R, i % (E // V) * V) for i in range(P // R * (E // V))]
+    rounds = [tiles[q:q + THREADS] for q in range(0, len(tiles), THREADS)]
+    acc = np.zeros((P, E), np.float32)
+    for c in range(-(-K // rows)):
+        k0 = c * rows
+        n = min(rows, K - k0)
+        chunk = block[offset + k0 * P: offset + (k0 + n) * P].reshape(n, P)
+        for kk in range(n):
+            k = k0 + kk
+            for tiles_q in rounds:
+                j0 = np.array([t[0] for t in tiles_q])[:, None, None] + np.arange(R)[None, :, None]
+                e0 = np.array([t[1] for t in tiles_q])[:, None, None] + np.arange(V)[None, None, :]
+                term = chunk[kk][j0] * x[k][e0]
+                acc[j0, e0] = term if k == 0 else acc[j0, e0] + term
+    return act(acc[:J] + bias[:, None])
+
+
+@pytest.mark.parametrize("rows", [16, 8])
+@pytest.mark.parametrize("name", ["ddpg-8ch-400x300", "ppo-8ch-256x256", "ddpg-4ch-50x30"])
+def test_ring_tile_order_equals_twin_dense(name, rows):
+    """Both hidden layers of the f32 block actor, emulated in the kernel's
+    order from the packed block (the tiles of ``choose_tiles``, chunks of 16
+    k-rows as the bench's libraries use and of 8 as a wide torso's), equal
+    the twin's ``dense()`` and activation bit for bit."""
+    config, actor, w = _weights(name, seed=5)
+    (H1, F), H2 = w.w1.shape, w.w2.shape[0]
+    lib = _fake_library(w, False)
+    block = k6_block(w, lib, False).numpy()
+    (R1, V1), (R2, V2) = choose_tiles(H1), choose_tiles(H2)
+    P1, P2 = -(-H1 // R1) * R1, -(-H2 // R2) * R2
+    x = torch.from_numpy(np.random.default_rng(7).uniform(-1, 1.5, (F, E)).astype(np.float32))
+    torch_act = relu if actor == "ddpg" else torch.tanh
+
+    def np_act(v):
+        return torch_act(torch.from_numpy(v)).numpy()
+    h1 = ring_layer(block, 0, rows, P1, F, H1, R1, V1, x.numpy(), w.b1[:, 0].numpy(), np_act)
+    h2 = ring_layer(block, F * P1, rows, P2, H1, H2, R2, V2, h1, w.b2[:, 0].numpy(), np_act)
+    want1 = torch_act(dense(w.w1, w.b1, x))
+    want2 = torch_act(dense(w.w2, w.b2, want1))
+    np.testing.assert_array_equal(h1, want1.numpy())
+    np.testing.assert_array_equal(h2, want2.numpy())
+
+
+def mma_layer(frags: torch.Tensor, x_words: np.ndarray, J: int, K: int, bias: np.ndarray, act) -> np.ndarray:
+    """``mma_layer`` of the kernel with exact products: A and B assembled from
+    each lane's fragment words by the kernel's lane formulas (A from the
+    packed fragments, B from the bf16 pair rows of the activations), D = A B
+    per m-tile, n-tile and k-step summed in float64, and D's lane (g, t)
+    elements stored at unit 16 mt + g (+ 8), env 8 nt + 2 t (+ 1).  Returns
+    the layer's output as bf16 pair rows."""
+    MT, KS = -(-J // 16), -(-K // 16)
+    a_words = frags.contiguous().view(BF16).float().numpy().reshape(KS, MT, 32, 4, 2)
+    x_vals = x_words.view(np.uint16).astype(np.uint32) << 16  # bf16 halves as f32 bits
+    x_vals = x_vals.view(np.float32).reshape(-1, PAIR_LD, 2)   # (pair row, word, half)
+    out = np.zeros((MT * 16, E), np.float64)
+    for ks in range(KS):
+        for mt in range(MT):
+            A = np.zeros((16, 16))
+            B = np.zeros((16, E))
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                a = a_words[ks, mt, lane]
+                A[g, 2 * t:2 * t + 2], A[g + 8, 2 * t:2 * t + 2] = a[0], a[1]
+                A[g, 2 * t + 8:2 * t + 10], A[g + 8, 2 * t + 8:2 * t + 10] = a[2], a[3]
+                for nt in range(E // 8):
+                    B[2 * t:2 * t + 2, 8 * nt + g] = x_vals[8 * ks + t, 8 * nt + g]
+                    B[2 * t + 8:2 * t + 10, 8 * nt + g] = x_vals[8 * ks + 4 + t, 8 * nt + g]
+            out[16 * mt:16 * mt + 16] += A @ B
+    y = np.zeros((MT * 8, PAIR_LD, 2), np.float32)
+    units = np.arange(MT * 16)
+    vals = np.where(units[:, None] < J, act(out.astype(np.float32) + np.pad(bias, (0, MT * 16 - J))[:, None]), 0)
+    y[units // 2, :E, units % 2] = vals
+    return torch.from_numpy(y).to(BF16).view(torch.int32).numpy()
+
+
+def to_pairs(x: torch.Tensor, KS: int) -> np.ndarray:
+    """The bf16 pair rows of activations ``x (K, E)``: row kp, word e = inputs 2 kp and 2 kp + 1."""
+    rows = torch.zeros((KS * 16, PAIR_LD), dtype=BF16)
+    rows[:x.shape[0], :E] = x.to(BF16)
+    return rows.reshape(KS * 8, 2, PAIR_LD).permute(0, 2, 1).contiguous().view(torch.int32).numpy()
+
+
+def from_pairs(words: np.ndarray, J: int) -> torch.Tensor:
+    halves = torch.from_numpy(words).view(BF16).reshape(-1, PAIR_LD, 2)
+    return halves.permute(0, 2, 1).reshape(-1, PAIR_LD)[:J, :E].float()
+
+
+@pytest.mark.parametrize("name", ["ddpg-4ch-400x300", "ppo-8ch-256x256", "ddpg-4ch-50x30"])
+def test_mma_fragment_layer_matches_twin_dense(name):
+    """Both hidden layers of the bf16 block actor with exact products from
+    the packed fragments and the pair rows, by the kernel's lane formulas,
+    against the bf16 twin (bf16 operands, f32 sums in index order): the
+    pre-activation sums agree to f32 rounding of a few hundred terms (rtol
+    1e-5, atol 1e-5), so every hidden unit is within one bf16 rounding step."""
+    config, actor, w = _weights(name, BF16, seed=9)
+    (H1, F), H2 = w.w1.shape, w.w2.shape[0]
+    block = k6_block(w, _fake_library(w, True), True)
+    n1 = -(-F // 16) * -(-H1 // 16) * 128
+    n2 = -(-H1 // 16) * -(-H2 // 16) * 128
+    x = torch.from_numpy(np.random.default_rng(11).uniform(-1, 1.5, (F, E)).astype(np.float32))
+    ident = lambda v: v  # noqa: E731
+    pre1 = from_pairs(mma_layer(block[:n1], to_pairs(x, -(-F // 16)), H1, F, w.b1[:, 0].numpy(), ident), H1)
+    torch.testing.assert_close(pre1, dense(w.w1, w.b1, x, bf16=True).to(BF16).float(), rtol=1e-2, atol=1e-2)
+    act = (lambda v: np.where(v > 0, v, np.float32(0))) if actor == "ddpg" else np.tanh
+    h1_words = mma_layer(block[:n1], to_pairs(x, -(-F // 16)), H1, F, w.b1[:, 0].numpy(), act)
+    h1 = from_pairs(h1_words, H1)
+    twin1 = (relu if actor == "ddpg" else torch.tanh)(dense(w.w1, w.b1, x, bf16=True))
+    # the twin's h1 rounded as the kernel stores it: within one bf16 step of the kernel's
+    assert float((h1 - twin1.to(BF16).float()).abs().max()) <= 2.0 ** -7 * float(twin1.abs().max()) + 1e-6
+    pre2 = from_pairs(mma_layer(block[n1:n1 + n2], h1_words, H2, H1, w.b2[:, 0].numpy(), ident), H2)
+    want2 = dense(w.w2, w.b2, h1, bf16=True)  # the twin's sums of the same bf16 operands
+    torch.testing.assert_close(pre2, want2.to(BF16).float(), rtol=1e-2, atol=1e-2)
+    exact = torch.from_numpy((w.w2.double() @ h1.double() + w.b2.double()).numpy())
+    torch.testing.assert_close(want2.double(), exact, rtol=1e-5, atol=1e-5)
+
+
+def test_k6_shared_memory_check_raises_before_any_launch():
+    """K6's block actor refuses, before any launch, a library whose shared
+    memory (as ``ngk_k6_smem_floats`` reports it, f32 or bf16) and the traces
+    exceed a block's, naming the bytes."""
+    traces = kernel_traces(make_params(B8, torch.float32, "cpu"), CPU)
+    room = MAX_SHARED_BYTES // 4 - trace_floats(B8, traces)
+    for bf16 in (False, True):
+        check_k6_block(B8, traces, SimpleNamespace(ngk_k6_smem_floats=lambda flag: room), (400, 300), bf16)
+        over = SimpleNamespace(ngk_k6_smem_floats=lambda flag: room + 1 if flag == int(bf16) else 0)
+        with pytest.raises(ValueError, match=f"{4 * (room + 1 + trace_floats(B8, traces))} bytes"):
+            check_k6_block(B8, traces, over, (400, 300), bf16)
