@@ -35,7 +35,8 @@ just after:
   each new kernel variant against its twin, the bench row
   ``pallas_gen_policy_multiday_256x256_{f32,bf16}`` through
   ``gen_policy_multiday`` (bf16 against f32 within 0.5 % of the mean day
-  return; at 64x64 the std within 2 %), the 256x256 actor through K5 and
+  return; at 64x64 the std within 2 %) and the 64x64 row
+  ``pallas_gen_policy_multiday`` (2,500 days), the 256x256 actor through K5 and
   K11b, the DDPG artifact through K6 in bf16, PPO training with
   ``update_matmul_dtype=torch.bfloat16`` (50 updates, K2 + K3 bf16, and two
   ``env``-scheme updates, K4 bf16) and DDPG training (30 updates, K9 + K10
@@ -47,15 +48,18 @@ against the plain engine, that training raises the mean day return, and
 times each kernel against its twin and its bound; the f32 kernels must equal
 their twins, the bf16 sweeps, whose products run on the tensor cores, must
 meet the tolerance of ``tensor_core_close``, and K6's bf16 block actor (also
-on the tensor cores) that of ``k6_bf16_close``; the collection kernels K1,
-K2 and K9 and K6's f32 block actor are held to ``torch.equal`` at B=4096
-(phases 8, 13, 14 and 24).  Beside K10 it times the 28 products of its
-update as ``torch.matmul`` calls (cuBLAS, f32 with TF32 off and bf16),
-beside K2 and K9 seeded the products of a collection day, and beside K6's
-four block-actor rows the actor's products of their days the same way:
-yardsticks of the products only, which the port never calls.  Any failure raises and exits
-non-zero.  The last lines are the card (``nvidia-smi`` name and power
-limit), one JSON object with the kernels, and ``{"ok": true, "device": ...}``.
+on the tensor cores, every torso) that of ``k6_bf16_close``; the collection
+kernels K1, K2 and K9, K6's f32 block actor (the 64x64 torso too) and K5's
+(the DDPG actor, the 256x256 torso) are held to ``torch.equal`` at B=4096
+or 1024 (phases 4, 8, 13, 14 and 24).  Beside K10 it times the 28 products
+of its update as ``torch.matmul`` calls (cuBLAS, f32 with TF32 off and
+bf16), beside K2 and K9 seeded the products of a collection day, and beside
+the block-actor rows of K5 and K6 the actor's products of their days the
+same way: yardsticks of the products only, which the port never calls.  Any
+failure raises and exits non-zero.  The last lines are the card
+(``nvidia-smi`` name and power limit), one JSON object with the kernels (for
+the rows phase 28 profiles, the CUDA kernel instances the profiler saw and
+their device time), and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -123,6 +127,7 @@ RESET_DAYS = 50  # the bench's card reset + RBC day row
 FULL_BATCH = 131_072  # a batch that fills the card
 BIG_HIDDEN = (256, 256)  # the bench row's actor (bench.py:403-414)
 BIG_ROW_DAYS = 1000  # the bench row's days
+SMALL_ROW_DAYS = 2500  # the bench row pallas_gen_policy_multiday (bench.py:394-401): 64x64, 8ch
 ROW_SECONDS = 5.0  # a bench row that would take longer on its first run runs fewer days
 BF16_TRAIN_UPDATES = 30  # the bf16 DDPG training run
 # days of the new K6 rows where phase 24 times them against their twins
@@ -215,7 +220,7 @@ def k6_bf16_close(name: str, got, want, f32) -> float:
 
 
 def k6_products_ms(config, hidden: tuple[int, int], days: int, dtype) -> float:
-    """The yardstick beside K6's block-actor rows: the actor's three products
+    """The yardstick beside the block-actor rows of K5 and K6: the actor's three products
     for each of the days x T steps at B=4096, one ``torch.matmul`` (cuBLAS,
     f32 with TF32 off, or bf16) each, by CUDA events.  It covers the products
     only (no bias, activation, head, draws or physics, and none of the
@@ -329,11 +334,23 @@ def shifted_actor(config, seed: int, device):
     return net.to(device)
 
 
-def device_ms(fn, kernel: str | tuple, repeats: int, required: bool = True) -> float:
+def without_parameters(key: str) -> str:
+    """A profiler key (a demangled kernel) without its return type and
+    parameter list: the template instance."""
+    depth = 0
+    for i in range(len(key) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(key[i], 0)
+        if depth == 0:
+            key = key[:i] if i < len(key) - 1 else key
+            break
+    return key.removeprefix("void ")
+
+
+def profile_kernels(fn, kernel: str | tuple, repeats: int, required: bool = True) -> tuple[float, str | None]:
     """Mean device milliseconds per call of the kernels whose name holds
     ``kernel`` (or one of the names in a tuple), by ``torch.profiler`` over
-    ``repeats`` calls after a warm-up; NaN when the profiler records none and
-    the number is not ``required``."""
+    ``repeats`` calls after a warm-up, and the instances the profiler saw;
+    NaN and None when it records none and the number is not ``required``."""
     names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
@@ -341,11 +358,17 @@ def device_ms(fn, kernel: str | tuple, repeats: int, required: bool = True) -> f
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages() if any(k in e.key for k in names))
+    events = [e for e in prof.key_averages() if any(k in e.key for k in names)]
+    total_us = sum(e.self_device_time_total for e in events)
     if total_us <= 0 and not required:
-        return float("nan")
+        return float("nan"), None
     check(total_us > 0, f"the profiler recorded no device time for {kernel}")
-    return total_us / repeats / 1e3
+    return total_us / repeats / 1e3, "; ".join(sorted({without_parameters(e.key) for e in events}))
+
+
+def device_ms(fn, kernel: str | tuple, repeats: int, required: bool = True) -> float:
+    """The device milliseconds of :func:`profile_kernels`."""
+    return profile_kernels(fn, kernel, repeats, required)[0]
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -722,11 +745,12 @@ def ddpg_twin_checks(art_cfg, art_params, ddpg_art, u4, pv4, cfg, params, u, pv,
 
     art_traces = kernel_traces(art_params, device)
     w = actor_weights(art_cfg, ddpg_art, device, actor="ddpg")
-    errors["gen_policy_day_ddpg"] = compare(
-        "phase 13 K5 gen_policy_day actor=ddpg (DDPG artifact, 4ch, B=4096)",
-        gen_policy_day(art_cfg, art_params, ddpg_art, u4, pv4, actor="ddpg"),
-        gen_policy_day_plain(art_cfg, art_traces, w, u4, pv4, torch.full_like(pv4, 0.5), actor="ddpg"),
-        rtol=2e-4, atol=2e-4)
+    k5_got = gen_policy_day(art_cfg, art_params, ddpg_art, u4, pv4, actor="ddpg")
+    k5_want = gen_policy_day_plain(art_cfg, art_traces, w, u4, pv4, torch.full_like(pv4, 0.5), actor="ddpg")
+    errors["gen_policy_day_ddpg"] = compare("phase 13 K5 gen_policy_day actor=ddpg (DDPG artifact, 4ch, B=4096)",
+                                            k5_got, k5_want, rtol=2e-4, atol=2e-4)
+    check_equal("phase 13 K5 gen_policy_day actor=ddpg", k5_got, k5_want,
+                ("rewards", "actions", "soc_final", "batt_final"))
     k6_got = (gen_policy_multiday(art_cfg, art_params, ddpg_art, 2, 12, BENCH_BATCH, actor="ddpg"),)
     k6_want = (gen_policy_multiday_plain(art_cfg, art_traces, w, 2, 12, BENCH_BATCH, actor="ddpg"),)
     errors["gen_policy_multiday_ddpg"] = compare(
@@ -1347,6 +1371,8 @@ def bf16_rows(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big,
     }
     # K6's bf16 block-actor rows: the f32 kernel on the same days
     k6_f32 = {
+        "gen_policy_multiday_bf16": lambda: (gen_policy_multiday(
+            art_cfg, art_params, artifact, NEW_ROW_DAYS["gen_policy_multiday_bf16"], 12, BENCH_BATCH),),
         "gen_policy_multiday_block_bf16": lambda: (gen_policy_multiday(
             rbc_cfg, rbc_params, big, NEW_ROW_DAYS["gen_policy_multiday_block_bf16"], 12, BENCH_BATCH),),
         "gen_policy_multiday_ddpg_bf16": lambda: (gen_policy_multiday(
@@ -1373,12 +1399,16 @@ def bf16_rows(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big,
             n_params, lr, G, f32 = f32_refs[name]
             errors[name] = tensor_core_close(f"phase 24 {name} ({shape})", got, want, f32(), n_params, 4 * G * lr)
         elif name in k6_f32:  # K6's block actor in bf16, on the tensor cores
-            errors[name] = k6_bf16_close(f"phase 24 {name} ({shape})", got[0], want[0], k6_f32[name]()[0])
+            f32 = k6_f32[name]()[0]
+            errors[name] = k6_bf16_close(f"phase 24 {name} ({shape})", got[0], want[0], f32)
+            check(not torch.equal(got[0], f32), f"{name}: the bf16 option gives the f32 kernel's stats")
             check(torch.equal(got[0], kernel()[0]), f"{name}: a rerun is not bit-identical")
         else:
             errors[name] = compare(f"phase 24 {name} ({shape})", got, want, rtol=rtol, atol=atol)
             if name == "gen_policy_multiday_block":
                 check_equal(f"phase 24 {name}", got, want, ("stats",))
+            elif name == "gen_policy_day_block":
+                check_equal(f"phase 24 {name}", got, want, ("rewards", "actions", "soc_final", "batt_final"))
         if name in ("ppo_sweep_streamed_bf16", "ddpg_sweep_bf16"):
             check(all(torch.equal(a, b) for a, b in zip(got, kernel())), f"{name}: a rerun is not bit-identical")
         times[name] = (shape, cuda_ms(kernel, repeats), start.elapsed_time(end))
@@ -1396,7 +1426,9 @@ def big_evaluation_main_path(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art,
     after it: the bench row ``pallas_gen_policy_multiday_256x256_{f32,bf16}``
     (bench.py:403-414) through ``gen_policy_multiday`` at B=4096, the same
     actor on paired explicit days (K5) and from card reset states (K11b),
-    the 64x64 bench actor and the DDPG artifact through K6 in bf16 and f32."""
+    the bench row ``pallas_gen_policy_multiday`` (the 64x64 actor, 2,500
+    days, bench.py:394-401), the 64x64 bench actor and the DDPG artifact
+    through K6 in bf16 and f32."""
     from smart_nanogrid_gym_torch.core import SmartNanogridTorch
     from smart_nanogrid_gym_torch.ops import _build
     from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day, gen_policy_multiday
@@ -1446,6 +1478,17 @@ def big_evaluation_main_path(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art,
     check(rel < 0.005, "bf16 moved the 256x256 mean day return by 0.5 % or more")
 
     small = shifted_bias_actor(rbc_cfg, (64, 64), 42, device)
+    # the bench row pallas_gen_policy_multiday: the 64x64 actor, f32, 2,500 days
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = gen_policy_multiday(rbc_cfg, rbc_params, small, SMALL_ROW_DAYS, 4, BENCH_BATCH)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    mean, std = mean_std(stats, SMALL_ROW_DAYS * BENCH_BATCH)
+    check(math.isfinite(mean) and math.isfinite(std), "the 64x64 bench row: non-finite statistics")
+    print(f"phase 25 bench row pallas_gen_policy_multiday (64x64, f32): B={BENCH_BATCH} x {SMALL_ROW_DAYS} days in "
+          f"{seconds:.4f} s = {BENCH_BATCH * SMALL_ROW_DAYS * T / seconds:.4e} env-steps/s on {card}; mean day "
+          f"return {mean:.4f}, std {std:.4f}")
     small_days = 400  # x 4096 envs, tests/test_tpu_kernels.py:195-217's check
     small_rows = {tag: mean_std(gen_policy_multiday(rbc_cfg, rbc_params, small, small_days, 2, BENCH_BATCH,
                                                     mlp_dtype=mm), small_days * BENCH_BATCH)
@@ -1531,13 +1574,17 @@ def bf16_training_main_path(cfg, params, device, card):
     return ppo_launches, ddpg_launches
 
 
-def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art, big, featlane, gathered, state, learner,
-                      ddpg_sweep_args, card):
+def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big, u, pv, u4, pv4, featlane,
+                      gathered, state, learner, ddpg_sweep_args, card, timing_days):
     """Phase 28: by the profiler, the device time of each bf16 row beside its
     f32 counterpart's: K6 at 256x256 and with the DDPG artifact (B=4096, 2
-    days), K3, K4 and K10 per update."""
+    days), K3, K4 and K10 per update; and of the block actor's rows at the
+    shapes the kernels line reports: K6 with the PPO artifact's 64x64 actor
+    (f32, 20 days; bf16, 4 days), K5 with the DDPG artifact and with the
+    256x256 actor (1 day).  Returns the device ms and the CUDA kernel
+    instances the profiler saw, by row."""
     from smart_nanogrid_gym_torch.ops.ddpg_sweep import ddpg_sweep
-    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_multiday
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day, gen_policy_multiday
     from smart_nanogrid_gym_torch.ops.ppo_sweep import ppo_sweep, ppo_sweep_streamed
 
     days = NEW_ROW_DAYS["gen_policy_multiday_block"]
@@ -1547,7 +1594,7 @@ def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art, big, f
     p, o = state.params, state.opt_state
     d16 = ddpg_sweep_args[:-1] + (ddpg_sweep_args[-1]._replace(matmul_dtype=BF16),)
     k3, k10 = "ppo_sweep_kernel", "ddpg_sweep_kernel"
-    device_times = {}
+    device_times, instances = {}, {}
     pairs = (
         ("gen_policy_multiday_block", lambda: gen_policy_multiday(rbc_cfg, rbc_params, big, days, 5, BENCH_BATCH),
          "gen_policy_multiday_block_kernel"),
@@ -1568,7 +1615,20 @@ def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art, big, f
         ("ddpg_sweep_bf16", lambda: ddpg_sweep(*d16), k10),
     )
     for name, fn, kernel in pairs:
-        device_times[name] = device_ms(fn, kernel, 3)
+        device_times[name], instances[name] = profile_kernels(fn, kernel, 3)
+        print(f"phase 28 {name}: {device_times[name]:.4f} ms of device time per call (profiler) on {card}")
+    k6, k5 = "gen_policy_multiday_block_kernel", "gen_policy_day_block_kernel"
+    rows = (
+        ("gen_policy_multiday", lambda: gen_policy_multiday(art_cfg, art_params, artifact, timing_days, 5,
+                                                            BENCH_BATCH), k6),
+        ("gen_policy_multiday_bf16", lambda: gen_policy_multiday(
+            art_cfg, art_params, artifact, NEW_ROW_DAYS["gen_policy_multiday_bf16"], 5, BENCH_BATCH,
+            mlp_dtype=BF16), k6),
+        ("gen_policy_day_ddpg", lambda: gen_policy_day(art_cfg, art_params, ddpg_art, u4, pv4, actor="ddpg"), k5),
+        ("gen_policy_day_block", lambda: gen_policy_day(rbc_cfg, rbc_params, big, u, pv), k5),
+    )
+    for name, fn, kernel in rows:
+        device_times[name], instances[name] = profile_kernels(fn, kernel, 5)
         print(f"phase 28 {name}: {device_times[name]:.4f} ms of device time per call (profiler) on {card}")
     for a, b in (("gen_policy_multiday_block_bf16", "gen_policy_multiday_block"),
                  ("gen_policy_multiday_ddpg_bf16", "gen_policy_multiday_ddpg"),
@@ -1588,6 +1648,7 @@ def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art, big, f
     ms = device_ms(lambda: launch_policy_day(rbc_cfg, traces, weights, tables, BIG_HIDDEN),
                    "policy_day_rollout_block_kernel", 3, required=False)
     print(f"phase 28 policy_day_rollout_block: {ms:.4f} ms of device time per call (profiler) on {card}")
+    return device_times, instances
 
 
 def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
@@ -1759,11 +1820,11 @@ def main() -> None:
         "K8 gen_rbc_multiday (B=1024, 3 days)", (gen_rbc_multiday(rbc_cfg, rbc_params, 3, 11, 1024),),
         (gen_rbc_multiday_plain(rbc_cfg, traces, 3, 11, 1024),), rtol=1e-5, atol=1e-3)
     art_weights = actor_weights(art_cfg, artifact, device)
-    errors["gen_policy_multiday"] = compare(
-        "K6 gen_policy_multiday (B=1024, 3 days)",
-        (gen_policy_multiday(art_cfg, art_params, artifact, 3, 12, 1024),),
-        (gen_policy_multiday_plain(art_cfg, art_traces, art_weights, 3, 12, 1024),),
-        rtol=2e-4, atol=1e-2)
+    k6_got = (gen_policy_multiday(art_cfg, art_params, artifact, 3, 12, 1024),)
+    k6_want = (gen_policy_multiday_plain(art_cfg, art_traces, art_weights, 3, 12, 1024),)
+    errors["gen_policy_multiday"] = compare("K6 gen_policy_multiday (B=1024, 3 days)", k6_got, k6_want,
+                                            rtol=2e-4, atol=1e-2)
+    check_equal("K6 gen_policy_multiday (64x64 on the block actor)", k6_got, k6_want, ("stats",))
     torch.cuda.synchronize()
 
     # ---- phases 8-10: the training kernels K1-K4 against their twins, and K2's draws ----
@@ -1932,6 +1993,10 @@ def main() -> None:
         times[name] = (shape, cuda_ms(kernel, repeats), cuda_ms(plain, 1))
         print(f"phase 7 {name} ({shape}): kernel {times[name][1]:.4f} ms, "
               f"plain twin {times[name][2]:.4f} ms on {card}")
+    # K6 at the main path's batch: the 64x64 block actor bit-equal to its twin
+    _, kernel, plain, _ = cases["gen_policy_multiday"]
+    check_equal(f"phase 7 K6 gen_policy_multiday (B={BENCH_BATCH}, {timing_days} days)", (kernel(),), (plain(),),
+                ("stats",))
     tables_in_timings(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card, times)
 
     training_timings(learner, rbc_cfg, rbc_params, trained_state, featlane, gathered, u, pv, normals,
@@ -1940,8 +2005,8 @@ def main() -> None:
     ddpg_timings(art_cfg, art_params, ddpg_art, u4, pv4, rbc_cfg, rbc_params, ddpg_learner, d_leaves, u, pv, d_ou,
                  d_batt, sweep_args, ddpg_state, card, times, ddpg_days)
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 28")
-    bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art, big, featlane, gathered, trained_state,
-                      learner, sweep_args, card)
+    device_times, instances = bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big, u, pv, u4,
+                                     pv4, featlane, gathered, trained_state, learner, sweep_args, card, timing_days)
 
     library = {name: k10_products_ms(sweep_args, dtype) for name, dtype in
                (("ddpg_sweep", torch.float32), ("ddpg_sweep_bf16", BF16))}
@@ -1949,6 +2014,10 @@ def main() -> None:
         print(f"K10 yardstick {name}: the 28 products of each of 24 steps as torch.matmul (cuBLAS, products "
               f"only) {ms:.4f} ms per update, the kernel {times[name][1]:.4f} ms (whole update) on {card}")
     for name, cfg, hidden, days, dtype in (
+            ("gen_policy_multiday", art_cfg, artifact.hidden, timing_days, torch.float32),
+            ("gen_policy_multiday_bf16", art_cfg, artifact.hidden, NEW_ROW_DAYS["gen_policy_multiday_bf16"], BF16),
+            ("gen_policy_day_ddpg", art_cfg, DDPG_HIDDEN, 1, torch.float32),
+            ("gen_policy_day_block", rbc_cfg, BIG_HIDDEN, 1, torch.float32),
             ("gen_policy_multiday_ddpg", art_cfg, DDPG_HIDDEN, ddpg_days, torch.float32),
             ("gen_policy_multiday_ddpg_bf16", art_cfg, DDPG_HIDDEN, NEW_ROW_DAYS["gen_policy_multiday_ddpg_bf16"], BF16),
             ("gen_policy_multiday_block", rbc_cfg, BIG_HIDDEN, NEW_ROW_DAYS["gen_policy_multiday_block"],
@@ -1956,7 +2025,7 @@ def main() -> None:
             ("gen_policy_multiday_block_bf16", rbc_cfg, BIG_HIDDEN, NEW_ROW_DAYS["gen_policy_multiday_block_bf16"],
              BF16)):
         library[name] = k6_products_ms(cfg, hidden, days, dtype)
-        print(f"K6 yardstick {name}: the actor's 3 products of each of {days} x 24 steps as torch.matmul at "
+        print(f"K5/K6 yardstick {name}: the actor's 3 products of each of {days} x 24 steps as torch.matmul at "
               f"B={BENCH_BATCH} (cuBLAS {'bf16' if dtype == BF16 else 'f32'}, products only) {library[name]:.4f} "
               f"ms, the kernel {times[name][1]:.4f} ms (wrapper, {times[name][0]}) on {card}")
     library["ppo_collect_day_seeded"] = collect_products_ms(rbc_cfg, (64, 64), True, device)
@@ -1992,7 +2061,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": sources.get(name, DAY_SOURCE),
             "replaces": replaces, "launches": count, "max_abs_err": errors[name], "ms": times[name][1],
             "plain_ms": times[name][2], "bound_ms": least[name][0], "bound_by": least[name][1],
-            "library_ms": library.get(name), "shape": times[name][0],
+            "library_ms": library.get(name), "shape": times[name][0], "kernel": instances.get(name),
+            "device_ms": device_times.get(name),
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,20 +4,20 @@
 // Replaces the Pallas TPU kernels of smart_nanogrid_gym_tpu/ops/:
 //   K7 pallas_gen_rollout.py::pallas_gen_rbc_day            -> gen_rbc_day_kernel<C, Explicit>
 //   K8 pallas_gen_rollout.py::pallas_gen_rbc_multiday       -> gen_rbc_multiday_kernel<C>
-//   K5 pallas_gen_policy_rollout.py::pallas_gen_policy_day  -> gen_policy_day_kernel<C>
-//   K6 pallas_gen_policy_rollout.py::pallas_gen_policy_multiday -> gen_policy_multiday_kernel<C, BF16>
+//   K5 pallas_gen_policy_rollout.py::pallas_gen_policy_day  -> gen_policy_day_kernel<C> (64x64 PPO torsos),
+//                                                              gen_policy_day_block_kernel<C, KIND> (the DDPG
+//                                                              actor, the 256x256 PPO torso)
+//   K6 pallas_gen_policy_rollout.py::pallas_gen_policy_multiday -> gen_policy_multiday_block_kernel<C, KIND, BF16>
 //   K1 pallas_collect.py::pallas_ppo_collect_day            -> ppo_collect_day_kernel<C, false>
 //   K2 pallas_collect.py::pallas_ppo_collect_day_seeded     -> ppo_collect_day_kernel<C, true>
-//   K5 with actor="ddpg", or a PPO torso too large for       -> gen_policy_day_block_kernel<C, KIND>
-//   shared memory
-//   K6 with actor="ddpg", or such a PPO torso                -> gen_policy_multiday_block_kernel<C, KIND, BF16>
 //   K9 pallas_collect.py::pallas_ddpg_collect_day(_seeded)  -> ddpg_collect_day_kernel<C, SEEDED>
 //   K11a pallas_rollout.py::pallas_rbc_day_rollout          -> rbc_day_rollout_kernel<C>
 //   K11b pallas_policy_rollout.py::pallas_policy_day_rollout -> policy_day_rollout_kernel<C>,
 //                                                              policy_day_rollout_block_kernel<C>
 //
-// Design: one thread per env runs the whole day; the per-charger carries live
-// in registers, the price/radiation/solar traces and (for K5/K6) the actor
+// Design of the RBC kernels and of MeanActor's (K5 and K11b at 64x64): one
+// thread per env runs the whole day; the per-charger carries live in
+// registers, the price/radiation/solar traces and (MeanActor) the actor
 // weights in shared memory, read by every thread of the block at the same
 // address (broadcast).  Nothing of the schedule ever reaches device memory.
 // The RBC kernels are bound by instruction issue (K8 by the Philox draws, 10
@@ -45,27 +45,22 @@
 // The DDPG actor of K5/K6 (actor="ddpg") is SB3's 400-300 ReLU torso:
 // 129-133k floats, more than a block's 227 KB of shared memory, and 700
 // hidden floats a thread would spill.  So it runs as a block-level product.
-// K5 and K11b use BlockActor: a block takes kBlockEnvs = 32 envs with
-// kBlockThreads threads; every warp runs the same 32 envs' step body (one env
-// per lane, the redundant copies write nothing), warp 0 stages the
-// observations in shared memory, and all warps compute the hidden layers
-// there, each thread R output rows of one env, reading warp-uniform weight
-// rows from global memory (the whole actor stays in the 50 MB L2).  K6 uses
-// K9's design instead (see "K6 block actor" below): an env warp that runs
+// K6 (every torso, the 64x64 PPO actor included) and K5 with such an actor
+// take K9's design (see "K6 and K5 block actor" below): an env warp that runs
 // the step body once per env, register-tiled products, the weights streamed
-// through a shared-memory ring by TMA, and its bf16 option on the tensor
-// cores.  Each output's sum over its inputs runs in index order, as the
-// twin's dense() does (K6's bf16 option aside).  A PPO actor whose f32 block
-// does not fit beside the traces in shared memory (the bench's 256x256
-// torso: 74,779 floats) takes the same designs with tanh hidden layers and
-// the clipped mean as its head (kernels.cu chooses per library); the 64x64
+// through a shared-memory ring by TMA, and K6's bf16 option on the tensor
+// cores.  K11b keeps BlockActor for such an actor: a block takes kBlockEnvs =
+// 32 envs with kBlockThreads threads; every warp runs the same 32 envs' step
+// body (one env per lane, the redundant copies write nothing), warp 0 stages
+// the observations in shared memory, and all warps compute the hidden layers
+// there, each thread R output rows of one env, reading warp-uniform weight
+// rows from global memory (the whole actor stays in the 50 MB L2).  Each
+// output's sum over its inputs runs in index order, as the twin's dense()
+// does (K6's bf16 option aside).  A PPO actor whose f32 block does not fit
+// beside the traces in shared memory (the bench's 256x256 torso: 74,779
+// floats) takes the same designs with tanh hidden layers and the clipped mean
+// as its head (kernels.cu chooses per library for K5 and K11b); their 64x64
 // torsos keep MeanActor.
-//
-// K6's bf16 option (mlp_dtype, pallas_gen_policy_rollout.py:140-154, 531)
-// for MeanActor: the wrapper rounds w1..w3 to bf16 values (biases stay f32);
-// the kernel rounds the observation, h1 and h2 (every use of them is a
-// product operand) and accumulates the products in f32 (operand.cuh).  It
-// is a template flag of K6 chosen at launch, so no library is added.
 //
 // The tables-in kernels (K11a RBC, K11b the PPO actor's mean) roll one day of
 // a given state instead of generating it: the wrapper (ops/rollout.py) builds
@@ -84,8 +79,6 @@
 #include "operand.cuh"
 
 namespace ngk {
-
-using ngo::operand;
 
 // reference constants (charger.py:20-23, central_management_system.py:35,
 // penaliser.py:7,79,177-181, accountant.py:6,35, charging_station.py:214,257-269)
@@ -454,30 +447,21 @@ struct Critic {
   }
 };
 
-// The hidden layers of a 64-64 tanh torso: three FMA-free multiply-add loops.
-// With BF16 the observation, h1 and h2 are kept rounded: they are product
-// operands only.
-template <class C, bool BF16 = false>
+// The hidden layers of a 64-64 tanh torso: two FMA-free multiply-add loops.
+template <class C>
 __device__ __forceinline__ void torso(const float* w1, const float* b1, const float* w2, const float* b2,
                                       const float (&obs)[C::F], float (&h1)[C::H1], float (&h2)[C::H2]) {
-  const float* x = obs;
-  float rounded[BF16 ? C::F : 1];
-  if constexpr (BF16) {
-#pragma unroll
-    for (int f = 0; f < C::F; ++f) rounded[f] = operand<true>(obs[f]);
-    x = rounded;
-  }
-  for (int j = 0; j < C::H1; ++j) h1[j] = operand<BF16>(tanhf(dense(w1 + j * C::F, x, C::F) + b1[j]));
-  for (int j = 0; j < C::H2; ++j) h2[j] = operand<BF16>(tanhf(dense(w2 + j * C::H1, h1, C::H1) + b2[j]));
+  for (int j = 0; j < C::H1; ++j) h1[j] = tanhf(dense(w1 + j * C::F, obs, C::F) + b1[j]);
+  for (int j = 0; j < C::H2; ++j) h2[j] = tanhf(dense(w2 + j * C::H1, h1, C::H1) + b2[j]);
 }
 
-// The deterministic actor of K5/K6: the mean clipped to the action box.
-template <class C, bool BF16 = false>
+// The deterministic actor of K5 and K11b at 64x64: the mean clipped to the action box.
+template <class C>
 struct MeanActor {
   Actor<C> w;
   __device__ void operator()(int, const float (&obs)[C::F], float (&act)[C::A]) const {
     float h1[C::H1], h2[C::H2];
-    torso<C, BF16>(w.w1, w.b1, w.w2, w.b2, obs, h1, h2);
+    torso<C>(w.w1, w.b1, w.w2, w.b2, obs, h1, h2);
 #pragma unroll
     for (int i = 0; i < C::A; ++i)
       act[i] = fminf(fmaxf(dense(w.w3 + i * C::H2, h2, C::H2) + w.b3[i], w.low[i]), w.high[i]);
@@ -781,55 +765,6 @@ __global__ void gen_policy_day_kernel(const float* __restrict__ price, const flo
   batt_final[b] = batt;
 }
 
-// K6: num_days Philox actor days per env, battery carried across days;
-// stats (3, B) = sum and sum of squares of day returns, final battery SoC.
-// BF16: the mlp_dtype option (weights rounded by the wrapper).
-template <class C, bool BF16>
-__global__ void gen_policy_multiday_kernel(const float* __restrict__ price, const float* __restrict__ price_norm,
-                                           int P, const float* __restrict__ rad_norm, int S,
-                                           const float* __restrict__ solar, uint32_t seed, int num_days,
-                                           const float* __restrict__ weights, float* __restrict__ stats, int B,
-                                           Dims d) {
-  extern __shared__ float smem[];
-  load_block(smem, weights, C::WEIGHTS);
-  const SharedTraces s = load_traces(smem + C::WEIGHTS, rad_norm, S, price_norm, P, price, solar, d.T);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  const MeanActor<C, BF16> policy{Actor<C>(smem)};
-  float batt = kBattInit;
-  float rew_total = 0.0f, sq_total = 0.0f;
-  Carry<C> c;
-  float act[C::A], pen[C::N], pen_acc[C::N];
-#pragma unroll 1
-  for (int day = 0; day < num_days; ++day) {
-    const PhiloxDraws<C::N> src{make_uint2(seed, static_cast<uint32_t>(b)), static_cast<uint32_t>(day)};
-    const float pv = src.pv_shift(d.T);
-    c.clear();
-#pragma unroll
-    for (int n = 0; n < C::N; ++n) pen_acc[n] = 0.0f;
-    float day_sum = 0.0f;
-  #pragma unroll 1
-  for (int t = 0; t < d.T; ++t) {
-      const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
-#pragma unroll
-      for (int n = 0; n < C::N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
-      const float reward = -policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt);
-      day_sum = t == 0 ? reward : day_sum + reward;
-    }
-    float pen_total = pen_acc[0];
-#pragma unroll
-    for (int n = 1; n < C::N; ++n) pen_total = pen_total + pen_acc[n];
-    const float day_return = day_sum - kWVeh * pen_total;
-    rew_total = rew_total + day_return;
-    sq_total = sq_total + day_return * day_return;
-  }
-  stats[b] = rew_total;
-  stats[static_cast<int64_t>(B) + b] = sq_total;
-  stats[2 * static_cast<int64_t>(B) + b] = batt;
-}
-
 // ----------------------------------------------------------- block actor ---
 
 constexpr int kBlockEnvs = 32;     // envs per block: one per lane
@@ -891,8 +826,9 @@ __device__ __forceinline__ void dense_block(const float* __restrict__ w, const f
   }
 }
 
-// The block-level actor, a Policy of policy_step: every thread of the block
-// calls it at step t with its lane's observation.  Warp 0 stages the
+// The block-level actor of K11b (a PPO torso too large for MeanActor), a
+// Policy of policy_day_from_tables: every thread of the block calls it at
+// step t with its lane's observation.  Warp 0 stages the
 // observations, the block computes both hidden layers and the head, and each
 // thread reads back its lane's action.  The PPO head is the mean clipped to
 // the box (pallas_gen_policy_rollout.py:143-147); the DDPG head is
@@ -942,50 +878,11 @@ struct BlockLane {
   }
 };
 
-// The evaluation actor of a block: its views of the weights and of the
-// shared memory after the traces.
+// K11b's block actor: its views of the weights and of the shared memory
+// after the traces.
 template <class C, int KIND>
 __device__ __forceinline__ BlockActor<C, KIND> block_actor(const float* weights, const SharedTraces& s, int T) {
   return BlockActor<C, KIND>{Actor<C>(weights), BlockShared<C>(s.solar + T)};
-}
-
-// K5 with the block actor (actor="ddpg", or a PPO torso too large for
-// MeanActor): outputs as gen_policy_day_kernel.
-template <class C, int KIND>
-__global__ void __launch_bounds__(kBlockThreads)
-gen_policy_day_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
-                            const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
-                            const float* __restrict__ u, const float* __restrict__ batt_soc,
-                            const float* __restrict__ pv_shift, const float* __restrict__ weights,
-                            float* __restrict__ rewards, float* __restrict__ actions,
-                            float* __restrict__ soc_final, float* __restrict__ batt_final, int B, Dims d) {
-  extern __shared__ float smem[];
-  const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, d.T);
-  __syncthreads();
-  const BlockLane l(B);
-  const auto policy = block_actor<C, KIND>(weights, s, d.T);
-  const ExplicitDraws<C::N> src{u, B, l.b};
-  const float pv = pv_shift[l.b];
-  float batt = batt_soc[l.b];
-  Carry<C> c;
-  c.clear();
-  float act[C::A], pen[C::N];
-#pragma unroll 1
-  for (int t = 0; t < d.T; ++t) {
-    const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
-    if (!l.writes) continue;
-#pragma unroll
-    for (int i = 0; i < C::A; ++i) actions[(static_cast<int64_t>(t) * C::A + i) * B + l.b] = act[i];
-    float pen_sum = pen[0];
-#pragma unroll
-    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
-    const float cost = policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt) + kWVeh * pen_sum;
-    rewards[static_cast<int64_t>(t) * B + l.b] = -cost;
-  }
-  if (!l.writes) return;
-#pragma unroll
-  for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + l.b] = c.prev_col[n];
-  batt_final[l.b] = batt;
 }
 
 // ---------------------------------------------------- collection kernels ---
@@ -1628,7 +1525,7 @@ struct RingShared {
 // stage.  So the product warps never wait for each other inside a layer:
 // they drift apart by up to STAGES - 1 chunks.  A RESIDENT ring (a stage
 // for every chunk of a step) copies each chunk once: its first use waits on
-// `full`, every later use finds that phase complete.
+// `full`, and later uses read the stage without waiting.
 template <class G>
 struct WeightRing {
   const float* weights;
@@ -1657,14 +1554,17 @@ struct WeightRing {
   }
 
   // A product warp: chunk g once it has landed, and the stage handed back.
+  // A resident chunk stays in its stage: only its first use waits.
   __device__ __forceinline__ const float* acquire(int g) const {
+    if (!G::RESIDENT || g < G::NC) {
 #ifdef NGK_K6_CLOCK
-    const unsigned long long since = k6_now();
+      const unsigned long long since = k6_now();
 #endif
-    mbarrier_wait(full + g % G::STAGES, G::RESIDENT ? 0 : (g / G::STAGES) & 1);
+      mbarrier_wait(full + g % G::STAGES, G::RESIDENT ? 0 : (g / G::STAGES) & 1);
 #ifdef NGK_K6_CLOCK
-    if (blockIdx.x == 0 && threadIdx.x == kCollectEnvs) k6_ring_wait += k6_now() - since;
+      if (blockIdx.x == 0 && threadIdx.x == kCollectEnvs) k6_ring_wait += k6_now() - since;
 #endif
+    }
     return stages + (g % G::STAGES) * G::STAGE;
   }
   __device__ __forceinline__ void release(int g) const {
@@ -1823,31 +1723,38 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
   batt_out[l.b] = batt;
 }
 
-// ------------------------------------------------------- K6 block actor ---
+// --------------------------------------------------- K6 and K5 block actor ---
 //
-// K6 (pallas_gen_policy_rollout.py::pallas_gen_policy_multiday) with an
-// actor too large for MeanActor: the DDPG 400-300 ReLU actor (actor="ddpg")
-// and the PPO torsos whose f32 block leaves too little shared memory (the
-// bench's 256x256 tanh torso).  K9's block: 32 envs, warp 0 the env warp and
-// the ring's producer, 11 product warps, the weights streamed through the
-// ring (they never change within a launch, so the stream runs on across
-// layers, steps and days), two block barriers a step.  The env warp runs the
-// step body once per env, keeping the carried battery, the penalty sums and
-// the day's return in its lanes' registers, and writes stats (3, B) once;
-// its draws (Philox keyed by (seed, b), counter (day, t, kind, group)) come
-// from shared memory, where the product warps store the next step's while
-// the env warp observes, as in K9.
-// The head's owners write the clipped PPO mean or the DDPG squash.
+// K6 (pallas_gen_policy_rollout.py::pallas_gen_policy_multiday) for every
+// torso: the PPO actor (the 64x64 torso of the artifacts and the bench's
+// 256x256) and the DDPG 400-300 ReLU actor (actor="ddpg"); and K5
+// (::pallas_gen_policy_day) with an actor too large for MeanActor (the DDPG
+// actor, the 256x256 PPO torso).  One template, block_actor_days, runs both:
+// K6's Philox days and stats (SEEDED) or K5's one explicit-uniform day and
+// its trajectory.  K9's block: 32 envs, warp 0 the env warp and the ring's
+// producer, 11 product warps, the weights streamed through the ring (they
+// never change within a launch, so the stream runs on across layers, steps
+// and days), two block barriers a step.  The env warp runs the step body
+// once per env, keeping the carried battery, the penalty sums and the day's
+// return in its lanes' registers; K6 writes stats (3, B) once, K5 each step's
+// reward (T, B) and action (T, A, B), coalesced across envs, and then
+// soc_final (N, B) and batt_final (B).  Its draws (K6: Philox keyed by
+// (seed, b), counter (day, t, kind, group); K5: the uniforms u (T, 5, N, B))
+// come from shared memory, where the product warps store the next step's
+// while the env warp observes, as in K9.  The head's owners write the
+// clipped PPO mean or the DDPG squash.
 //
 // f32: R x V register tiles (Tile) as K9, every output's sum over k in index
-// order with the product and the add rounded apart, so the kernel is
-// bit-equal to gen_policy_multiday_plain.  Bound: the torso's multiply-adds,
-// 2.6e5 (400-300) or 1.5e5 (256x256) flops per env-step, at the FMA-free
-// issue rate of its SM (bit-equality forbids the FMA).
+// order with the product and the add rounded apart, so the kernels are
+// bit-equal to gen_policy_multiday_plain and gen_policy_day_plain.  Bound:
+// the torso's multiply-adds, 2.6e5 (400-300), 1.5e5 (256x256) or 1.2e4
+// (64x64) flops per env-step, at the FMA-free issue rate of its SM
+// (bit-equality forbids the FMA); a 64x64 step is short enough that the env
+// warp's step body and the barriers take most of it.
 //
-// bf16 (mlp_dtype): the hidden layers on the tensor cores, mma.m16n8k16 with
-// rows the output units, columns 8 envs and k 16 inputs, f32 accumulators:
-// W1 and W2 are packed as bf16 A fragments (2 bytes a weight, half the f32
+// bf16 (K6's mlp_dtype): the hidden layers on the tensor cores,
+// mma.m16n8k16 with rows the output units, columns 8 envs and k 16 inputs,
+// f32 accumulators: W1 and W2 are packed as bf16 A fragments (2 bytes a weight, half the f32
 // stream: ops/gen_policy_rollout.py::mma_fragments), the observation, h1 and
 // h2 rounded to bf16 as they are stored (as pairs of consecutive inputs, the
 // B fragments' words); biases and activations stay f32, and the head is a
@@ -1856,16 +1763,20 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
 // 240 KB a step for the 400-300 W2 from L2 into each of the 128 blocks at
 // B = 4096, goes through the same ring, with as many stages as shared memory
 // holds (k6_stages_from: 5 for the DDPG actor); the 256x256 torso's bf16 W1
-// and W2 (144 KB) stay resident, copied once.  The ring's waits and the env
-// warp's step body are timed by tools/profile_k6.py (PERF.md §6 has why no
-// thread-block cluster or larger block was taken).
+// and W2 (144 KB) and the 64x64 torso's weights, f32 or bf16, stay resident,
+// copied once.  The ring's waits and the env warp's step body are timed by
+// tools/profile_k6.py (PERF.md §6 has why no thread-block cluster or larger
+// block was taken).
 
 // The R x V tiles of an f32 layer of J output rows over the product threads:
 // the shape whose busiest warp scheduler issues the fewest instructions a
-// k-row (a tile-round is 2 R V FMA-free operations and R / 4 + V / 4 vector
-// loads), counted twice when fewer than 8 product warps have work (too few
-// to hide the loads' latency), among those with at most 64 accumulators a
-// thread.  400 rows: 4 x 4; 300: 4 x 4; 256: 4 x 8.
+// k-row (a tile-round is 2 R V FMA-free operations and a vector load for
+// each 4 rows and each 4 envs, or part of 4), counted twice when fewer than 8
+// product warps have work (too few to hide the loads' latency), among those
+// with at most 64 accumulators a thread.  400 rows: 4 x 4; 300: 4 x 4; 256:
+// 4 x 8; 64: 4 x 2, so that 256 of the 352 product threads have a tile (4 x
+// 4 would leave 224 idle).
+
 struct TileShape {
   int R, V;
 };
@@ -1884,15 +1795,16 @@ constexpr int tile_cost(int J, int R, int V) {
   }
   int worst = 0;
   for (int q = 0; q < 4; ++q) worst = load[q] > worst ? load[q] : worst;
-  const int cost = worst * (2 * R * V + R / 4 + V / 4);
+  const int cost = worst * (2 * R * V + (R + 3) / 4 + (V + 3) / 4);
   return tiles > 7 * 32 ? cost : 2 * cost;
 }
 
 constexpr TileShape choose_tiles(int J) {
-  const TileShape shapes[4] = {{4, 4}, {4, 8}, {8, 4}, {8, 8}};
+  const TileShape shapes[5] = {{4, 4}, {4, 8}, {8, 4}, {8, 8}, {4, 2}};
   TileShape best = shapes[0];
   int best_cost = -1;
-  for (const TileShape s : shapes) {
+  for (int i = 0; i < 5; ++i) {
+    const TileShape s = shapes[i];
     if (s.R * s.V * tile_rounds(J, s.R, s.V) > 64) continue;
     const int cost = tile_cost(J, s.R, s.V);
     if (best_cost < 0 || cost < best_cost) {
@@ -2088,17 +2000,26 @@ __device__ __forceinline__ void block_actor_products(const RingShared<typename K
   }
 }
 
-// K6 with the block actor: num_days Philox actor days per env, the battery
-// carried across days; stats (3, B) = sum and sum of squares of day returns,
-// final battery SoC.  BF16: the mlp_dtype option on the tensor cores.  A
-// block of kDdpgCollectThreads threads per kCollectEnvs envs; tail lanes
-// mirror the last env and write nothing.
-template <class C, int KIND, bool BF16>
-__global__ void __launch_bounds__(kDdpgCollectThreads)
-gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
-                                 const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
-                                 uint32_t seed, int num_days, const float* __restrict__ weights,
-                                 float* __restrict__ stats, int B, Dims d) {
+// The sources and outputs of the block-actor days: K6's Philox days of
+// `seed` and its stats (3, B), or K5's one explicit-uniform day (u, the
+// starting battery, the PV shift) and its trajectory.
+struct BlockDays {
+  uint32_t seed;
+  int num_days;
+  const float *u, *batt_soc, *pv_shift;
+  float *stats, *rewards, *actions, *soc_final, *batt_final;
+};
+
+// K6 (SEEDED) or K5 with the block actor, for a block of kDdpgCollectThreads
+// threads per kCollectEnvs envs; tail lanes mirror the last env and write
+// nothing.  BF16: K6's mlp_dtype option on the tensor cores.
+template <class C, int KIND, bool BF16, bool SEEDED>
+__device__ __forceinline__ void block_actor_days(const float* __restrict__ price,
+                                                 const float* __restrict__ price_norm, int P,
+                                                 const float* __restrict__ rad_norm, int S,
+                                                 const float* __restrict__ solar, const float* __restrict__ weights,
+                                                 const BlockDays& io, int B, const Dims& d) {
+  static_assert(SEEDED || !BF16, "K5 has no bf16 option");
   using L = K6<C, BF16>;
   using G = typename L::G;
   constexpr int E = kCollectEnvs, N = C::N;
@@ -2111,10 +2032,12 @@ gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* _
   if (threadIdx.x == 0) ring.init();
   const SharedDraws<C> draws{sh.end()};
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * E;
-  const int steps = num_days * d.T, chunks = steps * G::NC;
-  if (steps > 0)
-    store_draws<C, true, kDdpgCollectThreads>(draws, nullptr, CollectSource<C, true>{nullptr, nullptr, seed, B},
-                                              threadIdx.x, 0, b0, 0);
+  const int steps = io.num_days * d.T, chunks = steps * G::NC;
+  // the draws of the launch's step `step` (K5's launch is its one day)
+  const auto source = [&](int step) {
+    return CollectSource<C, SEEDED>{io.u, nullptr, io.seed, B, static_cast<uint32_t>(step / d.T)};
+  };
+  if (steps > 0) store_draws<C, SEEDED, kDdpgCollectThreads>(draws, nullptr, source(0), threadIdx.x, 0, b0, 0);
   __syncthreads();
   if (threadIdx.x >= kCollectEnvs) {
     // the product warps: the next step's draws while the env warp observes, then the policy
@@ -2124,9 +2047,7 @@ gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* _
     for (int step = 0; step < steps; ++step) {
       const int next = step + 1;
       if (next < steps)
-        store_draws<C, true, kDdpgProductThreads>(
-            draws, nullptr, CollectSource<C, true>{nullptr, nullptr, seed, B, static_cast<uint32_t>(next / d.T)}, p,
-            next % d.T, b0, next);
+        store_draws<C, SEEDED, kDdpgProductThreads>(draws, nullptr, source(next), p, next % d.T, b0, next);
       if (p == 0) k6_stamp(6, step);
       sync_block();
       block_actor_products<C, KIND, BF16>(sh, ring, g, p, step);
@@ -2144,12 +2065,16 @@ gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* _
   const int lane = threadIdx.x;
   int filled = 0;
   for (; filled < min(G::STAGES - 1, chunks); ++filled) ring.fill(filled);
-  float batt = kBattInit, rew_total = 0.0f, sq_total = 0.0f;
+  float batt = SEEDED ? kBattInit : io.batt_soc[l.b], rew_total = 0.0f, sq_total = 0.0f;
   Carry<C> c;
 #pragma unroll 1
-  for (int day = 0; day < num_days; ++day) {
-    const float pv = PhiloxDraws<N>{make_uint2(seed, static_cast<uint32_t>(l.b)), static_cast<uint32_t>(day)}
-                         .pv_shift(d.T);
+  for (int day = 0; day < io.num_days; ++day) {
+    float pv;
+    if constexpr (SEEDED) {
+      pv = PhiloxDraws<N>{make_uint2(io.seed, static_cast<uint32_t>(l.b)), static_cast<uint32_t>(day)}.pv_shift(d.T);
+    } else {
+      pv = io.pv_shift[l.b];
+    }
     c.clear();
     float pen_acc[N], day_sum = 0.0f;
 #pragma unroll
@@ -2180,22 +2105,67 @@ gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* _
 #pragma unroll
       for (int a = 0; a < C::A; ++a) act[a] = sh.act[a * E + lane];
       const PolicyRows r = physics_step<C>(st, act, c, batt, d.dt);
+      if constexpr (SEEDED) {
 #pragma unroll
-      for (int n = 0; n < N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
-      const float reward = -policy_cost<C>(r, tr.solar[t], tr.price[t], pv, d.dt);
-      day_sum = t == 0 ? reward : day_sum + reward;
+        for (int n = 0; n < N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
+        const float reward = -policy_cost<C>(r, tr.solar[t], tr.price[t], pv, d.dt);
+        day_sum = t == 0 ? reward : day_sum + reward;
+      } else if (l.writes) {  // the step's reward carries its vehicle penalty
+#pragma unroll
+        for (int a = 0; a < C::A; ++a) io.actions[(static_cast<int64_t>(t) * C::A + a) * B + l.b] = act[a];
+        float pen_sum = pen[0];
+#pragma unroll
+        for (int n = 1; n < N; ++n) pen_sum = pen_sum + pen[n];
+        const float cost = policy_cost<C>(r, tr.solar[t], tr.price[t], pv, d.dt) + kWVeh * pen_sum;
+        io.rewards[static_cast<int64_t>(t) * B + l.b] = -cost;
+      }
     }
-    float pen_total = pen_acc[0];
+    if constexpr (SEEDED) {
+      float pen_total = pen_acc[0];
 #pragma unroll
-    for (int n = 1; n < N; ++n) pen_total = pen_total + pen_acc[n];
-    const float day_return = day_sum - kWVeh * pen_total;
-    rew_total = rew_total + day_return;
-    sq_total = sq_total + day_return * day_return;
+      for (int n = 1; n < N; ++n) pen_total = pen_total + pen_acc[n];
+      const float day_return = day_sum - kWVeh * pen_total;
+      rew_total = rew_total + day_return;
+      sq_total = sq_total + day_return * day_return;
+    }
   }
   if (!l.writes) return;
-  stats[l.b] = rew_total;
-  stats[static_cast<int64_t>(B) + l.b] = sq_total;
-  stats[2 * static_cast<int64_t>(B) + l.b] = batt;
+  if constexpr (SEEDED) {
+    io.stats[l.b] = rew_total;
+    io.stats[static_cast<int64_t>(B) + l.b] = sq_total;
+    io.stats[2 * static_cast<int64_t>(B) + l.b] = batt;
+  } else {
+#pragma unroll
+    for (int n = 0; n < N; ++n) io.soc_final[static_cast<int64_t>(n) * B + l.b] = c.prev_col[n];
+    io.batt_final[l.b] = batt;
+  }
+}
+
+// K6: num_days Philox actor days per env, the battery carried across days;
+// stats (3, B) = sum and sum of squares of day returns, final battery SoC.
+template <class C, int KIND, bool BF16>
+__global__ void __launch_bounds__(kDdpgCollectThreads)
+gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                                 const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                                 uint32_t seed, int num_days, const float* __restrict__ weights,
+                                 float* __restrict__ stats, int B, Dims d) {
+  const BlockDays io{seed, num_days, nullptr, nullptr, nullptr, stats, nullptr, nullptr, nullptr, nullptr};
+  block_actor_days<C, KIND, BF16, true>(price, price_norm, P, rad_norm, S, solar, weights, io, B, d);
+}
+
+// K5 with the block actor (actor="ddpg", or a PPO torso too large for
+// MeanActor): one explicit-uniform actor day; rewards (T, B), actions (T, A,
+// B), soc_final (N, B), batt_final (B), as gen_policy_day_kernel.
+template <class C, int KIND>
+__global__ void __launch_bounds__(kDdpgCollectThreads)
+gen_policy_day_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                            const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                            const float* __restrict__ u, const float* __restrict__ batt_soc,
+                            const float* __restrict__ pv_shift, const float* __restrict__ weights,
+                            float* __restrict__ rewards, float* __restrict__ actions,
+                            float* __restrict__ soc_final, float* __restrict__ batt_final, int B, Dims d) {
+  const BlockDays io{0u, 1, u, batt_soc, pv_shift, nullptr, rewards, actions, soc_final, batt_final};
+  block_actor_days<C, KIND, false, false>(price, price_norm, P, rad_norm, S, solar, weights, io, B, d);
 }
 
 // ------------------------------------------------------- tables-in days ---

@@ -7,12 +7,14 @@
 //   0 the PPO actor (K5/K6 and the collection kernels K1/K2), 1 the DDPG
 //   actor (K5/K6 actor="ddpg" and the collection kernel K9).
 // Both kinds carry the RBC kernels K7/K8 and K11a; the PPO kind K11b.
-// The PPO actor's design is fixed per library (kBlockActor): MeanActor, one
-// thread per env with the f32 actor block in shared memory, when the block
-// leaves kTraceReserveBytes for the traces; the block-level product
-// otherwise (the 256x256 torso), K6's with K9's ring and layout
-// (gen_policy_multiday_block_kernel).  K6 takes the bf16 operand option as
-// an argument (one template instance each), so it adds no library.
+// K6 runs K9's block and ring (gen_policy_multiday_block_kernel) for every
+// torso, and takes the bf16 operand option as an argument (one template
+// instance each), so it adds no library.  The design of K5 and K11b is fixed
+// per library (kBlockActor): MeanActor, one thread per env with the f32
+// actor block in shared memory, when the block leaves kTraceReserveBytes for
+// the traces; the block-level product otherwise (the DDPG actor, the 256x256
+// PPO torso): K5 on K6's block and ring (gen_policy_day_block_kernel), K11b
+// on BlockActor (policy_day_rollout_block_kernel).
 // Every entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
 #include "day_step.cuh"
@@ -67,20 +69,14 @@ size_t collect_smem(int floats, int S, int P, int T) {
 }
 
 // K6: the block actor with K9's block (an env warp and 11 product warps per
-// kCollectEnvs envs, its ring and activations in shared memory), or MeanActor.
+// kCollectEnvs envs, its ring and activations in shared memory).
 template <bool BF16>
 int gen_policy_multiday(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                         const float* solar, unsigned int seed, int num_days, const float* weights, float* stats,
                         int B, const ngk::Dims& d, void* stream) {
-  if constexpr (kBlockActor) {
-    return launch(ngk::gen_policy_multiday_block_kernel<C, NG_ACTOR, BF16>, collect_grid(B),
-                  ngk::kDdpgCollectThreads, collect_smem(ngk::K6<C, BF16>::FLOATS, S, P, d.T), stream, price,
-                  price_norm, P, rad_norm, S, solar, seed, num_days, weights, stats, B, d);
-  } else {
-    return launch(ngk::gen_policy_multiday_kernel<C, BF16>, actor_grid(false, B), actor_threads(false),
-                  actor_smem(false, S, P, d.T), stream, price, price_norm, P, rad_norm, S, solar, seed, num_days,
-                  weights, stats, B, d);
-  }
+  return launch(ngk::gen_policy_multiday_block_kernel<C, NG_ACTOR, BF16>, collect_grid(B), ngk::kDdpgCollectThreads,
+                collect_smem(ngk::K6<C, BF16>::FLOATS, S, P, d.T), stream, price, price_norm, P, rad_norm, S,
+                solar, seed, num_days, weights, stats, B, d);
 }
 
 }  // namespace
@@ -91,9 +87,10 @@ int ngk_weights_size() { return C::WEIGHTS; }
 
 int ngk_block_actor() { return kBlockActor ? 1 : 0; }
 
-// K6's block actor (kBlockActor libraries): its packed block and its shared
-// memory before the traces (floats), f32 (bf16 = 0) or bf16, and the rows an
-// f32 k-row of layer 1 or 2 is padded to (ops/gen_policy_rollout.py::k6_block).
+// K6's block actor (and K5's in kBlockActor libraries): its packed block and
+// its shared memory before the traces (floats), f32 (bf16 = 0) or bf16, and
+// the rows an f32 k-row of layer 1 or 2 is padded to
+// (ops/gen_policy_rollout.py::k6_block).
 int ngk_k6_weights_size(int bf16) { return bf16 ? ngk::K6<C, true>::G::BLOCK : ngk::K6<C, false>::G::BLOCK; }
 int ngk_k6_smem_floats(int bf16) { return bf16 ? ngk::K6<C, true>::FLOATS : ngk::K6<C, false>::FLOATS; }
 int ngk_k6_pad(int layer) { return layer == 1 ? ngk::K6<C, false>::G::R1 : ngk::K6<C, false>::G::R2; }
@@ -132,21 +129,20 @@ int ngk_rbc_day_rollout(const float* price, const float* rad_norm, int S, const 
                 prev_col, pmask, batt_soc, pv_shift, rewards, soc_final, B, T, dt);
 }
 
-// K5 and K6 for either actor; the kernel follows the library's design.
+// K5 for either actor; the kernel follows the library's design.
 int ngk_gen_policy_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                        const float* solar, const float* u, const float* batt_soc, const float* pv_shift,
                        const float* weights, float* rewards, float* actions, float* soc_final, float* batt_final,
                        int B, int T, int k4, int k10, int k1, float dt, void* stream) {
-  const size_t smem = actor_smem(kBlockActor, S, P, T);
   const ngk::Dims d = dims(T, k4, k10, k1, dt);
   if constexpr (kBlockActor) {
-    return launch(ngk::gen_policy_day_block_kernel<C, NG_ACTOR>, actor_grid(true, B), actor_threads(true), smem,
-                  stream, price, price_norm, P, rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions,
-                  soc_final, batt_final, B, d);
+    return launch(ngk::gen_policy_day_block_kernel<C, NG_ACTOR>, collect_grid(B), ngk::kDdpgCollectThreads,
+                  collect_smem(ngk::K6<C, false>::FLOATS, S, P, T), stream, price, price_norm, P, rad_norm, S,
+                  solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final, batt_final, B, d);
   } else {
-    return launch(ngk::gen_policy_day_kernel<C>, actor_grid(false, B), actor_threads(false), smem, stream, price,
-                  price_norm, P, rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final,
-                  batt_final, B, d);
+    return launch(ngk::gen_policy_day_kernel<C>, actor_grid(false, B), actor_threads(false),
+                  actor_smem(false, S, P, T), stream, price, price_norm, P, rad_norm, S, solar, u, batt_soc,
+                  pv_shift, weights, rewards, actions, soc_final, batt_final, B, d);
   }
 }
 

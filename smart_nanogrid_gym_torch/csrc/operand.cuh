@@ -3,9 +3,10 @@
 //
 // operand<BF16>: a product operand rounded to the nearest bf16 value, ties
 // to even (__float2bfloat16_rn, as torch's and XLA's casts round), and read
-// back as f32.  The product of two bf16 values is exact in f32 (8 + 8
-// significand bits), so a kernel that rounds its operands and sums the f32
-// products in its twin's order stays bit-equal to the twin (K6's MeanActor).
+// back as f32 (K3/K4's scalar products).  The product of two bf16 values is
+// exact in f32 (8 + 8 significand bits), so a kernel that rounds its
+// operands and sums the f32 products in its twin's order stays bit-equal to
+// the twin.
 //
 // pack_bf16 and mma_bf16: the tensor-core products of K3/K4, K10 and K6's
 // block actor, mma.sync.m16n8k16 with bf16 operands and f32 accumulation.

@@ -24,20 +24,19 @@ clip and the squash stay f32 (pallas_gen_policy_rollout.py:140-154,
 404-420).
 
 The twins mirror the Pallas step body; the actor's products run as
-multiply-add loops in input order, the order the CUDA kernels use, so the
-kernels are bit-equal to them (the product of two bf16 values is exact in
-f32).  The DDPG actor, and a PPO torso whose f32 block does not fit in
-shared memory beside the traces (the bench's 256×256), run as a block-level
-product in the CUDA kernels (``csrc/day_step.cuh``): the library of the
-torso says which (``ngk_block_actor``), its launches count under ``*_block``
-names, and the block's activations in shared memory bound the torso
-(:func:`check_block_torso`).  K5 keeps ``BlockActor``; K6 runs K9's design
-(an env warp, register-tiled products, W1 and W2 streamed through a
-shared-memory ring in the layout of :func:`k6_block`, its shared memory
-checked by :func:`check_k6_block`), and its bf16 option there runs on the
-tensor cores, so that option meets its twin to a stated tolerance, not bit
-for bit.  K6 refuses torsos of more than 768 hidden units, as the JAX kernel
-does.
+multiply-add loops in input order, the order the CUDA kernels use in f32, so
+the f32 kernels are bit-equal to them (the product of two bf16 values is
+exact in f32).  K6 runs K9's design for every torso (an env warp,
+register-tiled products, W1 and W2 streamed through a shared-memory ring in
+the layout of :func:`k6_block`, its shared memory checked by
+:func:`check_k6_block`); its bf16 option runs there on the tensor cores, so
+that option meets its twin to a stated tolerance, not bit for bit.  K5 takes
+the same design, in f32, for the DDPG actor and for a PPO torso whose f32
+block does not fit in shared memory beside the traces (the bench's
+256x256): the library of the torso says which (``ngk_block_actor``), and
+the launches count under ``*_block`` or ``*_ddpg`` names; its 64x64 torsos
+keep ``MeanActor`` (one thread per env, the actor block in shared memory).
+K6 refuses torsos of more than 768 hidden units, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -185,9 +184,9 @@ def trace_floats(config: NanogridConfig, traces: Traces) -> int:
 
 def check_block_torso(config: NanogridConfig, hidden: tuple[int, int], traces: Traces) -> None:
     """Raise for a torso whose block activations (obs, both hidden layers and
-    the actions of 32 envs) and traces exceed a block's shared memory, in the
-    block-level design (the port's counterpart of the JAX kernel's VMEM
-    guard)."""
+    the actions of 32 envs) and traces exceed a block's shared memory, in
+    K11b's block-level design, ``BlockActor`` (the port's counterpart of the
+    JAX kernel's VMEM guard)."""
     floats = ((config.obs_dim + hidden[0] + hidden[1] + config.num_actions) * BLOCK_ENVS
               + trace_floats(config, traces))
     if 4 * floats > MAX_SHARED_BYTES:
@@ -208,14 +207,15 @@ def check_collect_block(config: NanogridConfig, traces: Traces, lib, hidden: tup
 
 
 def check_k6_block(config: NanogridConfig, traces: Traces, lib, hidden: tuple[int, int], bf16: bool) -> None:
-    """Raise before any launch when K6's block-actor kernel's shared memory
-    (the library's ``ngk_k6_smem_floats``: its weight ring, the activations,
-    the head and the actions) and the traces exceed a block's."""
+    """Raise before any launch when the shared memory of K6's block-actor
+    kernel, or K5's (the library's ``ngk_k6_smem_floats``: its weight ring,
+    the activations, the head, the actions and the draws), and the traces
+    exceed a block's."""
     need = 4 * (lib.ngk_k6_smem_floats(int(bf16)) + trace_floats(config, traces))
     if need > MAX_SHARED_BYTES:
         raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} and the traces need {need} bytes of shared memory "
-                         f"per block in gen_policy_multiday's block actor, more than {MAX_SHARED_BYTES}; "
-                         f"use the plain engine")
+                         f"per block in the block actor of gen_policy_multiday and gen_policy_day, more than "
+                         f"{MAX_SHARED_BYTES}; use the plain engine")
 
 
 def k_major(w: torch.Tensor, pad: int) -> torch.Tensor:
@@ -395,20 +395,31 @@ def check_policy_config(config: NanogridConfig, params: NanogridParams, kernel: 
                          "use the plain engine for other lookaheads")
 
 
-def policy_library(config, device, hidden, actor, traces, name, bf16=False):
-    """The library of the actor and the launch-count name of the kernel it
-    runs: ``name`` with ``_block`` for a PPO torso in the block-level design,
-    ``_ddpg`` for the DDPG actor and ``_bf16`` for bf16 operands.  Raises a
-    ``ValueError`` naming the limit for a torso the design cannot hold."""
+def policy_library(config, device, weights, hidden, actor, traces, name, bf16=False):
+    """The library of the actor, the actor block in the layout that kernel
+    ``name`` reads, and its launch-count name: ``name`` with ``_block`` for a
+    PPO torso in the block-level design (``ngk_block_actor``), ``_ddpg`` for
+    the DDPG actor and ``_bf16`` for bf16 operands.  K6
+    (``gen_policy_multiday``) runs K9's ring block for every torso, K5
+    (``gen_policy_day``) for the block-design torsos: :func:`k6_block`,
+    checked by :func:`check_k6_block`.  K11b's block design (``BlockActor``)
+    and both kernels' ``MeanActor`` read :func:`_packed`.  Raises a
+    ``ValueError`` naming the limit, before any launch, for a torso the
+    design cannot hold."""
     lib = _build.library(config, device, hidden, actor)
     block = bool(lib.ngk_block_actor())
-    if block:
-        check_block_torso(config, hidden, traces)
-    elif 4 * (lib.ngk_weights_size() + trace_floats(config, traces)) > MAX_SHARED_BYTES:
-        raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} and the traces need more than "
-                         f"{MAX_SHARED_BYTES} bytes of shared memory per block")
+    if name == "gen_policy_multiday" or (block and name == "gen_policy_day"):
+        check_k6_block(config, traces, lib, hidden, bf16)
+        packed = k6_block(weights, lib, bf16)
+    else:
+        if block:
+            check_block_torso(config, hidden, traces)
+        elif 4 * (lib.ngk_weights_size() + trace_floats(config, traces)) > MAX_SHARED_BYTES:
+            raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} and the traces need more than "
+                             f"{MAX_SHARED_BYTES} bytes of shared memory per block")
+        packed = _packed(weights, lib)
     suffix = "_ddpg" if actor == "ddpg" else ("_block" if block else "")
-    return lib, name + suffix + ("_bf16" if bf16 else "")
+    return lib, packed, name + suffix + ("_bf16" if bf16 else "")
 
 
 # --------------------------------------------------------------------- K5 ---
@@ -468,11 +479,11 @@ def gen_policy_day(config: NanogridConfig, params: NanogridParams, net: ActorCri
     actions = torch.empty((T, A, B), dtype=F32, device=device)
     soc_final = torch.empty((N, B), dtype=F32, device=device)
     batt_final = torch.empty((B,), dtype=F32, device=device)
-    lib, name = policy_library(config, device, net.hidden, actor, traces, "gen_policy_day")
+    lib, block, name = policy_library(config, device, weights, net.hidden, actor, traces, "gen_policy_day")
     _build.launch(
         name, lib.ngk_gen_policy_day,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,
-        traces.rad_norm.numel(), traces.solar, u, batt, pv, _packed(weights, lib),
+        traces.rad_norm.numel(), traces.solar, u, batt, pv, block,
         rewards, actions, soc_final, batt_final, B, *_build.day_dims(config), device=device,
     )
     return rewards, actions, soc_final, batt_final
@@ -537,12 +548,8 @@ def gen_policy_multiday(config: NanogridConfig, params: NanogridParams, net: Act
         return gen_policy_multiday_plain(config, traces, weights, num_days, seed, batch, actor, mlp_dtype)
 
     stats = torch.empty((3, batch), dtype=F32, device=device)
-    lib, name = policy_library(config, device, net.hidden, actor, traces, "gen_policy_multiday", bf16)
-    if lib.ngk_block_actor():
-        check_k6_block(config, traces, lib, net.hidden, bf16)
-        block = k6_block(weights, lib, bf16)
-    else:
-        block = _packed(weights, lib)
+    lib, block, name = policy_library(config, device, weights, net.hidden, actor, traces, "gen_policy_multiday",
+                                      bf16)
     _build.launch(
         name, lib.ngk_gen_policy_multiday,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm,

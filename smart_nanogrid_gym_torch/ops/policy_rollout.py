@@ -28,7 +28,6 @@ from ..core.state import EnvState
 from . import _build
 from .gen_policy_rollout import (
     ActorWeights,
-    _packed,
     actor_mean,
     actor_weights,
     battery_physics,
@@ -88,11 +87,11 @@ def launch_policy_day(config: NanogridConfig, traces: Traces, weights: ActorWeig
     rewards = torch.empty((T, B), dtype=F32, device=device)
     actions = torch.empty((T, A, B), dtype=F32, device=device)
     soc_final = torch.empty((N, B), dtype=F32, device=device)
-    lib, name = policy_library(config, device, hidden, "ppo", traces, "policy_day_rollout")
+    lib, block, name = policy_library(config, device, weights, hidden, "ppo", traces, "policy_day_rollout")
     _build.launch(
         name, lib.ngk_policy_day_rollout,
         traces.price, traces.price_norm, traces.price_norm.numel(), traces.rad_norm, traces.rad_norm.numel(),
-        traces.solar, *st, _packed(weights, lib), rewards, actions, soc_final, B, T, config.time_interval,
+        traces.solar, *st, block, rewards, actions, soc_final, B, T, config.time_interval,
         device=device,
     )
     return rewards, actions, soc_final

@@ -1,17 +1,21 @@
-"""Device time of K6's block-actor rows, and the parts of one of its steps, on one CUDA card.
+"""Device time of the block-actor rows of K6 and K5, and the parts of one of their steps, on one CUDA card.
 
 Run from the root of a checkout (it builds the kernels first):
 
-    python3 smart_nanogrid_gym_torch/tools/profile_k6.py [--root DIR] [--phases]
+    python3 smart_nanogrid_gym_torch/tools/profile_k6.py [--root DIR] [--phases] [--tiles]
 
 ``--root`` imports ``smart_nanogrid_gym_torch`` from another checkout (for
 example the parent commit unpacked under ``build/``), so that one call can time
 two versions in turn on the same card; by default the checkout that holds this
-file.  At the bench batch it times ``gen_policy_multiday`` on the four rows of
-K6's block actor: the committed DDPG artifact (4 chargers, 400-300) over 4
-days in f32 and 2 days in bf16, and the bench's 256x256 PPO torso (8
-chargers, biases +0.05, bench.py:403-414) over 2 days in f32 and bf16; per
-row the device milliseconds per launch by ``torch.profiler`` over 5 launches
+file.  At the bench batch it times eight rows: ``gen_policy_multiday`` (K6)
+with the committed DDPG artifact (4 chargers, 400-300) over 4 days in f32 and
+2 days in bf16, with the bench's 256x256 PPO torso (8 chargers, biases +0.05,
+bench.py:403-414) over 2 days in f32 and bf16, and with the committed PPO
+artifact (4 chargers, 64x64) over 20 days in f32 and 4 days in bf16; and
+``gen_policy_day`` (K5) on one explicit-uniform day with the DDPG artifact
+and with the 256x256 torso.  Per row the device milliseconds per launch by
+``torch.profiler`` (every kernel whose name holds ``gen_policy_multiday`` or
+``gen_policy_day``, whichever design the checkout launches) over 5 launches
 after a warm-up, and the wrapper's milliseconds per call by CUDA events.
 
 ``--phases`` (this checkout only) builds the same libraries with
@@ -19,12 +23,20 @@ after a warm-up, and the wrapper's milliseconds per call by CUDA events.
 of each step's parts (``csrc/day_step.cuh::k6_stamp``; every stamp read
 before a barrier, or right after a layer's): the env warp's step start and
 its observation staged; product thread 0's arrival, each hidden layer done,
-the head done and its time spent waiting for the weight ring's chunks.  It
-prints the microseconds per step of each part (mean over the first 48
-steps, 64 for the 4-day row, of launches 3-5): the env's window (physics of step t and observation of
-t + 1), layer 1, layer 2, the head and the ring waits, and whether the
-outputs are bit-identical to the package's own kernel.  The last line is one
-JSON object with the numbers, the card's name and power limit, and the root.
+the head done and its time spent waiting for the weight ring's chunks.  For
+each K6 row it prints the microseconds per step of each part (mean over the
+first 48 steps, 64 for the longer rows, of launches 3-5): the env's window
+(physics of step t and observation of t + 1), layer 1, layer 2, the head and
+the ring waits, and whether the outputs are bit-identical to the package's
+own kernel.
+
+``--tiles`` (this checkout only) times the two 64x64 f32 rows (the artifact's
+4 chargers over 20 days, and the bench's 8 chargers with its 64x64 actor,
+biases +0.05, over 20 days) on the package's library and on a library built
+from a copy of the sources under ``build/k6_tiles/`` whose ``choose_tiles``
+lacks the 4 x 2 shape (so the 64-row layers take 4 x 4), in turns (package,
+copy, copy, package), and checks that both give the same stats.  The last line is one JSON object with the numbers, the card's name
+and power limit, and the root.
 """
 
 from __future__ import annotations
@@ -40,6 +52,10 @@ from unittest import mock
 import numpy as np
 
 BATCH = 4096  # the bench batch
+NARROW = "  const TileShape shapes[5] = {{4, 4}, {4, 8}, {8, 4}, {8, 8}, {4, 2}};\n  TileShape best = shapes[0];\n" \
+         "  int best_cost = -1;\n  for (int i = 0; i < 5; ++i) {\n"
+WIDE = "  const TileShape shapes[4] = {{4, 4}, {4, 8}, {8, 4}, {8, 8}};\n  TileShape best = shapes[0];\n" \
+       "  int best_cost = -1;\n  for (int i = 0; i < 4; ++i) {\n"
 REPEATS = 5   # launches under the profiler
 SLOTS, STEPS = 8, 64  # kK6ClockSlots, kK6ClockSteps
 ENV_START, ENV_STAGED, LAYER1, LAYER2, HEAD, RING_WAIT, ARRIVE = range(7)
@@ -59,10 +75,38 @@ def step_parts(record: np.ndarray, steps: int) -> dict[str, np.ndarray]:
     }
 
 
+def wide_tiles_library(flags: dict[str, int]) -> ctypes.CDLL:
+    """The day-kernel library for ``flags`` built from a copy of the sources
+    whose ``choose_tiles`` lacks the 4 x 2 shape."""
+    from smart_nanogrid_gym_torch.ops import _build
+
+    out = _build.BUILD_DIR.parent / "k6_tiles"
+    out.mkdir(parents=True, exist_ok=True)
+    cuh = (_build.CSRC / "day_step.cuh").read_text()
+    if cuh.count(NARROW) != 1:
+        raise RuntimeError("csrc/day_step.cuh has changed: choose_tiles' shape list is not found")
+    (out / "day_step.cuh").write_text(cuh.replace(NARROW, WIDE))
+    for name in ("operand.cuh", "kernels.cu"):
+        (out / name).write_text((_build.CSRC / name).read_text())
+    lib_path = out / ("libngk_" + "_".join(f"{k[3:].lower()}{v}" for k, v in flags.items()) + ".so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()),
+           "-o", str(lib_path), str(out / "kernels.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    for fn_name, argtypes in _build._signatures(flags).items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     parser.add_argument("--phases", action="store_true", help="block 0's step parts (this checkout only)")
+    parser.add_argument("--tiles", action="store_true", help="the 64x64 rows with 4 x 2 and 4 x 4 tiles")
     args = parser.parse_args()
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
@@ -72,9 +116,9 @@ def main() -> None:
         raise SystemExit("profile_k6 needs a CUDA device")
     from smart_nanogrid_gym_torch.core import NanogridConfig, make_params
     from smart_nanogrid_gym_torch.ops import _build
-    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_multiday
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day, gen_policy_multiday
     from smart_nanogrid_gym_torch.solvers.networks import ActorCritic
-    from smart_nanogrid_gym_torch.utils.weights import load_ddpg_actor_npz
+    from smart_nanogrid_gym_torch.utils.weights import load_actor_critic_npz, load_ddpg_actor_npz
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -84,26 +128,63 @@ def main() -> None:
                              time_interval=1.0)
     bench_cfg = NanogridConfig()
     art_params, bench_params = make_params(art_cfg, torch.float32, dev), make_params(bench_cfg, torch.float32, dev)
-    npz = Path(root) / "artifacts" / "DDPG-b-pv-bounded-sparse-4ch-1h" / "49152000.npz"
-    ddpg = load_ddpg_actor_npz(str(npz), art_cfg).to(dev)
-    big = ActorCritic(bench_cfg.obs_dim, bench_cfg.num_actions, (256, 256), generator=torch.Generator().manual_seed(42))
-    with torch.no_grad():
-        for p in big.parameters():
-            if p.dim() == 1:
-                p.add_(0.05)
-    big = big.to(dev)
+    artifacts = Path(root) / "artifacts"
+    ddpg = load_ddpg_actor_npz(str(artifacts / "DDPG-b-pv-bounded-sparse-4ch-1h" / "49152000.npz"), art_cfg).to(dev)
+    ppo = load_actor_critic_npz(str(artifacts / "PPO-b-pv-bounded-sparse-4ch-1h" / "108134400.npz")).to(dev)
+
+    def shifted(hidden, seed):
+        net = ActorCritic(bench_cfg.obs_dim, bench_cfg.num_actions, hidden,
+                          generator=torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            for p in net.parameters():
+                if p.dim() == 1:
+                    p.add_(0.05)
+        return net.to(dev)
+
+    big, small = shifted((256, 256), 42), shifted((64, 64), 42)
+
+    def day_inputs(cfg, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        T, N = cfg.steps_per_day, cfg.num_chargers
+        return (torch.rand((T, 5, N, BATCH), generator=gen, device=dev),
+                torch.floor(torch.rand(BATCH, generator=gen, device=dev) * 181) / 100)
+
+    u4, pv4 = day_inputs(art_cfg, 1)
+    u8, pv8 = day_inputs(bench_cfg, 2)
+    # name: (config, params, net, days (None: K5's one explicit day), actor, mlp_dtype)
     rows = {
         "K6 ddpg f32 (DDPG artifact 4ch, 4 days)": (art_cfg, art_params, ddpg, 4, "ddpg", None),
         "K6 ddpg bf16 (DDPG artifact 4ch, 2 days)": (art_cfg, art_params, ddpg, 2, "ddpg", bf16),
         "K6 256x256 f32 (bench 8ch, 2 days)": (bench_cfg, bench_params, big, 2, "ppo", None),
         "K6 256x256 bf16 (bench 8ch, 2 days)": (bench_cfg, bench_params, big, 2, "ppo", bf16),
+        "K6 64x64 f32 (PPO artifact 4ch, 20 days)": (art_cfg, art_params, ppo, 20, "ppo", None),
+        "K6 64x64 bf16 (PPO artifact 4ch, 4 days)": (art_cfg, art_params, ppo, 4, "ppo", bf16),
+        "K5 ddpg (DDPG artifact 4ch, 1 day)": (art_cfg, art_params, ddpg, None, "ddpg", None),
+        "K5 256x256 (bench 8ch, 1 day)": (bench_cfg, bench_params, big, None, "ppo", None),
     }
+
+    def caller(cfg, params, net, days, actor, mm):
+        if days is None:
+            u, pv = (u4, pv4) if cfg is art_cfg else (u8, pv8)
+            return lambda: gen_policy_day(cfg, params, net, u, pv, actor=actor)
+        return lambda: gen_policy_multiday(cfg, params, net, days, 5, BATCH, actor=actor, mlp_dtype=mm)
+
+    def device_ms(call, kernel):
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPEATS):
+                call()
+            torch.cuda.synchronize()
+        device_us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
+        if device_us <= 0:
+            raise RuntimeError(f"the profiler recorded no device time for {kernel}")
+        return device_us / REPEATS / 1e3
+
     print(f"card: {card}; package from {root}")
     result = {"card": card, "root": root, "batch": BATCH, "rows": {}}
     for name, (cfg, params, net, days, actor, mm) in rows.items():
-        def call():
-            return gen_policy_multiday(cfg, params, net, days, 5, BATCH, actor=actor, mlp_dtype=mm)
-
+        call = caller(cfg, params, net, days, actor, mm)
         call()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -112,32 +193,48 @@ def main() -> None:
             call()
         end.record()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPEATS):
-                call()
-            torch.cuda.synchronize()
-        device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                        if "gen_policy_multiday_block_kernel" in e.key)
-        if device_us <= 0:
-            raise RuntimeError("the profiler recorded no device time for gen_policy_multiday_block_kernel")
-        result["rows"][name] = {"device_ms": device_us / REPEATS / 1e3,
-                                "wrapper_ms": start.elapsed_time(end) / REPEATS}
+        kernel = "gen_policy_day" if days is None else "gen_policy_multiday"
+        result["rows"][name] = {"device_ms": device_ms(call, kernel), "wrapper_ms": start.elapsed_time(end) / REPEATS}
         print(f"  {name} (B={BATCH}): {result['rows'][name]['device_ms']:.4f} device ms per launch, "
               f"{result['rows'][name]['wrapper_ms']:.4f} ms per call by CUDA events")
+
+    if args.tiles:
+        result["tiles"] = {}
+        for name, (cfg, params, net) in {"K6 64x64 f32 (PPO artifact 4ch, 20 days)": (art_cfg, art_params, ppo),
+                                         "K6 64x64 f32 (bench 8ch, 20 days)": (bench_cfg, bench_params, small)}.items():
+            call = caller(cfg, params, net, 20, "ppo", None)
+            wide = wide_tiles_library(_build.config_flags(cfg, net.hidden))
+            own = call()
+            times = {"4 x 2": [], "4 x 4": []}
+            for tag in ("4 x 2", "4 x 4", "4 x 4", "4 x 2"):
+                if tag == "4 x 4":
+                    with mock.patch.object(_build, "library", return_value=wide):
+                        times[tag].append(device_ms(call, "gen_policy_multiday"))
+                        same = torch.equal(call(), own)
+                    if not same:
+                        raise RuntimeError(f"{name}: the 4 x 4 tiles give other stats than 4 x 2")
+                else:
+                    times[tag].append(device_ms(call, "gen_policy_multiday"))
+            result["tiles"][name] = times
+            print(f"{name}: device ms per launch, 4 x 2 tiles (the package) {times['4 x 2']}, 4 x 4 tiles "
+                  f"{times['4 x 4']}; stats bit-identical")
 
     if args.phases:
         result["step_us"] = {}
         for name, (cfg, params, net, days, actor, mm) in rows.items():
+            if days is None:
+                continue
             flags = {**_build.config_flags(cfg, net.hidden, actor), "NGK_K6_CLOCK": 1}
             lib = _build._load(flags, dev)
             lib.ngk_k6_clock.argtypes = [ctypes.c_void_p]
             lib.ngk_k6_clock.restype = ctypes.c_int
-            own = gen_policy_multiday(cfg, params, net, days, 5, BATCH, actor=actor, mlp_dtype=mm)
+            call = caller(cfg, params, net, days, actor, mm)
+            own = call()
             record = np.zeros(STEPS * SLOTS, np.uint64)
             samples = []
             with mock.patch.object(_build, "library", return_value=lib):
                 for rep in range(5):
-                    out = gen_policy_multiday(cfg, params, net, days, 5, BATCH, actor=actor, mlp_dtype=mm)
+                    out = call()
                     torch.cuda.synchronize()
                     if lib.ngk_k6_clock(record.ctypes.data) != 0:
                         raise RuntimeError("reading the step record failed")

@@ -4,8 +4,8 @@ Marked ``cuda``: each test skips without a CUDA device (and needs ``nvcc``
 to build the kernels at first use).  The file imports no JAX, so it also
 runs on a machine that has only PyTorch: ``python -m pytest
 tests/test_torch_cuda.py -m cuda``.  Batches of 300 leave a ragged last
-block of threads; the collection kernels are also held at 1, 33 and 8192
-envs, bit for bit.
+block of threads; the collection kernels and the block actor of K5 and K6
+are also held at 1, 33 and 8192 envs, bit for bit.
 """
 
 import numpy as np
@@ -444,11 +444,10 @@ BF16 = torch.bfloat16
 @pytest.mark.parametrize("actor", ["ppo", "ddpg"])
 def test_k6_bf16_matches_twin(cuda, actor):
     """K6 with ``mlp_dtype=bf16`` against its twin (the PPO 64x64 actor and
-    the DDPG 400-300 one), 2 days at B=300.  MeanActor's bf16 products are
-    exact in f32 and summed in the twin's order, so the 64x64 kernel meets
-    its twin as in f32; the DDPG block actor runs them on the tensor cores,
-    so it meets the bf16 contract of ``k6_bf16_close`` with the f32 kernel
-    as its reference."""
+    the DDPG 400-300 one), 2 days at B=300.  Both run on K6's block actor,
+    whose bf16 products go through the tensor cores in their own summation
+    order, so both meet the bf16 contract of ``k6_bf16_close`` with the f32
+    kernel as its reference."""
     config = DDPG_CONFIGS["v2x-b-pv"]
     params = make_params(config, torch.float32, cuda)
     traces = kernel_traces(params, cuda)
@@ -458,10 +457,7 @@ def test_k6_bf16_matches_twin(cuda, actor):
     stats = gen_policy_multiday(config, params, net, 2, 17, 300, actor=actor, mlp_dtype=BF16)
     want = gen_policy_multiday_plain(config, traces, weights, 2, 17, 300, actor=actor, mlp_dtype=BF16)
     f32 = gen_policy_multiday(config, params, net, 2, 17, 300, actor=actor)
-    if actor == "ppo":
-        torch.testing.assert_close(stats, want, rtol=2e-4, atol=1e-2)
-    else:
-        k6_bf16_close(stats, want, f32, "K6 ddpg bf16, v2x 8ch, B=300")
+    k6_bf16_close(stats, want, f32, f"K6 {actor} bf16, v2x 8ch, B=300")
     assert not torch.equal(stats, f32)
     name = "gen_policy_multiday" + ("_ddpg" if actor == "ddpg" else "")
     assert dict(launch_counts) == {f"{name}_bf16": 1, name: 1}
@@ -591,7 +587,9 @@ def test_ddpg_sweep_kernel_bf16_matches_twin(cuda):
 
 # the DDPG artifact's 4ch config and the bench 8ch at 400-300, the bench's
 # 256x256 PPO torso on 8ch (its bf16 weights resident in shared memory), both
-# actors at 2 h, and a narrow torso (its f32 weights resident too)
+# actors at 2 h, a narrow torso (its f32 weights resident too), and the 64x64
+# PPO torso of the artifact (4ch) and of the bench (8ch, also at 2 h), f32 and
+# bf16 weights resident
 K6_BLOCK_CASES = {
     "ddpg-4ch": (NanogridConfig(num_chargers=4, pv_system=True, battery_system=True), "ddpg", (400, 300)),
     "ddpg-8ch": (NanogridConfig(num_chargers=8, pv_system=True, battery_system=True), "ddpg", (400, 300)),
@@ -600,7 +598,13 @@ K6_BLOCK_CASES = {
     "ppo-8ch-256-2h": (NanogridConfig(num_chargers=8, time_interval=2.0, penalty_mode="on_departure"), "ppo",
                        (256, 256)),
     "ddpg-4ch-64x48": (NanogridConfig(num_chargers=4, pv_system=True, battery_system=True), "ddpg", (64, 48)),
+    "ppo-4ch-64": (NanogridConfig(num_chargers=4, pv_system=True, battery_system=True), "ppo", (64, 64)),
+    "ppo-8ch-64": (NanogridConfig(num_chargers=8, pv_system=True, battery_system=True), "ppo", (64, 64)),
+    "ppo-8ch-64-2h": (NanogridConfig(num_chargers=8, time_interval=2.0, penalty_mode="on_departure"), "ppo",
+                      (64, 64)),
 }
+# the cases whose K5 runs the block actor too (the DDPG actor, the 256x256 PPO torso)
+K5_BLOCK_CASES = [name for name, (_, actor, hidden) in K6_BLOCK_CASES.items() if actor == "ddpg" or hidden[0] > 64]
 K6_BATCHES = (1, 33, 300, 4096, 8192)
 
 
@@ -628,9 +632,11 @@ def _block_net(config, actor, hidden, seed, device):
 @pytest.mark.parametrize("name", list(K6_BLOCK_CASES))
 def test_k6_block_kernel_f32_equals_twin(cuda, name, batch):
     """K6's block actor in f32 is ``torch.equal`` to its twin for both
-    actors at every batch (one env, a ragged block, ten blocks, the bench
-    batch, two waves of 132 SMs) over 1 and 3 days; each call launches the
-    kernel once; the library's f32 tile pads are those of ``choose_tiles``."""
+    actors and every torso at every batch (one env, a ragged block, ten
+    blocks, the bench batch, two waves of 132 SMs) over 1 and 3 days; each
+    call launches the kernel once; the library's f32 tile pads are those of
+    ``choose_tiles``, and its K5/K11b design is the block actor for all but
+    the 64x64 PPO torso."""
     from smart_nanogrid_gym_torch.ops import _build
 
     from test_torch_k6_block import choose_tiles
@@ -641,9 +647,9 @@ def test_k6_block_kernel_f32_equals_twin(cuda, name, batch):
     net = _block_net(config, actor, hidden, 31, cuda)
     weights = actor_weights(config, net, cuda, actor)
     lib = _build.library(config, cuda, hidden, actor)
-    assert lib.ngk_block_actor() == 1
+    assert lib.ngk_block_actor() == int(name in K5_BLOCK_CASES)
     assert (lib.ngk_k6_pad(1), lib.ngk_k6_pad(2)) == (choose_tiles(hidden[0])[0], choose_tiles(hidden[1])[0])
-    label = "gen_policy_multiday" + ("_ddpg" if actor == "ddpg" else "_block")
+    label = "gen_policy_multiday" + ("_ddpg" if actor == "ddpg" else ("_block" if name in K5_BLOCK_CASES else ""))
     for days in (1, 3):
         reset_launch_counts()
         got = gen_policy_multiday(config, params, net, days, 40 + days, batch, actor=actor)
@@ -652,7 +658,7 @@ def test_k6_block_kernel_f32_equals_twin(cuda, name, batch):
         assert torch.equal(got, want), (days, float((got - want).abs().max()))
 
 
-@pytest.mark.parametrize("name", ["ddpg-4ch", "ddpg-8ch", "ppo-8ch-256", "ddpg-4ch-64x48"])
+@pytest.mark.parametrize("name", ["ddpg-4ch", "ddpg-8ch", "ppo-8ch-256", "ddpg-4ch-64x48", "ppo-8ch-64"])
 def test_k6_block_kernel_bf16_meets_contract(cuda, name):
     """K6's block actor with ``mlp_dtype=bf16`` runs its hidden layers on the
     tensor cores: at B=4096 over 2 days, a rerun is bit-identical, one call is
@@ -663,7 +669,8 @@ def test_k6_block_kernel_bf16_meets_contract(cuda, name):
     params = make_params(config, torch.float32, cuda)
     traces = kernel_traces(params, cuda)
     net = _block_net(config, actor, hidden, 33, cuda)
-    label = "gen_policy_multiday" + ("_ddpg" if actor == "ddpg" else "_block") + "_bf16"
+    label = ("gen_policy_multiday" + ("_ddpg" if actor == "ddpg" else ("_block" if name in K5_BLOCK_CASES else ""))
+             + "_bf16")
     reset_launch_counts()
     got = gen_policy_multiday(config, params, net, 2, 7, 4096, actor=actor, mlp_dtype=BF16)
     assert dict(launch_counts) == {label: 1}
@@ -673,3 +680,24 @@ def test_k6_block_kernel_bf16_meets_contract(cuda, name):
     f32 = gen_policy_multiday(config, params, net, 2, 7, 4096, actor=actor)
     shares, rel, err = k6_bf16_close(got, want, f32, f"K6 {name} bf16")
     print(f"K6 {name} bf16 B=4096 x 2 days: shares {shares}, mean gap {rel:.3e}, max |d| {err:.3e}")
+
+
+@pytest.mark.parametrize("batch", K6_BATCHES)
+@pytest.mark.parametrize("name", K5_BLOCK_CASES)
+def test_k5_block_kernel_equals_twin(cuda, name, batch):
+    """K5 on K6's block and ring (the DDPG actor, the 256x256 PPO torso, 2 h
+    included): rewards, actions, soc_final and batt_final ``torch.equal`` to
+    the twin's at every batch, from random starting batteries; one launch a
+    call."""
+    config, actor, hidden = K6_BLOCK_CASES[name]
+    params = make_params(config, torch.float32, cuda)
+    traces = kernel_traces(params, cuda)
+    net = _block_net(config, actor, hidden, 35, cuda)
+    weights = actor_weights(config, net, cuda, actor)
+    u, pv = _inputs(config, 9, batch, cuda)
+    batt = torch.rand(batch, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    reset_launch_counts()
+    got = gen_policy_day(config, params, net, u, pv, batt, actor=actor)
+    assert dict(launch_counts) == {"gen_policy_day" + ("_ddpg" if actor == "ddpg" else "_block"): 1}
+    want = gen_policy_day_plain(config, traces, weights, u, pv, batt, actor=actor)
+    assert_equal_outputs(got, want, ("rewards", "actions", "soc_final", "batt_final"))

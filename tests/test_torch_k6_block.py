@@ -1,7 +1,8 @@
 """The layout of K6's block-actor kernel (``csrc/day_step.cuh``:
-``gen_policy_multiday_block_kernel``) on the CPU: the packing of its weight
-block, an emulation of its products in the kernel's order against the twin's
-``dense()``, and its shared-memory check.
+``gen_policy_multiday_block_kernel``, and K5's ``gen_policy_day_block_kernel``
+on the same template) on the CPU: the packing of its weight block, an
+emulation of its products in the kernel's order against the twin's
+``dense()``, its shared-memory check, and the wrappers' use of both.
 
 The kernel runs only on the card (tests/test_torch_cuda.py holds it against
 its twin there); what surrounds it is Python that runs here.  The f32 path
@@ -42,11 +43,14 @@ THREADS = 352     # product threads (kDdpgProductThreads)
 PAIR_LD = 40      # words a row of bf16 pairs (kPairLd)
 BF16 = torch.bfloat16
 # (config, actor, hidden): the DDPG artifact's 4ch and the bench 8ch at 400-300,
-# the bench's 256x256 PPO torso, one narrow DDPG torso
+# the bench's 256x256 PPO torso, the PPO 64x64 torso of the artifact (4ch) and
+# of the bench (8ch), one narrow DDPG torso
 SHAPES = {
     "ddpg-4ch-400x300": (ART4, "ddpg", (400, 300)),
     "ddpg-8ch-400x300": (B8, "ddpg", (400, 300)),
     "ppo-8ch-256x256": (B8, "ppo", (256, 256)),
+    "ppo-4ch-64x64": (ART4, "ppo", (64, 64)),
+    "ppo-8ch-64x64": (B8, "ppo", (64, 64)),
     "ddpg-4ch-50x30": (ART4, "ddpg", (50, 30)),
 }
 
@@ -57,14 +61,14 @@ def tile_cost(J: int, R: int, V: int) -> int:
     load = [0, 0, 0, 0]
     for w in range(THREADS // 32):
         load[(w + 1) % 4] += len(range(32 * w, tiles, THREADS))
-    cost = max(load) * (2 * R * V + R // 4 + V // 4)
+    cost = max(load) * (2 * R * V + -(-R // 4) + -(-V // 4))
     return cost if tiles > 7 * 32 else 2 * cost
 
 
 def choose_tiles(J: int) -> tuple[int, int]:
     """``csrc/day_step.cuh::choose_tiles``: the R x V tiles of an f32 layer of J rows."""
     best, best_cost = (4, 4), None
-    for R, V in ((4, 4), (4, 8), (8, 4), (8, 8)):
+    for R, V in ((4, 4), (4, 8), (8, 4), (8, 8), (4, 2)):
         rounds = -(-(-(-J // R) * (E // V)) // THREADS)
         if R * V * rounds > 64:
             continue
@@ -72,6 +76,26 @@ def choose_tiles(J: int) -> tuple[int, int]:
         if best_cost is None or cost < best_cost:
             best, best_cost = (R, V), cost
     return best
+
+
+def test_choose_tiles_keeps_wide_layers_and_fills_the_64_row_layer():
+    """The 400-, 300- and 256-row layers keep their tiles (4 x 4, 4 x 4, 4 x
+    8); a 64-row layer takes 4 x 2, 256 tiles for the 352 product threads,
+    where 4 x 4 would give 128."""
+    assert [choose_tiles(J) for J in (400, 300, 256, 64)] == [(4, 4), (4, 4), (4, 8), (4, 2)]
+    assert -(-64 // 4) * (E // 2) == 256 and -(-64 // 4) * (E // 4) == 128
+
+
+def test_tile_profiler_patches_the_shipped_shape_list():
+    """``tools/profile_k6.py --tiles`` times the 64x64 rows against a copy of
+    ``day_step.cuh`` whose ``choose_tiles`` lacks 4 x 2: its anchor is the
+    shipped shape list, found once, and the copy keeps the other four."""
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.tools.profile_k6 import NARROW, WIDE
+
+    assert (_build.CSRC / "day_step.cuh").read_text().count(NARROW) == 1
+    assert "{4, 2}" in NARROW and "{4, 2}" not in WIDE
+    assert WIDE.replace("[4]", "[5]").replace("i < 4", "i < 5") == NARROW.replace(", {4, 2}", "")
 
 
 def _net(config, actor, hidden, seed):
@@ -107,7 +131,8 @@ def unpack_fragments(words: torch.Tensor, J: int, K: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["ddpg-4ch-400x300", "ppo-8ch-256x256", "ddpg-4ch-50x30"])
+@pytest.mark.parametrize("name", ["ddpg-4ch-400x300", "ppo-8ch-256x256", "ppo-4ch-64x64", "ppo-8ch-64x64",
+                                  "ddpg-4ch-50x30"])
 def test_k6_block_round_trips_to_actor_weights(name, bf16):
     """The packed block holds W1 and W2 (k-major with each k-row padded to
     the library's tile, or as bf16 mma fragments, 2 bytes a weight) and then
@@ -160,7 +185,8 @@ def ring_layer(block: np.ndarray, offset: int, rows: int, P: int, K: int, J: int
 
 
 @pytest.mark.parametrize("rows", [16, 8])
-@pytest.mark.parametrize("name", ["ddpg-8ch-400x300", "ppo-8ch-256x256", "ddpg-4ch-50x30"])
+@pytest.mark.parametrize("name", ["ddpg-8ch-400x300", "ppo-8ch-256x256", "ppo-4ch-64x64", "ppo-8ch-64x64",
+                                  "ddpg-4ch-50x30"])
 def test_ring_tile_order_equals_twin_dense(name, rows):
     """Both hidden layers of the f32 block actor, emulated in the kernel's
     order from the packed block (the tiles of ``choose_tiles``, chunks of 16
@@ -229,7 +255,8 @@ def from_pairs(words: np.ndarray, J: int) -> torch.Tensor:
     return halves.permute(0, 2, 1).reshape(-1, PAIR_LD)[:J, :E].float()
 
 
-@pytest.mark.parametrize("name", ["ddpg-4ch-400x300", "ppo-8ch-256x256", "ddpg-4ch-50x30"])
+@pytest.mark.parametrize("name", ["ddpg-4ch-400x300", "ppo-8ch-256x256", "ppo-4ch-64x64", "ppo-8ch-64x64",
+                                  "ddpg-4ch-50x30"])
 def test_mma_fragment_layer_matches_twin_dense(name):
     """Both hidden layers of the bf16 block actor with exact products from
     the packed fragments and the pair rows, by the kernel's lane formulas,
@@ -269,3 +296,91 @@ def test_k6_shared_memory_check_raises_before_any_launch():
         over = SimpleNamespace(ngk_k6_smem_floats=lambda flag: room + 1 if flag == int(bf16) else 0)
         with pytest.raises(ValueError, match=f"{4 * (room + 1 + trace_floats(B8, traces))} bytes"):
             check_k6_block(B8, traces, over, (400, 300), bf16)
+
+
+class _Recorder:
+    """A stand-in for the kernel library and ``_build.launch``: the library
+    reports the layout of ``_fake_library`` (and ``ngk_block_actor``), the
+    launch records its name and operands instead of calling the card."""
+
+    def __init__(self, w, block_actor, smem_floats=1024):
+        fake = _fake_library(w, False)
+        fake_bf16 = _fake_library(w, True)
+        self.lib = SimpleNamespace(
+            ngk_block_actor=lambda: int(block_actor),
+            ngk_weights_size=lambda: w.packed().numel(),
+            ngk_k6_pad=fake.ngk_k6_pad,
+            ngk_k6_weights_size=lambda bf16: (fake_bf16 if bf16 else fake).ngk_k6_weights_size(bf16),
+            ngk_k6_smem_floats=lambda bf16: smem_floats,
+            ngk_gen_policy_day="ngk_gen_policy_day", ngk_gen_policy_multiday="ngk_gen_policy_multiday")
+        self.calls = []
+
+    def launch(self, name, fn, *args, device):
+        self.calls.append((name, fn, args))
+
+
+def _record_wrapper(monkeypatch, name, block_actor, smem_floats=1024, mlp_dtype=torch.float32):
+    """Run K5 (``gen_policy_day``) or K6 (``gen_policy_multiday``) of shape
+    ``name`` through its kernel path with the library and the launch
+    replaced; returns the recorder and the actor's weights."""
+    from smart_nanogrid_gym_torch.ops import _build, gen_policy_rollout as gpr
+
+    config, actor, hidden = SHAPES[name]
+    net = _net(config, actor, hidden, 4)
+    w = actor_weights(config, net, CPU, actor, mlp_dtype)
+    rec = _Recorder(w, block_actor, smem_floats)
+    monkeypatch.setattr(gpr, "kernel_device", lambda t: True)
+    monkeypatch.setattr(_build, "check_f32", lambda t, name: t)
+    monkeypatch.setattr(_build, "library", lambda *a, **k: rec.lib)
+    monkeypatch.setattr(_build, "launch", rec.launch)
+    params = make_params(config, torch.float32, "cpu")
+    return rec, w, config, params, net, actor
+
+
+@pytest.mark.parametrize("name", ["ddpg-4ch-400x300", "ppo-8ch-256x256"])
+def test_k5_block_library_packs_and_checks_through_k6_block(monkeypatch, name):
+    """K5 in a block-design library (the DDPG actor, the 256x256 PPO torso)
+    hands the kernel the f32 block of ``k6_block`` (the ring layout with the
+    library's tile pads), under the ``_ddpg`` or ``_block`` launch name; a
+    library whose K6 shared memory and traces exceed a block's raises from
+    ``check_k6_block`` before any launch."""
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day
+
+    rec, w, config, params, net, actor = _record_wrapper(monkeypatch, name, block_actor=True)
+    T, N, B = config.steps_per_day, config.num_chargers, 5
+    u = torch.rand((T, 5, N, B), generator=torch.Generator().manual_seed(1))
+    pv = torch.full((B,), 0.7)
+    gen_policy_day(config, params, net, u, pv, actor=actor)
+    (label, fn, args), = rec.calls
+    assert label == "gen_policy_day" + ("_ddpg" if actor == "ddpg" else "_block") and fn == "ngk_gen_policy_day"
+    block = args[9]
+    assert torch.equal(block, k6_block(w, rec.lib, False))
+    assert not torch.equal(block, w.packed())  # not MeanActor's layout
+    traces = kernel_traces(params, CPU)
+    over = MAX_SHARED_BYTES // 4 - trace_floats(config, traces) + 1
+    rec, *_ = _record_wrapper(monkeypatch, name, block_actor=True, smem_floats=over)
+    with pytest.raises(ValueError, match="block actor of gen_policy_multiday and gen_policy_day"):
+        gen_policy_day(config, params, net, u, pv, actor=actor)
+    assert not rec.calls
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_k6_packs_the_64x64_torso_for_its_block_kernel(monkeypatch, bf16):
+    """K6 with the 64x64 PPO torso, in a library whose K5 and K11b keep
+    MeanActor, packs through ``k6_block`` (f32 ring layout or bf16 fragments)
+    all the same, under the plain launch name; K5 there keeps MeanActor's
+    packed block."""
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day, gen_policy_multiday
+
+    mm = BF16 if bf16 else torch.float32
+    rec, w, config, params, net, actor = _record_wrapper(monkeypatch, "ppo-4ch-64x64", block_actor=False,
+                                                         mlp_dtype=mm)
+    gen_policy_multiday(config, params, net, 2, 3, 7, mlp_dtype=mm)
+    (label, fn, args), = rec.calls
+    assert label == "gen_policy_multiday" + ("_bf16" if bf16 else "") and fn == "ngk_gen_policy_multiday"
+    assert torch.equal(args[8], k6_block(w, rec.lib, bf16)) and args[-1] == int(bf16)
+    if not bf16:
+        T, N = config.steps_per_day, config.num_chargers
+        gen_policy_day(config, params, net, torch.rand((T, 5, N, 3)), torch.full((3,), 0.4))
+        label, _, args = rec.calls[-1]
+        assert label == "gen_policy_day" and torch.equal(args[9], w.packed())
