@@ -64,6 +64,7 @@ their device time), and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -136,11 +137,22 @@ NEW_ROW_DAYS = {"gen_policy_multiday_bf16": 4, "gen_policy_multiday_block": 2, "
 BF16 = torch.bfloat16
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s, float32 operations/s outside the tensor cores, dense bf16 tensor-core
-# operations/s (the least time a bf16 row's products could take)
+# operations/s (the least time a bf16 row's products could take), and the SMs'
+# clocks a second behind the float32 rate: 128 FMA lanes a clock an SM, an FMA
+# counted as two operations
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
-PHILOX_OPS = 100  # 10 rounds x (2 mul, 2 mulhi, 4 xor, 2 key adds) per 4 words
+SM_CLOCKS_PER_S = F32_OPS_PER_S / (2 * 128)
+# an SM's lanes a clock: each pipe's, and the four schedulers' issue (a warp
+# instruction each a clock); the FMA pipe's two halves take 64 lanes each, and
+# IMAD runs on one of them only
+PIPE_LANES, ISSUE_LANES = 64, 128
+# SASS opcodes (before the first '.') by pipe; vector instructions of other
+# opcodes count toward the issue only, uniform-datapath ones (U...) not at all
+FMA_OPCODES = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD"}
+ALU_OPCODES = {"LOP3", "LOP", "IADD3", "IADD", "SHF", "SHL", "SHR", "ISETP", "SEL", "LEA", "PRMT", "MOV", "IMNMX",
+               "VIMNMX", "IABS", "FSEL", "FSETP", "FMNMX", "PLOP3", "P2R", "R2P", "BMSK", "SGXT"}
 
 
 def check(ok: bool, message: str) -> None:
@@ -350,7 +362,10 @@ def profile_kernels(fn, kernel: str | tuple, repeats: int, required: bool = True
     """Mean device milliseconds per call of the kernels whose name holds
     ``kernel`` (or one of the names in a tuple), by ``torch.profiler`` over
     ``repeats`` calls after a warm-up, and the instances the profiler saw;
-    NaN and None when it records none and the number is not ``required``."""
+    NaN and None when it records none and the number is not ``required``.
+    The profiler can miss a launch's record (9 of 10 recorded on the H100),
+    so the time is the mean over the launches it recorded, times the
+    launches a call makes."""
     names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
@@ -359,16 +374,29 @@ def profile_kernels(fn, kernel: str | tuple, repeats: int, required: bool = True
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if any(k in e.key for k in names)]
-    total_us = sum(e.self_device_time_total for e in events)
+    total_us, launches = sum(e.self_device_time_total for e in events), sum(e.count for e in events)
     if total_us <= 0 and not required:
         return float("nan"), None
-    check(total_us > 0, f"the profiler recorded no device time for {kernel}")
-    return total_us / repeats / 1e3, "; ".join(sorted({without_parameters(e.key) for e in events}))
+    check(total_us > 0 and launches > 0, f"the profiler recorded no device time for {kernel}")
+    per_call = max(1, round(launches / repeats))
+    return total_us / launches * per_call / 1e3, "; ".join(sorted({without_parameters(e.key) for e in events}))
 
 
 def device_ms(fn, kernel: str | tuple, repeats: int, required: bool = True) -> float:
     """The device milliseconds of :func:`profile_kernels`."""
     return profile_kernels(fn, kernel, repeats, required)[0]
+
+
+def once_ms(fn):
+    """Milliseconds of one call of a plain twin on the card (CUDA events) and
+    its output.  No warm-up call: the twins are eager PyTorch taking tens of
+    milliseconds to seconds, which a first call's allocations do not move."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -420,14 +448,86 @@ def mean_std(stats: torch.Tensor, n: int) -> tuple[float, float]:
     return mean, math.sqrt(max(float(s[1].sum()) / n - mean * mean, 0.0))
 
 
-def bound(n_bytes: float, n_ops: float, bf16_ops: float = 0.0) -> tuple[float, str]:
+def sm_ms(n_ops: float, philox_blocks: float = 0.0, pipes: dict | None = None) -> float:
+    """The least time in ms the SMs' pipes take for ``n_ops`` f32 operations
+    (FMAs on both halves of the FMA pipe) and ``philox_blocks`` Philox
+    blocks of ``pipes`` lane instructions each by pipe
+    (:func:`philox_pipes`): the busiest of the FMA pipe, its IMAD half, the
+    integer ALU and the issue."""
+    pipes = pipes or {"fma": 0, "alu": 0, "issue": 0}
+    ffma = n_ops / 2
+    fma, alu, issue = (philox_blocks * pipes[k] for k in ("fma", "alu", "issue"))
+    clocks = max((ffma + fma) / ISSUE_LANES, fma / PIPE_LANES, alu / PIPE_LANES, (ffma + issue) / ISSUE_LANES)
+    return clocks / SM_CLOCKS_PER_S * 1e3
+
+
+def bound(n_bytes: float, n_ops: float, bf16_ops: float = 0.0, philox_blocks: float = 0.0,
+          pipes: dict | None = None) -> tuple[float, str]:
     """The least time in ms for moving ``n_bytes``, doing ``n_ops`` f32
-    operations (integer Philox operations counted at the same rate, which
-    can only make the bound smaller) and ``bf16_ops`` products of bf16
-    operands at the tensor cores' rate, and which of the two bounds it."""
+    operations and ``philox_blocks`` Philox blocks on the SMs' pipes
+    (:func:`sm_ms`), and ``bf16_ops`` products of bf16 operands on the
+    tensor cores, and which of the two bounds it: the operations' time is the
+    longer of the SM pipes' and the tensor cores', which run side by side."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (n_ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
+    t_ops = max(sm_ms(n_ops, philox_blocks, pipes), bf16_ops / BF16_OPS_PER_S * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_line(library, instance: str) -> str:
+    """ptxas's registers, shared memory and spills of the kernel template
+    ``instance`` (as the profiler names it), from the library's build log,
+    its entry names demangled by ``c++filt`` as the profiler demangles them."""
+    with open(library.with_suffix(".log")) as fp:
+        lines = fp.read().splitlines()
+    entries = [i for i, line in enumerate(lines) if "Compiling entry function" in line]
+    names = subprocess.run(["c++filt"], input="\n".join(lines[i].split("'")[1] for i in entries),
+                           capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()
+    squeeze = lambda name: "".join(without_parameters(name).split())  # noqa: E731
+    for i, name in zip(entries, names):
+        if squeeze(name) == squeeze(instance):
+            return "; ".join(x.split("ptxas info    :")[-1].strip() for x in lines[i + 1:i + 4]
+                             if "registers" in x or "spill" in x)
+    near = [name for name in names if instance.split("<")[0] in name]
+    raise RuntimeError(f"no ptxas entry for {instance} in {library.with_suffix('.log')}; entries of that "
+                       f"kernel: {near}")
+
+
+def philox_pipes(library) -> tuple[dict, dict]:
+    """One Philox4x32-10 block's lane instructions in ``library`` (a
+    day-kernel library) by pipe: ``fma`` (IMAD and the like), ``alu``
+    (LOP3, IADD3, ...) and ``issue`` (every vector instruction), from its
+    probe kernel's SASS (``cuobjdump -sass``) less that of the probe without
+    the block.  NOPs and the uniform datapath's instructions are left out:
+    the probe's key is a kernel argument, so its schedule is uniform, as the
+    kernels could hoist it (an env's key is fixed for all its blocks).  Also
+    the opcodes counted, by pipe."""
+    from smart_nanogrid_gym_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    probes = ("ngk_philox_probe_kernel", "ngk_philox_probe_base_kernel")
+    out = subprocess.run([tool, "-sass", "-fun", ",".join(probes), str(library)], capture_output=True, text=True,
+                         check=True, timeout=300)
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = collections.Counter()
+        elif name and line.strip().startswith("/*") and "*/" in line:
+            tokens = line.split("*/", 1)[1].split(";")[0].split()
+            if tokens and not tokens[0].startswith("/*"):
+                counts[name][tokens[1 if tokens[0].startswith("@") else 0]] += 1
+    diff = counts[probes[0]]
+    diff.subtract(counts[probes[1]])
+    opcodes = {"fma": {}, "alu": {}, "other": {}, "uniform": {}}
+    for op, n in diff.items():
+        base = op.split(".")[0]
+        if n == 0 or base == "NOP":
+            continue
+        kind = ("fma" if base in FMA_OPCODES else "alu" if base in ALU_OPCODES
+                else "uniform" if base.startswith("U") else "other")
+        opcodes[kind][op] = n
+    fma, alu, other = (sum(opcodes[k].values()) for k in ("fma", "alu", "other"))
+    return {"fma": fma, "alu": alu, "issue": fma + alu + other}, opcodes
 
 
 def mlp_flops(F: int, A: int, H1: int, H2: int) -> int:
@@ -638,7 +738,8 @@ def training_main_path(cfg, params, u, pv, device, card):
 def tables_in_timings(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card, times):
     """Phase 7, K11a and K11b: the kernel's device time (profiler) on tables
     already built, the twin's time on the same tables, the wrapper's (table
-    build included) and the table build's (CUDA events)."""
+    build included) and the table build's (CUDA events); returns each
+    kernel's device ms and the instance the profiler saw."""
     from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights
     from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
     from smart_nanogrid_gym_torch.ops.policy_rollout import (
@@ -663,11 +764,14 @@ def tables_in_timings(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device
                                lambda: policy_day_rollout(art_cfg, art_params, art_state, artifact),
                                lambda: state_tables(art_cfg, art_params, art_state)),
     }
+    seen = {}
     for name, (shape, kernel_name, kernel, plain, wrapper, tables) in cases.items():
-        times[name] = (shape, device_ms(kernel, kernel_name, 20), cuda_ms(plain, 1))
+        seen[name] = profile_kernels(kernel, kernel_name, 20)
+        times[name] = (shape, seen[name][0], once_ms(plain)[0])
         print(f"phase 7 {name} ({shape}): kernel {times[name][1]:.4f} ms of device time, plain twin "
               f"{times[name][2]:.4f} ms, wrapper with the table build {cuda_ms(wrapper, 20):.4f} ms, table build "
               f"{cuda_ms(tables, 20):.4f} ms, launch alone {cuda_ms(kernel, 20):.4f} ms on {card}")
+    return seen
 
 
 def training_timings(learner, cfg, params, state, featlane, gathered, u, pv, normals, batt, card, times):
@@ -701,7 +805,7 @@ def training_timings(learner, cfg, params, state, featlane, gathered, u, pv, nor
                       lambda: ppo_sweep_plain(p, o, zip(*gathered), hp), 3),
     }
     for name, (shape, kernel, plain, repeats) in cases.items():
-        times[name] = (shape, cuda_ms(kernel, repeats), cuda_ms(plain, 1))
+        times[name] = (shape, cuda_ms(kernel, repeats), once_ms(plain)[0])
         print(f"phase 12 {name} ({shape}): kernel {times[name][1]:.4f} ms, "
               f"plain twin {times[name][2]:.4f} ms on {card}")
 
@@ -1039,7 +1143,7 @@ def ddpg_timings(art_cfg, art_params, ddpg_art, u4, pv4, cfg, params, learner, l
                        lambda: ddpg_sweep_plain(*sweep_args), 3),
     }
     for name, (shape, kernel, plain, repeats) in cases.items():
-        times[name] = (shape, cuda_ms(kernel, repeats), cuda_ms(plain, 1))
+        times[name] = (shape, cuda_ms(kernel, repeats), once_ms(plain)[0])
         print(f"phase 19 {name} ({shape}): kernel {times[name][1]:.4f} ms, "
               f"plain twin {times[name][2]:.4f} ms on {card}")
 
@@ -1080,9 +1184,10 @@ def given_states(config, params, seed: int, device):
 
 def tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg, v2x_params, device, errors):
     """Phases 20-21 (checks): K11a and K11b element for element against their
-    twins at B=4096, and against the plain engine (fused_day_rollout) on the
-    same given states."""
-    from smart_nanogrid_gym_torch.core import fused_day_rollout
+    twins at B=4096 (K11a bit for bit, also on a card reset at B=131,072),
+    and against the plain engine (fused_day_rollout) on the same given
+    states."""
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch, fused_day_rollout
     from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights
     from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
     from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout, policy_day_rollout_plain
@@ -1099,13 +1204,21 @@ def tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg
             print(f"phase 20 continued state: {int(state.pmask.sum())} carried penalty-mask entries, {changed} SoC "
                   f"entries of day 1's history differ from the day's initial SoC")
         got = rbc_day_rollout(rbc_cfg, rbc_params, state)
-        err = max(err, compare(f"phase 20 K11a rbc_day_rollout ({label} state, 8ch b-pv, B={BENCH_BATCH})", got,
-                               rbc_day_rollout_plain(rbc_cfg, traces, state_tables(rbc_cfg, rbc_params, state)),
-                               rtol=2e-5, atol=1e-5))
+        want = rbc_day_rollout_plain(rbc_cfg, traces, state_tables(rbc_cfg, rbc_params, state))
+        label20 = f"phase 20 K11a rbc_day_rollout ({label} state, 8ch b-pv, B={BENCH_BATCH})"
+        err = max(err, compare(label20, got, want, rtol=2e-5, atol=1e-5))
+        check_equal(label20, got, want, ("rewards", "soc_final"))
         final, (_, rewards, _) = fused_day_rollout(rbc_cfg, rbc_params, state, rbc, next_pv_shift=state.pv_shift)
         compare(f"phase 20 K11a ({label} state)", got, (rewards, final.soc[..., T - 1].T), rtol=2e-5, atol=1e-5,
                 against="plain engine (fused_day_rollout, RBC)")
     errors["rbc_day_rollout"] = err
+    gen = torch.Generator(device=device).manual_seed(24)
+    big, _ = SmartNanogridTorch(rbc_cfg).reset_batch(rbc_params, FULL_BATCH, gen)
+    check_equal(f"phase 20 K11a rbc_day_rollout (card reset, 8ch b-pv, B={FULL_BATCH})",
+                rbc_day_rollout(rbc_cfg, rbc_params, big),
+                rbc_day_rollout_plain(rbc_cfg, traces, state_tables(rbc_cfg, rbc_params, big)),
+                ("rewards", "soc_final"))
+    del big
 
     err = 0.0
     cases = (("the PPO artifact, 4ch b-pv", art_cfg, art_params, artifact, 21),
@@ -1651,8 +1764,9 @@ def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_a
     return device_times, instances
 
 
-def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
-    """The least time of each kernel at the shape phase 7/12/19/24 times it."""
+def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days, philox):
+    """The least time of each kernel at the shape phase 7/12/19/24 times it;
+    a Philox block takes ``philox`` lane instructions by pipe."""
     B, T = BENCH_BATCH, rbc_cfg.steps_per_day
     out = {}
     N8, A8, F8 = rbc_cfg.num_chargers, rbc_cfg.num_actions, rbc_cfg.obs_dim
@@ -1661,16 +1775,16 @@ def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
     actor4 = mlp_flops(F4, A4, 64, 64)
     # K7: explicit uniforms in, rewards and final SoC out; the physics is not counted
     out["gen_rbc_day"] = bound(4 * (T * 5 * N8 * B + 2 * B + T * B + N8 * B), 0)
-    out["gen_rbc_multiday"] = bound(4 * 2 * B, PHILOX_OPS * philox_calls_per_day(rbc_cfg) * timing_days * B)
+    out["gen_rbc_multiday"] = bound(4 * 2 * B, 0, 0, philox_calls_per_day(rbc_cfg) * timing_days * B, philox)
     out["gen_policy_day"] = bound(4 * (T * 5 * N4 * B + 2 * B + T * B + T * A4 * B + N4 * B + B),
                                   actor4 * T * B)
-    out["gen_policy_multiday"] = bound(4 * 3 * B, (actor4 * T + PHILOX_OPS * philox_calls_per_day(art_cfg))
-                                       * timing_days * B)
+    out["gen_policy_multiday"] = bound(4 * 3 * B, actor4 * T * timing_days * B, 0,
+                                       philox_calls_per_day(art_cfg) * timing_days * B, philox)
     traj = 4 * (T * F8 * B + T * A8 * B + 3 * T * B + B)
     out["ppo_collect_day"] = bound(4 * (T * 5 * N8 * B + T * A8 * B + 2 * B) + traj, (actor8 + critic8) * T * B)
     normal_calls = 2 * ((A8 + 3) // 4) * T
-    out["ppo_collect_day_seeded"] = bound(4 * B + traj, (actor8 + critic8) * T * B + PHILOX_OPS *
-                                          (philox_calls_per_day(rbc_cfg) + normal_calls + 1) * B)
+    out["ppo_collect_day_seeded"] = bound(4 * B + traj, (actor8 + critic8) * T * B, 0,
+                                          (philox_calls_per_day(rbc_cfg) + normal_calls + 1) * B, philox)
     # the sweep: forward of both torsos, and the backward's weight and input gradients
     bwd = lambda F, A: 2 * (64 * F + 2 * 64 * 64 + 2 * A * 64)  # noqa: E731
     per_sample = actor8 + critic8 + bwd(F8, A8) + bwd(F8, 1)
@@ -1684,12 +1798,12 @@ def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
     H1, H2 = DDPG_HIDDEN
     ddpg4, ddpg8 = mlp_flops(F4, A4, H1, H2), mlp_flops(F8, A8, H1, H2)
     out["gen_policy_day_ddpg"] = bound(4 * (T * 5 * N4 * B + 2 * B + T * B + T * A4 * B + N4 * B + B), ddpg4 * T * B)
-    out["gen_policy_multiday_ddpg"] = bound(4 * 3 * B, (ddpg4 * T + PHILOX_OPS * philox_calls_per_day(art_cfg))
-                                            * ddpg_days * B)
+    out["gen_policy_multiday_ddpg"] = bound(4 * 3 * B, ddpg4 * T * ddpg_days * B, 0,
+                                            philox_calls_per_day(art_cfg) * ddpg_days * B, philox)
     k9_out = 4 * (2 * T * F8 * B + T * A8 * B + T * B + B)
     out["ddpg_collect_day"] = bound(4 * (T * 5 * N8 * B + T * A8 * B + 2 * B) + k9_out, ddpg8 * T * B)
-    out["ddpg_collect_day_seeded"] = bound(4 * (T * A8 * B + B) + k9_out,
-                                           ddpg8 * T * B + PHILOX_OPS * philox_calls_per_day(rbc_cfg) * B)
+    out["ddpg_collect_day_seeded"] = bound(4 * (T * A8 * B + B) + k9_out, ddpg8 * T * B, 0,
+                                           philox_calls_per_day(rbc_cfg) * B, philox)
     # the sweep: per sample and step, the forwards of the target actor, the target
     # critic, the critic, the actor and the critic on its action; the critic's
     # weight and input gradients; the input gradients back to the action; the
@@ -1712,19 +1826,18 @@ def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days):
     out["policy_day_rollout"] = bound(tables_in_bytes(N4, A4), actor4 * T * B)
 
     # phase 24's rows: the 256x256 torso's products at the f32 rate, a bf16
-    # row's products at the bf16 tensor-core rate (Philox stays at the f32 rate)
+    # row's products at the bf16 tensor-core rate, Philox on the SMs' pipes
     big8 = mlp_flops(F8, A8, *BIG_HIDDEN)
     days = NEW_ROW_DAYS
-    philox8 = PHILOX_OPS * philox_calls_per_day(rbc_cfg) * B
-    philox4 = PHILOX_OPS * philox_calls_per_day(art_cfg) * B
+    philox8, philox4 = philox_calls_per_day(rbc_cfg) * B, philox_calls_per_day(art_cfg) * B
     d = days["gen_policy_multiday_bf16"]
-    out["gen_policy_multiday_bf16"] = bound(4 * 3 * B, philox4 * d, actor4 * T * d * B)
+    out["gen_policy_multiday_bf16"] = bound(4 * 3 * B, 0, actor4 * T * d * B, philox4 * d, philox)
     d = days["gen_policy_multiday_block"]
-    out["gen_policy_multiday_block"] = bound(4 * 3 * B, (big8 * T * B + philox8) * d)
+    out["gen_policy_multiday_block"] = bound(4 * 3 * B, big8 * T * B * d, 0, philox8 * d, philox)
     d = days["gen_policy_multiday_block_bf16"]
-    out["gen_policy_multiday_block_bf16"] = bound(4 * 3 * B, philox8 * d, big8 * T * d * B)
+    out["gen_policy_multiday_block_bf16"] = bound(4 * 3 * B, 0, big8 * T * d * B, philox8 * d, philox)
     d = days["gen_policy_multiday_ddpg_bf16"]
-    out["gen_policy_multiday_ddpg_bf16"] = bound(4 * 3 * B, philox4 * d, ddpg4 * T * d * B)
+    out["gen_policy_multiday_ddpg_bf16"] = bound(4 * 3 * B, 0, ddpg4 * T * d * B, philox4 * d, philox)
     out["gen_policy_day_block"] = bound(4 * (T * 5 * N8 * B + 2 * B + T * B + T * A8 * B + N8 * B + B),
                                         big8 * T * B)
     out["policy_day_rollout_block"] = bound(tables_in_bytes(N8, A8), big8 * T * B)
@@ -1782,6 +1895,16 @@ def main() -> None:
               _build.ddpg_sweep_library(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN, device))
     print(f"phase 1 cooperative grids: K3/K4 {sweeps[0].ngk_sweep_grid_blocks()} blocks, "
           f"K10 {sweeps[1].ngk_ddpg_grid_blocks()} blocks of 512 threads")
+    philox, philox_opcodes = philox_pipes(built[0][0])
+    print(f"phase 1 one Philox4x32-10 block in the SASS (cuobjdump -sass), lane instructions by pipe: {philox}; "
+          f"opcodes {philox_opcodes}")
+    rbc_lib = _build.library(rbc_cfg, device)
+    design = {  # the library's own numbers (8ch b-pv)
+        "gen_rbc_multiday": {"lanes_an_env": {B: rbc_lib.ngk_rbc_lanes(B) for B in (BENCH_BATCH, FULL_BATCH)},
+                             "block_threads": rbc_lib.ngk_rbc_lane_threads()},
+        "rbc_day_rollout": {"envs_a_block": rbc_lib.ngk_rbc_envs(), "ring_steps": rbc_lib.ngk_rbc_ring_depth()},
+    }
+    print(f"phase 1 K8/K11a layouts: {design}")
     for path, _ in built:
         with open(path.with_suffix(".log")) as fp:
             for line in fp:
@@ -1790,6 +1913,7 @@ def main() -> None:
                 elif "registers" in line or "spill" in line:
                     print("  ptxas:", line.strip())
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     # ---- phase 2: K7 against its twin, bench config, B=4096 ----
     u, pv = explicit_inputs(rbc_cfg, BENCH_BATCH, 0, device)
     batt = torch.full_like(pv, 0.5)
@@ -1816,9 +1940,14 @@ def main() -> None:
     errors["gen_policy_day"] = max(err_art, err_v2x)
 
     # ---- phase 4: K8 and K6 element for element against their Philox twins ----
-    errors["gen_rbc_multiday"] = compare(
-        "K8 gen_rbc_multiday (B=1024, 3 days)", (gen_rbc_multiday(rbc_cfg, rbc_params, 3, 11, 1024),),
-        (gen_rbc_multiday_plain(rbc_cfg, traces, 3, 11, 1024),), rtol=1e-5, atol=1e-3)
+    k8_got = (gen_rbc_multiday(rbc_cfg, rbc_params, 3, 11, 1024),)
+    k8_want = (gen_rbc_multiday_plain(rbc_cfg, traces, 3, 11, 1024),)
+    errors["gen_rbc_multiday"] = compare("K8 gen_rbc_multiday (B=1024, 3 days)", k8_got, k8_want, rtol=1e-5,
+                                         atol=1e-3)
+    check_equal("K8 gen_rbc_multiday (B=1024, 3 days)", k8_got, k8_want, ("stats",))
+    check_equal(f"K8 gen_rbc_multiday (B={FULL_BATCH}, 2 days)", (gen_rbc_multiday(rbc_cfg, rbc_params, 2, 13,
+                                                                                    FULL_BATCH),),
+                (gen_rbc_multiday_plain(rbc_cfg, traces, 2, 13, FULL_BATCH),), ("stats",))
     art_weights = actor_weights(art_cfg, artifact, device)
     k6_got = (gen_policy_multiday(art_cfg, art_params, artifact, 3, 12, 1024),)
     k6_want = (gen_policy_multiday_plain(art_cfg, art_traces, art_weights, 3, 12, 1024),)
@@ -1936,6 +2065,7 @@ def main() -> None:
     stats_match("phase 6 K6 vs plain engine (artifact, 4096 x 256 days, battery carried)",
                 k6_draw, k6_oracle, k6_days * BENCH_BATCH, k6_days * BENCH_BATCH)
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 11")
     # ---- phase 11: the training path ----
     learner, trained_state, train_launches = training_main_path(rbc_cfg, rbc_params, u, pv, device, card)
 
@@ -1951,6 +2081,7 @@ def main() -> None:
     ddpg_learner, ddpg_state, ddpg_train_launches, ddpg_ms = ddpg_training_main_path(
         rbc_cfg, rbc_params, art_cfg, art_params, u, pv, device, card)
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 20")
     # ---- phases 20-23: K11a/K11b against their twins, then the stateful-env path ----
     tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg, v2x_params, device, errors)
     torch.cuda.synchronize()
@@ -1989,15 +2120,22 @@ def main() -> None:
                                 lambda: gen_policy_multiday_plain(art_cfg, art_traces, art_weights,
                                                                   timing_days, 5, BENCH_BATCH), 5),
     }
+    plain_out = {}
     for name, (shape, kernel, plain, repeats) in cases.items():
-        times[name] = (shape, cuda_ms(kernel, repeats), cuda_ms(plain, 1))
+        plain_ms, plain_out[name] = once_ms(plain)
+        times[name] = (shape, cuda_ms(kernel, repeats), plain_ms)
         print(f"phase 7 {name} ({shape}): kernel {times[name][1]:.4f} ms, "
               f"plain twin {times[name][2]:.4f} ms on {card}")
+    # K8 at the main path's batch bit-equal to its twin, and its device time
+    kernel = cases["gen_rbc_multiday"][1]
+    check_equal(f"phase 7 K8 gen_rbc_multiday (B={BENCH_BATCH}, {timing_days} days)", (kernel(),),
+                (plain_out["gen_rbc_multiday"],), ("stats",))
+    k8_device = profile_kernels(kernel, "gen_rbc_multiday_kernel", 5)
+    print(f"phase 7 gen_rbc_multiday: {k8_device[0]:.4f} ms of device time per call (profiler) on {card}")
     # K6 at the main path's batch: the 64x64 block actor bit-equal to its twin
-    _, kernel, plain, _ = cases["gen_policy_multiday"]
-    check_equal(f"phase 7 K6 gen_policy_multiday (B={BENCH_BATCH}, {timing_days} days)", (kernel(),), (plain(),),
-                ("stats",))
-    tables_in_timings(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card, times)
+    check_equal(f"phase 7 K6 gen_policy_multiday (B={BENCH_BATCH}, {timing_days} days)",
+                (cases["gen_policy_multiday"][1](),), (plain_out["gen_policy_multiday"],), ("stats",))
+    tables_in_seen = tables_in_timings(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card, times)
 
     training_timings(learner, rbc_cfg, rbc_params, trained_state, featlane, gathered, u, pv, normals,
                      batt_k1, card, times)
@@ -2007,6 +2145,8 @@ def main() -> None:
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 28")
     device_times, instances = bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big, u, pv, u4,
                                      pv4, featlane, gathered, trained_state, learner, sweep_args, card, timing_days)
+    for name, seen in (("gen_rbc_multiday", k8_device), *tables_in_seen.items()):
+        device_times[name], instances[name] = seen
 
     library = {name: k10_products_ms(sweep_args, dtype) for name, dtype in
                (("ddpg_sweep", torch.float32), ("ddpg_sweep_bf16", BF16))}
@@ -2040,7 +2180,7 @@ def main() -> None:
                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
     check(not jax_modules, f"the port loaded JAX modules: {jax_modules[:5]}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    least = bounds(rbc_cfg, art_cfg, timing_days, ddpg_days)
+    least = bounds(rbc_cfg, art_cfg, timing_days, ddpg_days, philox)
     T8, F8, A8 = rbc_cfg.steps_per_day, rbc_cfg.obs_dim, rbc_cfg.num_actions
     for name, ops in (("ppo_collect_day_seeded", (mlp_flops(F8, A8, 64, 64) + mlp_flops(F8, 1, 64, 64)) * T8),
                       ("ddpg_collect_day_seeded", mlp_flops(F8, A8, *DDPG_HIDDEN) * T8)):
@@ -2064,6 +2204,9 @@ def main() -> None:
             "library_ms": library.get(name), "shape": times[name][0], "kernel": instances.get(name),
             "device_ms": device_times.get(name),
         })
+        if name in design:
+            kernels[-1]["design"] = design[name]
+            kernels[-1]["ptxas"] = ptxas_line(built[0][0], instances[name])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

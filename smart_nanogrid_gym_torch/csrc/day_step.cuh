@@ -15,15 +15,43 @@
 //   K11b pallas_policy_rollout.py::pallas_policy_day_rollout -> policy_day_rollout_kernel<C>,
 //                                                              policy_day_rollout_block_kernel<C>
 //
-// Design of the RBC kernels and of MeanActor's (K5 and K11b at 64x64): one
-// thread per env runs the whole day; the per-charger carries live in
-// registers, the price/radiation/solar traces and (MeanActor) the actor
-// weights in shared memory, read by every thread of the block at the same
-// address (broadcast).  Nothing of the schedule ever reaches device memory.
-// The RBC kernels are bound by instruction issue (K8 by the Philox draws, 10
-// rounds per 4 uniforms); the actor kernels by the three FMA-loop products,
-// 24 x (H*F + H*H + A*H) multiply-adds per env-day.  The tail of the batch is
-// guarded, so any batch size works.
+// K7 and MeanActor's kernels (K5 and K11b at 64x64): one thread per env runs
+// the whole day; the per-charger carries live in registers, the
+// price/radiation/solar traces and (MeanActor) the actor weights in shared
+// memory, read by every thread of the block at the same address
+// (broadcast).  Nothing of the schedule ever reaches device memory.  The
+// actor kernels are bound by the three FMA-loop products, 24 x (H*F + H*H +
+// A*H) multiply-adds per env-day.  The tail of the batch is guarded, so any
+// batch size works.
+//
+// K8 (the RBC's multiday evaluation) is bound on this card by the integer
+// issue of its Philox draws: about 187 blocks of 10 rounds an env-day at 8
+// chargers, each a chain of dependent multiplies.  One thread per env would
+// put B=4096 on 32 of the 132 SMs with one warp a scheduler, every charger's
+// draws and physics one thread's serial chain.  So an env takes L lanes of a
+// warp (RbcLanes: 8 at 8 chargers, 4 envs a warp), a lane a charger with its
+// carry: B=4096 runs 32,768 threads on every SM.  The lanes of a charger
+// group of 4 split the group's Philox blocks by kind (lane q the q-th kind
+// the step draws, lane 0 also the departure when all five are drawn) and
+// hand each charger its words by a 4 x 4 transpose of shuffles; the next
+// step's blocks are drawn before this step's physics, which they do not
+// depend on, so the two chains interleave.  The charging power of a step and
+// the penalties of a day are summed over the chargers in index order through
+// shuffles, on every lane of the env.  The lanes' transposes, sums and
+// per-env work repeated on every lane cost about 1.6x the instructions of one
+// lane an env, so once the batch alone fills the card (kernels.cu's
+// rbc_lanes) an env takes one lane of the same template (L = 1), which draws
+// its blocks itself.
+//
+// K11a (a given state's RBC day) is bound by its table bytes: seven (T, N, B)
+// f32 tables, 22 MB at B=4096 x 8 chargers x 24 steps, for a few dozen
+// operations a charger-step.  One thread per env kept one step's loads in
+// flight on 32 SMs.  A block takes 32 envs on one warp a charger (RbcRing),
+// so a warp's load of a table row is one coalesced 128-byte line, and each
+// thread copies its charger's rows 4 steps ahead into a ring in shared
+// memory by asynchronous copies (28 KB a block at 8 chargers, seven blocks an
+// SM): B=4096 fills 128 SMs.  The env's sums over its chargers run on warp 0
+// in index order after a block barrier a step.
 //
 // Parity with the plain twins (ops/gen_rollout.py, ops/gen_policy_rollout.py)
 // rests on the same f32 operations in the same order: every constant is the
@@ -66,10 +94,9 @@
 // a given state instead of generating it: the wrapper (ops/rollout.py) builds
 // the seven (T, N, B) day tables of the state, packed as (7, T, N, B), and the
 // kernel reads column t of each per step, coalesced across envs, with the
-// state's carried SoC column and penalty mask in registers.  K11a reads 28
-// bytes per charger-step and does a few dozen operations, so it is bound by
-// those bytes; K11b by the actor's multiply-adds, as K5.  They share the RBC
-// action, the charger and battery physics and the penalty with K5/K7.
+// state's carried SoC column and penalty mask in registers.  K11b is bound by
+// the actor's multiply-adds, as K5.  They share the RBC action, the charger
+// and battery physics and the penalty with K5/K7.
 #pragma once
 
 #include <cstdint>
@@ -356,8 +383,36 @@ __device__ __forceinline__ float rbc_action(float dep_o, float fallback) {
   return (dep_o == 0.0f) ? 0.0f : ((dep_o < kSoon) ? 1.0f : fallback);
 }
 
-// One RBC step (_gen_rbc_step): returns the charging power; pen[n] the
-// per-charger vehicle penalty.
+// Charger n's part of an RBC step (_gen_rbc_step): its schedule column, the
+// RBC's action, the charge-only physics and its vehicle penalty `pen`;
+// returns its charging power.
+template <class C>
+__device__ __forceinline__ float rbc_charger(int t, int n, const StepDraws<C>& u, Carry<C>& c, float fallback,
+                                             float dt, float& pen) {
+  const Column k = generate_column<C>(t, n, u, c);
+  const float pmask = t == 0 ? k.mask_col : c.pmask[n];
+  const float dep_o = t == 0 ? k.dep_col : c.prev_depcol[n];
+  const float a = rbc_action(dep_o, fallback);
+
+  const float soc_eff = k.arrives ? k.soc_t : c.prev_col[n];
+  const float p_raw = a * kMaxPEff;
+  float safe_cap = kDefaultCap;
+  if (C::DIFF_CAPS) {
+    const float cap_eff = k.arrives ? k.cap_col : c.prev_capcol[n];
+    safe_cap = cap_eff > 0.0f ? cap_eff : 1.0f;
+  }
+  const float calc = soc_eff + (p_raw * dt) / safe_cap;
+  const float power = (k.occupied && a > 0.0f) ? p_raw : 0.0f;
+  const float soc_new = a > 0.0f ? fminf(calc, 1.0f) : soc_eff;
+
+  pen = vehicle_penalty<C>(n, pmask, c);
+  advance_carry<C>(n, k, c);
+  c.prev_col[n] = k.occupied ? soc_new : 0.0f;
+  return power;
+}
+
+// One RBC step of one thread's env (K7): returns the charging power; pen[n]
+// the per-charger vehicle penalty.
 template <class C, class Src>
 __device__ float rbc_step(int t, const Dims& d, const Src& src, Carry<C>& c, const float* rad_norm,
                           float pv_shift, float (&pen)[C::N]) {
@@ -368,25 +423,7 @@ __device__ float rbc_step(int t, const Dims& d, const Src& src, Carry<C>& c, con
   float charging = 0.0f;
 #pragma unroll
   for (int n = 0; n < C::N; ++n) {
-    const Column k = generate_column<C>(t, n, u, c);
-    const float pmask = t == 0 ? k.mask_col : c.pmask[n];
-    const float dep_o = t == 0 ? k.dep_col : c.prev_depcol[n];
-    const float a = rbc_action(dep_o, fallback);
-
-    const float soc_eff = k.arrives ? k.soc_t : c.prev_col[n];
-    const float p_raw = a * kMaxPEff;
-    float safe_cap = kDefaultCap;
-    if (C::DIFF_CAPS) {
-      const float cap_eff = k.arrives ? k.cap_col : c.prev_capcol[n];
-      safe_cap = cap_eff > 0.0f ? cap_eff : 1.0f;
-    }
-    const float calc = soc_eff + (p_raw * d.dt) / safe_cap;
-    const float power = (k.occupied && a > 0.0f) ? p_raw : 0.0f;
-    const float soc_new = a > 0.0f ? fminf(calc, 1.0f) : soc_eff;
-
-    pen[n] = vehicle_penalty<C>(n, pmask, c);
-    advance_carry<C>(n, k, c);
-    c.prev_col[n] = k.occupied ? soc_new : 0.0f;
+    const float power = rbc_charger<C>(t, n, u, c, fallback, d.dt, pen[n]);
     charging = n == 0 ? power : charging + power;
   }
   return charging;
@@ -683,46 +720,194 @@ __global__ void gen_rbc_day_kernel(const float* __restrict__ price, const float*
   for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = c.prev_col[n];
 }
 
-// K8: num_days Philox RBC days per env; stats (2, B) = sum and sum of squares of day returns.
-template <class C>
-__global__ void gen_rbc_multiday_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
-                                        const float* __restrict__ solar, uint32_t seed, int num_days,
-                                        float* __restrict__ stats, int B, Dims d) {
+// ------------------------------------------------------------- K8 lanes ---
+
+// K8 gives each env L lanes of a warp.  The full layout takes the least power
+// of two (4 to 32) that holds a lane for every charger slot of the env's
+// groups of 4; lane j owns charger slots j, j + L, ... (one slot at up to 32
+// chargers), draws the Philox blocks of kind position j mod 4 of its slots'
+// groups, and a 4 x 4 word transpose within each group of 4 lanes hands every
+// charger its words (ops/philox.py::day_uniforms gives the same draws).  L = 1
+// is one lane an env: it owns every charger and draws every block itself.
+__host__ __device__ constexpr int rbc_lanes_for(int slots) {
+  return slots <= 4 ? 4 : slots <= 8 ? 8 : slots <= 16 ? 16 : 32;
+}
+
+// Kind of the p-th Philox block of a step: arrival, SoC, then the capacity and
+// the requested SoC when configured, then the departure when its window is open.
+__host__ __device__ constexpr uint32_t drawn_kind(int p, bool diff_caps, bool req_soc) {
+  return p < 2 ? static_cast<uint32_t>(p)
+               : p == 2 ? (diff_caps ? 2u : req_soc ? 3u : 4u) : p == 3 ? (diff_caps && req_soc ? 3u : 4u) : 4u;
+}
+
+template <class C, int L_>
+struct RbcLanes {
+  static constexpr int G = (C::N + 3) / 4;            // charger groups: one Philox block of a kind each
+  static constexpr int FULL = rbc_lanes_for(4 * G);   // the full layout's lanes
+  static constexpr int L = L_;                        // lanes of an env: 1, or a multiple of 4 dividing 32
+  static constexpr int SLOTS = L == 1 ? C::N : (4 * G + L - 1) / L;  // charger slots of a lane
+  static constexpr int KB = 2 + (C::DIFF_CAPS ? 1 : 0) + (C::REQ_SOC ? 1 : 0);  // kinds drawn every step
+  // a lane's chargers: the configuration with SLOTS chargers
+  using Lane = Cfg<SLOTS, C::PV, C::BATT, C::PMODE, C::DIFF_CAPS, C::REQ_SOC, C::H1, C::H2>;
+  static_assert(L == 1 || (L % 4 == 0 && 32 % L == 0), "an env's lanes: 1, 4, 8, 16 or 32");
+};
+constexpr int kRbcLaneThreads = 128;  // K8's block: 4 warps
+
+// The Philox blocks of one lane for one step: for each slot, kind position
+// j mod 4 of its group, and the departure block when all five kinds are
+// drawn (then kept by position 0 only).
+template <class C, int L>
+struct LaneBlocks {
+  uint4 first[RbcLanes<C, L>::SLOTS];
+  uint4 second[RbcLanes<C, L>::SLOTS];
+};
+
+// Draws step t of `day` for lane j of a multi-lane layout.  Every lane draws a
+// block whether or not its kind or group is used that step (a warp issues it
+// once either way), so the draws hold no branch and interleave with the
+// previous step's physics.
+template <class C, int L>
+__device__ __forceinline__ void draw_lane_blocks(uint2 key, uint32_t day, int t, int j, LaneBlocks<C, L>& out) {
+  using Lay = RbcLanes<C, L>;
+  if constexpr (L > 1) {
+    const uint32_t kind = drawn_kind(j & 3, C::DIFF_CAPS, C::REQ_SOC);
+#pragma unroll
+    for (int i = 0; i < Lay::SLOTS; ++i) {
+      const uint32_t g = static_cast<uint32_t>((j + i * L) >> 2);
+      out.first[i] = philox4x32_10(make_uint4(day, static_cast<uint32_t>(t), kind, g), key);
+      if constexpr (Lay::KB == 4)
+        out.second[i] = philox4x32_10(make_uint4(day, static_cast<uint32_t>(t), 4u, g), key);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t word_of(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3, int i) {
+  return i == 0 ? w0 : i == 1 ? w1 : i == 2 ? w2 : w3;
+}
+
+// Word q (the lane's place in its group of 4 lanes) of the block each lane of
+// the group holds: out[s] is lane s's.  Four shuffles: in round r lane q reads
+// lane (q + r) mod 4, which sends its word (its place - r) mod 4, that is q.
+__device__ __forceinline__ void quad_transpose(const uint4& v, int lane, uint32_t (&out)[4]) {
+  const int q = lane & 3;
+  uint32_t got[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    got[r] = __shfl_sync(0xffffffffu, word_of(v.x, v.y, v.z, v.w, (q - r) & 3), (lane & ~3) | ((q + r) & 3));
+#pragma unroll
+  for (int s = 0; s < 4; ++s) out[s] = word_of(got[0], got[1], got[2], got[3], (s - q) & 3);
+}
+
+// Word q of the block that lane 0 of the group of 4 holds.
+__device__ __forceinline__ uint32_t quad_word_of_first(const uint4& v, int lane) {
+  const int src = lane & ~3;
+  const uint32_t w0 = __shfl_sync(0xffffffffu, v.x, src), w1 = __shfl_sync(0xffffffffu, v.y, src);
+  const uint32_t w2 = __shfl_sync(0xffffffffu, v.z, src), w3 = __shfl_sync(0xffffffffu, v.w, src);
+  return word_of(w0, w1, w2, w3, lane & 3);
+}
+
+// The uniforms of step t for a lane's chargers: from the group's blocks, or
+// drawn by the lane itself at L = 1.
+template <class C, int L>
+__device__ __forceinline__ void lane_step_draws(const LaneBlocks<C, L>& blk, uint2 key, uint32_t day, int t,
+                                                const Dims& d, int lane, StepDraws<typename RbcLanes<C, L>::Lane>& u) {
+  using Lay = RbcLanes<C, L>;
+  if constexpr (L == 1) {
+    u.fill(PhiloxDraws<C::N>{key, day}, t, d);
+  } else {
+    u.low = t + d.k4;
+    u.high = min(t + d.k10, d.T + d.k1);
+    const bool dep = u.low < u.high;  // else the no-draw branch: the departure is `low`
+#pragma unroll
+    for (int i = 0; i < Lay::SLOTS; ++i) {
+      uint32_t w[4];
+      quad_transpose(blk.first[i], lane, w);
+      u.arr[i] = to_uniform(w[0]);
+      u.soc[i] = to_uniform(w[1]);
+      if (C::DIFF_CAPS) u.cap[i] = to_uniform(w[2]);
+      if (C::REQ_SOC) u.req[i] = to_uniform(w[C::DIFF_CAPS ? 3 : 2]);
+      if constexpr (Lay::KB == 4) {
+        const uint32_t w4 = quad_word_of_first(blk.second[i], lane);
+        u.dep[i] = dep ? to_uniform(w4) : 0.0f;
+      } else {
+        u.dep[i] = dep ? to_uniform(w[Lay::KB]) : 0.0f;
+      }
+    }
+  }
+}
+
+// The sum over the env's chargers, in index order, of a per-slot value; every
+// lane of the env gets it.
+template <class C, int L>
+__device__ __forceinline__ float env_sum(const float (&v)[RbcLanes<C, L>::SLOTS], int lane) {
+  const int base = lane & ~(L - 1);
+  float acc = 0.0f;
+#pragma unroll
+  for (int n = 0; n < C::N; ++n) {
+    const float x = L == 1 ? v[n] : __shfl_sync(0xffffffffu, v[n / L], base + n % L);
+    acc = n == 0 ? x : acc + x;
+  }
+  return acc;
+}
+
+// K8: num_days Philox RBC days per env, an env on L lanes; stats (2, B) =
+// sum and sum of squares of day returns.
+template <class C, int L>
+__global__ void __launch_bounds__(kRbcLaneThreads)
+    gen_rbc_multiday_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
+                            const float* __restrict__ solar, uint32_t seed, int num_days,
+                            float* __restrict__ stats, int B, Dims d) {
+  using Lay = RbcLanes<C, L>;
+  using LC = typename Lay::Lane;
   extern __shared__ float smem[];
   const SharedTraces s = load_traces(smem, rad_norm, S, nullptr, 0, price, solar, d.T);
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const int64_t thread = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if ((thread & ~int64_t{31}) / L >= B) return;  // the warp holds no env of the batch
+  const int lane = threadIdx.x & 31, j = lane & (L - 1);
+  const int64_t b = thread / L;
+  const uint2 key = make_uint2(seed, static_cast<uint32_t>(b));
 
   const float dod = idle_dod_penalty<C>(kBattInit);
   float rew_total = 0.0f, sq_total = 0.0f;
-  Carry<C> c;
-  float pen[C::N], pen_acc[C::N];
+  Carry<LC> c;
+  float power[Lay::SLOTS], pen[Lay::SLOTS], pen_acc[Lay::SLOTS];
+  LaneBlocks<C, L> next;
+  draw_lane_blocks<C, L>(key, 0u, 0, j, next);
 #pragma unroll 1
   for (int day = 0; day < num_days; ++day) {
-    const PhiloxDraws<C::N> src{make_uint2(seed, static_cast<uint32_t>(b)), static_cast<uint32_t>(day)};
-    const float pv = src.pv_shift(d.T);
+    const float pv = PhiloxDraws<C::N>{key, static_cast<uint32_t>(day)}.pv_shift(d.T);
     c.clear();
 #pragma unroll
-    for (int n = 0; n < C::N; ++n) pen_acc[n] = 0.0f;
+    for (int i = 0; i < Lay::SLOTS; ++i) pen_acc[i] = 0.0f;
     float day_sum = 0.0f;
-  #pragma unroll 1
-  for (int t = 0; t < d.T; ++t) {
-      const float charging = rbc_step<C>(t, d, src, c, s.rad_norm, pv, pen);
+#pragma unroll 1
+    for (int t = 0; t < d.T; ++t) {
+      StepDraws<LC> u;
+      lane_step_draws<C, L>(next, key, static_cast<uint32_t>(day), t, d, lane, u);
+      // the next step's draws (the next day's first at the day's end) do not
+      // depend on this step's physics
+      const bool last = t + 1 == d.T;
+      draw_lane_blocks<C, L>(key, static_cast<uint32_t>(last ? day + 1 : day), last ? 0 : t + 1, j, next);
+      const float fallback = rbc_fallback<C>(t > 0 ? t - 1 : 0, s.rad_norm, pv);
 #pragma unroll
-      for (int n = 0; n < C::N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
+      for (int i = 0; i < Lay::SLOTS; ++i) {
+        power[i] = rbc_charger<LC>(t, i, u, c, fallback, d.dt, pen[i]);
+        pen_acc[i] = pen_acc[i] + pen[i];
+      }
+      const float charging = env_sum<C, L>(power, lane);
       const float reward = -rbc_reward<C>(charging, s.solar[t], s.price[t], pv, dod, d.dt);
       day_sum = t == 0 ? reward : day_sum + reward;
     }
-    float pen_total = pen_acc[0];
-#pragma unroll
-    for (int n = 1; n < C::N; ++n) pen_total = pen_total + pen_acc[n];
+    const float pen_total = env_sum<C, L>(pen_acc, lane);
     const float day_return = day_sum - kWVeh * pen_total;
     rew_total = rew_total + day_return;
     sq_total = sq_total + day_return * day_return;
   }
-  stats[b] = rew_total;
-  stats[static_cast<int64_t>(B) + b] = sq_total;
+  if (j == 0 && b < B) {
+    stats[b] = rew_total;
+    stats[static_cast<int64_t>(B) + b] = sq_total;
+  }
 }
 
 // K5: one explicit-uniform actor day; rewards (T, B), actions (T, A, B),
@@ -2183,60 +2368,147 @@ struct DayTablesView {
   }
 };
 
+// K11a's block: kRbcEnvs = 32 envs, one a lane, on one warp a charger (at most
+// kRbcMaxWarps; more chargers take several a thread).  Thread (w, e) copies
+// its chargers' seven table rows of env e for each step into a ring of DEPTH
+// one-step stages in shared memory by asynchronous 4-byte copies
+// (`cp.async`, zeros past the batch), one commit group a step, and reads back
+// only what it copied.
+constexpr int kRbcEnvs = 32;
+constexpr int kRbcMaxWarps = 8;
+constexpr int kRbcRingBytes = 32 * 1024;  // tables a block keeps in flight: seven blocks fit an SM
+constexpr int kRbcMaxDepth = 4;
+
+template <int N>
+struct RbcRing {
+  static constexpr int WARPS = N < kRbcMaxWarps ? N : kRbcMaxWarps;
+  static constexpr int SLOTS = (N + WARPS - 1) / WARPS;  // chargers of a thread: w, w + WARPS, ...
+  static constexpr int STEP = kTables * N * kRbcEnvs;    // floats of one step's tables of the block
+  static constexpr int FIT = kRbcRingBytes / (4 * STEP);
+  static constexpr int DEPTH = FIT < 2 ? 2 : (FIT > kRbcMaxDepth ? kRbcMaxDepth : FIT);  // steps in flight
+  static constexpr int SUMS = 2 * 2 * N * kRbcEnvs;      // each charger's power and penalty, two steps
+  static constexpr int FLOATS = DEPTH * STEP + SUMS;     // before the traces
+};
+
+// One float copied from device to shared memory asynchronously: 4 bytes, or
+// zeros when !valid (`src` must still be a valid address).
+__device__ __forceinline__ void async_copy_f32(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_address(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+// Wait until at most PENDING of this thread's newest commit groups are in flight.
+template <int PENDING>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
+}
+
 // K11a: one RBC day of a given state; rewards (T, B), soc_final (N, B).
 // prev_col0 (N, B) is the state's SoC column L-1, pmask0 (N, B) its
 // trailing-observe mask (pallas_rollout.py:46-141).
 template <class C>
-__global__ void rbc_day_rollout_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
-                                       const float* __restrict__ solar, const float* __restrict__ tables,
-                                       const float* __restrict__ prev_col0, const float* __restrict__ pmask0,
-                                       const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
-                                       float* __restrict__ rewards, float* __restrict__ soc_final, int B, int T,
-                                       float dt) {
+__global__ void __launch_bounds__(32 * RbcRing<C::N>::WARPS)
+    rbc_day_rollout_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
+                           const float* __restrict__ solar, const float* __restrict__ tables,
+                           const float* __restrict__ prev_col0, const float* __restrict__ pmask0,
+                           const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                           float* __restrict__ rewards, float* __restrict__ soc_final, int B, int T, float dt) {
+  using R = RbcRing<C::N>;
+  constexpr int N = C::N;
   extern __shared__ float smem[];
-  const SharedTraces s = load_traces(smem, rad_norm, S, nullptr, 0, price, solar, T);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  float* ring = smem;
+  float* sums = ring + R::DEPTH * R::STEP;
+  const int e = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kRbcEnvs + e;
+  const bool active = b < B;
+  const int64_t bs = active ? b : 0;  // the source address of a zero-filled copy
+  const int64_t plane = static_cast<int64_t>(T) * N * B;
 
-  const DayTablesView tab{tables, static_cast<int64_t>(T) * C::N * B, B, b, C::N};
-  float prev_col[C::N], pmask[C::N];
+  // step t's rows of this thread's chargers into its ring stage; one commit
+  // group a step, empty past the day, so that group t is step t
+  auto stage = [&](int t) {
+    if (t < T) {
+      float* slot = ring + (t % R::DEPTH) * R::STEP;
 #pragma unroll
-  for (int n = 0; n < C::N; ++n) {
-    prev_col[n] = prev_col0[static_cast<int64_t>(n) * B + b];
-    pmask[n] = pmask0[static_cast<int64_t>(n) * B + b];
+      for (int i = 0; i < R::SLOTS; ++i) {
+        const int n = w + i * R::WARPS;
+        if (n >= N) continue;
+#pragma unroll
+        for (int k = 0; k < kTables; ++k)
+          async_copy_f32(slot + (k * N + n) * kRbcEnvs + e,
+                         tables + k * plane + (static_cast<int64_t>(t) * N + n) * B + bs, active);
+      }
+    }
+    async_commit();
+  };
+#pragma unroll 1
+  for (int t = 0; t < R::DEPTH; ++t) stage(t);
+
+  const SharedTraces s = load_traces(sums + R::SUMS, rad_norm, S, nullptr, 0, price, solar, T);
+  float prev_col[R::SLOTS], pmask[R::SLOTS], dep_prev[R::SLOTS];
+#pragma unroll
+  for (int i = 0; i < R::SLOTS; ++i) {
+    const int n = w + i * R::WARPS;
+    const bool own = active && n < N;
+    prev_col[i] = own ? prev_col0[static_cast<int64_t>(n) * B + b] : 0.0f;
+    pmask[i] = own ? pmask0[static_cast<int64_t>(n) * B + b] : 0.0f;
+    dep_prev[i] = 0.0f;
   }
-  const float pv = pv_shift[b];
-  const float dod = idle_dod_penalty<C>(batt_soc[b]);  // the RBC idles the BESS
+  const float pv = active ? pv_shift[b] : 0.0f;
+  const float dod = idle_dod_penalty<C>(active ? batt_soc[b] : kBattInit);  // the RBC idles the BESS
+  __syncthreads();
+
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
+    async_wait<R::DEPTH - 1>();  // this thread's copies of step t have landed
+    const float* slot = ring + (t % R::DEPTH) * R::STEP;
+    float* power = sums + (t & 1) * 2 * N * kRbcEnvs;  // [n][e], then the penalties
+    float* pens = power + N * kRbcEnvs;
     // the RBC acts on the previous step's observation: tables at o = max(t-1, 0)
-    const int o = t > 0 ? t - 1 : 0;
-    const float fallback = rbc_fallback<C>(o, s.rad_norm, pv);
-    float charging = 0.0f, pen_sum = 0.0f;
+    const float fallback = rbc_fallback<C>(t > 0 ? t - 1 : 0, s.rad_norm, pv);
 #pragma unroll
-    for (int n = 0; n < C::N; ++n) {
-      const float a = rbc_action(tab(kDepObs, o, n), fallback);
-      const bool occupied = tab(kOcc, t, n) > 0.0f;
-      const float soc_col = tab(kSocCols, t, n);
-      const float soc_eff = tab(kIsArr, t, n) > 0.0f ? soc_col : prev_col[n];
-      const float cap = tab(kCapEff, t, n);
+    for (int i = 0; i < R::SLOTS; ++i) {
+      const int n = w + i * R::WARPS;
+      if (n >= N) continue;
+      const float* row = slot + n * kRbcEnvs + e;
+      const auto tab = [&](int k) { return row[k * N * kRbcEnvs]; };
+      const float dep_t = tab(kDepObs);
+      const float a = rbc_action(t == 0 ? dep_t : dep_prev[i], fallback);
+      const bool occupied = tab(kOcc) > 0.0f;
+      const float soc_col = tab(kSocCols);
+      const float soc_eff = tab(kIsArr) > 0.0f ? soc_col : prev_col[i];
+      const float cap = tab(kCapEff);
       const float safe_cap = cap > 0.0f ? cap : 1.0f;
       const float p_raw = a * kMaxPEff;  // charge branch only: RBC actions are >= 0
       const float calc = soc_eff + (p_raw * dt) / safe_cap;
-      const float power = (occupied && a > 0.0f) ? p_raw : 0.0f;
+      power[n * kRbcEnvs + e] = (occupied && a > 0.0f) ? p_raw : 0.0f;
       const float soc_new = a > 0.0f ? fminf(calc, 1.0f) : soc_eff;
-      const float pen = insufficiency_penalty(pmask[n], prev_col[n], tab(kReqPrev, t, n));
-      pmask[n] = tab(kPmask, t, n);  // the trailing observe's mask for the next step
-      prev_col[n] = occupied ? soc_new : soc_col;
-      charging = n == 0 ? power : charging + power;
-      pen_sum = n == 0 ? pen : pen_sum + pen;
+      pens[n * kRbcEnvs + e] = insufficiency_penalty(pmask[i], prev_col[i], tab(kReqPrev));
+      pmask[i] = tab(kPmask);  // the trailing observe's mask for the next step
+      prev_col[i] = occupied ? soc_new : soc_col;
+      dep_prev[i] = dep_t;
     }
-    const float cost = rbc_reward<C>(charging, s.solar[t], s.price[t], pv, dod, dt) + kWVeh * pen_sum;
-    rewards[static_cast<int64_t>(t) * B + b] = -cost;
+    __syncthreads();  // every charger's power and penalty of step t; stage t read by all
+    stage(t + R::DEPTH);
+    if (w == 0) {  // the env's sums over its chargers, in index order
+      float charging = power[e], pen_sum = pens[e];
+#pragma unroll
+      for (int n = 1; n < N; ++n) {
+        charging = charging + power[n * kRbcEnvs + e];
+        pen_sum = pen_sum + pens[n * kRbcEnvs + e];
+      }
+      const float cost = rbc_reward<C>(charging, s.solar[t], s.price[t], pv, dod, dt) + kWVeh * pen_sum;
+      if (active) rewards[static_cast<int64_t>(t) * B + b] = -cost;
+    }
   }
 #pragma unroll
-  for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = prev_col[n];
+  for (int i = 0; i < R::SLOTS; ++i) {
+    const int n = w + i * R::WARPS;
+    if (active && n < N) soc_final[static_cast<int64_t>(n) * B + b] = prev_col[i];
+  }
 }
 
 // K11b's day of env b: the PPO actor's clipped mean from a given state, with

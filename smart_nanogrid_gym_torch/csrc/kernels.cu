@@ -31,6 +31,15 @@ constexpr int kThreads = 128;
 constexpr bool kBlockActor =
     NG_ACTOR == ngk::kDdpgActor || C::WEIGHTS * sizeof(float) + ngk::kTraceReserveBytes > ngk::kMaxSmemBytes;
 
+// K8's lanes an env for a batch of B envs: one once the batch alone gives
+// kRbcFillThreads threads, about two warps a scheduler on 128 SMs, else the
+// full layout.  One lane an env issues fewer instructions an env-step (each
+// lane repeats the env's transposes, sums and reward), the full layout hides
+// the latency of a small batch (tools/profile_rbc.py --lanes).
+constexpr int kRbcFull = ngk::RbcLanes<C, 1>::FULL;
+constexpr int64_t kRbcFillThreads = 32768;
+inline int rbc_lanes(int B) { return B >= kRbcFillThreads ? 1 : kRbcFull; }
+
 inline dim3 grid_for(int B, int threads = kThreads) { return dim3((B + threads - 1) / threads); }
 
 inline ngk::Dims dims(int T, int k4, int k10, int k1, float dt) { return ngk::Dims{T, k4, k10, k1, dt}; }
@@ -79,13 +88,48 @@ int gen_policy_multiday(const float* price, const float* price_norm, int P, cons
                 solar, seed, num_days, weights, stats, B, d);
 }
 
+// K8 with L lanes an env, in blocks of kRbcLaneThreads.
+template <int L>
+int rbc_multiday(const float* price, const float* rad_norm, int S, const float* solar, unsigned int seed,
+                 int num_days, float* stats, int B, const ngk::Dims& d, void* stream) {
+  const int64_t threads = static_cast<int64_t>(B) * L;
+  const dim3 grid(static_cast<unsigned>((threads + ngk::kRbcLaneThreads - 1) / ngk::kRbcLaneThreads));
+  return launch(ngk::gen_rbc_multiday_kernel<C, L>, grid, ngk::kRbcLaneThreads,
+                static_cast<size_t>(S + 2 * d.T) * sizeof(float), stream, price, rad_norm, S, solar, seed, num_days,
+                stats, B, d);
+}
+
 }  // namespace
 
 extern "C" {
 
+// Probes that chip_smoke.py reads in the library's SASS (cuobjdump -sass),
+// never launched: one Philox block a thread, and the same kernel without it.
+// The difference of their instructions, sorted by pipe, is a block's work,
+// the unit of the Philox part of the multiday and seeded kernels' bounds.
+// The key comes in as kernel arguments, so its schedule is uniform: the
+// kernels' key (seed, env) is fixed for all of an env's blocks.
+__global__ void ngk_philox_probe_kernel(uint4* out, unsigned int day, unsigned int k0, unsigned int k1) {
+  const unsigned int i = threadIdx.x;
+  out[i] = ngk::philox4x32_10(make_uint4(day + i, i * 3u, i ^ k0, i + 7u), make_uint2(k0, k1));
+}
+__global__ void ngk_philox_probe_base_kernel(uint4* out, unsigned int day, unsigned int k0, unsigned int k1) {
+  const unsigned int i = threadIdx.x;
+  out[i] = make_uint4(day + i, i * 3u, i ^ k0, (i + 7u) ^ k1);
+}
+
 int ngk_weights_size() { return C::WEIGHTS; }
 
 int ngk_block_actor() { return kBlockActor ? 1 : 0; }
+
+// K8's lanes an env and threads a block; K11a's envs a block, ring depth
+// (steps in flight) and shared memory before the traces (floats: the ring
+// and the per-charger sums).
+int ngk_rbc_lanes(int B) { return rbc_lanes(B); }
+int ngk_rbc_lane_threads() { return ngk::kRbcLaneThreads; }
+int ngk_rbc_envs() { return ngk::kRbcEnvs; }
+int ngk_rbc_ring_depth() { return ngk::RbcRing<C::N>::DEPTH; }
+int ngk_rbc_ring_floats() { return ngk::RbcRing<C::N>::FLOATS; }
 
 // K6's block actor (and K5's in kBlockActor libraries): its packed block and
 // its shared memory before the traces (floats), f32 (bf16 = 0) or bf16, and
@@ -116,17 +160,19 @@ int ngk_gen_rbc_day(const float* price, const float* rad_norm, int S, const floa
 int ngk_gen_rbc_multiday(const float* price, const float* rad_norm, int S, const float* solar, unsigned int seed,
                          int num_days, float* stats, int B, int T, int k4, int k10, int k1, float dt,
                          void* stream) {
-  return launch(ngk::gen_rbc_multiday_kernel<C>, grid_for(B), kThreads,
-                static_cast<size_t>(S + 2 * T) * sizeof(float), stream, price, rad_norm, S, solar, seed, num_days,
-                stats, B, dims(T, k4, k10, k1, dt));
+  const ngk::Dims d = dims(T, k4, k10, k1, dt);
+  return rbc_lanes(B) == 1
+             ? rbc_multiday<1>(price, rad_norm, S, solar, seed, num_days, stats, B, d, stream)
+             : rbc_multiday<kRbcFull>(price, rad_norm, S, solar, seed, num_days, stats, B, d, stream);
 }
 
 int ngk_rbc_day_rollout(const float* price, const float* rad_norm, int S, const float* solar, const float* tables,
                         const float* prev_col, const float* pmask, const float* batt_soc, const float* pv_shift,
                         float* rewards, float* soc_final, int B, int T, float dt, void* stream) {
-  return launch(ngk::rbc_day_rollout_kernel<C>, grid_for(B), kThreads,
-                static_cast<size_t>(S + 2 * T) * sizeof(float), stream, price, rad_norm, S, solar, tables,
-                prev_col, pmask, batt_soc, pv_shift, rewards, soc_final, B, T, dt);
+  using R = ngk::RbcRing<C::N>;
+  return launch(ngk::rbc_day_rollout_kernel<C>, grid_for(B, ngk::kRbcEnvs), 32 * R::WARPS,
+                static_cast<size_t>(R::FLOATS + S + 2 * T) * sizeof(float), stream, price, rad_norm, S, solar,
+                tables, prev_col, pmask, batt_soc, pv_shift, rewards, soc_final, B, T, dt);
 }
 
 // K5 for either actor; the kernel follows the library's design.

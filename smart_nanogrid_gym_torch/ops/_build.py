@@ -60,6 +60,11 @@ _DAY_SIGNATURES = {
     "ngk_k6_weights_size": (_I,),
     "ngk_k6_smem_floats": (_I,),
     "ngk_k6_pad": (_I,),
+    "ngk_rbc_lanes": (_I,),
+    "ngk_rbc_lane_threads": (),
+    "ngk_rbc_envs": (),
+    "ngk_rbc_ring_depth": (),
+    "ngk_rbc_ring_floats": (),
     "ngk_gen_rbc_day": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_rbc_multiday": (_P, _P, _I, _P, _U, _I, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_rbc_day_rollout": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
@@ -197,6 +202,44 @@ def build(flag_sets: list[dict[str, int]]) -> list[tuple[Path, float]]:
     """Compile several libraries concurrently (one nvcc process each)."""
     with ThreadPoolExecutor(max_workers=max(1, len(flag_sets))) as pool:
         return list(pool.map(compile_library, flag_sets))
+
+
+def replace_once(code: str, anchor: str, text: str, name: str) -> str:
+    """``code`` with its one ``anchor`` replaced by ``text``; raises when
+    source ``name`` no longer holds the anchor exactly once."""
+    if code.count(anchor) != 1:
+        raise RuntimeError(f"csrc/{name} has changed: {anchor[:60]!r} is not found once")
+    return code.replace(anchor, text)
+
+
+def patched_library(flags: dict[str, int], out_dir: Path, edits: dict) -> ctypes.CDLL:
+    """The library for ``flags`` built, with the package's nvcc flags, from a
+    copy of ``csrc/`` under ``out_dir`` in which each source named in
+    ``edits`` is replaced by ``edits[name](its text)``, and loaded with the
+    package's signatures: the profiling tools' variants of the shipped
+    kernels.  The library is named by a digest of the flags and the edited
+    sources (built once for each); the ptxas report goes to ``<lib>.log``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    texts = {name: (CSRC / name).read_text() for name in SOURCES}
+    texts.update({name: edit(texts[name]) for name, edit in edits.items()})
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *(f"{k}={v}" for k, v in flags.items())]).encode())
+    for name in SOURCES:
+        (out_dir / name).write_text(texts[name])
+        digest.update(texts[name].encode())
+    lib_path = out_dir / f"libngk_{Path(_source(flags)).stem}_{digest.hexdigest()[:12]}.so"
+    if not lib_path.exists():
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()), "-o", str(lib_path),
+               str(out_dir / _source(flags))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        lib_path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {flags} in {out_dir}:\n{proc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    for fn_name, argtypes in _signatures(flags).items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _load(flags: dict[str, int], device: torch.device) -> ctypes.CDLL:

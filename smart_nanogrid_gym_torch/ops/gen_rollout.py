@@ -11,8 +11,11 @@ Replaces ``smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py``:
   (:mod:`.philox`), returning ``stats (2, B)``: Σ day return and Σ (day return)².
 
 On CUDA tensors the wrappers launch the hand-written kernels of
-``csrc/day_step.cuh`` (one thread per env, the whole day in registers); on CPU
-tensors they run the plain twins below.  The twins mirror the Pallas step
+``csrc/day_step.cuh`` (K7: one thread per env, the whole day in registers;
+K8: below 32,768 envs an env on 4-32 lanes of a warp, a lane a charger,
+the Philox draws of each group of 4 chargers split over its 4 lanes, and
+one thread an env from there); on CPU tensors they run the plain twins
+below.  The twins mirror the Pallas step
 body's f32 arithmetic op for op, in the same order (sums over chargers and
 over the day run sequentially), and the kernels mirror the twins.
 """

@@ -6,10 +6,12 @@ rolls the day a caller holds in an :class:`EnvState` (from a reset, from a
 JSON replay, or a day continued after a rollover): the wrapper builds the
 state's seven day tables with :func:`state_tables` (``build_day_tables`` plus
 one time-major copy, torch operations before the launch), and the kernel of
-``csrc/day_step.cuh`` (``rbc_day_rollout_kernel``, one thread per env) reads
-column t of each per step.  The RBC acts on the previous step's
-observation, only the charge branch exists (non-v2x configs) and the
-battery idles, so its DoD penalty is a per-env constant.
+``csrc/day_step.cuh`` (``rbc_day_rollout_kernel``) reads them: a block takes
+32 envs on one warp a charger, and each thread streams its charger's rows
+of the seven tables a few steps ahead into a ring in shared memory
+(:func:`check_rbc_ring` checks its size before the launch).  The RBC acts
+on the previous step's observation, only the charge branch exists (non-v2x
+configs) and the battery idles, so its DoD penalty is a per-env constant.
 
 On CUDA tensors the wrapper launches the kernel; on CPU tensors it runs the
 plain twin :func:`rbc_day_rollout_plain`, which sums in the kernel's order.
@@ -40,6 +42,7 @@ from .gen_rollout import (
     rbc_day_rewards,
     sum_rows,
 )
+from .gen_policy_rollout import MAX_SHARED_BYTES
 from .param_guard import check_baked_params
 
 # the packed tables, in the order csrc/day_step.cuh's TableKind reads them
@@ -124,14 +127,26 @@ def rbc_day_rollout_plain(config: NanogridConfig, traces: Traces, st: StateTable
     return rewards, prev_col
 
 
+def check_rbc_ring(config: NanogridConfig, traces: Traces, lib) -> None:
+    """Raise before the launch when K11a's shared memory (the library's
+    ``ngk_rbc_ring_floats``: its ring of one-step table stages and the
+    per-charger sums) and its traces exceed a block's."""
+    need = 4 * (lib.ngk_rbc_ring_floats() + traces.rad_norm.numel() + 2 * config.steps_per_day)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"{config.num_chargers} chargers at {config.steps_per_day} steps a day need {need} bytes "
+                         f"of shared memory per block in rbc_day_rollout, more than {MAX_SHARED_BYTES}; "
+                         f"roll the day with the plain engine")
+
+
 def launch_rbc_day(config: NanogridConfig, traces: Traces, st: StateTables):
     """Launch K11a on tables already on the card; ``(rewards (T, B), soc_final (N, B))``."""
     T, N = config.steps_per_day, config.num_chargers
     st = st.checked()
     device, B = st.tables.device, st.pv_shift.shape[0]
+    lib = _build.library(config, device)
+    check_rbc_ring(config, traces, lib)
     rewards = torch.empty((T, B), dtype=F32, device=device)
     soc_final = torch.empty((N, B), dtype=F32, device=device)
-    lib = _build.library(config, device)
     _build.launch(
         "rbc_day_rollout", lib.ngk_rbc_day_rollout,
         traces.price, traces.rad_norm, traces.rad_norm.numel(), traces.solar, *st,

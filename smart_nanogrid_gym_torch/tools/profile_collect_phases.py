@@ -107,23 +107,9 @@ def instrument(cuh: str, cu: str) -> tuple[str, str]:
     return cuh, cu
 
 
-def build_instrumented(flags: dict[str, int], name: str) -> ctypes.CDLL:
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+def build_instrumented(flags: dict[str, int]) -> ctypes.CDLL:
     cuh, cu = instrument((_build.CSRC / "day_step.cuh").read_text(), (_build.CSRC / "kernels.cu").read_text())
-    (OUT_DIR / "day_step.cuh").write_text(cuh)
-    (OUT_DIR / "operand.cuh").write_text((_build.CSRC / "operand.cuh").read_text())
-    (OUT_DIR / "kernels.cu").write_text(cu)
-    lib_path = OUT_DIR / f"libngk_{name}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()),
-           "-o", str(lib_path), str(OUT_DIR / "kernels.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(lib_path))
-    for fn_name, argtypes in _build._signatures(flags).items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    lib = _build.patched_library(flags, OUT_DIR, {"day_step.cuh": lambda _: cuh, "kernels.cu": lambda _: cu})
     lib.ngk_collect_clock.argtypes = [ctypes.c_void_p]
     lib.ngk_collect_clock.restype = ctypes.c_int
     return lib
@@ -179,16 +165,16 @@ def main() -> None:
     ddpg = [x.detach().to(dev) for x in ddpg_leaves(
         DDPGActor(cfg.obs_dim, A, low, high, generator=torch.Generator().manual_seed(2)))]
     kernels = {
-        "K2 ppo_collect_day_seeded": (_build.config_flags(cfg), "ppo", False,
+        "K2 ppo_collect_day_seeded": (_build.config_flags(cfg), False,
                                       lambda: ppo_collect_day_seeded(cfg, params, ppo, 11, batt, B)),
-        "K9 ddpg_collect_day_seeded": (_build.config_flags(cfg, (400, 300), "ddpg"), "ddpg", True,
+        "K9 ddpg_collect_day_seeded": (_build.config_flags(cfg, (400, 300), "ddpg"), True,
                                        lambda: ddpg_collect_day_seeded(cfg, params, ddpg, 11, ou, batt, B)),
     }
     print(f"card: {card}")
     result = {"card": card, "batch": B}
-    for label, (flags, name, is_ddpg, call) in kernels.items():
+    for label, (flags, is_ddpg, call) in kernels.items():
         plain_out = call()  # the package's own kernel
-        lib = build_instrumented(flags, name)
+        lib = build_instrumented(flags)
         record = np.zeros(STEPS * SLOTS, np.uint64)
         samples, events = [], []
         with mock.patch.object(_build, "library", return_value=lib):

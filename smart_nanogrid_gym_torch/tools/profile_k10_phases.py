@@ -75,22 +75,8 @@ def instrument(cuh: str, cu: str) -> tuple[str, str]:
 
 
 def build_instrumented(flags: dict[str, int]) -> ctypes.CDLL:
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
     cuh, cu = instrument((_build.CSRC / "ddpg_sweep.cuh").read_text(), (_build.CSRC / "ddpg_sweep.cu").read_text())
-    (OUT_DIR / "ddpg_sweep.cuh").write_text(cuh)
-    (OUT_DIR / "ddpg_sweep.cu").write_text(cu)
-    (OUT_DIR / "operand.cuh").write_text((_build.CSRC / "operand.cuh").read_text())
-    lib_path = OUT_DIR / "libngk_k10_phases.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()),
-           "-o", str(lib_path), str(OUT_DIR / "ddpg_sweep.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _build._DDPG_SWEEP_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    lib = _build.patched_library(flags, OUT_DIR, {"ddpg_sweep.cuh": lambda _: cuh, "ddpg_sweep.cu": lambda _: cu})
     lib.ngk_phase_clock.argtypes = [ctypes.c_void_p]
     lib.ngk_phase_clock.restype = ctypes.c_int
     return lib

@@ -80,26 +80,8 @@ def wide_tiles_library(flags: dict[str, int]) -> ctypes.CDLL:
     whose ``choose_tiles`` lacks the 4 x 2 shape."""
     from smart_nanogrid_gym_torch.ops import _build
 
-    out = _build.BUILD_DIR.parent / "k6_tiles"
-    out.mkdir(parents=True, exist_ok=True)
-    cuh = (_build.CSRC / "day_step.cuh").read_text()
-    if cuh.count(NARROW) != 1:
-        raise RuntimeError("csrc/day_step.cuh has changed: choose_tiles' shape list is not found")
-    (out / "day_step.cuh").write_text(cuh.replace(NARROW, WIDE))
-    for name in ("operand.cuh", "kernels.cu"):
-        (out / name).write_text((_build.CSRC / name).read_text())
-    lib_path = out / ("libngk_" + "_".join(f"{k[3:].lower()}{v}" for k, v in flags.items()) + ".so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()),
-           "-o", str(lib_path), str(out / "kernels.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(lib_path))
-    for fn_name, argtypes in _build._signatures(flags).items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.patched_library(flags, _build.BUILD_DIR.parent / "k6_tiles", {
+        "day_step.cuh": lambda code: _build.replace_once(code, NARROW, WIDE, "day_step.cuh")})
 
 
 def main() -> None:

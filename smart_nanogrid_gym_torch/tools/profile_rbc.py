@@ -1,0 +1,281 @@
+"""Device time of the RBC day kernels K8 and K11a, and of the other day kernels of their libraries, on one CUDA card.
+
+Run from the root of a checkout (it builds the kernels first):
+
+    python3 smart_nanogrid_gym_torch/tools/profile_rbc.py [--root DIR] [--check] [--ring] [--lanes]
+
+``--root`` imports ``smart_nanogrid_gym_torch`` from another checkout (for
+example the parent commit unpacked under ``build/``), so that one call can time
+two versions in turn on the same card (parent, change, change, parent); by
+default the checkout that holds this file.  On the 8-charger bench config
+(PV + BESS, sparse, 1 h) it times ``gen_rbc_multiday`` (K8) over 20 days at
+B=4096 and over 100 days at B=131,072, and K11a on the day tables of a card
+reset (``launch_rbc_day``, the tables built beforehand) at B=4096 and
+131,072; then, at B=4096, the other kernels of the same libraries: K7
+(``gen_rbc_day``, one explicit-uniform day), K5 and K11b with the committed
+PPO artifact (4 chargers, 64x64) and K11b with the bench's 256x256 torso
+(biases +0.05, bench.py:403-414).  Per row the device milliseconds per launch
+by ``torch.profiler`` (the kernels whose name holds the row's kernel) over a
+few launches after a warm-up, and for K8 and K11a the rate they imply
+(env-steps/s, table bytes/s).
+
+``--check`` first holds K8 and K11a against their plain twins with
+``torch.equal`` at the main path's shapes (K8 at B=4096 x 20 days and
+131,072 x 2 days; K11a on a fresh and a continued state at B=4096 and on a
+card reset at 131,072) and prints each one's max abs difference; it uses
+only the package's public functions, so it runs on a parent checkout too.
+
+``--ring`` (this checkout only) also times K11a at both batches on
+libraries built from copies of the sources under ``build/rbc_variants/``
+whose ring keeps a fixed number of steps in flight (2, 3, 4, 6 and 13; two
+steps hold about what a one-step register prefetch would), and ``--lanes``
+K8 at B=4096 to 131,072 on copies whose ``kernels.cu`` launches it with a
+fixed number of lanes an env (1, and the full layout's 8), each beside the
+package's and checked to give the same outputs; each ``--lanes`` reading
+is taken twice, by the profiler (through the wrapper) and by CUDA events
+around bare launches queued back to back (``torch.cuda.Event``).  The last line is one JSON object with
+the numbers, the card's name and power limit, and the root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+BATCH, FULL_BATCH = 4096, 131_072
+DEPTH_ANCHOR = "  static constexpr int DEPTH = FIT < 2 ? 2 : (FIT > kRbcMaxDepth ? kRbcMaxDepth : FIT);"
+LANES_ANCHOR = "inline int rbc_lanes(int B) { return B >= kRbcFillThreads ? 1 : kRbcFull; }"
+RING_DEPTHS = (2, 3, 4, 6, 13)
+LANES = {1: "1", 8: "kRbcFull"}  # lanes an env: what the patched rbc_lanes returns (8 chargers)
+# batch: days, about 2e7 env-steps a launch
+LANE_BATCHES = {4096: 200, 8192: 100, 12288: 70, 16384: 50, 20480: 40, 24576: 35, 32768: 25, 65536: 15,
+                131072: 10}
+
+
+def device_ms(torch, fn, kernel: str, repeats: int) -> float:
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``kernel``, over the launches the profiler recorded in ``repeats`` calls
+    (one launch each)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    us, launches = sum(e.self_device_time_total for e in events), sum(e.count for e in events)
+    if us <= 0 or launches == 0:
+        raise RuntimeError(f"the profiler recorded no device time for {kernel}")
+    if launches != repeats:
+        print(f"  (the profiler recorded {launches} launches of {kernel} in {repeats} calls)")
+    return us / launches / 1e3
+
+
+def event_ms(torch, fn, repeats: int) -> float:
+    """Milliseconds per call of ``fn`` (one launch, no host sync) by CUDA
+    events around ``repeats`` calls queued back to back, after a warm-up
+    call: the device time per launch and the gaps between launches."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def variants(flags: dict[str, int], kind: str) -> dict[int, ctypes.CDLL]:
+    """The ring-depth (``kind`` "ring") or lane-count ("lanes") variants,
+    built in parallel from copies of the sources under ``build/rbc_variants/``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from smart_nanogrid_gym_torch.ops import _build
+
+    if kind == "ring":
+        jobs = {d: ("day_step.cuh", DEPTH_ANCHOR, f"  static constexpr int DEPTH = {d};") for d in RING_DEPTHS}
+    else:
+        jobs = {n: ("kernels.cu", LANES_ANCHOR, f"inline int rbc_lanes(int) {{ return {text}; }}")
+                for n, text in LANES.items()}
+
+    def build(key, source, anchor, text):
+        return _build.patched_library(flags, _build.BUILD_DIR.parent / "rbc_variants" / f"{kind}{key}", {
+            source: lambda code: _build.replace_once(code, anchor, text, source)})
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = {k: pool.submit(build, k, *job) for k, job in jobs.items()}
+        return {k: f.result() for k, f in built.items()}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    parser.add_argument("--check", action="store_true", help="K8 and K11a against their twins, bit for bit")
+    parser.add_argument("--ring", action="store_true", help="K11a with fixed ring depths (this checkout only)")
+    parser.add_argument("--lanes", action="store_true", help="K8 with fixed lanes an env (this checkout only)")
+    args = parser.parse_args()
+    root = str(Path(args.root).resolve())
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_rbc needs a CUDA device")
+    from unittest import mock
+
+    from smart_nanogrid_gym_torch.core import NanogridConfig, SmartNanogridTorch, make_params
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights, gen_policy_day
+    from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day, gen_rbc_multiday, kernel_traces
+    from smart_nanogrid_gym_torch.ops.policy_rollout import launch_policy_day
+    from smart_nanogrid_gym_torch.ops.rollout import launch_rbc_day, state_tables
+    from smart_nanogrid_gym_torch.solvers.networks import ActorCritic
+    from smart_nanogrid_gym_torch.utils.weights import load_actor_critic_npz
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    cfg = NanogridConfig()
+    art_cfg = NanogridConfig(num_chargers=4, pv_system=True, battery_system=True, penalty_mode="sparse",
+                             time_interval=1.0)
+    _build.build([_build.config_flags(cfg), _build.config_flags(art_cfg), _build.config_flags(cfg, (256, 256))])
+    T, N = cfg.steps_per_day, cfg.num_chargers
+    params, art_params = make_params(cfg, torch.float32, dev), make_params(art_cfg, torch.float32, dev)
+    traces, art_traces = kernel_traces(params, dev), kernel_traces(art_params, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tables = {b: state_tables(cfg, params, SmartNanogridTorch(cfg).reset_batch(params, b, gen)[0])
+              for b in (BATCH, FULL_BATCH)}
+    art_tables = state_tables(art_cfg, art_params, SmartNanogridTorch(art_cfg).reset_batch(art_params, BATCH, gen)[0])
+    u = torch.rand((T, 5, N, BATCH), generator=gen, device=dev)
+    pv = torch.floor(torch.rand(BATCH, generator=gen, device=dev) * 181) / 100
+    u4 = torch.rand((T, 5, art_cfg.num_chargers, BATCH), generator=gen, device=dev)
+    ppo = load_actor_critic_npz(str(Path(root) / "artifacts" / "PPO-b-pv-bounded-sparse-4ch-1h" / "108134400.npz"))
+    ppo = ppo.to(dev)
+    big = ActorCritic(cfg.obs_dim, cfg.num_actions, (256, 256), generator=torch.Generator().manual_seed(42))
+    with torch.no_grad():
+        for p in big.parameters():
+            if p.dim() == 1:
+                p.add_(0.05)
+    big = big.to(dev)
+    art_w, big_w = actor_weights(art_cfg, ppo, dev), actor_weights(cfg, big, dev)
+    table_bytes = {b: 4 * 7 * T * N * b for b in (BATCH, FULL_BATCH)}
+
+    rows = {
+        f"K8 gen_rbc_multiday B={BATCH} x 20 days": (
+            lambda: gen_rbc_multiday(cfg, params, 20, 5, BATCH), "gen_rbc_multiday_kernel", 5, BATCH * 20 * T),
+        f"K8 gen_rbc_multiday B={FULL_BATCH} x 100 days": (
+            lambda: gen_rbc_multiday(cfg, params, 100, 5, FULL_BATCH), "gen_rbc_multiday_kernel", 3,
+            FULL_BATCH * 100 * T),
+        f"K11a rbc_day_rollout B={BATCH}": (
+            lambda: launch_rbc_day(cfg, traces, tables[BATCH]), "rbc_day_rollout_kernel", 20, BATCH * T),
+        f"K11a rbc_day_rollout B={FULL_BATCH}": (
+            lambda: launch_rbc_day(cfg, traces, tables[FULL_BATCH]), "rbc_day_rollout_kernel", 10, FULL_BATCH * T),
+        f"K7 gen_rbc_day B={BATCH}": (lambda: gen_rbc_day(cfg, params, u, pv), "gen_rbc_day_kernel", 20, None),
+        f"K5 gen_policy_day 64x64 B={BATCH}": (
+            lambda: gen_policy_day(art_cfg, art_params, ppo, u4, pv), "gen_policy_day_kernel", 20, None),
+        f"K11b policy_day_rollout 64x64 B={BATCH}": (
+            lambda: launch_policy_day(art_cfg, art_traces, art_w, art_tables, ppo.hidden),
+            "policy_day_rollout_kernel", 20, None),
+        f"K11b policy_day_rollout_block 256x256 B={BATCH}": (
+            lambda: launch_policy_day(cfg, traces, big_w, tables[BATCH], (256, 256)),
+            "policy_day_rollout_block_kernel", 5, None),
+    }
+    print(f"card: {card}; package from {root}")
+    result = {}
+    if args.check:
+        from smart_nanogrid_gym_torch.core import fused_day_rollout
+        from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_multiday_plain
+        from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout, rbc_day_rollout_plain
+        from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
+
+        fresh, _ = SmartNanogridTorch(cfg).reset_batch(params, BATCH, gen)
+        continued, _ = fused_day_rollout(cfg, params, fresh, make_rbc_policy_fn(cfg), generator=gen)
+        big_state, _ = SmartNanogridTorch(cfg).reset_batch(params, FULL_BATCH, gen)
+        checks = {f"K8 B={BATCH} x 20 days": (lambda: (gen_rbc_multiday(cfg, params, 20, 5, BATCH),),
+                                              lambda: (gen_rbc_multiday_plain(cfg, traces, 20, 5, BATCH),)),
+                  f"K8 B={FULL_BATCH} x 2 days": (lambda: (gen_rbc_multiday(cfg, params, 2, 13, FULL_BATCH),),
+                                                  lambda: (gen_rbc_multiday_plain(cfg, traces, 2, 13, FULL_BATCH),))}
+        for label, state in ((f"fresh B={BATCH}", fresh), (f"continued B={BATCH}", continued),
+                             (f"card reset B={FULL_BATCH}", big_state)):
+            checks[f"K11a {label}"] = (
+                lambda st=state: rbc_day_rollout(cfg, params, st),
+                lambda st=state: rbc_day_rollout_plain(cfg, traces, state_tables(cfg, params, st)))
+        result["check"] = {}
+        for label, (kernel, plain) in checks.items():
+            got, want = kernel(), plain()
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            result["check"][label] = {"equal": equal, "max_abs_err": err}
+            print(f"  {label}: {'bit-equal to' if equal else 'NOT bit-equal to'} the twin, max |d| {err:.3e}")
+    for name, (call, kernel, repeats, steps) in rows.items():
+        ms = device_ms(torch, call, kernel, repeats)
+        result[name] = {"device_ms": ms}
+        extra = ""
+        if steps is not None:
+            result[name]["env_steps_per_s"] = steps / ms * 1e3
+            extra = f", {steps / ms * 1e3:.4e} env-steps/s"
+        if "K11a" in name:
+            b = BATCH if f"B={BATCH}" in name else FULL_BATCH
+            result[name]["table_bytes_per_s"] = table_bytes[b] / ms * 1e3
+            extra += f", tables read at {table_bytes[b] / ms * 1e-9:.3f} TB/s"
+        print(f"  {name}: {ms:.4f} device ms per launch{extra}")
+
+    package = _build.library(cfg, dev)
+
+    def with_library(lib, fn):
+        with mock.patch.object(_build, "library", lambda *a, **k: lib):
+            return fn()
+
+    if args.ring:
+        result["ring"] = {}
+        libs = variants(_build.config_flags(cfg), "ring")
+        for b in (BATCH, FULL_BATCH):
+            def k11a(lib):
+                return with_library(lib, lambda: launch_rbc_day(cfg, traces, tables[b]))
+            want = k11a(package)
+            row = {"package": [device_ms(torch, lambda: k11a(package), "rbc_day_rollout_kernel", 10)]}
+            for depth, lib in libs.items():
+                same = all(torch.equal(x, y) for x, y in zip(k11a(lib), want))
+                row[depth] = device_ms(torch, lambda: k11a(lib), "rbc_day_rollout_kernel", 10)
+                print(f"  K11a B={b}: ring of {depth} steps {row[depth]:.4f} ms, outputs identical: {same}")
+                if not same:
+                    raise RuntimeError(f"K11a with a {depth}-step ring differs from the package's")
+            row["package"].append(device_ms(torch, lambda: k11a(package), "rbc_day_rollout_kernel", 10))
+            print(f"  K11a B={b}: the package's ring of {package.ngk_rbc_ring_depth()} steps "
+                  f"{row['package'][0]:.4f} / {row['package'][1]:.4f} ms")
+            result["ring"][str(b)] = row
+    if args.lanes:
+        result["lanes"] = {}
+        libs = variants(_build.config_flags(cfg), "lanes")
+        for b, days in LANE_BATCHES.items():
+            def k8(lib):
+                return with_library(lib, lambda: gen_rbc_multiday(cfg, params, days, 5, b))
+            def launch_only(lib, out):  # the wrapper's launch without its checks (which read the params back)
+                _build.launch("gen_rbc_multiday", lib.ngk_gen_rbc_multiday, traces.price, traces.rad_norm,
+                              traces.rad_norm.numel(), traces.solar, 5, days, out, b, *_build.day_dims(cfg),
+                              device=out.device)
+            want = k8(package)
+            row = {"package_lanes": package.ngk_rbc_lanes(b)}
+            for tag, lib in (("package", package), *libs.items()):
+                if not torch.equal(k8(lib), want):
+                    raise RuntimeError(f"K8 with {tag} lanes an env differs from the package's")
+                out = torch.empty_like(want)
+                row[tag] = {"profiler_ms": device_ms(torch, lambda: k8(lib), "gen_rbc_multiday_kernel", 5),
+                            "event_ms": event_ms(torch, lambda: launch_only(lib, out), 5)}
+                if not torch.equal(out, want):
+                    raise RuntimeError(f"K8 launched alone with {tag} lanes an env differs from the package's")
+            steps = b * days * T
+            print(f"  K8 B={b} x {days} days, env-steps/s by the profiler | by CUDA events: " + ", ".join(
+                f"{k} lanes {steps / row[k]['profiler_ms'] * 1e3:.4e} | {steps / row[k]['event_ms'] * 1e3:.4e}"
+                for k in LANES) + f"; the package ({row['package_lanes']} lanes) "
+                f"{steps / row['package']['profiler_ms'] * 1e3:.4e} | {steps / row['package']['event_ms'] * 1e3:.4e}")
+            result["lanes"][str(b)] = row
+    print(json.dumps({"card": card, "root": root, "kernels": result}))
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,8 @@ to build the kernels at first use).  The file imports no JAX, so it also
 runs on a machine that has only PyTorch: ``python -m pytest
 tests/test_torch_cuda.py -m cuda``.  Batches of 300 leave a ragged last
 block of threads; the collection kernels and the block actor of K5 and K6
-are also held at 1, 33 and 8192 envs, bit for bit.
+are also held at 1, 33 and 8192 envs, bit for bit, and K8 and K11a at 1
+and 300 envs off the 1 h grid.
 """
 
 import numpy as np
@@ -108,7 +109,7 @@ def test_rbc_kernels_match_twins(cuda, name):
     torch.testing.assert_close(soc, soc_p, rtol=2e-5, atol=1e-5)
     stats = gen_rbc_multiday(config, params, 3, 17, 300)
     stats_p = gen_rbc_multiday_plain(config, traces, 3, 17, 300)
-    torch.testing.assert_close(stats, stats_p, rtol=2e-5, atol=1e-3)
+    assert_equal_outputs((stats,), (stats_p,), ("stats",))  # K8's lanes sum in the twin's order
     assert launch_counts["gen_rbc_day"] == 1 and launch_counts["gen_rbc_multiday"] == 1
 
 
@@ -405,7 +406,7 @@ def _day_states(config, params, batch, device):
 @pytest.mark.parametrize("name", list(TABLES_IN_CONFIGS))
 def test_tables_in_kernels_match_twins(cuda, name):
     """K11a and K11b at B=300 (a ragged last block) on a fresh and a
-    continued state, against their twins."""
+    continued state, against their twins: K11a bit for bit."""
     from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout, policy_day_rollout_plain
     from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout, rbc_day_rollout_plain, state_tables
 
@@ -417,12 +418,63 @@ def test_tables_in_kernels_match_twins(cuda, name):
     reset_launch_counts()
     for state in _day_states(config, params, 300, cuda):
         st = state_tables(config, params, state)
-        for got, want in zip(rbc_day_rollout(config, params, state), rbc_day_rollout_plain(config, traces, st)):
-            torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+        assert_equal_outputs(rbc_day_rollout(config, params, state), rbc_day_rollout_plain(config, traces, st),
+                             ("rewards", "soc_final"))
         for got, want in zip(policy_day_rollout(config, params, state, net),
                              policy_day_rollout_plain(config, traces, weights, st)):
             torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     assert dict(launch_counts) == {"rbc_day_rollout": 2, "policy_day_rollout": 2}
+
+
+# K8's lane layout and K11a's ring off the 1 h grid: 96 steps a day, one
+# charger (one group of 4 lanes, 3 of them drawing for no charger), 6
+# chargers (two groups, the second half used), 5 kinds a step
+RBC_LAYOUT_CONFIGS = {
+    "b-pv-1ch-15min": NanogridConfig(num_chargers=1, time_interval=0.25),
+    "b-pv-6ch-30min-reqsoc": NanogridConfig(num_chargers=6, time_interval=0.5, requested_state_of_charge=True,
+                                            penalty_mode="dense"),
+    "basic-6ch-15min": NanogridConfig(num_chargers=6, pv_system=False, battery_system=False, time_interval=0.25,
+                                      different_battery_capacities=False, penalty_mode="on_departure"),
+    "b-pv-8ch-30min": NanogridConfig(num_chargers=8, time_interval=0.5),
+}
+
+
+@pytest.mark.parametrize("batch", [1, 300])
+@pytest.mark.parametrize("name", list(RBC_LAYOUT_CONFIGS))
+def test_rbc_lane_and_ring_kernels_equal_twins(cuda, name, batch):
+    """K8 (2 days) and K11a (a fresh and a continued state) at 0.25 h and
+    0.5 h, with 1, 6 and 8 chargers, ``torch.equal`` to their twins, one
+    launch a call."""
+    from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout, rbc_day_rollout_plain, state_tables
+
+    config = RBC_LAYOUT_CONFIGS[name]
+    params = make_params(config, torch.float32, cuda)
+    traces = kernel_traces(params, cuda)
+    reset_launch_counts()
+    assert_equal_outputs((gen_rbc_multiday(config, params, 2, 23, batch),),
+                         (gen_rbc_multiday_plain(config, traces, 2, 23, batch),), ("stats",))
+    for state in _day_states(config, params, batch, cuda):
+        assert_equal_outputs(rbc_day_rollout(config, params, state),
+                             rbc_day_rollout_plain(config, traces, state_tables(config, params, state)),
+                             ("rewards", "soc_final"))
+    assert dict(launch_counts) == {"gen_rbc_multiday": 1, "rbc_day_rollout": 2}
+
+
+@pytest.mark.parametrize("batch", [8192, 12289, 32768])
+@pytest.mark.parametrize("name", ["b-pv-sparse", "b-pv-6ch-30min-reqsoc"])
+def test_k8_at_every_lane_count_equals_twin(cuda, name, batch):
+    """K8 takes the full layout (8 lanes an env) at 8192 and 12,289 envs (a
+    ragged warp) and one lane an env at 32,768 (kernels.cu's rbc_lanes):
+    ``torch.equal`` to the twin over 2 days, one launch a call."""
+    from smart_nanogrid_gym_torch.ops import _build
+
+    config = {**RBC_CONFIGS, **RBC_LAYOUT_CONFIGS}[name]
+    params = make_params(config, torch.float32, cuda)
+    assert _build.library(config, cuda).ngk_rbc_lanes(batch) == (1 if batch >= 32768 else 8)
+    reset_launch_counts()
+    assert_equal_outputs((gen_rbc_multiday(config, params, 2, 29, batch),),
+                         (gen_rbc_multiday_plain(config, kernel_traces(params, cuda), 2, 29, batch),), ("stats",))
+    assert dict(launch_counts) == {"gen_rbc_multiday": 1}
 
 
 def test_tables_in_kernels_reject_f64_states(cuda):

@@ -117,21 +117,27 @@ CHAIN_CONFIGS = [
     for pv in (True, False)
     for mode in ("sparse", "dense", "on_departure", "no_penalty")
     for dt in (1.0, 2.0)
+] + [
+    # off the 1 h and 2 h grid (tests/test_subhourly.py): b-pv, v2x-b-pv and basic
+    NanogridConfig(num_chargers=4, pv_system=pv, battery_system=pv, vehicle_to_everything=v2x, time_interval=dt)
+    for pv, v2x in ((True, False), (True, True), (False, False))
+    for dt in (0.25, 0.5, 1.5)
 ]
 
 
 @pytest.mark.parametrize("config", CHAIN_CONFIGS,
                          ids=lambda c: f"{c.variant_name}-{c.penalty_mode.name.lower()}-{c.time_interval:g}h")
 def test_step_chain_matches_jax(config):
-    """48 steps without a reset: the chain crosses day ends (pmask lag, PV-shift
-    redraw, battery carry) and the (t-1) mod L reads."""
+    """Two days' steps, at least 48, without a reset: the chain crosses day
+    ends (pmask lag, PV-shift redraw, battery carry) and the (t-1) mod L
+    reads."""
     B = 8
     bparams, jstate, jobs = _jax_states(config, B, seed=2)
     state, params = state_to_torch(jstate), params_to_torch(bparams)
     low, high = config.action_bounds()
     rng = np.random.default_rng(3)
     jstep = jax.jit(jax.vmap(functools.partial(jax_step, config)))
-    for _ in range(48):
+    for _ in range(max(48, 2 * config.steps_per_day)):
         a = rng.uniform(low, high, (B, config.num_actions))
         a[rng.random(a.shape) < 0.15] = 0.0
         ref = jstep(bparams, jstate, jnp.asarray(a))
