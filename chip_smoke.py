@@ -49,17 +49,19 @@ times each kernel against its twin and its bound; the f32 kernels must equal
 their twins, the bf16 sweeps, whose products run on the tensor cores, must
 meet the tolerance of ``tensor_core_close``, and K6's bf16 block actor (also
 on the tensor cores, every torso) that of ``k6_bf16_close``; the collection
-kernels K1, K2 and K9, K6's f32 block actor (the 64x64 torso too) and K5's
-(the DDPG actor, the 256x256 torso) are held to ``torch.equal`` at B=4096
-or 1024 (phases 4, 8, 13, 14 and 24).  Beside K10 it times the 28 products
-of its update as ``torch.matmul`` calls (cuBLAS, f32 with TF32 off and
-bf16), beside K2 and K9 seeded the products of a collection day, and beside
-the block-actor rows of K5 and K6 the actor's products of their days the
-same way: yardsticks of the products only, which the port never calls.  Any
+kernels K1, K2 and K9, K6's f32 block actor (the 64x64 torso too), K5's
+(the DDPG actor, the 256x256 torso) and K11b's (both torsos, a fresh and a
+continued state) are held to ``torch.equal`` at B=4096 or 1024 (phases 4, 8,
+13, 14, 21 and 24).  Beside K10 it times the 28 products of its update as
+``torch.matmul`` calls (cuBLAS, f32 with TF32 off and bf16), beside K1, K2
+and K9 seeded the products of a collection day, and beside the block-actor
+rows of K5, K6 and K11b the actor's products of their days the same way:
+yardsticks of the products only, which the port never calls.  Any
 failure raises and exits non-zero.  The last lines are the card
 (``nvidia-smi`` name and power limit), one JSON object with the kernels (for
 the rows phase 28 profiles, the CUDA kernel instances the profiler saw and
-their device time), and ``{"ok": true, "device": ...}``.
+their device time; for K8, K11a and K11b their layout and ptxas's
+registers and spills), and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -121,6 +123,7 @@ BF16_TRAIN_REPLACES = {
 }
 BF16_DDPG_REPLACES = {"ddpg_sweep_bf16": "smart_nanogrid_gym_tpu/ops/pallas_ddpg_sweep.py:235"}
 BENCH_BATCH = 4096
+K11B_KERNEL = "policy_day_rollout_tables_kernel"  # K11b's instances on the block-actor template, every torso
 TRAIN_UPDATES = 50
 DDPG_LEARN_UPDATES = 150  # the 4-charger learning run, scored against its initial actor
 DDPG_HIDDEN = (400, 300)
@@ -483,8 +486,11 @@ def ptxas_line(library, instance: str) -> str:
     names = subprocess.run(["c++filt"], input="\n".join(lines[i].split("'")[1] for i in entries),
                            capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()
     squeeze = lambda name: "".join(without_parameters(name).split())  # noqa: E731
+    # a bare template name (no profiler record) matches the library's one instance of it
+    same = ((lambda name: squeeze(name).startswith(f"ngk::{instance}<")) if "<" not in instance
+            else (lambda name: squeeze(name) == squeeze(instance)))
     for i, name in zip(entries, names):
-        if squeeze(name) == squeeze(instance):
+        if same(name):
             return "; ".join(x.split("ptxas info    :")[-1].strip() for x in lines[i + 1:i + 4]
                              if "registers" in x or "spill" in x)
     near = [name for name in names if instance.split("<")[0] in name]
@@ -758,7 +764,7 @@ def tables_in_timings(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device
                             lambda: rbc_day_rollout_plain(rbc_cfg, rbc_traces, rbc_st),
                             lambda: rbc_day_rollout(rbc_cfg, rbc_params, rbc_state),
                             lambda: state_tables(rbc_cfg, rbc_params, rbc_state)),
-        "policy_day_rollout": (f"B={BENCH_BATCH}, 1 day, artifact 4ch b-pv, given state", "policy_day_rollout_kernel",
+        "policy_day_rollout": (f"B={BENCH_BATCH}, 1 day, artifact 4ch b-pv, given state", K11B_KERNEL,
                                lambda: launch_policy_day(art_cfg, art_traces, weights, art_st, artifact.hidden),
                                lambda: policy_day_rollout_plain(art_cfg, art_traces, weights, art_st),
                                lambda: policy_day_rollout(art_cfg, art_params, art_state, artifact),
@@ -1183,10 +1189,10 @@ def given_states(config, params, seed: int, device):
 
 
 def tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg, v2x_params, device, errors):
-    """Phases 20-21 (checks): K11a and K11b element for element against their
-    twins at B=4096 (K11a bit for bit, also on a card reset at B=131,072),
-    and against the plain engine (fused_day_rollout) on the same given
-    states."""
+    """Phases 20-21 (checks): K11a and K11b bit for bit against their twins
+    at B=4096 on a fresh and a continued state (K11a also on a card reset at
+    B=131,072), and against the plain engine (fused_day_rollout) on the same
+    given states."""
     from smart_nanogrid_gym_torch.core import SmartNanogridTorch, fused_day_rollout
     from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights
     from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
@@ -1225,21 +1231,22 @@ def tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg
              ("bench config, biases shifted, 8ch b-pv", rbc_cfg, rbc_params, shifted_actor(rbc_cfg, 22, device), 22),
              ("v2x-b-pv 8ch, alternating biases", v2x_cfg, v2x_params, shifted_actor(v2x_cfg, 23, device), 23))
     for label, cfg, params, net, seed in cases:
-        state = given_states(cfg, params, seed, device)["fresh"]
-        got = policy_day_rollout(cfg, params, state, net)
-        want = policy_day_rollout_plain(cfg, kernel_traces(params, device), actor_weights(cfg, net, device),
-                                        state_tables(cfg, params, state))
-        err = max(err, compare(f"phase 21 K11b policy_day_rollout ({label}, B={BENCH_BATCH})", got, want,
-                               rtol=2e-4, atol=2e-4))
-        final, (_, rewards, _) = fused_day_rollout(cfg, params, state, make_actor_policy_fn(cfg, net),
-                                                   next_pv_shift=state.pv_shift)
-        compare(f"phase 21 K11b ({label})", (got[0], got[2]), (rewards, final.soc[..., T - 1].T), rtol=2e-4,
-                atol=2e-4, against="plain engine (fused_day_rollout, deterministic actor)")
-        low, high = (torch.as_tensor(b, device=device)[None, :, None] for b in cfg.action_bounds())
-        check(bool(((got[1] >= low) & (got[1] <= high)).all()), f"K11b ({label}): actions outside the box")
-        if cfg.vehicle_to_everything:
-            chargers = got[1][:, :cfg.num_chargers]
-            check(bool((chargers > 0).any() and (chargers < 0).any()), "K11b v2x: not both charger branches ran")
+        for kind, state in given_states(cfg, params, seed, device).items():
+            got = policy_day_rollout(cfg, params, state, net)
+            want = policy_day_rollout_plain(cfg, kernel_traces(params, device), actor_weights(cfg, net, device),
+                                            state_tables(cfg, params, state))
+            label21 = f"phase 21 K11b policy_day_rollout ({label}, {kind} state, B={BENCH_BATCH})"
+            err = max(err, compare(label21, got, want, rtol=2e-4, atol=2e-4))
+            check_equal(label21, got, want, ("rewards", "actions", "soc_final"))
+            final, (_, rewards, _) = fused_day_rollout(cfg, params, state, make_actor_policy_fn(cfg, net),
+                                                       next_pv_shift=state.pv_shift)
+            compare(f"phase 21 K11b ({label}, {kind} state)", (got[0], got[2]), (rewards, final.soc[..., T - 1].T),
+                    rtol=2e-4, atol=2e-4, against="plain engine (fused_day_rollout, deterministic actor)")
+            low, high = (torch.as_tensor(b, device=device)[None, :, None] for b in cfg.action_bounds())
+            check(bool(((got[1] >= low) & (got[1] <= high)).all()), f"K11b ({label}): actions outside the box")
+            if cfg.vehicle_to_everything:
+                chargers = got[1][:, :cfg.num_chargers]
+                check(bool((chargers > 0).any() and (chargers < 0).any()), "K11b v2x: not both charger branches ran")
     errors["policy_day_rollout"] = err
 
 
@@ -1522,6 +1529,8 @@ def bf16_rows(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big,
                 check_equal(f"phase 24 {name}", got, want, ("stats",))
             elif name == "gen_policy_day_block":
                 check_equal(f"phase 24 {name}", got, want, ("rewards", "actions", "soc_final", "batt_final"))
+            elif name == "policy_day_rollout_block":
+                check_equal(f"phase 24 {name}", got, want, ("rewards", "actions", "soc_final"))
         if name in ("ppo_sweep_streamed_bf16", "ddpg_sweep_bf16"):
             check(all(torch.equal(a, b) for a, b in zip(got, kernel())), f"{name}: a rerun is not bit-identical")
         times[name] = (shape, cuda_ms(kernel, repeats), start.elapsed_time(end))
@@ -1748,19 +1757,34 @@ def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_a
                  ("ppo_sweep_streamed_bf16", "ppo_sweep_streamed"), ("ppo_sweep_bf16", "ppo_sweep"),
                  ("ddpg_sweep_bf16", "ddpg_sweep")):
         print(f"phase 28 {a} / {b}: device time ratio {device_times[a] / device_times[b]:.4f}")
-    # K11b's block kernel on tables already built (nan when the profiler
-    # records no kernel in this window: not required)
-    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights
+    # K11b's 256x256 instance on tables already built, on a fresh and a
+    # continued state: by the profiler through the wrapper (nan when it keeps
+    # no record: not required) and by CUDA events around bare launches of the
+    # packed block, so that a dropped record cannot leave the kernel untimed
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights, policy_library
     from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
     from smart_nanogrid_gym_torch.ops.policy_rollout import launch_policy_day
     from smart_nanogrid_gym_torch.ops.rollout import state_tables
 
     device = next(iter(big.parameters())).device
-    tables = state_tables(rbc_cfg, rbc_params, given_states(rbc_cfg, rbc_params, 28, device)["fresh"])
+    T, A, N, dt = rbc_cfg.steps_per_day, rbc_cfg.num_actions, rbc_cfg.num_chargers, rbc_cfg.time_interval
     traces, weights = kernel_traces(rbc_params, device), actor_weights(rbc_cfg, big, device)
-    ms = device_ms(lambda: launch_policy_day(rbc_cfg, traces, weights, tables, BIG_HIDDEN),
-                   "policy_day_rollout_block_kernel", 3, required=False)
-    print(f"phase 28 policy_day_rollout_block: {ms:.4f} ms of device time per call (profiler) on {card}")
+    lib, block, label = policy_library(rbc_cfg, device, weights, BIG_HIDDEN, "ppo", traces, "policy_day_rollout")
+    outs = [torch.empty(shape, device=device) for shape in ((T, BENCH_BATCH), (T, A, BENCH_BATCH), (N, BENCH_BATCH))]
+    for kind, state in given_states(rbc_cfg, rbc_params, 28, device).items():
+        st = state_tables(rbc_cfg, rbc_params, state).checked()
+        profiled, seen = profile_kernels(lambda: launch_policy_day(rbc_cfg, traces, weights, st, BIG_HIDDEN),
+                                         K11B_KERNEL, 3, required=False)
+        events = cuda_ms(lambda: _build.launch(
+            label, lib.ngk_policy_day_rollout, traces.price, traces.price_norm, traces.price_norm.numel(),
+            traces.rad_norm, traces.rad_norm.numel(), traces.solar, *st, block, *outs, BENCH_BATCH, T, dt,
+            device=device), 5)
+        print(f"phase 28 policy_day_rollout_block ({kind} state): {profiled:.4f} ms of device time per call "
+              f"(profiler), {events:.4f} ms per bare launch (CUDA events) on {card}")
+        if kind == "continued":  # the state phase 24 checks and times
+            device_times[label] = profiled if math.isfinite(profiled) else events
+            instances[label] = seen or K11B_KERNEL
     return device_times, instances
 
 
@@ -1904,7 +1928,12 @@ def main() -> None:
                              "block_threads": rbc_lib.ngk_rbc_lane_threads()},
         "rbc_day_rollout": {"envs_a_block": rbc_lib.ngk_rbc_envs(), "ring_steps": rbc_lib.ngk_rbc_ring_depth()},
     }
-    print(f"phase 1 K8/K11a layouts: {design}")
+    # K11b's instances of the block actor (the artifact's 4ch 64x64, the bench's 256x256) and their libraries
+    design_libraries = {"policy_day_rollout": built[1][0], "policy_day_rollout_block": built[2][0]}
+    for name, lib in (("policy_day_rollout", _build.library(art_cfg, device)),
+                      ("policy_day_rollout_block", _build.library(rbc_cfg, device, BIG_HIDDEN))):
+        design[name] = {"envs_a_block": 32, "smem_floats": lib.ngk_k11b_smem_floats()}
+    print(f"phase 1 K8/K11a/K11b layouts: {design}")
     for path, _ in built:
         with open(path.with_suffix(".log")) as fp:
             for line in fp:
@@ -2163,14 +2192,18 @@ def main() -> None:
             ("gen_policy_multiday_block", rbc_cfg, BIG_HIDDEN, NEW_ROW_DAYS["gen_policy_multiday_block"],
              torch.float32),
             ("gen_policy_multiday_block_bf16", rbc_cfg, BIG_HIDDEN, NEW_ROW_DAYS["gen_policy_multiday_block_bf16"],
-             BF16)):
+             BF16),
+            ("policy_day_rollout", art_cfg, artifact.hidden, 1, torch.float32),
+            ("policy_day_rollout_block", rbc_cfg, BIG_HIDDEN, 1, torch.float32)):
         library[name] = k6_products_ms(cfg, hidden, days, dtype)
-        print(f"K5/K6 yardstick {name}: the actor's 3 products of each of {days} x 24 steps as torch.matmul at "
+        print(f"K5/K6/K11b yardstick {name}: the actor's 3 products of each of {days} x 24 steps as torch.matmul at "
               f"B={BENCH_BATCH} (cuBLAS {'bf16' if dtype == BF16 else 'f32'}, products only) {library[name]:.4f} "
-              f"ms, the kernel {times[name][1]:.4f} ms (wrapper, {times[name][0]}) on {card}")
+              f"ms, the kernel's row {times[name][1]:.4f} ms ({times[name][0]}) on {card}")
+    library["ppo_collect_day"] = collect_products_ms(rbc_cfg, (64, 64), True, device)
     library["ppo_collect_day_seeded"] = collect_products_ms(rbc_cfg, (64, 64), True, device)
     library["ddpg_collect_day_seeded"] = collect_products_ms(rbc_cfg, DDPG_HIDDEN, False, device)
-    for name, label in (("ppo_collect_day_seeded", "K2: the actor-critic's 6"),
+    for name, label in (("ppo_collect_day", "K1: the actor-critic's 6"),
+                        ("ppo_collect_day_seeded", "K2: the actor-critic's 6"),
                         ("ddpg_collect_day_seeded", "K9 seeded: the 400-300 actor's 3")):
         print(f"{label} products of each of 24 steps as torch.matmul at B={BENCH_BATCH} (cuBLAS f32, products "
               f"only) {library[name]:.4f} ms per day, the kernel {times[name][1]:.4f} ms (wrapper, whole day) "
@@ -2183,7 +2216,9 @@ def main() -> None:
     least = bounds(rbc_cfg, art_cfg, timing_days, ddpg_days, philox)
     T8, F8, A8 = rbc_cfg.steps_per_day, rbc_cfg.obs_dim, rbc_cfg.num_actions
     for name, ops in (("ppo_collect_day_seeded", (mlp_flops(F8, A8, 64, 64) + mlp_flops(F8, 1, 64, 64)) * T8),
-                      ("ddpg_collect_day_seeded", mlp_flops(F8, A8, *DDPG_HIDDEN) * T8)):
+                      ("ddpg_collect_day_seeded", mlp_flops(F8, A8, *DDPG_HIDDEN) * T8),
+                      ("policy_day_rollout", mlp_flops(art_cfg.obs_dim, art_cfg.num_actions, 64, 64) * T8),
+                      ("policy_day_rollout_block", mlp_flops(F8, A8, *BIG_HIDDEN) * T8)):
         # without FMA a multiply and an add are an instruction each, at half the FMA rate
         print(f"{name}: FMA-free floor of the products {ops * BENCH_BATCH / (F32_OPS_PER_S / 2) * 1e3:.4f} ms "
               f"(B={BENCH_BATCH}), bound {least[name][0]:.4f} ms ({least[name][1]}, FMA counted)")
@@ -2206,7 +2241,7 @@ def main() -> None:
         })
         if name in design:
             kernels[-1]["design"] = design[name]
-            kernels[-1]["ptxas"] = ptxas_line(built[0][0], instances[name])
+            kernels[-1]["ptxas"] = ptxas_line(design_libraries.get(name, built[0][0]), instances[name])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

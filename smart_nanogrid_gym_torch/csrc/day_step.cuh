@@ -12,10 +12,9 @@
 //   K2 pallas_collect.py::pallas_ppo_collect_day_seeded     -> ppo_collect_day_kernel<C, true>
 //   K9 pallas_collect.py::pallas_ddpg_collect_day(_seeded)  -> ddpg_collect_day_kernel<C, SEEDED>
 //   K11a pallas_rollout.py::pallas_rbc_day_rollout          -> rbc_day_rollout_kernel<C>
-//   K11b pallas_policy_rollout.py::pallas_policy_day_rollout -> policy_day_rollout_kernel<C>,
-//                                                              policy_day_rollout_block_kernel<C>
+//   K11b pallas_policy_rollout.py::pallas_policy_day_rollout -> policy_day_rollout_tables_kernel<C>
 //
-// K7 and MeanActor's kernels (K5 and K11b at 64x64): one thread per env runs
+// K7 and MeanActor's kernel (K5 at 64x64): one thread per env runs
 // the whole day; the per-charger carries live in registers, the
 // price/radiation/solar traces and (MeanActor) the actor weights in shared
 // memory, read by every thread of the block at the same address
@@ -77,26 +76,20 @@
 // take K9's design (see "K6 and K5 block actor" below): an env warp that runs
 // the step body once per env, register-tiled products, the weights streamed
 // through a shared-memory ring by TMA, and K6's bf16 option on the tensor
-// cores.  K11b keeps BlockActor for such an actor: a block takes kBlockEnvs =
-// 32 envs with kBlockThreads threads; every warp runs the same 32 envs' step
-// body (one env per lane, the redundant copies write nothing), warp 0 stages
-// the observations in shared memory, and all warps compute the hidden layers
-// there, each thread R output rows of one env, reading warp-uniform weight
-// rows from global memory (the whole actor stays in the 50 MB L2).  Each
-// output's sum over its inputs runs in index order, as the twin's dense()
-// does (K6's bf16 option aside).  A PPO actor whose f32 block does not fit
-// beside the traces in shared memory (the bench's 256x256 torso: 74,779
-// floats) takes the same designs with tanh hidden layers and the clipped mean
-// as its head (kernels.cu chooses per library for K5 and K11b); their 64x64
-// torsos keep MeanActor.
+// cores.  A PPO actor whose f32 block does not fit beside the traces in
+// shared memory (the bench's 256x256 torso: 74,779 floats) takes the same
+// design with tanh hidden layers and the clipped mean as its head in K5
+// (kernels.cu chooses per library); K5's 64x64 torsos keep MeanActor.
 //
 // The tables-in kernels (K11a RBC, K11b the PPO actor's mean) roll one day of
 // a given state instead of generating it: the wrapper (ops/rollout.py) builds
 // the seven (T, N, B) day tables of the state, packed as (7, T, N, B), and the
 // kernel reads column t of each per step, coalesced across envs, with the
-// state's carried SoC column and penalty mask in registers.  K11b is bound by
-// the actor's multiply-adds, as K5.  They share the RBC action, the charger
-// and battery physics and the penalty with K5/K7.
+// state's carried SoC column and penalty mask in registers.  K11b, for every
+// PPO torso, is K6's block-actor template with the day's tables in place of
+// its generation (see "K6 and K5 block actor" below), bound by the actor's
+// multiply-adds as K5.  They share the RBC action, the charger and battery
+// physics and the penalty with K5/K7.
 #pragma once
 
 #include <cstdint>
@@ -492,7 +485,7 @@ __device__ __forceinline__ void torso(const float* w1, const float* b1, const fl
   for (int j = 0; j < C::H2; ++j) h2[j] = tanhf(dense(w2 + j * C::H1, h1, C::H1) + b2[j]);
 }
 
-// The deterministic actor of K5 and K11b at 64x64: the mean clipped to the action box.
+// The deterministic actor of K5 at 64x64: the mean clipped to the action box.
 template <class C>
 struct MeanActor {
   Actor<C> w;
@@ -574,11 +567,13 @@ __device__ __forceinline__ void final_observe(const Dims& d, const Carry<C>& c, 
   if (C::BATT) obs[base + 2 * C::N] = batt_soc;
 }
 
-// What the physics half of an actor step needs from its observation half.
+// What the physics half of an actor step needs from its observation half;
+// idle_col: the SoC column written for a charger left unoccupied (0 in a
+// generated day, the table's column in a given state's).
 template <class C>
 struct StepState {
   bool occupied[C::N];
-  float soc_eff[C::N], cap_eff[C::N], safe_cap[C::N];
+  float soc_eff[C::N], cap_eff[C::N], safe_cap[C::N], idle_col[C::N];
 };
 
 // The observation half of an actor step (_gen_policy_step): the draws of
@@ -601,6 +596,7 @@ __device__ __forceinline__ void observe_step(int t, const Dims& d, const Src& sr
     obs[base + N + n] = (t == 0 ? k.dep_col : c.prev_depcol[n]) / 24.0f;
     st.occupied[n] = k.occupied;
     st.soc_eff[n] = k.arrives ? k.soc_t : c.prev_col[n];
+    st.idle_col[n] = 0.0f;
     if (C::DIFF_CAPS) {
       st.cap_eff[n] = k.arrives ? k.cap_col : c.prev_capcol[n];
       st.safe_cap[n] = st.cap_eff[n] > 0.0f ? st.cap_eff[n] : 1.0f;
@@ -614,8 +610,9 @@ __device__ __forceinline__ void observe_step(int t, const Dims& d, const Src& sr
   if (C::BATT) obs[base + 2 * N] = batt_soc;
 }
 
-// The physics half (_gen_policy_physics): bidirectional charger physics
-// (the inverted discharge flag quirk) and the BESS under the action.
+// The physics half (_gen_policy_physics; pallas_policy_rollout.py's for a
+// given state): bidirectional charger physics (the inverted discharge flag
+// quirk) and the BESS under the action.
 template <class C>
 __device__ __forceinline__ PolicyRows physics_step(const StepState<C>& st, const float (&act)[C::A], Carry<C>& c,
                                                    float& batt_soc, float dt) {
@@ -623,7 +620,7 @@ __device__ __forceinline__ PolicyRows physics_step(const StepState<C>& st, const
 #pragma unroll
   for (int n = 0; n < C::N; ++n) {
     const ChargerFlow f = charger_physics(act[n], st.soc_eff[n], st.cap_eff[n], st.safe_cap[n], st.occupied[n], dt);
-    c.prev_col[n] = st.occupied[n] ? f.soc_new : 0.0f;
+    c.prev_col[n] = st.occupied[n] ? f.soc_new : st.idle_col[n];
     const float pos = f.power > 0.0f ? f.power : 0.0f;
     const float neg = f.power < 0.0f ? f.power : 0.0f;
     charging = n == 0 ? pos : charging + pos;
@@ -950,125 +947,9 @@ __global__ void gen_policy_day_kernel(const float* __restrict__ price, const flo
   batt_final[b] = batt;
 }
 
-// ----------------------------------------------------------- block actor ---
-
-constexpr int kBlockEnvs = 32;     // envs per block: one per lane
-constexpr int kBlockThreads = 256;  // threads per block: 8 warps share the products
-constexpr int kBlockRows = 4;      // output rows per thread and pass of dense_block
-
 // The actor kinds, NG_ACTOR's values: the PPO actor (tanh torso, the mean
 // clipped to the box) and the DDPG actor (ReLU torso, tanh-squashed head).
 enum ActorKind : int { kPpoActor = 0, kDdpgActor = 1 };
-
-// Shared-memory activations of the block's envs, feature-major: x[f * kBlockEnvs + e].
-template <class C>
-struct BlockShared {
-  float *xs, *h1, *h2, *act;
-  __device__ explicit BlockShared(float* s) {
-    xs = s;
-    h1 = xs + C::F * kBlockEnvs;
-    h2 = h1 + C::H1 * kBlockEnvs;
-    act = h2 + C::H2 * kBlockEnvs;
-  }
-};
-
-template <class C>
-constexpr int block_shared_floats() {
-  return (C::F + C::H1 + C::H2 + C::A) * kBlockEnvs;
-}
-
-// y[j][e] = act(sum_k w[j][k] x[k][e] + b[j]) for the block's envs.  A warp
-// takes kBlockRows rows for its 32 lanes (one env each): the weight reads are
-// warp-uniform (one broadcast load), the activation reads conflict-free.
-template <int J, int K, int KIND>
-__device__ __forceinline__ void dense_block(const float* __restrict__ w, const float* __restrict__ bias,
-                                            const float* x, float* y) {
-  const int lane = threadIdx.x % kBlockEnvs, warp = threadIdx.x / kBlockEnvs;
-  const int warps = blockDim.x / kBlockEnvs;
-  for (int j0 = warp * kBlockRows; j0 < J; j0 += warps * kBlockRows) {
-    const float* row[kBlockRows];
-    float acc[kBlockRows];
-    const float x0 = x[lane];
-#pragma unroll
-    for (int r = 0; r < kBlockRows; ++r) {
-      row[r] = w + static_cast<int64_t>(min(j0 + r, J - 1)) * K;
-      acc[r] = __ldg(row[r]) * x0;
-    }
-#pragma unroll 4
-    for (int k = 1; k < K; ++k) {
-      const float xv = x[k * kBlockEnvs + lane];
-#pragma unroll
-      for (int r = 0; r < kBlockRows; ++r) acc[r] = acc[r] + __ldg(row[r] + k) * xv;
-    }
-#pragma unroll
-    for (int r = 0; r < kBlockRows; ++r) {
-      if (j0 + r < J) {
-        const float v = acc[r] + __ldg(bias + j0 + r);
-        const float a = KIND == kPpoActor ? tanhf(v) : (v > 0.0f ? v : 0.0f);
-        y[(j0 + r) * kBlockEnvs + lane] = a;
-      }
-    }
-  }
-}
-
-// The block-level actor of K11b (a PPO torso too large for MeanActor), a
-// Policy of policy_day_from_tables: every thread of the block calls it at
-// step t with its lane's observation.  Warp 0 stages the
-// observations, the block computes both hidden layers and the head, and each
-// thread reads back its lane's action.  The PPO head is the mean clipped to
-// the box (pallas_gen_policy_rollout.py:143-147); the DDPG head is
-// a = low + (tanh(mu) + 1)·0.5·(high − low) (:148-154, no clip).
-template <class C, int KIND>
-struct BlockActor {
-  Actor<C> w;  // views of the packed block in global memory
-  BlockShared<C> s;
-
-  __device__ void operator()(int, const float (&obs)[C::F], float (&act)[C::A]) const {
-    const int lane = threadIdx.x % kBlockEnvs;
-    if (threadIdx.x < kBlockEnvs) {
-#pragma unroll
-      for (int f = 0; f < C::F; ++f) s.xs[f * kBlockEnvs + lane] = obs[f];
-    }
-    __syncthreads();
-    dense_block<C::H1, C::F, KIND>(w.w1, w.b1, s.xs, s.h1);
-    __syncthreads();
-    dense_block<C::H2, C::H1, KIND>(w.w2, w.b2, s.h1, s.h2);
-    __syncthreads();
-    for (int i = threadIdx.x; i < C::A * kBlockEnvs; i += blockDim.x) {
-      const int a = i / kBlockEnvs, e = i % kBlockEnvs;
-      const float* row = w.w3 + a * C::H2;
-      float acc = __ldg(row) * s.h2[e];
-      for (int k = 1; k < C::H2; ++k) acc = acc + __ldg(row + k) * s.h2[k * kBlockEnvs + e];
-      const float mu = acc + __ldg(w.b3 + a);
-      const float lo = __ldg(w.low + a), hi = __ldg(w.high + a);
-      s.act[a * kBlockEnvs + e] =
-          KIND == kPpoActor ? fminf(fmaxf(mu, lo), hi) : lo + ((tanhf(mu) + 1.0f) * 0.5f) * (hi - lo);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < C::A; ++i) act[i] = s.act[i * kBlockEnvs + lane];
-  }
-};
-
-// Lane geometry of a block-actor block: the env of this thread's lane (tail
-// lanes mirror the last env and write nothing).
-struct BlockLane {
-  int64_t b0, b;
-  bool writes;
-  __device__ BlockLane(int B) {
-    const int lane = threadIdx.x % kBlockEnvs;
-    b0 = static_cast<int64_t>(blockIdx.x) * kBlockEnvs;
-    b = b0 + lane < B ? b0 + lane : static_cast<int64_t>(B) - 1;
-    writes = threadIdx.x < kBlockEnvs && b0 + lane < B;
-  }
-};
-
-// K11b's block actor: its views of the weights and of the shared memory
-// after the traces.
-template <class C, int KIND>
-__device__ __forceinline__ BlockActor<C, KIND> block_actor(const float* weights, const SharedTraces& s, int T) {
-  return BlockActor<C, KIND>{Actor<C>(weights), BlockShared<C>(s.solar + T)};
-}
 
 // ---------------------------------------------------- collection kernels ---
 //
@@ -1292,6 +1173,90 @@ __device__ __forceinline__ void store_draws(const SharedDraws<C>& draws, float* 
       for (int a = 0; a < A; ++a) normals[a * E + e] = out[a];
     }
   }
+}
+
+// Shared-memory addresses and asynchronous 4-byte copies (K11a's table
+// ring, the rings' bulk copies below).
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One float copied from device to shared memory asynchronously: 4 bytes, or
+// zeros when !valid (`src` must still be a valid address).
+__device__ __forceinline__ void async_copy_f32(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_address(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+// Wait until at most PENDING of this thread's newest commit groups are in flight.
+template <int PENDING>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
+}
+
+// The seven day tables of a given state, packed (7, T, N, B) f32 by
+// ops/rollout.py::state_tables: column t of table k for charger n of env b.
+enum TableKind { kOcc = 0, kCapEff, kReqPrev, kSocCols, kIsArr, kDepObs, kPmask, kTables };
+
+// Step t's rows of the seven tables (plane = T N B floats a table) of the
+// block's envs into a shared slot (kTables, N, kCollectEnvs), the tables-in
+// counterpart of store_draws: one thread a (table, charger, env), so a
+// warp's 32 loads are one coalesced line; every load of a thread is issued
+// before its first store.  Tail envs mirror the last env (a valid address).
+template <class C, int THREADS>
+__device__ __forceinline__ void store_tables(float* slot, const float* __restrict__ tables, int64_t plane, int p,
+                                             int t, int64_t b0, int64_t B) {
+  constexpr int E = kCollectEnvs, N = C::N, ROWS = kTables * N, WARPS = THREADS / E;
+  constexpr int ROUNDS = (ROWS + WARPS - 1) / WARPS;
+  const int e = p % E, r0 = p / E;
+  const float* src = tables + static_cast<int64_t>(t) * N * B + (b0 + e < B ? b0 + e : B - 1);
+  float v[ROUNDS];
+#pragma unroll
+  for (int q = 0; q < ROUNDS; ++q) {
+    const int r = r0 + q * WARPS;  // k * N + n
+    v[q] = r < ROWS ? __ldg(src + (r / N) * plane + (r % N) * B) : 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < ROUNDS; ++q) {
+    const int r = r0 + q * WARPS;
+    if (r < ROWS) slot[r * E + e] = v[q];
+  }
+}
+
+// The observation half of a tables-in actor step (pallas_policy_rollout.py:
+// 40-183), on the env warp: step t's table rows of the lane's env from its
+// slot (`row` points at the slot's first row and the lane's env), the
+// observation (F,) at o = max(t-1, 0): the SoC rows from the table's column
+// 0 at t = 0 and the carried column after, the departure rows from DepObs at
+// o (step t-1's kept in c.prev_depcol); the vehicle penalty of the carried
+// mask and column (the state's column L-1 at t = 0) against the requested
+// SoC row; the next step's mask; and what the physics needs.  Everything of
+// the slot is read here, before the block's first barrier of the step.
+template <class C>
+__device__ __forceinline__ void observe_tables(int t, const float* row, Carry<C>& c, float batt_soc,
+                                               const float* rad_norm, const float* price_norm, float pv_shift,
+                                               float (&obs)[C::F], StepState<C>& st, float (&pen)[C::N]) {
+  constexpr int N = C::N, E = kCollectEnvs;
+  const int base = observe_traces<C>(t > 0 ? t - 1 : 0, rad_norm, price_norm, pv_shift, obs);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const auto tab = [&](int k) { return row[(k * N + n) * E]; };
+    const float soc_col = tab(kSocCols), dep_t = tab(kDepObs), cap = tab(kCapEff);
+    obs[base + n] = t == 0 ? soc_col : c.prev_col[n];
+    obs[base + N + n] = (t == 0 ? dep_t : c.prev_depcol[n]) / 24.0f;
+    st.occupied[n] = tab(kOcc) > 0.0f;
+    st.soc_eff[n] = tab(kIsArr) > 0.0f ? soc_col : c.prev_col[n];
+    st.cap_eff[n] = cap;
+    st.safe_cap[n] = cap > 0.0f ? cap : 1.0f;
+    st.idle_col[n] = soc_col;
+    pen[n] = insufficiency_penalty(c.pmask[n], c.prev_col[n], tab(kReqPrev));
+    c.pmask[n] = tab(kPmask);  // the trailing observe's mask for the next step
+    c.prev_depcol[n] = dep_t;
+  }
+  if (C::BATT) obs[base + 2 * N] = batt_soc;
 }
 
 // ------------------------------------------------------------- K1 / K2 ---
@@ -1553,10 +1518,6 @@ constexpr int kDdpgProductThreads = 352;  // 11 product warps (K9 and K6's block
 constexpr int kDdpgCollectThreads = kCollectEnvs + kDdpgProductThreads;
 constexpr int kRingStages = 3;  // K9's chunks in shared memory: one summed, two in flight
 constexpr int kRingRows = 16;   // k-rows of a chunk of K9
-
-__device__ __forceinline__ unsigned smem_address(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 // One bulk copy by the Tensor Memory Accelerator (16-byte aligned, a multiple
 // of 16 bytes), completing on `bar` by its bytes.
@@ -1912,12 +1873,15 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
 //
 // K6 (pallas_gen_policy_rollout.py::pallas_gen_policy_multiday) for every
 // torso: the PPO actor (the 64x64 torso of the artifacts and the bench's
-// 256x256) and the DDPG 400-300 ReLU actor (actor="ddpg"); and K5
+// 256x256) and the DDPG 400-300 ReLU actor (actor="ddpg"); K5
 // (::pallas_gen_policy_day) with an actor too large for MeanActor (the DDPG
-// actor, the 256x256 PPO torso).  One template, block_actor_days, runs both:
-// K6's Philox days and stats (SEEDED) or K5's one explicit-uniform day and
-// its trajectory.  K9's block: 32 envs, warp 0 the env warp and the ring's
-// producer, 11 product warps, the weights streamed through the ring (they
+// actor, the 256x256 PPO torso); and K11b
+// (pallas_policy_rollout.py::pallas_policy_day_rollout) for every PPO torso.
+// One template, block_actor_days, runs all three, its source of the day a
+// parameter (DaySource): K6's Philox days and stats, K5's one
+// explicit-uniform day and its trajectory, or K11b's day of a given state
+// read from its seven tables and its trajectory.  K9's block: 32 envs, warp
+// 0 the env warp and the ring's producer, 11 product warps, the weights streamed through the ring (they
 // never change within a launch, so the stream runs on across layers, steps
 // and days), two block barriers a step.  The env warp runs the step body
 // once per env, keeping the carried battery, the penalty sums and the day's
@@ -1926,12 +1890,21 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
 // soc_final (N, B) and batt_final (B).  Its draws (K6: Philox keyed by
 // (seed, b), counter (day, t, kind, group); K5: the uniforms u (T, 5, N, B))
 // come from shared memory, where the product warps store the next step's
-// while the env warp observes, as in K9.  The head's owners write the
-// clipped PPO mean or the DDPG squash.
+// while the env warp observes, as in K9.  K11b's product warps store the
+// next step's rows of the seven tables there instead, 7 N a step of each
+// env (coalesced across the block's envs: store_tables), and its env warp
+// reads them all before the step's first barrier (observe_tables), keeping
+// the carried SoC column, penalty mask and the previous step's departure row
+// in registers: the physics then runs K5's body (physics_step), the unoccupied
+// chargers taking the table's column.  The table slots are 7/5 of the draw
+// slots (day_slot_floats), and the layout's chunk and stages are chosen for
+// each instance with its own slots (K6<C, BF16, SOURCE>).  The head's owners
+// write the clipped PPO mean or the DDPG squash.
 //
 // f32: R x V register tiles (Tile) as K9, every output's sum over k in index
 // order with the product and the add rounded apart, so the kernels are
-// bit-equal to gen_policy_multiday_plain and gen_policy_day_plain.  Bound:
+// bit-equal to gen_policy_multiday_plain, gen_policy_day_plain and
+// policy_day_rollout_plain.  Bound:
 // the torso's multiply-adds, 2.6e5 (400-300), 1.5e5 (256x256) or 1.2e4
 // (64x64) flops per env-step, at the FMA-free issue rate of its SM
 // (bit-equality forbids the FMA); a 64x64 step is short enough that the env
@@ -2032,14 +2005,27 @@ struct Bf16Ring {
   }
 };
 
-// K6's layout for a chunk size (f32 k-rows or bf16 k-steps a chunk) and a
-// stage count: the ring actor's arrays, then two slots of a step's draws.
-template <class C, bool BF16, int CHUNK, int STAGES = kRingStages>
+// Where the days of a block-actor launch come from: K6's Philox days, K5's
+// explicit uniforms u (T, 5, N, B), or K11b's day tables of a given state.
+enum DaySource : int { kPhiloxDays = 0, kExplicitDay, kTablesDay };
+
+// Floats of one step's slot of a source in shared memory: the generation
+// draws of the block's envs (kDrawKinds, N, kCollectEnvs) or the state's
+// table rows (kTables, N, kCollectEnvs).
+template <class C, int SOURCE>
+__host__ __device__ constexpr int day_slot_floats() {
+  return (SOURCE == kTablesDay ? kTables : kDrawKinds) * C::N * kCollectEnvs;
+}
+
+// The block actor's layout for a slot size, a chunk size (f32 k-rows or bf16
+// k-steps a chunk) and a stage count: the ring actor's arrays, then two
+// slots of a step's draws or table rows.
+template <class C, bool BF16, int SLOT, int CHUNK, int STAGES = kRingStages>
 struct K6Layout {
   using G = std::conditional_t<BF16, Bf16Ring<C, CHUNK, STAGES>,
                                F32Ring<C, choose_tiles(C::H1).R, choose_tiles(C::H1).V, choose_tiles(C::H2).R,
                                        choose_tiles(C::H2).V, CHUNK, STAGES>>;
-  static constexpr int FLOATS = ring_shared_floats<G>() + 2 * kDrawKinds * C::N * kCollectEnvs;
+  static constexpr int FLOATS = ring_shared_floats<G>() + 2 * SLOT;
 };
 
 // The env warp's draws of K6's step `step` in shared memory: the slot goes by
@@ -2051,40 +2037,42 @@ struct SlotDraws {
   __device__ void draw(int, int kind, float (&out)[C::N]) const { shared.draw(step, kind, out); }
 };
 
-template <class C, bool BF16, int CHUNK, int STAGES = kRingStages>
+template <class C, bool BF16, int SLOT, int CHUNK, int STAGES = kRingStages>
 constexpr bool k6_fits() {
-  return 4 * K6Layout<C, BF16, CHUNK, STAGES>::FLOATS + kTraceReserveBytes <= kMaxSmemBytes;
+  return 4 * K6Layout<C, BF16, SLOT, CHUNK, STAGES>::FLOATS + kTraceReserveBytes <= kMaxSmemBytes;
 }
 
 // The largest chunk whose ring leaves room for the traces: 16 f32 k-rows or
 // 2 bf16 k-steps for every torso the JAX kernel takes but the widest.
-template <class C, bool BF16>
+template <class C, bool BF16, int SLOT>
 constexpr int k6_chunk() {
   if constexpr (BF16) {
-    return k6_fits<C, true, 2>() ? 2 : 1;
+    return k6_fits<C, true, SLOT, 2>() ? 2 : 1;
   } else {
-    return k6_fits<C, false, 16>() ? 16
-           : k6_fits<C, false, 8>() ? 8
-           : k6_fits<C, false, 4>() ? 4
-           : k6_fits<C, false, 2>() ? 2
-                                    : 1;
+    return k6_fits<C, false, SLOT, 16>() ? 16
+           : k6_fits<C, false, SLOT, 8>() ? 8
+           : k6_fits<C, false, SLOT, 4>() ? 4
+           : k6_fits<C, false, SLOT, 2>() ? 2
+                                          : 1;
   }
 }
 
 // Then the most stages that fit, up to a stage for every chunk of a step
 // (the weights resident: the bench's 256x256 torso in bf16).
-template <class C, bool BF16, int CHUNK, int STAGES>
+template <class C, bool BF16, int SLOT, int CHUNK, int STAGES>
 constexpr int k6_stages_from() {
-  constexpr int NC = K6Layout<C, BF16, CHUNK>::G::NC;
-  if constexpr (STAGES >= NC || !k6_fits<C, BF16, CHUNK, STAGES + 1>()) {
+  constexpr int NC = K6Layout<C, BF16, SLOT, CHUNK>::G::NC;
+  if constexpr (STAGES >= NC || !k6_fits<C, BF16, SLOT, CHUNK, STAGES + 1>()) {
     return STAGES < NC ? STAGES : NC;
   } else {
-    return k6_stages_from<C, BF16, CHUNK, STAGES + 1>();
+    return k6_stages_from<C, BF16, SLOT, CHUNK, STAGES + 1>();
   }
 }
 
-template <class C, bool BF16>
-using K6 = K6Layout<C, BF16, k6_chunk<C, BF16>(), k6_stages_from<C, BF16, k6_chunk<C, BF16>(), kRingStages>()>;
+// The layout of a source's instance: K6 and K5 (draw slots) or K11b (table slots).
+template <class C, bool BF16, int SOURCE = kPhiloxDays, int SLOT = day_slot_floats<C, SOURCE>()>
+using K6 = K6Layout<C, BF16, SLOT, k6_chunk<C, BF16, SLOT>(),
+                    k6_stages_from<C, BF16, SLOT, k6_chunk<C, BF16, SLOT>(), kRingStages>()>;
 
 // One bf16 layer on the tensor cores: y = act(W x + b) for the block's 32
 // envs, W's fragments from the ring, x and y bf16 pairs.  Product warp w owns
@@ -2147,11 +2135,9 @@ __device__ __forceinline__ void mma_layer(const WeightRing<G>& ring, int& g, int
 // hidden layers through the ring, then the head, whose owners write the
 // clipped PPO mean (pallas_gen_policy_rollout.py:143-147) or the DDPG action
 // low + (tanh(mu) + 1)·0.5·(high − low) (:148-154, no clip) into shared memory.
-template <class C, int KIND, bool BF16>
-__device__ __forceinline__ void block_actor_products(const RingShared<typename K6<C, BF16>::G>& sh,
-                                                     const WeightRing<typename K6<C, BF16>::G>& ring, int& g,
+template <class C, int KIND, bool BF16, class G>
+__device__ __forceinline__ void block_actor_products(const RingShared<G>& sh, const WeightRing<G>& ring, int& g,
                                                      int p, int step) {
-  using G = typename K6<C, BF16>::G;
   constexpr int E = kCollectEnvs;
   if constexpr (BF16) {
     mma_layer<KIND, G, G::MT1, G::KS1, C::H1>(ring, g, p, reinterpret_cast<const uint32_t*>(sh.xs), sh.b1,
@@ -2186,26 +2172,47 @@ __device__ __forceinline__ void block_actor_products(const RingShared<typename K
 }
 
 // The sources and outputs of the block-actor days: K6's Philox days of
-// `seed` and its stats (3, B), or K5's one explicit-uniform day (u, the
-// starting battery, the PV shift) and its trajectory.
+// `seed` and its stats (3, B); K5's one explicit-uniform day (u, the starting
+// battery, the PV shift) and its trajectory; or K11b's day of a given state
+// (its tables (7, T, N, B), SoC column L-1 and penalty mask (N, B), battery
+// and PV shift) and its trajectory without the final battery.
 struct BlockDays {
   uint32_t seed;
   int num_days;
   const float *u, *batt_soc, *pv_shift;
   float *stats, *rewards, *actions, *soc_final, *batt_final;
+  const float *tables, *prev_col, *pmask;
 };
 
-// K6 (SEEDED) or K5 with the block actor, for a block of kDdpgCollectThreads
-// threads per kCollectEnvs envs; tail lanes mirror the last env and write
-// nothing.  BF16: K6's mlp_dtype option on the tensor cores.
-template <class C, int KIND, bool BF16, bool SEEDED>
+// The product threads' store of the launch step `step`'s inputs into its
+// slot (step & 1): the draws of day step / T (store_draws) or the table rows
+// of step `step` of the one day (store_tables).
+template <class C, int SOURCE, int THREADS>
+__device__ __forceinline__ void stage_step(float* slots, const BlockDays& io, int p, int step, int T, int64_t b0,
+                                           int B) {
+  if constexpr (SOURCE == kTablesDay) {
+    store_tables<C, THREADS>(slots + (step & 1) * day_slot_floats<C, SOURCE>(), io.tables,
+                             static_cast<int64_t>(T) * C::N * B, p, step, b0, B);
+  } else {
+    constexpr bool SEEDED = SOURCE == kPhiloxDays;
+    const CollectSource<C, SEEDED> src{io.u, nullptr, io.seed, B, static_cast<uint32_t>(step / T)};
+    store_draws<C, SEEDED, THREADS>(SharedDraws<C>{slots}, nullptr, src, p, step % T, b0, step);
+  }
+}
+
+// K6 (kPhiloxDays), K5 (kExplicitDay) or K11b (kTablesDay) with the block
+// actor, for a block of kDdpgCollectThreads threads per kCollectEnvs envs;
+// tail lanes mirror the last env and write nothing.  BF16: K6's mlp_dtype
+// option on the tensor cores.
+template <class C, int KIND, bool BF16, int SOURCE>
 __device__ __forceinline__ void block_actor_days(const float* __restrict__ price,
                                                  const float* __restrict__ price_norm, int P,
                                                  const float* __restrict__ rad_norm, int S,
                                                  const float* __restrict__ solar, const float* __restrict__ weights,
                                                  const BlockDays& io, int B, const Dims& d) {
-  static_assert(SEEDED || !BF16, "K5 has no bf16 option");
-  using L = K6<C, BF16>;
+  constexpr bool SEEDED = SOURCE == kPhiloxDays, TABLES = SOURCE == kTablesDay;
+  static_assert(SEEDED || !BF16, "K5 and K11b have no bf16 option");
+  using L = K6<C, BF16, SOURCE>;
   using G = typename L::G;
   constexpr int E = kCollectEnvs, N = C::N;
   extern __shared__ float4 collect_smem[];
@@ -2215,24 +2222,18 @@ __device__ __forceinline__ void block_actor_days(const float* __restrict__ price
   const SharedTraces tr = load_traces(smem + L::FLOATS, rad_norm, S, price_norm, P, price, solar, d.T);
   const WeightRing<G> ring{weights, sh.ring, sh.full, sh.empty};
   if (threadIdx.x == 0) ring.init();
-  const SharedDraws<C> draws{sh.end()};
+  float* slots = sh.end();
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * E;
   const int steps = io.num_days * d.T, chunks = steps * G::NC;
-  // the draws of the launch's step `step` (K5's launch is its one day)
-  const auto source = [&](int step) {
-    return CollectSource<C, SEEDED>{io.u, nullptr, io.seed, B, static_cast<uint32_t>(step / d.T)};
-  };
-  if (steps > 0) store_draws<C, SEEDED, kDdpgCollectThreads>(draws, nullptr, source(0), threadIdx.x, 0, b0, 0);
+  if (steps > 0) stage_step<C, SOURCE, kDdpgCollectThreads>(slots, io, threadIdx.x, 0, d.T, b0, B);
   __syncthreads();
   if (threadIdx.x >= kCollectEnvs) {
-    // the product warps: the next step's draws while the env warp observes, then the policy
+    // the product warps: the next step's inputs while the env warp observes, then the policy
     const int p = threadIdx.x - kCollectEnvs;
     int g = 0;
 #pragma unroll 1
     for (int step = 0; step < steps; ++step) {
-      const int next = step + 1;
-      if (next < steps)
-        store_draws<C, SEEDED, kDdpgProductThreads>(draws, nullptr, source(next), p, next % d.T, b0, next);
+      if (step + 1 < steps) stage_step<C, SOURCE, kDdpgProductThreads>(slots, io, p, step + 1, d.T, b0, B);
       if (p == 0) k6_stamp(6, step);
       sync_block();
       block_actor_products<C, KIND, BF16>(sh, ring, g, p, step);
@@ -2246,7 +2247,7 @@ __device__ __forceinline__ void block_actor_days(const float* __restrict__ price
   }
   // the env warp: the first chunks now, each step's others (and the next
   // step's first) while the products sum
-  const BlockLane l(B);
+  const CollectLane l(B);
   const int lane = threadIdx.x;
   int filled = 0;
   for (; filled < min(G::STAGES - 1, chunks); ++filled) ring.fill(filled);
@@ -2260,7 +2261,15 @@ __device__ __forceinline__ void block_actor_days(const float* __restrict__ price
     } else {
       pv = io.pv_shift[l.b];
     }
-    c.clear();
+    if constexpr (TABLES) {  // the state's carried column and mask
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        c.prev_col[n] = io.prev_col[static_cast<int64_t>(n) * B + l.b];
+        c.pmask[n] = io.pmask[static_cast<int64_t>(n) * B + l.b];
+      }
+    } else {
+      c.clear();
+    }
     float pen_acc[N], day_sum = 0.0f;
 #pragma unroll
     for (int n = 0; n < N; ++n) pen_acc[n] = 0.0f;
@@ -2270,7 +2279,13 @@ __device__ __forceinline__ void block_actor_days(const float* __restrict__ price
       if (lane == 0) k6_stamp(0, step);
       float obs[C::F], pen[N];
       StepState<C> st;
-      observe_step<C>(t, d, SlotDraws<C>{draws, step}, c, batt, tr.rad_norm, tr.price_norm, pv, obs, st, pen);
+      if constexpr (TABLES) {
+        observe_tables<C>(t, slots + (step & 1) * day_slot_floats<C, SOURCE>() + lane, c, batt, tr.rad_norm,
+                          tr.price_norm, pv, obs, st, pen);
+      } else {
+        observe_step<C>(t, d, SlotDraws<C>{SharedDraws<C>{slots}, step}, c, batt, tr.rad_norm, tr.price_norm, pv,
+                        obs, st, pen);
+      }
       if constexpr (BF16) {  // pairs of consecutive inputs, the padded ones zero
         uint32_t* x = reinterpret_cast<uint32_t*>(sh.xs);
 #pragma unroll
@@ -2295,7 +2310,7 @@ __device__ __forceinline__ void block_actor_days(const float* __restrict__ price
         for (int n = 0; n < N; ++n) pen_acc[n] = pen_acc[n] + pen[n];
         const float reward = -policy_cost<C>(r, tr.solar[t], tr.price[t], pv, d.dt);
         day_sum = t == 0 ? reward : day_sum + reward;
-      } else if (l.writes) {  // the step's reward carries its vehicle penalty
+      } else if (l.active) {  // the step's reward carries its vehicle penalty
 #pragma unroll
         for (int a = 0; a < C::A; ++a) io.actions[(static_cast<int64_t>(t) * C::A + a) * B + l.b] = act[a];
         float pen_sum = pen[0];
@@ -2314,7 +2329,7 @@ __device__ __forceinline__ void block_actor_days(const float* __restrict__ price
       sq_total = sq_total + day_return * day_return;
     }
   }
-  if (!l.writes) return;
+  if (!l.active) return;
   if constexpr (SEEDED) {
     io.stats[l.b] = rew_total;
     io.stats[static_cast<int64_t>(B) + l.b] = sq_total;
@@ -2322,7 +2337,7 @@ __device__ __forceinline__ void block_actor_days(const float* __restrict__ price
   } else {
 #pragma unroll
     for (int n = 0; n < N; ++n) io.soc_final[static_cast<int64_t>(n) * B + l.b] = c.prev_col[n];
-    io.batt_final[l.b] = batt;
+    if constexpr (!TABLES) io.batt_final[l.b] = batt;
   }
 }
 
@@ -2335,7 +2350,7 @@ gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* _
                                  uint32_t seed, int num_days, const float* __restrict__ weights,
                                  float* __restrict__ stats, int B, Dims d) {
   const BlockDays io{seed, num_days, nullptr, nullptr, nullptr, stats, nullptr, nullptr, nullptr, nullptr};
-  block_actor_days<C, KIND, BF16, true>(price, price_norm, P, rad_norm, S, solar, weights, io, B, d);
+  block_actor_days<C, KIND, BF16, kPhiloxDays>(price, price_norm, P, rad_norm, S, solar, weights, io, B, d);
 }
 
 // K5 with the block actor (actor="ddpg", or a PPO torso too large for
@@ -2350,23 +2365,29 @@ gen_policy_day_block_kernel(const float* __restrict__ price, const float* __rest
                             float* __restrict__ rewards, float* __restrict__ actions,
                             float* __restrict__ soc_final, float* __restrict__ batt_final, int B, Dims d) {
   const BlockDays io{0u, 1, u, batt_soc, pv_shift, nullptr, rewards, actions, soc_final, batt_final};
-  block_actor_days<C, KIND, false, false>(price, price_norm, P, rad_norm, S, solar, weights, io, B, d);
+  block_actor_days<C, KIND, false, kExplicitDay>(price, price_norm, P, rad_norm, S, solar, weights, io, B, d);
+}
+
+// K11b for every PPO torso: one day of the actor's clipped mean from a given
+// state, tables in (pallas_policy_rollout.py:40-183); rewards (T, B),
+// actions (T, A, B), soc_final (N, B).  tables (7, T, N, B) of
+// ops/rollout.py::state_tables, prev_col0 (N, B) the state's SoC column L-1,
+// pmask0 (N, B) its trailing-observe mask.  Only d.T and d.dt are read.
+template <class C>
+__global__ void __launch_bounds__(kDdpgCollectThreads)
+policy_day_rollout_tables_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
+                                 const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
+                                 const float* __restrict__ tables, const float* __restrict__ prev_col0,
+                                 const float* __restrict__ pmask0, const float* __restrict__ batt_soc,
+                                 const float* __restrict__ pv_shift, const float* __restrict__ weights,
+                                 float* __restrict__ rewards, float* __restrict__ actions,
+                                 float* __restrict__ soc_final, int B, Dims d) {
+  const BlockDays io{0u,      1,         nullptr, batt_soc, pv_shift,  nullptr, rewards,
+                     actions, soc_final, nullptr, tables,   prev_col0, pmask0};
+  block_actor_days<C, kPpoActor, false, kTablesDay>(price, price_norm, P, rad_norm, S, solar, weights, io, B, d);
 }
 
 // ------------------------------------------------------- tables-in days ---
-
-// The seven day tables of a given state, packed (7, T, N, B) f32 by
-// ops/rollout.py::state_tables: column t of table k for charger n of env b.
-enum TableKind { kOcc = 0, kCapEff, kReqPrev, kSocCols, kIsArr, kDepObs, kPmask, kTables };
-
-struct DayTablesView {
-  const float* base;
-  int64_t plane, B, b;
-  int N;
-  __device__ float operator()(int k, int t, int n) const {
-    return __ldg(base + k * plane + (static_cast<int64_t>(t) * N + n) * B + b);
-  }
-};
 
 // K11a's block: kRbcEnvs = 32 envs, one a lane, on one warp a charger (at most
 // kRbcMaxWarps; more chargers take several a thread).  Thread (w, e) copies
@@ -2389,22 +2410,6 @@ struct RbcRing {
   static constexpr int SUMS = 2 * 2 * N * kRbcEnvs;      // each charger's power and penalty, two steps
   static constexpr int FLOATS = DEPTH * STEP + SUMS;     // before the traces
 };
-
-// One float copied from device to shared memory asynchronously: 4 bytes, or
-// zeros when !valid (`src` must still be a valid address).
-__device__ __forceinline__ void async_copy_f32(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_address(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-
-// Wait until at most PENDING of this thread's newest commit groups are in flight.
-template <int PENDING>
-__device__ __forceinline__ void async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
-}
 
 // K11a: one RBC day of a given state; rewards (T, B), soc_final (N, B).
 // prev_col0 (N, B) is the state's SoC column L-1, pmask0 (N, B) its
@@ -2509,112 +2514,6 @@ __global__ void __launch_bounds__(32 * RbcRing<C::N>::WARPS)
     const int n = w + i * R::WARPS;
     if (active && n < N) soc_final[static_cast<int64_t>(n) * B + b] = prev_col[i];
   }
-}
-
-// K11b's day of env b: the PPO actor's clipped mean from a given state, with
-// bidirectional charger and BESS physics; rewards (T, B), actions (T, A, B),
-// soc_final (N, B) (pallas_policy_rollout.py:40-183).  The observation at
-// t = 0 takes its SoC rows from the state's column 0, the penalty at t = 0
-// the column L-1.  Every thread of a block-actor block runs it (the policy
-// needs the whole block); only `writes` threads store.
-template <class C, class Policy>
-__device__ __forceinline__ void policy_day_from_tables(const SharedTraces& s, const DayTablesView& tab,
-                                                       const float* prev_col0, const float* pmask0, float batt,
-                                                       float pv, const Policy& policy, bool writes,
-                                                       float* rewards, float* actions, float* soc_final,
-                                                       int64_t B, int64_t b, int T, float dt) {
-  constexpr int N = C::N;
-  float prev_col[N], pmask[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    prev_col[n] = prev_col0[static_cast<int64_t>(n) * B + b];
-    pmask[n] = pmask0[static_cast<int64_t>(n) * B + b];
-  }
-  float obs[C::F], act[C::A];
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-    const int o = t > 0 ? t - 1 : 0;
-    const int base = observe_traces<C>(o, s.rad_norm, s.price_norm, pv, obs);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      obs[base + n] = t == 0 ? tab(kSocCols, 0, n) : prev_col[n];
-      obs[base + N + n] = tab(kDepObs, o, n) / 24.0f;
-    }
-    if (C::BATT) obs[base + 2 * N] = batt;
-    policy(t, obs, act);
-
-    float charging = 0.0f, discharging = 0.0f, pen_sum = 0.0f;
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const bool occupied = tab(kOcc, t, n) > 0.0f;
-      const float soc_col = tab(kSocCols, t, n);
-      const float soc_eff = tab(kIsArr, t, n) > 0.0f ? soc_col : prev_col[n];
-      const float cap = tab(kCapEff, t, n);
-      const ChargerFlow f = charger_physics(act[n], soc_eff, cap, cap > 0.0f ? cap : 1.0f, occupied, dt);
-      const float pen = insufficiency_penalty(pmask[n], prev_col[n], tab(kReqPrev, t, n));
-      pmask[n] = tab(kPmask, t, n);
-      prev_col[n] = occupied ? f.soc_new : soc_col;
-      const float pos = f.power > 0.0f ? f.power : 0.0f;
-      const float neg = f.power < 0.0f ? f.power : 0.0f;
-      charging = n == 0 ? pos : charging + pos;
-      discharging = n == 0 ? neg : discharging + neg;
-      pen_sum = n == 0 ? pen : pen_sum + pen;
-    }
-    PolicyRows rows;
-    rows.flows = charging + discharging;
-    rows.p_used = 0.0f;
-    rows.dod = 0.0f;
-    if (C::BATT) battery_physics(act[N], batt, dt, rows);
-    if (!writes) continue;
-    const float cost = policy_cost<C>(rows, s.solar[t], s.price[t], pv, dt) + kWVeh * pen_sum;
-    rewards[static_cast<int64_t>(t) * B + b] = -cost;
-#pragma unroll
-    for (int i = 0; i < C::A; ++i) actions[(static_cast<int64_t>(t) * C::A + i) * B + b] = act[i];
-  }
-  if (!writes) return;
-#pragma unroll
-  for (int n = 0; n < N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = prev_col[n];
-}
-
-// K11b with MeanActor: one thread per env, the actor block in shared memory.
-template <class C>
-__global__ void policy_day_rollout_kernel(const float* __restrict__ price, const float* __restrict__ price_norm,
-                                          int P, const float* __restrict__ rad_norm, int S,
-                                          const float* __restrict__ solar, const float* __restrict__ tables,
-                                          const float* __restrict__ prev_col0, const float* __restrict__ pmask0,
-                                          const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
-                                          const float* __restrict__ weights, float* __restrict__ rewards,
-                                          float* __restrict__ actions, float* __restrict__ soc_final, int B,
-                                          int T, float dt) {
-  extern __shared__ float smem[];
-  load_block(smem, weights, C::WEIGHTS);
-  const SharedTraces s = load_traces(smem + C::WEIGHTS, rad_norm, S, price_norm, P, price, solar, T);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const DayTablesView tab{tables, static_cast<int64_t>(T) * C::N * B, B, b, C::N};
-  policy_day_from_tables<C>(s, tab, prev_col0, pmask0, batt_soc[b], pv_shift[b], MeanActor<C>{Actor<C>(smem)},
-                            true, rewards, actions, soc_final, B, b, T, dt);
-}
-
-// K11b with the block actor (a PPO torso too large for MeanActor).
-template <class C>
-__global__ void __launch_bounds__(kBlockThreads)
-policy_day_rollout_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
-                                const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
-                                const float* __restrict__ tables, const float* __restrict__ prev_col0,
-                                const float* __restrict__ pmask0, const float* __restrict__ batt_soc,
-                                const float* __restrict__ pv_shift, const float* __restrict__ weights,
-                                float* __restrict__ rewards, float* __restrict__ actions,
-                                float* __restrict__ soc_final, int B, int T, float dt) {
-  extern __shared__ float smem[];
-  const SharedTraces s = load_traces(smem, rad_norm, S, price_norm, P, price, solar, T);
-  __syncthreads();
-  const BlockLane l(B);
-  const DayTablesView tab{tables, static_cast<int64_t>(T) * C::N * B, B, l.b, C::N};
-  policy_day_from_tables<C>(s, tab, prev_col0, pmask0, batt_soc[l.b], pv_shift[l.b],
-                            block_actor<C, kPpoActor>(weights, s, T), l.writes, rewards, actions,
-                            soc_final, B, l.b, T, dt);
 }
 
 }  // namespace ngk

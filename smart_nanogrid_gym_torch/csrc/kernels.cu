@@ -9,12 +9,12 @@
 // Both kinds carry the RBC kernels K7/K8 and K11a; the PPO kind K11b.
 // K6 runs K9's block and ring (gen_policy_multiday_block_kernel) for every
 // torso, and takes the bf16 operand option as an argument (one template
-// instance each), so it adds no library.  The design of K5 and K11b is fixed
-// per library (kBlockActor): MeanActor, one thread per env with the f32
-// actor block in shared memory, when the block leaves kTraceReserveBytes for
-// the traces; the block-level product otherwise (the DDPG actor, the 256x256
-// PPO torso): K5 on K6's block and ring (gen_policy_day_block_kernel), K11b
-// on BlockActor (policy_day_rollout_block_kernel).
+// instance each), so it adds no library; K11b runs the same block and ring
+// with the day's tables in (policy_day_rollout_tables_kernel) for every PPO
+// torso.  The design of K5 is fixed per library (kBlockActor): MeanActor, one
+// thread per env with the f32 actor block in shared memory, when the block
+// leaves kTraceReserveBytes for the traces; K6's block and ring otherwise
+// (gen_policy_day_block_kernel: the DDPG actor, the 256x256 PPO torso).
 // Every entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
 #include "day_step.cuh"
@@ -57,16 +57,10 @@ int launch(void (*kernel)(Params...), dim3 grid, int threads, size_t smem, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of the two actor designs: the f32 actor block (block =
-// false) or the block's activations (block = true), then the traces.
-size_t actor_smem(bool block, int S, int P, int T) {
-  const int floats = block ? ngk::block_shared_floats<C>() : C::WEIGHTS;
-  return static_cast<size_t>(floats + S + P + 2 * T) * sizeof(float);
+// MeanActor's shared memory: the f32 actor block, then the traces.
+size_t mean_actor_smem(int S, int P, int T) {
+  return static_cast<size_t>(C::WEIGHTS + S + P + 2 * T) * sizeof(float);
 }
-
-dim3 actor_grid(bool block, int B) { return block ? grid_for(B, ngk::kBlockEnvs) : grid_for(B); }
-
-int actor_threads(bool block) { return block ? ngk::kBlockThreads : kThreads; }
 
 // The collection kernels: one block per kCollectEnvs envs, their shared
 // memory (ppo_collect_day_kernel's or ddpg_collect_day_kernel's layout),
@@ -131,10 +125,10 @@ int ngk_rbc_envs() { return ngk::kRbcEnvs; }
 int ngk_rbc_ring_depth() { return ngk::RbcRing<C::N>::DEPTH; }
 int ngk_rbc_ring_floats() { return ngk::RbcRing<C::N>::FLOATS; }
 
-// K6's block actor (and K5's in kBlockActor libraries): its packed block and
-// its shared memory before the traces (floats), f32 (bf16 = 0) or bf16, and
-// the rows an f32 k-row of layer 1 or 2 is padded to
-// (ops/gen_policy_rollout.py::k6_block).
+// K6's block actor (and K5's in kBlockActor libraries, K11b's in PPO
+// libraries, whose f32 block is K6's): its packed block and its shared
+// memory before the traces (floats), f32 (bf16 = 0) or bf16, and the rows an
+// f32 k-row of layer 1 or 2 is padded to (ops/gen_policy_rollout.py::k6_block).
 int ngk_k6_weights_size(int bf16) { return bf16 ? ngk::K6<C, true>::G::BLOCK : ngk::K6<C, false>::G::BLOCK; }
 int ngk_k6_smem_floats(int bf16) { return bf16 ? ngk::K6<C, true>::FLOATS : ngk::K6<C, false>::FLOATS; }
 int ngk_k6_pad(int layer) { return layer == 1 ? ngk::K6<C, false>::G::R1 : ngk::K6<C, false>::G::R2; }
@@ -186,9 +180,9 @@ int ngk_gen_policy_day(const float* price, const float* price_norm, int P, const
                   collect_smem(ngk::K6<C, false>::FLOATS, S, P, T), stream, price, price_norm, P, rad_norm, S,
                   solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final, batt_final, B, d);
   } else {
-    return launch(ngk::gen_policy_day_kernel<C>, actor_grid(false, B), actor_threads(false),
-                  actor_smem(false, S, P, T), stream, price, price_norm, P, rad_norm, S, solar, u, batt_soc,
-                  pv_shift, weights, rewards, actions, soc_final, batt_final, B, d);
+    return launch(ngk::gen_policy_day_kernel<C>, grid_for(B), kThreads, mean_actor_smem(S, P, T), stream, price,
+                  price_norm, P, rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final,
+                  batt_final, B, d);
   }
 }
 
@@ -209,20 +203,20 @@ int ngk_gen_policy_multiday(const float* price, const float* price_norm, int P, 
 int ngk_collect_weights_size() { return C::COLLECT_WEIGHTS; }
 int ngk_collect_smem_floats() { return ngk::PpoCollectShared<C>::FLOATS; }
 
+// K11b's shared memory before the traces (floats): K6's f32 ring actor with
+// two slots of table rows (its chunk and stages chosen for them).
+using K11b = ngk::K6<C, false, ngk::kTablesDay>;
+int ngk_k11b_smem_floats() { return K11b::FLOATS; }
+
+// K11b: K6's block and ring with the day's tables in, for every PPO torso;
+// the weights in k6_block's f32 layout.
 int ngk_policy_day_rollout(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                            const float* solar, const float* tables, const float* prev_col, const float* pmask,
                            const float* batt_soc, const float* pv_shift, const float* weights, float* rewards,
                            float* actions, float* soc_final, int B, int T, float dt, void* stream) {
-  const size_t smem = actor_smem(kBlockActor, S, P, T);
-  if constexpr (kBlockActor) {
-    return launch(ngk::policy_day_rollout_block_kernel<C>, actor_grid(true, B), actor_threads(true), smem, stream,
-                  price, price_norm, P, rad_norm, S, solar, tables, prev_col, pmask, batt_soc, pv_shift, weights,
-                  rewards, actions, soc_final, B, T, dt);
-  } else {
-    return launch(ngk::policy_day_rollout_kernel<C>, actor_grid(false, B), actor_threads(false), smem, stream,
-                  price, price_norm, P, rad_norm, S, solar, tables, prev_col, pmask, batt_soc, pv_shift, weights,
-                  rewards, actions, soc_final, B, T, dt);
-  }
+  return launch(ngk::policy_day_rollout_tables_kernel<C>, collect_grid(B), ngk::kDdpgCollectThreads,
+                collect_smem(K11b::FLOATS, S, P, T), stream, price, price_norm, P, rad_norm, S, solar, tables,
+                prev_col, pmask, batt_soc, pv_shift, weights, rewards, actions, soc_final, B, dims(T, 0, 0, 0, dt));
 }
 
 // K1/K2 hold the actor-critic in shared memory: a block-design library

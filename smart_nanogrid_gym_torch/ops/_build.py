@@ -74,6 +74,7 @@ _DAY_SIGNATURES = {
 }
 _PPO_SIGNATURES = {
     **_DAY_SIGNATURES,
+    "ngk_k11b_smem_floats": (),
     "ngk_policy_day_rollout": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "ngk_ppo_collect_day": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _P),

@@ -36,6 +36,7 @@ block does not fit in shared memory beside the traces (the bench's
 256x256): the library of the torso says which (``ngk_block_actor``), and
 the launches count under ``*_block`` or ``*_ddpg`` names; its 64x64 torsos
 keep ``MeanActor`` (one thread per env, the actor block in shared memory).
+K11b (:mod:`.policy_rollout`) takes K6's design for every PPO torso.
 K6 refuses torsos of more than 768 hidden units, as the JAX kernel does.
 """
 
@@ -83,7 +84,6 @@ if TYPE_CHECKING:
     from ..solvers.networks import ActorCritic, DDPGActor
 
 B_CAP, B_MAXP, B_EFF = 80.0, 44.0, 0.95
-BLOCK_ENVS = 32                      # kBlockEnvs in csrc/day_step.cuh
 MAX_SHARED_BYTES = 232_448           # dynamic shared memory one H100 block may use
 MAX_HIDDEN_SUM = 768                 # K6's torso limit (pallas_gen_policy_rollout.py:590-596)
 
@@ -182,18 +182,6 @@ def trace_floats(config: NanogridConfig, traces: Traces) -> int:
     return traces.rad_norm.numel() + traces.price_norm.numel() + 2 * config.steps_per_day
 
 
-def check_block_torso(config: NanogridConfig, hidden: tuple[int, int], traces: Traces) -> None:
-    """Raise for a torso whose block activations (obs, both hidden layers and
-    the actions of 32 envs) and traces exceed a block's shared memory, in
-    K11b's block-level design, ``BlockActor`` (the port's counterpart of the
-    JAX kernel's VMEM guard)."""
-    floats = ((config.obs_dim + hidden[0] + hidden[1] + config.num_actions) * BLOCK_ENVS
-              + trace_floats(config, traces))
-    if 4 * floats > MAX_SHARED_BYTES:
-        raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} needs {4 * floats} bytes of shared "
-                         f"memory per block, more than {MAX_SHARED_BYTES}; use the plain engine")
-
-
 def check_collect_block(config: NanogridConfig, traces: Traces, lib, hidden: tuple[int, int]) -> None:
     """Raise before any launch when a collection kernel's shared memory (the
     library's ``ngk_collect_smem_floats``: K1/K2's actor-critic or K9's
@@ -206,16 +194,21 @@ def check_collect_block(config: NanogridConfig, traces: Traces, lib, hidden: tup
                          f"use collect_impl='plain'")
 
 
-def check_k6_block(config: NanogridConfig, traces: Traces, lib, hidden: tuple[int, int], bf16: bool) -> None:
+def check_k6_block(config: NanogridConfig, traces: Traces, lib, hidden: tuple[int, int], bf16: bool,
+                   tables: bool = False) -> None:
     """Raise before any launch when the shared memory of K6's block-actor
     kernel, or K5's (the library's ``ngk_k6_smem_floats``: its weight ring,
-    the activations, the head, the actions and the draws), and the traces
-    exceed a block's."""
-    need = 4 * (lib.ngk_k6_smem_floats(int(bf16)) + trace_floats(config, traces))
+    the activations, the head, the actions and the draws), or with
+    ``tables`` K11b's instance of it (``ngk_k11b_smem_floats``: the table
+    rows in place of the draws), and the traces exceed a block's (the
+    port's counterpart of the JAX kernels' VMEM guard)."""
+    floats = lib.ngk_k11b_smem_floats() if tables else lib.ngk_k6_smem_floats(int(bf16))
+    need = 4 * (floats + trace_floats(config, traces))
     if need > MAX_SHARED_BYTES:
+        kernels = "policy_day_rollout" if tables else "gen_policy_multiday and gen_policy_day"
         raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} and the traces need {need} bytes of shared memory "
-                         f"per block in the block actor of gen_policy_multiday and gen_policy_day, more than "
-                         f"{MAX_SHARED_BYTES}; use the plain engine")
+                         f"per block in the block actor of {kernels}, more than {MAX_SHARED_BYTES}; "
+                         f"use the plain engine")
 
 
 def k_major(w: torch.Tensor, pad: int) -> torch.Tensor:
@@ -398,23 +391,21 @@ def check_policy_config(config: NanogridConfig, params: NanogridParams, kernel: 
 def policy_library(config, device, weights, hidden, actor, traces, name, bf16=False):
     """The library of the actor, the actor block in the layout that kernel
     ``name`` reads, and its launch-count name: ``name`` with ``_block`` for a
-    PPO torso in the block-level design (``ngk_block_actor``), ``_ddpg`` for
-    the DDPG actor and ``_bf16`` for bf16 operands.  K6
-    (``gen_policy_multiday``) runs K9's ring block for every torso, K5
-    (``gen_policy_day``) for the block-design torsos: :func:`k6_block`,
-    checked by :func:`check_k6_block`.  K11b's block design (``BlockActor``)
-    and both kernels' ``MeanActor`` read :func:`_packed`.  Raises a
-    ``ValueError`` naming the limit, before any launch, for a torso the
-    design cannot hold."""
+    PPO torso whose K5 takes the block-level design (``ngk_block_actor``),
+    ``_ddpg`` for the DDPG actor and ``_bf16`` for bf16 operands.  K6
+    (``gen_policy_multiday``) and K11b (``policy_day_rollout``) run K9's ring
+    block for every torso, K5 (``gen_policy_day``) for the block-design
+    torsos: :func:`k6_block`, checked by :func:`check_k6_block`.  K5's
+    ``MeanActor`` reads :func:`_packed`.  Raises a ``ValueError`` naming the
+    limit, before any launch, for a torso the design cannot hold."""
     lib = _build.library(config, device, hidden, actor)
     block = bool(lib.ngk_block_actor())
-    if name == "gen_policy_multiday" or (block and name == "gen_policy_day"):
-        check_k6_block(config, traces, lib, hidden, bf16)
+    tables = name == "policy_day_rollout"
+    if tables or name == "gen_policy_multiday" or (block and name == "gen_policy_day"):
+        check_k6_block(config, traces, lib, hidden, bf16, tables)
         packed = k6_block(weights, lib, bf16)
     else:
-        if block:
-            check_block_torso(config, hidden, traces)
-        elif 4 * (lib.ngk_weights_size() + trace_floats(config, traces)) > MAX_SHARED_BYTES:
+        if 4 * (lib.ngk_weights_size() + trace_floats(config, traces)) > MAX_SHARED_BYTES:
             raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} and the traces need more than "
                              f"{MAX_SHARED_BYTES} bytes of shared memory per block")
         packed = _packed(weights, lib)

@@ -4,16 +4,21 @@ Replaces ``smart_nanogrid_gym_tpu/ops/pallas_policy_rollout.py::pallas_policy_da
 the deterministic PPO actor (the ``pi`` torso's mean, clipped to the action
 box) rolls the day of a batched :class:`EnvState` with the full charger and
 BESS physics, both branches.  The tables are those of K11a
-(:func:`.rollout.state_tables`); the kernel (``policy_day_rollout_kernel`` in
-``csrc/day_step.cuh``) runs K5's actor on them, one thread per env, or the
-block-level actor (``policy_day_rollout_block_kernel``, counted as
-``policy_day_rollout_block``) for a torso too large for that.  Kept
-as the JAX kernel has them: the observation at t=0 takes its SoC rows from
+(:func:`.rollout.state_tables`); the kernel (``policy_day_rollout_tables_kernel``
+in ``csrc/day_step.cuh``) is K6's block-actor template with the tables in
+place of the day's generation, for every torso: 32 envs a block, an env warp
+that runs the step body once per env from the step's table rows (which the
+product warps stage in shared memory a step ahead), register-tiled products,
+the weights in :func:`.gen_policy_rollout.k6_block`'s layout through a TMA
+ring.  It counts as ``policy_day_rollout``, or ``policy_day_rollout_block``
+for a torso whose K5 takes the block-level design (the bench's 256x256).
+Kept as the JAX kernel has them: the observation at t=0 takes its SoC rows from
 the state's column 0, the penalty the column L-1; the charger discharge flag
 is inverted (``calc >= 0``), the BESS's is not.
 
 On CUDA tensors the wrapper launches the kernel; on CPU tensors it runs the
-plain twin :func:`policy_day_rollout_plain`.
+plain twin :func:`policy_day_rollout_plain`, which sums in the kernel's order:
+the kernel is bit-equal to it.
 """
 
 from __future__ import annotations

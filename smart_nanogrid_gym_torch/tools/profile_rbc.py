@@ -2,7 +2,7 @@
 
 Run from the root of a checkout (it builds the kernels first):
 
-    python3 smart_nanogrid_gym_torch/tools/profile_rbc.py [--root DIR] [--check] [--ring] [--lanes]
+    python3 smart_nanogrid_gym_torch/tools/profile_rbc.py [--root DIR] [--check] [--ring] [--lanes] [--stage]
 
 ``--root`` imports ``smart_nanogrid_gym_torch`` from another checkout (for
 example the parent commit unpacked under ``build/``), so that one call can time
@@ -12,12 +12,15 @@ default the checkout that holds this file.  On the 8-charger bench config
 B=4096 and over 100 days at B=131,072, and K11a on the day tables of a card
 reset (``launch_rbc_day``, the tables built beforehand) at B=4096 and
 131,072; then, at B=4096, the other kernels of the same libraries: K7
-(``gen_rbc_day``, one explicit-uniform day), K5 and K11b with the committed
-PPO artifact (4 chargers, 64x64) and K11b with the bench's 256x256 torso
-(biases +0.05, bench.py:403-414).  Per row the device milliseconds per launch
-by ``torch.profiler`` (the kernels whose name holds the row's kernel) over a
-few launches after a warm-up, and for K8 and K11a the rate they imply
-(env-steps/s, table bytes/s).
+(``gen_rbc_day``, one explicit-uniform day), K5 with the committed PPO
+artifact (4 chargers, 64x64), and K11b with the artifact and with the
+bench's 256x256 torso (biases +0.05, bench.py:403-414), each on the tables
+of a fresh (card reset) and of a continued state (a plain RBC day later).
+Per row the device milliseconds per launch by ``torch.profiler`` (the
+kernels whose name holds the row's kernel: any of K11b's, old or new, hold
+``policy_day_rollout``) over a few launches after a warm-up, and for K8 and
+K11a the rate they imply (env-steps/s, table bytes/s); K11b's rows also by
+CUDA events around bare launches of the block its wrapper packs.
 
 ``--check`` first holds K8 and K11a against their plain twins with
 ``torch.equal`` at the main path's shapes (K8 at B=4096 x 20 days and
@@ -33,8 +36,14 @@ K8 at B=4096 to 131,072 on copies whose ``kernels.cu`` launches it with a
 fixed number of lanes an env (1, and the full layout's 8), each beside the
 package's and checked to give the same outputs; each ``--lanes`` reading
 is taken twice, by the profiler (through the wrapper) and by CUDA events
-around bare launches queued back to back (``torch.cuda.Event``).  The last line is one JSON object with
-the numbers, the card's name and power limit, and the root.
+around bare launches queued back to back (``torch.cuda.Event``).  ``--stage``
+(this checkout only) times K11b's rows on copies of the sources whose
+``store_tables`` stages the next step's table rows by ``cp.async`` (K11a's
+4-byte asynchronous copies, waited for before the step's first barrier) in
+place of loads through registers, beside the package's, in turns (package,
+copy, copy, package), each checked to give the package's outputs.  The last
+line is one JSON object with the numbers, the card's name and power limit,
+and the root.
 """
 
 from __future__ import annotations
@@ -51,6 +60,27 @@ DEPTH_ANCHOR = "  static constexpr int DEPTH = FIT < 2 ? 2 : (FIT > kRbcMaxDepth
 LANES_ANCHOR = "inline int rbc_lanes(int B) { return B >= kRbcFillThreads ? 1 : kRbcFull; }"
 RING_DEPTHS = (2, 3, 4, 6, 13)
 LANES = {1: "1", 8: "kRbcFull"}  # lanes an env: what the patched rbc_lanes returns (8 chargers)
+# K11b's staging of a step's table rows: loads through registers, and the --stage copy's cp.async
+STAGE_ANCHOR = """  float v[ROUNDS];
+#pragma unroll
+  for (int q = 0; q < ROUNDS; ++q) {
+    const int r = r0 + q * WARPS;  // k * N + n
+    v[q] = r < ROWS ? __ldg(src + (r / N) * plane + (r % N) * B) : 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < ROUNDS; ++q) {
+    const int r = r0 + q * WARPS;
+    if (r < ROWS) slot[r * E + e] = v[q];
+  }
+"""
+STAGE_ASYNC = """#pragma unroll
+  for (int q = 0; q < ROUNDS; ++q) {
+    const int r = r0 + q * WARPS;
+    if (r < ROWS) async_copy_f32(slot + r * E + e, src + (r / N) * plane + (r % N) * B, true);
+  }
+  async_commit();
+  async_wait<0>();
+"""
 # batch: days, about 2e7 env-steps a launch
 LANE_BATCHES = {4096: 200, 8192: 100, 12288: 70, 16384: 50, 20480: 40, 24576: 35, 32768: 25, 65536: 15,
                 131072: 10}
@@ -118,6 +148,7 @@ def main() -> None:
     parser.add_argument("--check", action="store_true", help="K8 and K11a against their twins, bit for bit")
     parser.add_argument("--ring", action="store_true", help="K11a with fixed ring depths (this checkout only)")
     parser.add_argument("--lanes", action="store_true", help="K8 with fixed lanes an env (this checkout only)")
+    parser.add_argument("--stage", action="store_true", help="K11b staging by cp.async (this checkout only)")
     args = parser.parse_args()
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
@@ -127,18 +158,19 @@ def main() -> None:
         raise SystemExit("profile_rbc needs a CUDA device")
     from unittest import mock
 
-    from smart_nanogrid_gym_torch.core import NanogridConfig, SmartNanogridTorch, make_params
+    from smart_nanogrid_gym_torch.core import NanogridConfig, SmartNanogridTorch, fused_day_rollout, make_params
     from smart_nanogrid_gym_torch.ops import _build
-    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights, gen_policy_day
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights, gen_policy_day, policy_library
     from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day, gen_rbc_multiday, kernel_traces
     from smart_nanogrid_gym_torch.ops.policy_rollout import launch_policy_day
     from smart_nanogrid_gym_torch.ops.rollout import launch_rbc_day, state_tables
     from smart_nanogrid_gym_torch.solvers.networks import ActorCritic
+    from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
     from smart_nanogrid_gym_torch.utils.weights import load_actor_critic_npz
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())  # the index: _build.launch compares devices
     cfg = NanogridConfig()
     art_cfg = NanogridConfig(num_chargers=4, pv_system=True, battery_system=True, penalty_mode="sparse",
                              time_interval=1.0)
@@ -149,7 +181,14 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     tables = {b: state_tables(cfg, params, SmartNanogridTorch(cfg).reset_batch(params, b, gen)[0])
               for b in (BATCH, FULL_BATCH)}
-    art_tables = state_tables(art_cfg, art_params, SmartNanogridTorch(art_cfg).reset_batch(art_params, BATCH, gen)[0])
+
+    def given(config, config_params):  # the tables of a card reset and of the same envs a plain RBC day later
+        fresh, _ = SmartNanogridTorch(config).reset_batch(config_params, BATCH, gen)
+        continued, _ = fused_day_rollout(config, config_params, fresh, make_rbc_policy_fn(config), generator=gen)
+        return {kind: state_tables(config, config_params, state)
+                for kind, state in (("fresh", fresh), ("continued", continued))}
+
+    art_tables, big_tables = given(art_cfg, art_params), given(cfg, params)
     u = torch.rand((T, 5, N, BATCH), generator=gen, device=dev)
     pv = torch.floor(torch.rand(BATCH, generator=gen, device=dev) * 181) / 100
     u4 = torch.rand((T, 5, art_cfg.num_chargers, BATCH), generator=gen, device=dev)
@@ -177,20 +216,15 @@ def main() -> None:
         f"K7 gen_rbc_day B={BATCH}": (lambda: gen_rbc_day(cfg, params, u, pv), "gen_rbc_day_kernel", 20, None),
         f"K5 gen_policy_day 64x64 B={BATCH}": (
             lambda: gen_policy_day(art_cfg, art_params, ppo, u4, pv), "gen_policy_day_kernel", 20, None),
-        f"K11b policy_day_rollout 64x64 B={BATCH}": (
-            lambda: launch_policy_day(art_cfg, art_traces, art_w, art_tables, ppo.hidden),
-            "policy_day_rollout_kernel", 20, None),
-        f"K11b policy_day_rollout_block 256x256 B={BATCH}": (
-            lambda: launch_policy_day(cfg, traces, big_w, tables[BATCH], (256, 256)),
-            "policy_day_rollout_block_kernel", 5, None),
     }
+    # K11b: (config, traces, weights, hidden, tables by state) of each torso
+    k11b = {"policy_day_rollout 64x64": (art_cfg, art_traces, art_w, ppo.hidden, art_tables),
+            "policy_day_rollout_block 256x256": (cfg, traces, big_w, (256, 256), big_tables)}
     print(f"card: {card}; package from {root}")
     result = {}
     if args.check:
-        from smart_nanogrid_gym_torch.core import fused_day_rollout
         from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_multiday_plain
         from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout, rbc_day_rollout_plain
-        from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
 
         fresh, _ = SmartNanogridTorch(cfg).reset_batch(params, BATCH, gen)
         continued, _ = fused_day_rollout(cfg, params, fresh, make_rbc_policy_fn(cfg), generator=gen)
@@ -223,6 +257,25 @@ def main() -> None:
             result[name]["table_bytes_per_s"] = table_bytes[b] / ms * 1e3
             extra += f", tables read at {table_bytes[b] / ms * 1e-9:.3f} TB/s"
         print(f"  {name}: {ms:.4f} device ms per launch{extra}")
+    for label, (config, tr, w, hidden, by_state) in k11b.items():
+        lib, block, count = policy_library(config, dev, w, hidden, "ppo", tr, "policy_day_rollout")
+        T_, A_, N_ = config.steps_per_day, config.num_actions, config.num_chargers
+        outs = [torch.empty(shape, device=dev) for shape in ((T_, BATCH), (T_, A_, BATCH), (N_, BATCH))]
+        for kind, st in by_state.items():
+            st = st.checked()
+
+            def bare():  # the launch alone, the block packed once
+                _build.launch(count, lib.ngk_policy_day_rollout, tr.price, tr.price_norm, tr.price_norm.numel(),
+                              tr.rad_norm, tr.rad_norm.numel(), tr.solar, *st, block, *outs, BATCH, T_,
+                              config.time_interval, device=dev)
+
+            name = f"K11b {label} B={BATCH} {kind} state"
+            result[name] = {
+                "device_ms": device_ms(torch, lambda: launch_policy_day(config, tr, w, st, hidden),
+                                       "policy_day_rollout", 10),
+                "event_ms": event_ms(torch, bare, 10)}
+            print(f"  {name}: {result[name]['device_ms']:.4f} device ms per launch (profiler), "
+                  f"{result[name]['event_ms']:.4f} ms per bare launch (CUDA events)")
 
     package = _build.library(cfg, dev)
 
@@ -274,6 +327,25 @@ def main() -> None:
                 for k in LANES) + f"; the package ({row['package_lanes']} lanes) "
                 f"{steps / row['package']['profiler_ms'] * 1e3:.4e} | {steps / row['package']['event_ms'] * 1e3:.4e}")
             result["lanes"][str(b)] = row
+    if args.stage:
+        result["stage"] = {}
+        for label, (config, tr, w, hidden, by_state) in k11b.items():
+            flags = _build.config_flags(config, hidden)
+            copy = _build.patched_library(flags, _build.BUILD_DIR.parent / "rbc_variants" / f"stage{hidden[0]}", {
+                "day_step.cuh": lambda code: _build.replace_once(code, STAGE_ANCHOR, STAGE_ASYNC, "day_step.cuh")})
+            libs = {"package": _build.library(config, dev, hidden), "cp.async": copy}
+            for kind, st in by_state.items():
+                def k11b_on(lib):
+                    return with_library(lib, lambda: launch_policy_day(config, tr, w, st, hidden))
+                want = k11b_on(libs["package"])
+                if not all(torch.equal(x, y) for x, y in zip(k11b_on(copy), want)):
+                    raise RuntimeError(f"K11b {label} staged by cp.async differs from the package's")
+                row = {tag: [] for tag in libs}
+                for tag in ("package", "cp.async", "cp.async", "package"):
+                    row[tag].append(device_ms(torch, lambda: k11b_on(libs[tag]), "policy_day_rollout", 10))
+                print(f"  K11b {label} {kind} state: loads {row['package']} ms, cp.async {row['cp.async']} ms "
+                      f"(device, profiler); outputs identical")
+                result["stage"][f"{label} {kind}"] = row
     print(json.dumps({"card": card, "root": root, "kernels": result}))
 
 

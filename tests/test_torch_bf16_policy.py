@@ -27,8 +27,8 @@ from smart_nanogrid_gym_torch.core.params import make_params
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
     MAX_SHARED_BYTES,
     actor_weights,
-    check_block_torso,
     check_collect_block,
+    check_k6_block,
     gen_policy_day_plain,
     gen_policy_multiday,
     gen_policy_multiday_plain,
@@ -39,6 +39,7 @@ from smart_nanogrid_gym_torch.ops.philox import day_uniforms
 from smart_nanogrid_gym_torch.solvers.networks import ActorCritic, actor_critic_from_flax, ddpg_actor_from_flax
 
 from torch_parity import assert_bf16_close, flax_ddpg_actor, kernel_inputs, shifted_flax_actor
+from test_torch_k6_block import k6_layout
 
 BF16 = torch.bfloat16
 B8 = NanogridConfig(num_chargers=8, pv_system=True, battery_system=True)
@@ -115,7 +116,8 @@ def test_k5_twin_at_256x256_matches_pallas():
 
 def test_torso_limits_raise_before_any_launch():
     """K6 refuses h1 + h2 > 768 as the JAX kernel does (on the CPU too, before
-    any launch); the block design's shared-memory check names its limit; the
+    any launch); the block actor's shared-memory check (K11b's instance, its
+    table slots in the layout) names its limit; the
     collection kernels refuse a block whose shared memory, as the kernel
     library reports it, and the traces exceed a block's (the 256×256
     actor-critic on the card: tests/test_torch_cuda.py)."""
@@ -125,9 +127,13 @@ def test_torso_limits_raise_before_any_launch():
     assert gen_policy_multiday(B8, params, ActorCritic(B8.obs_dim, B8.num_actions, (384, 384)), 1, 0, 8,
                                mlp_dtype=BF16).shape == (3, 8)
     traces = kernel_traces(params, CPU)
-    check_block_torso(B8, (256, 256), traces)
-    with pytest.raises(ValueError, match="232448"):
-        check_block_torso(B8, (1024, 1024), traces)
+    for hidden in ((256, 256), (1024, 1024)):  # K11b's instance of the block actor, its floats as reported
+        lib = SimpleNamespace(ngk_k11b_smem_floats=lambda h=hidden: k6_layout(B8, h, kinds=7)[0])
+        if hidden[0] < 1024:
+            check_k6_block(B8, traces, lib, hidden, False, tables=True)
+        else:
+            with pytest.raises(ValueError, match="232448"):
+                check_k6_block(B8, traces, lib, hidden, False, tables=True)
     room = MAX_SHARED_BYTES // 4 - trace_floats(B8, traces)
     check_collect_block(B8, traces, SimpleNamespace(ngk_collect_smem_floats=lambda: room), (64, 64))
     with pytest.raises(ValueError, match="collect_impl='plain'"):

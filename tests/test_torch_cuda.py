@@ -5,8 +5,8 @@ to build the kernels at first use).  The file imports no JAX, so it also
 runs on a machine that has only PyTorch: ``python -m pytest
 tests/test_torch_cuda.py -m cuda``.  Batches of 300 leave a ragged last
 block of threads; the collection kernels and the block actor of K5 and K6
-are also held at 1, 33 and 8192 envs, bit for bit, and K8 and K11a at 1
-and 300 envs off the 1 h grid.
+are also held at 1, 33 and 8192 envs, bit for bit, K8 and K11a at 1 and
+300 envs off the 1 h grid, and K11b at 300 and 4096 envs at 0.25-1 h.
 """
 
 import numpy as np
@@ -406,7 +406,7 @@ def _day_states(config, params, batch, device):
 @pytest.mark.parametrize("name", list(TABLES_IN_CONFIGS))
 def test_tables_in_kernels_match_twins(cuda, name):
     """K11a and K11b at B=300 (a ragged last block) on a fresh and a
-    continued state, against their twins: K11a bit for bit."""
+    continued state, bit for bit against their twins."""
     from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout, policy_day_rollout_plain
     from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout, rbc_day_rollout_plain, state_tables
 
@@ -420,10 +420,64 @@ def test_tables_in_kernels_match_twins(cuda, name):
         st = state_tables(config, params, state)
         assert_equal_outputs(rbc_day_rollout(config, params, state), rbc_day_rollout_plain(config, traces, st),
                              ("rewards", "soc_final"))
-        for got, want in zip(policy_day_rollout(config, params, state, net),
-                             policy_day_rollout_plain(config, traces, weights, st)):
-            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        assert_equal_outputs(policy_day_rollout(config, params, state, net),
+                             policy_day_rollout_plain(config, traces, weights, st), ("rewards", "actions", "soc_final"))
     assert dict(launch_counts) == {"rbc_day_rollout": 2, "policy_day_rollout": 2}
+
+
+# K11b off the 1 h grid and on v2x (both charger branches), each torso: the
+# artifact's 4ch 64x64, the bench's 8ch 64x64 and 256x256
+K11B_CASES = {
+    "b-pv-4ch-64-15min": (NanogridConfig(num_chargers=4, time_interval=0.25), (64, 64)),
+    "b-pv-8ch-64-30min": (NanogridConfig(num_chargers=8, time_interval=0.5), (64, 64)),
+    "b-pv-8ch-256-15min": (NanogridConfig(num_chargers=8, time_interval=0.25), (256, 256)),
+    "b-pv-8ch-256-30min": (NanogridConfig(num_chargers=8, time_interval=0.5), (256, 256)),
+    "v2x-b-pv-8ch-64-15min": (NanogridConfig(vehicle_to_everything=True, time_interval=0.25), (64, 64)),
+    "v2x-b-pv-8ch-256-1h": (NanogridConfig(vehicle_to_everything=True), (256, 256)),
+    "v2x-b-pv-8ch-256-30min": (NanogridConfig(vehicle_to_everything=True, time_interval=0.5), (256, 256)),
+}
+
+
+def k11b_net(config, hidden, seed, device):
+    """A seeded PPO torso whose action-mean biases sit off the 0 branch
+    boundaries, alternating charge and discharge on v2x (``shifted_actor``)."""
+    net = ActorCritic(config.obs_dim, config.num_actions, hidden, generator=torch.Generator().manual_seed(seed))
+    ch = [0.5 if n % 2 == 0 or not config.vehicle_to_everything else -0.4 for n in range(config.num_chargers)]
+    with torch.no_grad():
+        net.pi.Dense_2.bias.copy_(torch.tensor(ch + [-0.3] if config.battery_system else ch))
+    return net.to(device)
+
+
+@pytest.mark.parametrize("batch", [300, 4096])
+@pytest.mark.parametrize("name", list(K11B_CASES))
+def test_k11b_block_kernel_equals_twin(cuda, name, batch):
+    """K11b on the block-actor template at 0.25 h, 0.5 h and 1 h, on a fresh
+    and a continued state: rewards, actions and soc_final ``torch.equal`` to
+    ``policy_day_rollout_plain``, one launch a call under the torso's name;
+    the library's K11b shared memory is the layout's (``k6_layout`` with
+    the seven table rows); on v2x both charger branches run."""
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout, policy_day_rollout_plain
+    from smart_nanogrid_gym_torch.ops.rollout import state_tables
+
+    from test_torch_k6_block import k6_layout
+
+    config, hidden = K11B_CASES[name]
+    params = make_params(config, torch.float32, cuda)
+    traces = kernel_traces(params, cuda)
+    net = k11b_net(config, hidden, 19, cuda)
+    weights = actor_weights(config, net, cuda)
+    assert _build.library(config, cuda, hidden).ngk_k11b_smem_floats() == k6_layout(config, hidden, kinds=7)[0]
+    label = "policy_day_rollout" + ("_block" if hidden[0] > 64 else "")
+    for state in _day_states(config, params, batch, cuda):
+        reset_launch_counts()
+        got = policy_day_rollout(config, params, state, net)
+        assert dict(launch_counts) == {label: 1}
+        want = policy_day_rollout_plain(config, traces, weights, state_tables(config, params, state))
+        assert_equal_outputs(got, want, ("rewards", "actions", "soc_final"))
+        if config.vehicle_to_everything:
+            chargers = got[1][:, :config.num_chargers]
+            assert bool((chargers > 0).any() and (chargers < 0).any())
 
 
 # K8's lane layout and K11a's ring off the 1 h grid: 96 steps a day, one
@@ -517,7 +571,8 @@ def test_k6_bf16_matches_twin(cuda, actor):
 
 def test_policy_kernels_at_256x256_match_twins(cuda):
     """The bench's 256x256 PPO torso runs the block-level actor in K5, K6 (f32
-    and bf16) and K11b, against their twins at B=300."""
+    and bf16) and K11b, against their twins at B=300: K6 f32 and K11b bit for
+    bit."""
     from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout, policy_day_rollout_plain
     from smart_nanogrid_gym_torch.ops.rollout import state_tables
 
@@ -542,9 +597,9 @@ def test_policy_kernels_at_256x256_match_twins(cuda):
                   gen_policy_multiday_plain(config, traces, actor_weights(config, net, cuda, mlp_dtype=BF16), 2, 5,
                                             300, mlp_dtype=BF16), f32, "K6 256x256 bf16, B=300")
     state = _day_states(config, params, 300, cuda)[1]
-    for got, want in zip(policy_day_rollout(config, params, state, net),
-                         policy_day_rollout_plain(config, traces, weights, state_tables(config, params, state))):
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert_equal_outputs(policy_day_rollout(config, params, state, net),
+                         policy_day_rollout_plain(config, traces, weights, state_tables(config, params, state)),
+                         ("rewards", "actions", "soc_final"))
     assert dict(launch_counts) == {"gen_policy_day_block": 1, "gen_policy_multiday_block": 1,
                                    "gen_policy_multiday_block_bf16": 1, "policy_day_rollout_block": 1}
 
@@ -687,7 +742,7 @@ def test_k6_block_kernel_f32_equals_twin(cuda, name, batch):
     actors and every torso at every batch (one env, a ragged block, ten
     blocks, the bench batch, two waves of 132 SMs) over 1 and 3 days; each
     call launches the kernel once; the library's f32 tile pads are those of
-    ``choose_tiles``, and its K5/K11b design is the block actor for all but
+    ``choose_tiles``, and its K5 design is the block actor for all but
     the 64x64 PPO torso."""
     from smart_nanogrid_gym_torch.ops import _build
 

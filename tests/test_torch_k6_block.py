@@ -78,6 +78,51 @@ def choose_tiles(J: int) -> tuple[int, int]:
     return best
 
 
+def k6_layout(config, hidden, kinds: int = 5, bf16: bool = False) -> tuple[int, int, int]:
+    """``csrc/day_step.cuh::K6<C, BF16, SOURCE>``: the block actor's floats
+    before the traces, its chunk (f32 k-rows or bf16 k-steps) and its ring
+    stages, for step slots of ``kinds`` rows a charger (5 draws: K6 and K5;
+    7 tables: K11b)."""
+    F, A, N = config.obs_dim, config.num_actions, config.num_chargers
+    H1, H2 = hidden
+
+    def ring(chunk, stages):  # (floats, chunks a step): ring_shared_floats + two slots
+        if bf16:
+            mt1, mt2, ks1 = -(-H1 // 16), -(-H2 // 16), -(-F // 16)
+            stage, nc = chunk * max(mt1, mt2) * 128, -(-ks1 // chunk) + -(-mt1 // chunk)
+            acts = (ks1 + mt1 + mt2) * 8 * PAIR_LD
+        else:
+            p1, p2 = (-(-J // choose_tiles(J)[0]) * choose_tiles(J)[0] for J in (H1, H2))
+            stage, nc = chunk * max(p1, p2), -(-F // chunk) + -(-H1 // chunk)
+            acts = (F + p1 + p2) * E
+        floats = 4 * stages + stages * stage + acts + A * H2 + H1 + H2 + 3 * A + A * E + 2 * kinds * N * E
+        return floats, nc
+
+    def fits(chunk, stages):  # kTraceReserveBytes kept for the traces
+        return 4 * ring(chunk, stages)[0] + 16384 <= MAX_SHARED_BYTES
+
+    chunk = next((c for c in ((2,) if bf16 else (16, 8, 4, 2)) if fits(c, 3)), 1)
+    stages, nc = 3, ring(chunk, 3)[1]
+    while stages < nc and fits(chunk, stages + 1):
+        stages += 1
+    stages = min(stages, nc)
+    return ring(chunk, stages)[0], chunk, stages
+
+
+def test_k6_layout_mirrors_the_template():
+    """The mirror gives the template's own constants (the host compiler's
+    evaluation of ``K6<C, BF16, SOURCE>`` for these torsos): K11b's table
+    slots leave the 256x256 f32 ring its 7 stages and the 64x64 one
+    resident (6 chunks)."""
+    assert k6_layout(ART4, (64, 64)) == (12711, 16, 6)
+    assert k6_layout(ART4, (64, 64), kinds=7) == (13223, 16, 6)
+    assert k6_layout(B8, (64, 64), kinds=7) == (15667, 16, 6)
+    assert k6_layout(B8, (256, 256)) == (51575, 16, 7)
+    assert k6_layout(B8, (256, 256), kinds=7) == (52599, 16, 7)
+    assert k6_layout(B8, (256, 256), bf16=True) == (53471, 2, 9)
+    assert k6_layout(B8, (64, 64), bf16=True)[0] == 9863
+
+
 def test_choose_tiles_keeps_wide_layers_and_fills_the_64_row_layer():
     """The 400-, 300- and 256-row layers keep their tiles (4 x 4, 4 x 4, 4 x
     8); a 64-row layer takes 4 x 2, 256 tiles for the 352 product threads,
@@ -312,7 +357,9 @@ class _Recorder:
             ngk_k6_pad=fake.ngk_k6_pad,
             ngk_k6_weights_size=lambda bf16: (fake_bf16 if bf16 else fake).ngk_k6_weights_size(bf16),
             ngk_k6_smem_floats=lambda bf16: smem_floats,
-            ngk_gen_policy_day="ngk_gen_policy_day", ngk_gen_policy_multiday="ngk_gen_policy_multiday")
+            ngk_k11b_smem_floats=lambda: smem_floats,
+            ngk_gen_policy_day="ngk_gen_policy_day", ngk_gen_policy_multiday="ngk_gen_policy_multiday",
+            ngk_policy_day_rollout="ngk_policy_day_rollout")
         self.calls = []
 
     def launch(self, name, fn, *args, device):
@@ -366,7 +413,7 @@ def test_k5_block_library_packs_and_checks_through_k6_block(monkeypatch, name):
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_k6_packs_the_64x64_torso_for_its_block_kernel(monkeypatch, bf16):
-    """K6 with the 64x64 PPO torso, in a library whose K5 and K11b keep
+    """K6 with the 64x64 PPO torso, in a library whose K5 keeps
     MeanActor, packs through ``k6_block`` (f32 ring layout or bf16 fragments)
     all the same, under the plain launch name; K5 there keeps MeanActor's
     packed block."""

@@ -10,6 +10,8 @@ twin is held against K5's twin fed the same draws, with the battery carried
 from one day to the next.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -26,7 +28,7 @@ from smart_nanogrid_gym_torch.core.transition import reset
 from smart_nanogrid_gym_torch.ops import gen_policy_day
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
     actor_weights,
-    check_block_torso,
+    check_k6_block,
     gen_policy_day_plain,
     gen_policy_multiday_plain,
 )
@@ -37,6 +39,7 @@ from smart_nanogrid_gym_torch.solvers.networks import actor_critic_from_flax, dd
     make_actor_policy_fn
 
 from torch_parity import flax_ddpg_actor, kernel_inputs, shifted_flax_actor
+from test_torch_k6_block import k6_layout
 
 B = 128
 
@@ -64,7 +67,8 @@ def test_policy_day_twin_matches_pallas(name):
     np.testing.assert_allclose(rew.numpy(), np.asarray(rew_ref), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(batt.numpy(), np.asarray(batt_ref), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(act.numpy(), np.asarray(act_ref), rtol=2e-4, atol=2e-4)
-    assert soc.shape == (config.num_chargers, B) and np.isfinite(soc.numpy()).all()
+    assert soc.shape == (config.num_chargers, B)
+    np.testing.assert_allclose(soc.numpy(), np.asarray(soc_ref), rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("name", list(POLICY_CONFIGS))
@@ -169,8 +173,12 @@ def test_ddpg_actor_option_rejects_the_wrong_network_and_large_torsos():
     with pytest.raises(ValueError, match="actor must be"):
         gen_policy_day(ART4, params, net, torch.from_numpy(u), torch.from_numpy(pv), actor="sac")
     traces = kernel_traces(params, torch.device("cpu"))
-    check_block_torso(ART4, (400, 300), traces)
-    with pytest.raises(ValueError, match="shared memory"):
-        check_block_torso(ART4, (1024, 1024), traces)
+    for hidden in ((400, 300), (1024, 1024)):  # the block actor's layout with K11b's table slots
+        lib = SimpleNamespace(ngk_k11b_smem_floats=lambda h=hidden: k6_layout(ART4, h, kinds=7)[0])
+        if hidden[0] < 1024:
+            check_k6_block(ART4, traces, lib, hidden, False, tables=True)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                check_k6_block(ART4, traces, lib, hidden, False, tables=True)
 
 
