@@ -48,20 +48,21 @@ against the plain engine, that training raises the mean day return, and
 times each kernel against its twin and its bound; the f32 kernels must equal
 their twins, the bf16 sweeps, whose products run on the tensor cores, must
 meet the tolerance of ``tensor_core_close``, and K6's bf16 block actor (also
-on the tensor cores, every torso) that of ``k6_bf16_close``; the collection
-kernels K1, K2 and K9, K6's f32 block actor (the 64x64 torso too), K5's
-(the DDPG actor, the 256x256 torso) and K11b's (both torsos, a fresh and a
-continued state) are held to ``torch.equal`` at B=4096 or 1024 (phases 4, 8,
-13, 14, 21 and 24).  Beside K10 it times the 28 products of its update as
-``torch.matmul`` calls (cuBLAS, f32 with TF32 off and bf16), beside K1, K2
-and K9 seeded the products of a collection day, and beside the block-actor
-rows of K5, K6 and K11b the actor's products of their days the same way:
-yardsticks of the products only, which the port never calls.  Any
-failure raises and exits non-zero.  The last lines are the card
+on the tensor cores, every torso) that of ``k6_bf16_close``; K7 on its ring
+block, the collection kernels K1, K2 and K9, K6's f32 block actor (the 64x64
+torso too), K5's (every torso, v2x included) and K11b's (both torsos, a
+fresh and a continued state) are held to ``torch.equal`` at B=4096 or 1024
+(phases 2, 3, 4, 8, 13, 14, 21 and 24).  Beside K10 it times the 28
+products of its update as ``torch.matmul`` calls (cuBLAS, f32 with TF32 off
+and bf16), beside K3 and K4 the 16 of theirs, beside K1, K2 and K9 the
+products of a collection day, and beside the block-actor rows of K5, K6 and
+K11b the actor's products of their days the same way: yardsticks of the
+products only, which the port never calls.  Any failure raises and exits
+non-zero.  The last lines are the card
 (``nvidia-smi`` name and power limit), one JSON object with the kernels (for
 the rows phase 28 profiles, the CUDA kernel instances the profiler saw and
-their device time; for K8, K11a and K11b their layout and ptxas's
-registers and spills), and ``{"ok": true, "device": ...}``.
+their device time; for K5, K7, K8, K11a and K11b their layout and
+ptxas's registers and spills), and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -182,13 +183,16 @@ def compare(name: str, got, want, rtol: float, atol: float, against: str = "twin
     return err
 
 
-def check_equal(name: str, got, want, names) -> None:
-    """Every output bit-equal to the twin's: the collection kernels sum in
-    their twins' order, with no FMA."""
+def check_equal(name: str, got, want, names) -> float:
+    """Every output bit-equal to the twin's (the f32 kernels sum in their
+    twins' order, with no FMA); returns the max abs difference, 0."""
+    err = 0.0
     for label, g, w in zip(names, got, want):
-        check(torch.equal(g, w), f"{name} {label}: not bit-equal to the twin "
-                                 f"(max |d| {float((g - w).abs().max()):.3e})")
+        check(g.shape == w.shape, f"{name} {label}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+        err = max(err, float((g - w).abs().max()))
+        check(torch.equal(g, w), f"{name} {label}: not bit-equal to the twin (max |d| {err:.3e})")
     print(f"{name}: every output bit-equal to the twin ({', '.join(names)})")
+    return err
 
 
 def tensor_core_close(name: str, got, want, ref, n_params: int, param_bound: float) -> float:
@@ -303,8 +307,45 @@ def k10_products_ms(args, dtype) -> float:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def ppo_products_ms(gathered, hidden: tuple[int, int], dtype) -> float:
+    """The yardstick beside K3 and K4: the 16 products of each of the G
+    gradient steps of one update on its M samples, one ``torch.matmul``
+    (cuBLAS, f32 with TF32 off or bf16) each, by CUDA events: the actor's
+    and the critic's forward (3 each) and backward (3 weight gradients and 2
+    input gradients each).  It covers the products only (no bias,
+    activation, loss, norm clip or Adam, and none of the kernel's fusion);
+    the port never calls it."""
+    obs, act = gathered[0], gathered[1]
+    G, M, F = obs.shape
+    A, (H1, H2) = act.shape[2], hidden
+    gen = torch.Generator(device=obs.device).manual_seed(33)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=obs.device).to(dtype)
+
+    x, h1, h2, g1, g2, gu, gv = r(M, F), r(M, H1), r(M, H2), r(M, H1), r(M, H2), r(M, A), r(M, 1)
+    pw1, pw2, pw3, vw1, vw2, vw3 = r(H1, F), r(H2, H1), r(A, H2), r(H1, F), r(H2, H1), r(1, H2)
+    products = (
+        (x, pw1.T), (h1, pw2.T), (h2, pw3.T), (x, vw1.T), (h1, vw2.T), (h2, vw3.T),
+        (gu.T, h2), (gu, pw3), (g2.T, h1), (g2, pw2), (g1.T, x),
+        (gv.T, h2), (gv, vw3), (g2.T, h1), (g2, vw2), (g1.T, x),
+    )
+
+    def update():
+        for _ in range(G):
+            for a, b in products:
+                torch.matmul(a, b)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(update, 3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def collect_products_ms(config, hidden: tuple[int, int], critic: bool, device) -> float:
-    """The yardstick beside K2 and K9 seeded: the products of a collection
+    """The yardstick beside K1, K2 and K9 (both): the products of a collection
     day at B=4096, one ``torch.matmul`` (cuBLAS, f32 with TF32 off) per layer
     and step: the actor's three layers (and with ``critic`` the value
     torso's three) for each of the T steps, by CUDA events.  It covers the
@@ -1700,13 +1741,14 @@ def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_a
                       gathered, state, learner, ddpg_sweep_args, card, timing_days):
     """Phase 28: by the profiler, the device time of each bf16 row beside its
     f32 counterpart's: K6 at 256x256 and with the DDPG artifact (B=4096, 2
-    days), K3, K4 and K10 per update; and of the block actor's rows at the
-    shapes the kernels line reports: K6 with the PPO artifact's 64x64 actor
-    (f32, 20 days; bf16, 4 days), K5 with the DDPG artifact and with the
-    256x256 actor (1 day).  Returns the device ms and the CUDA kernel
+    days), K3, K4 and K10 per update; and of the day kernels' rows at the
+    shapes the kernels line reports: K7 on its ring block (8ch, 1 day), K6
+    with the PPO artifact's 64x64 actor (f32, 20 days; bf16, 4 days), K5 with
+    the PPO artifact, the DDPG artifact and the 256x256 actor (1 day).  Returns the device ms and the CUDA kernel
     instances the profiler saw, by row."""
     from smart_nanogrid_gym_torch.ops.ddpg_sweep import ddpg_sweep
     from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day, gen_policy_multiday
+    from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day
     from smart_nanogrid_gym_torch.ops.ppo_sweep import ppo_sweep, ppo_sweep_streamed
 
     days = NEW_ROW_DAYS["gen_policy_multiday_block"]
@@ -1741,6 +1783,8 @@ def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_a
         print(f"phase 28 {name}: {device_times[name]:.4f} ms of device time per call (profiler) on {card}")
     k6, k5 = "gen_policy_multiday_block_kernel", "gen_policy_day_block_kernel"
     rows = (
+        ("gen_rbc_day", lambda: gen_rbc_day(rbc_cfg, rbc_params, u, pv), "gen_rbc_day_ring_kernel"),
+        ("gen_policy_day", lambda: gen_policy_day(art_cfg, art_params, artifact, u4, pv4), k5),
         ("gen_policy_multiday", lambda: gen_policy_multiday(art_cfg, art_params, artifact, timing_days, 5,
                                                             BENCH_BATCH), k6),
         ("gen_policy_multiday_bf16", lambda: gen_policy_multiday(
@@ -1791,14 +1835,18 @@ def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_a
 def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days, philox):
     """The least time of each kernel at the shape phase 7/12/19/24 times it;
     a Philox block takes ``philox`` lane instructions by pipe."""
+    from smart_nanogrid_gym_torch.tools.profile_rbc import k7_uniform_floats
+
     B, T = BENCH_BATCH, rbc_cfg.steps_per_day
     out = {}
     N8, A8, F8 = rbc_cfg.num_chargers, rbc_cfg.num_actions, rbc_cfg.obs_dim
     N4, A4, F4 = art_cfg.num_chargers, art_cfg.num_actions, art_cfg.obs_dim
     actor8, critic8 = mlp_flops(F8, A8, 64, 64), mlp_flops(F8, 1, 64, 64)
     actor4 = mlp_flops(F4, A4, 64, 64)
-    # K7: explicit uniforms in, rewards and final SoC out; the physics is not counted
-    out["gen_rbc_day"] = bound(4 * (T * 5 * N8 * B + 2 * B + T * B + N8 * B), 0)
+    # K7: the explicit uniforms it reads (not the kinds the config never draws,
+    # nor the departure while its window is shut), the battery and PV shift in;
+    # rewards and final SoC out; the physics is not counted
+    out["gen_rbc_day"] = bound(4 * (k7_uniform_floats(rbc_cfg, B) + 2 * B + T * B + N8 * B), 0)
     out["gen_rbc_multiday"] = bound(4 * 2 * B, 0, 0, philox_calls_per_day(rbc_cfg) * timing_days * B, philox)
     out["gen_policy_day"] = bound(4 * (T * 5 * N4 * B + 2 * B + T * B + T * A4 * B + N4 * B + B),
                                   actor4 * T * B)
@@ -1922,18 +1970,22 @@ def main() -> None:
     philox, philox_opcodes = philox_pipes(built[0][0])
     print(f"phase 1 one Philox4x32-10 block in the SASS (cuobjdump -sass), lane instructions by pipe: {philox}; "
           f"opcodes {philox_opcodes}")
-    rbc_lib = _build.library(rbc_cfg, device)
+    rbc_lib, art_lib = _build.library(rbc_cfg, device), _build.library(art_cfg, device)
     design = {  # the library's own numbers (8ch b-pv)
         "gen_rbc_multiday": {"lanes_an_env": {B: rbc_lib.ngk_rbc_lanes(B) for B in (BENCH_BATCH, FULL_BATCH)},
                              "block_threads": rbc_lib.ngk_rbc_lane_threads()},
         "rbc_day_rollout": {"envs_a_block": rbc_lib.ngk_rbc_envs(), "ring_steps": rbc_lib.ngk_rbc_ring_depth()},
+        "gen_rbc_day": {"envs_a_block": rbc_lib.ngk_rbc_envs(), "ring_steps": rbc_lib.ngk_gen_rbc_ring_depth(),
+                        "ring_floats": rbc_lib.ngk_gen_rbc_ring_floats()},
+        "gen_policy_day": {"envs_a_block": art_lib.ngk_collect_envs(), "smem_floats": art_lib.ngk_k6_smem_floats(0)},
     }
-    # K11b's instances of the block actor (the artifact's 4ch 64x64, the bench's 256x256) and their libraries
-    design_libraries = {"policy_day_rollout": built[1][0], "policy_day_rollout_block": built[2][0]}
-    for name, lib in (("policy_day_rollout", _build.library(art_cfg, device)),
+    # K5's and K11b's instances of the block actor (the artifact's 4ch 64x64, the bench's 256x256) and their libraries
+    design_libraries = {"gen_policy_day": built[1][0], "policy_day_rollout": built[1][0],
+                        "policy_day_rollout_block": built[2][0]}
+    for name, lib in (("policy_day_rollout", art_lib),
                       ("policy_day_rollout_block", _build.library(rbc_cfg, device, BIG_HIDDEN))):
-        design[name] = {"envs_a_block": 32, "smem_floats": lib.ngk_k11b_smem_floats()}
-    print(f"phase 1 K8/K11a/K11b layouts: {design}")
+        design[name] = {"envs_a_block": lib.ngk_collect_envs(), "smem_floats": lib.ngk_k11b_smem_floats()}
+    print(f"phase 1 K5/K7/K8/K11a/K11b layouts: {design}")
     for path, _ in built:
         with open(path.with_suffix(".log")) as fp:
             for line in fp:
@@ -1943,29 +1995,38 @@ def main() -> None:
                     print("  ptxas:", line.strip())
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
-    # ---- phase 2: K7 against its twin, bench config, B=4096 ----
+    # ---- phase 2: K7 against its twin, B=4096: the bench config (8 warps of
+    # the ring block), and the main path's 4-charger config (its own 4-warp instance) ----
     u, pv = explicit_inputs(rbc_cfg, BENCH_BATCH, 0, device)
     batt = torch.full_like(pv, 0.5)
     traces = kernel_traces(rbc_params, device)
-    errors["gen_rbc_day"] = compare(
-        "K7 gen_rbc_day", gen_rbc_day(rbc_cfg, rbc_params, u, pv),
-        gen_rbc_day_plain(rbc_cfg, traces, u, pv, batt), rtol=2e-5, atol=1e-5)
-
-    # ---- phase 3: K5 against its twin: the artifact, and a shifted 8-charger v2x actor ----
     u4, pv4 = explicit_inputs(art_cfg, BENCH_BATCH, 1, device)
     art_traces = kernel_traces(art_params, device)
-    err_art = compare(
-        "K5 gen_policy_day (artifact, 4ch b-pv)", gen_policy_day(art_cfg, art_params, artifact, u4, pv4),
+    errors["gen_rbc_day"] = max(
+        check_equal("phase 2 K7 gen_rbc_day (ring block, 8ch b-pv)", gen_rbc_day(rbc_cfg, rbc_params, u, pv),
+                    gen_rbc_day_plain(rbc_cfg, traces, u, pv, batt), ("rewards", "soc_final")),
+        check_equal("phase 2 K7 gen_rbc_day (ring block, 4ch b-pv, the main path's inputs)",
+                    gen_rbc_day(art_cfg, art_params, u4, pv4),
+                    gen_rbc_day_plain(art_cfg, art_traces, u4, pv4, torch.full_like(pv4, 0.5)),
+                    ("rewards", "soc_final")))
+
+    # ---- phase 3: K5 against its twin: the artifact, and a shifted 8-charger v2x actor ----
+    k5_outputs = ("rewards", "actions", "soc_final", "batt_final")
+    err_art = check_equal(
+        "phase 3 K5 gen_policy_day (block actor, artifact 64x64, 4ch b-pv)",
+        gen_policy_day(art_cfg, art_params, artifact, u4, pv4),
         gen_policy_day_plain(art_cfg, art_traces, actor_weights(art_cfg, artifact, device), u4, pv4,
-                             torch.full_like(pv4, 0.5)), rtol=2e-4, atol=2e-4)
+                             torch.full_like(pv4, 0.5)), k5_outputs)
     v2x_actor = shifted_actor(v2x_cfg, 13, device)
     u8, pv8 = explicit_inputs(v2x_cfg, BENCH_BATCH, 2, device)
-    err_v2x = compare(
-        "K5 gen_policy_day (shifted actor, 8ch v2x-b-pv)",
-        gen_policy_day(v2x_cfg, v2x_params, v2x_actor, u8, pv8),
+    v2x_got = gen_policy_day(v2x_cfg, v2x_params, v2x_actor, u8, pv8)
+    err_v2x = check_equal(
+        "phase 3 K5 gen_policy_day (block actor, shifted 64x64 actor, 8ch v2x-b-pv)", v2x_got,
         gen_policy_day_plain(v2x_cfg, kernel_traces(v2x_params, device),
                              actor_weights(v2x_cfg, v2x_actor, device), u8, pv8,
-                             torch.full_like(pv8, 0.5)), rtol=2e-4, atol=2e-4)
+                             torch.full_like(pv8, 0.5)), k5_outputs)
+    chargers = v2x_got[1][:, :v2x_cfg.num_chargers]
+    check(bool((chargers > 0).any() and (chargers < 0).any()), "K5 v2x: not both charger branches ran")
     errors["gen_policy_day"] = max(err_art, err_v2x)
 
     # ---- phase 4: K8 and K6 element for element against their Philox twins ----
@@ -2182,9 +2243,17 @@ def main() -> None:
     for name, ms in library.items():
         print(f"K10 yardstick {name}: the 28 products of each of 24 steps as torch.matmul (cuBLAS, products "
               f"only) {ms:.4f} ms per update, the kernel {times[name][1]:.4f} ms (whole update) on {card}")
+    for dtype, names in ((torch.float32, ("ppo_sweep_streamed", "ppo_sweep")),
+                         (BF16, ("ppo_sweep_streamed_bf16", "ppo_sweep_bf16"))):
+        ms = ppo_products_ms(gathered, (64, 64), dtype)  # K3's and K4's updates have the same products
+        for name in names:
+            library[name] = ms
+            print(f"K3/K4 yardstick {name}: the 16 products of each of 40 steps as torch.matmul (cuBLAS, products "
+                  f"only) {ms:.4f} ms per update, the kernel {times[name][1]:.4f} ms (whole update) on {card}")
     for name, cfg, hidden, days, dtype in (
             ("gen_policy_multiday", art_cfg, artifact.hidden, timing_days, torch.float32),
             ("gen_policy_multiday_bf16", art_cfg, artifact.hidden, NEW_ROW_DAYS["gen_policy_multiday_bf16"], BF16),
+            ("gen_policy_day", art_cfg, artifact.hidden, 1, torch.float32),
             ("gen_policy_day_ddpg", art_cfg, DDPG_HIDDEN, 1, torch.float32),
             ("gen_policy_day_block", rbc_cfg, BIG_HIDDEN, 1, torch.float32),
             ("gen_policy_multiday_ddpg", art_cfg, DDPG_HIDDEN, ddpg_days, torch.float32),
@@ -2202,8 +2271,10 @@ def main() -> None:
     library["ppo_collect_day"] = collect_products_ms(rbc_cfg, (64, 64), True, device)
     library["ppo_collect_day_seeded"] = collect_products_ms(rbc_cfg, (64, 64), True, device)
     library["ddpg_collect_day_seeded"] = collect_products_ms(rbc_cfg, DDPG_HIDDEN, False, device)
+    library["ddpg_collect_day"] = library["ddpg_collect_day_seeded"]  # K9's explicit day: the same products
     for name, label in (("ppo_collect_day", "K1: the actor-critic's 6"),
                         ("ppo_collect_day_seeded", "K2: the actor-critic's 6"),
+                        ("ddpg_collect_day", "K9: the 400-300 actor's 3"),
                         ("ddpg_collect_day_seeded", "K9 seeded: the 400-300 actor's 3")):
         print(f"{label} products of each of 24 steps as torch.matmul at B={BENCH_BATCH} (cuBLAS f32, products "
               f"only) {library[name]:.4f} ms per day, the kernel {times[name][1]:.4f} ms (wrapper, whole day) "

@@ -2,11 +2,9 @@
 // and of the tables-in day kernels (K11a, K11b).
 //
 // Replaces the Pallas TPU kernels of smart_nanogrid_gym_tpu/ops/:
-//   K7 pallas_gen_rollout.py::pallas_gen_rbc_day            -> gen_rbc_day_kernel<C, Explicit>
+//   K7 pallas_gen_rollout.py::pallas_gen_rbc_day            -> gen_rbc_day_ring_kernel<C>
 //   K8 pallas_gen_rollout.py::pallas_gen_rbc_multiday       -> gen_rbc_multiday_kernel<C>
-//   K5 pallas_gen_policy_rollout.py::pallas_gen_policy_day  -> gen_policy_day_kernel<C> (64x64 PPO torsos),
-//                                                              gen_policy_day_block_kernel<C, KIND> (the DDPG
-//                                                              actor, the 256x256 PPO torso)
+//   K5 pallas_gen_policy_rollout.py::pallas_gen_policy_day  -> gen_policy_day_block_kernel<C, KIND> (every torso)
 //   K6 pallas_gen_policy_rollout.py::pallas_gen_policy_multiday -> gen_policy_multiday_block_kernel<C, KIND, BF16>
 //   K1 pallas_collect.py::pallas_ppo_collect_day            -> ppo_collect_day_kernel<C, false>
 //   K2 pallas_collect.py::pallas_ppo_collect_day_seeded     -> ppo_collect_day_kernel<C, true>
@@ -14,14 +12,13 @@
 //   K11a pallas_rollout.py::pallas_rbc_day_rollout          -> rbc_day_rollout_kernel<C>
 //   K11b pallas_policy_rollout.py::pallas_policy_day_rollout -> policy_day_rollout_tables_kernel<C>
 //
-// K7 and MeanActor's kernel (K5 at 64x64): one thread per env runs
-// the whole day; the per-charger carries live in registers, the
-// price/radiation/solar traces and (MeanActor) the actor weights in shared
-// memory, read by every thread of the block at the same address
-// (broadcast).  Nothing of the schedule ever reaches device memory.  The
-// actor kernels are bound by the three FMA-loop products, 24 x (H*F + H*H +
-// A*H) multiply-adds per env-day.  The tail of the batch is guarded, so any
-// batch size works.
+// Below a batch that fills the card no kernel gives an env one thread: at
+// B=4096 that put 32 of the 132 SMs to work, every sum over the chargers one
+// thread's dependent chain (K8 takes one lane an env from 32,768 envs).  The
+// per-charger carries live in registers, the price/radiation/solar traces in
+// shared memory, read by every thread at the same address (broadcast).  Nothing
+// of a generated schedule ever reaches device memory.  The tail of the batch
+// is guarded, so any batch size works.
 //
 // K8 (the RBC's multiday evaluation) is bound on this card by the integer
 // issue of its Philox draws: about 187 blocks of 10 rounds an env-day at 8
@@ -42,15 +39,21 @@
 // rbc_lanes) an env takes one lane of the same template (L = 1), which draws
 // its blocks itself.
 //
-// K11a (a given state's RBC day) is bound by its table bytes: seven (T, N, B)
-// f32 tables, 22 MB at B=4096 x 8 chargers x 24 steps, for a few dozen
-// operations a charger-step.  One thread per env kept one step's loads in
-// flight on 32 SMs.  A block takes 32 envs on one warp a charger (RbcRing),
-// so a warp's load of a table row is one coalesced 128-byte line, and each
-// thread copies its charger's rows 4 steps ahead into a ring in shared
-// memory by asynchronous copies (28 KB a block at 8 chargers, seven blocks an
-// SM): B=4096 fills 128 SMs.  The env's sums over its chargers run on warp 0
-// in index order after a block barrier a step.
+// K7 (an explicit-uniform RBC day) and K11a (a given state's RBC day) are
+// bound by the bytes of their inputs: K7's uniforms (T, 5, N, B), 15.7 MB at
+// B=4096 x 8 chargers x 24 steps, K11a's seven (T, N, B) f32 tables, 22 MB,
+// each for a few dozen operations a charger-step.  One thread per env kept
+// one step's loads in flight on 32 SMs.  Both take one template (rbc_ring_day,
+// its day source a parameter): a block takes 32 envs on one warp a charger
+// (RbcRing), so a warp's load of a row is one coalesced 128-byte line, and
+// each thread copies its chargers' rows (K7: the uniform kinds the step draws;
+// K11a: the seven tables) 4 steps ahead into a ring in shared memory by
+// asynchronous copies (20 and 28 KB a block at 8 chargers, seven blocks an
+// SM): B=4096 fills 128 SMs.  A thread runs its chargers' part of the step
+// (K7: the generation of its columns and the RBC on a per-charger carry, as
+// K8's lanes do); the env's sums over its chargers run in index order on a
+// sum warp of the block, after a block barrier a step, while the charger warps
+// go on to the next step.
 //
 // Parity with the plain twins (ops/gen_rollout.py, ops/gen_policy_rollout.py)
 // rests on the same f32 operations in the same order: every constant is the
@@ -69,17 +72,13 @@
 // warp and the products on the block's other warps as register-tiled f32
 // products: see "collection kernels" below.
 //
-// The DDPG actor of K5/K6 (actor="ddpg") is SB3's 400-300 ReLU torso:
-// 129-133k floats, more than a block's 227 KB of shared memory, and 700
-// hidden floats a thread would spill.  So it runs as a block-level product.
-// K6 (every torso, the 64x64 PPO actor included) and K5 with such an actor
-// take K9's design (see "K6 and K5 block actor" below): an env warp that runs
-// the step body once per env, register-tiled products, the weights streamed
-// through a shared-memory ring by TMA, and K6's bf16 option on the tensor
-// cores.  A PPO actor whose f32 block does not fit beside the traces in
-// shared memory (the bench's 256x256 torso: 74,779 floats) takes the same
-// design with tanh hidden layers and the clipped mean as its head in K5
-// (kernels.cu chooses per library); K5's 64x64 torsos keep MeanActor.
+// K5, K6 and K11b run every actor on K9's block (see "K6 and K5 block actor"
+// below): an env warp that runs the step body once per env, register-tiled
+// products on the other warps, the weights streamed through a shared-memory
+// ring by TMA (resident for the 64x64 torso), and K6's bf16 option on the
+// tensor cores.  The DDPG actor (SB3's 400-300 ReLU torso, 129-133k floats)
+// and the bench's 256x256 PPO torso do not fit a block's shared memory beside
+// the traces; the 64x64 torso does, and runs the same template.
 //
 // The tables-in kernels (K11a RBC, K11b the PPO actor's mean) roll one day of
 // a given state instead of generating it: the wrapper (ops/rollout.py) builds
@@ -404,24 +403,6 @@ __device__ __forceinline__ float rbc_charger(int t, int n, const StepDraws<C>& u
   return power;
 }
 
-// One RBC step of one thread's env (K7): returns the charging power; pen[n]
-// the per-charger vehicle penalty.
-template <class C, class Src>
-__device__ float rbc_step(int t, const Dims& d, const Src& src, Carry<C>& c, const float* rad_norm,
-                          float pv_shift, float (&pen)[C::N]) {
-  StepDraws<C> u;
-  u.fill(src, t, d);
-  const float fallback = rbc_fallback<C>(t > 0 ? t - 1 : 0, rad_norm, pv_shift);
-
-  float charging = 0.0f;
-#pragma unroll
-  for (int n = 0; n < C::N; ++n) {
-    const float power = rbc_charger<C>(t, n, u, c, fallback, d.dt, pen[n]);
-    charging = n == 0 ? power : charging + power;
-  }
-  return charging;
-}
-
 // Reward of one RBC step without the vehicle penalty (_day_rewards).
 template <class C>
 __device__ __forceinline__ float rbc_reward(float charging, float solar_t, float price_t, float pv_shift,
@@ -437,12 +418,6 @@ __device__ __forceinline__ float idle_dod_penalty(float batt_soc) {
   if (!C::BATT) return 0.0f;
   const float gap = (kBattDod - batt_soc) * kGain;
   return batt_soc < kBattDod ? gap * gap : 0.0f;
-}
-
-__device__ __forceinline__ float dense(const float* w, const float* x, int in) {
-  float acc = w[0] * x[0];
-  for (int k = 1; k < in; ++k) acc = acc + w[k] * x[k];
-  return acc;
 }
 
 // ---------------------------------------------------------- policy step ---
@@ -474,27 +449,6 @@ struct Critic {
     b2 = w2 + C::H2 * C::H1;
     w3 = b2 + C::H2;
     b3 = w3 + C::H2;
-  }
-};
-
-// The hidden layers of a 64-64 tanh torso: two FMA-free multiply-add loops.
-template <class C>
-__device__ __forceinline__ void torso(const float* w1, const float* b1, const float* w2, const float* b2,
-                                      const float (&obs)[C::F], float (&h1)[C::H1], float (&h2)[C::H2]) {
-  for (int j = 0; j < C::H1; ++j) h1[j] = tanhf(dense(w1 + j * C::F, obs, C::F) + b1[j]);
-  for (int j = 0; j < C::H2; ++j) h2[j] = tanhf(dense(w2 + j * C::H1, h1, C::H1) + b2[j]);
-}
-
-// The deterministic actor of K5 at 64x64: the mean clipped to the action box.
-template <class C>
-struct MeanActor {
-  Actor<C> w;
-  __device__ void operator()(int, const float (&obs)[C::F], float (&act)[C::A]) const {
-    float h1[C::H1], h2[C::H2];
-    torso<C>(w.w1, w.b1, w.w2, w.b2, obs, h1, h2);
-#pragma unroll
-    for (int i = 0; i < C::A; ++i)
-      act[i] = fminf(fmaxf(dense(w.w3 + i * C::H2, h2, C::H2) + w.b3[i], w.low[i]), w.high[i]);
   }
 };
 
@@ -634,19 +588,6 @@ __device__ __forceinline__ PolicyRows physics_step(const StepState<C>& st, const
   return rows;
 }
 
-// One actor step (_gen_policy_step + _gen_policy_physics): observation, the
-// policy (obs -> action clipped to the box), bidirectional physics.
-template <class C, class Src, class Policy>
-__device__ PolicyRows policy_step(int t, const Dims& d, const Src& src, Carry<C>& c, float& batt_soc,
-                                  const float* rad_norm, const float* price_norm, float pv_shift,
-                                  const Policy& policy, float (&act)[C::A], float (&pen)[C::N]) {
-  float obs[C::F];
-  StepState<C> st;
-  observe_step<C>(t, d, src, c, batt_soc, rad_norm, price_norm, pv_shift, obs, st, pen);
-  policy(t, obs, act);
-  return physics_step<C>(st, act, c, batt_soc, d.dt);
-}
-
 // Cost of one actor step without the vehicle penalty (_policy_day_rewards).
 template <class C>
 __device__ __forceinline__ float policy_cost(const PolicyRows& r, float solar_t, float price_t, float pv_shift,
@@ -680,41 +621,6 @@ __device__ __forceinline__ SharedTraces load_traces(float* smem, const float* ra
     s.solar[i] = solar[i];
   }
   return s;
-}
-
-__device__ __forceinline__ void load_block(float* dst, const float* src, int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
-}
-
-// K7: rewards (T, B) and soc_final (N, B) of one explicit-uniform RBC day.
-template <class C>
-__global__ void gen_rbc_day_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
-                                   const float* __restrict__ solar, const float* __restrict__ u,
-                                   const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
-                                   float* __restrict__ rewards, float* __restrict__ soc_final, int B, Dims d) {
-  extern __shared__ float smem[];
-  const SharedTraces s = load_traces(smem, rad_norm, S, nullptr, 0, price, solar, d.T);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  const ExplicitDraws<C::N> src{u, B, b};
-  const float pv = pv_shift[b];
-  const float dod = idle_dod_penalty<C>(batt_soc[b]);
-  Carry<C> c;
-  c.clear();
-  float pen[C::N];
-#pragma unroll 1
-  for (int t = 0; t < d.T; ++t) {
-    const float charging = rbc_step<C>(t, d, src, c, s.rad_norm, pv, pen);
-    float pen_sum = pen[0];
-#pragma unroll
-    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
-    const float cost = rbc_reward<C>(charging, s.solar[t], s.price[t], pv, dod, d.dt) + kWVeh * pen_sum;
-    rewards[static_cast<int64_t>(t) * B + b] = -cost;
-  }
-#pragma unroll
-  for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = c.prev_col[n];
 }
 
 // ------------------------------------------------------------- K8 lanes ---
@@ -905,46 +811,6 @@ __global__ void __launch_bounds__(kRbcLaneThreads)
     stats[b] = rew_total;
     stats[static_cast<int64_t>(B) + b] = sq_total;
   }
-}
-
-// K5: one explicit-uniform actor day; rewards (T, B), actions (T, A, B),
-// soc_final (N, B), batt_final (B).
-template <class C>
-__global__ void gen_policy_day_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
-                                      const float* __restrict__ rad_norm, int S, const float* __restrict__ solar,
-                                      const float* __restrict__ u, const float* __restrict__ batt_soc,
-                                      const float* __restrict__ pv_shift, const float* __restrict__ weights,
-                                      float* __restrict__ rewards, float* __restrict__ actions,
-                                      float* __restrict__ soc_final, float* __restrict__ batt_final, int B,
-                                      Dims d) {
-  extern __shared__ float smem[];
-  load_block(smem, weights, C::WEIGHTS);
-  const SharedTraces s = load_traces(smem + C::WEIGHTS, rad_norm, S, price_norm, P, price, solar, d.T);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  const MeanActor<C> policy{Actor<C>(smem)};
-  const ExplicitDraws<C::N> src{u, B, b};
-  const float pv = pv_shift[b];
-  float batt = batt_soc[b];
-  Carry<C> c;
-  c.clear();
-  float act[C::A], pen[C::N];
-#pragma unroll 1
-  for (int t = 0; t < d.T; ++t) {
-    const PolicyRows r = policy_step<C>(t, d, src, c, batt, s.rad_norm, s.price_norm, pv, policy, act, pen);
-#pragma unroll
-    for (int i = 0; i < C::A; ++i) actions[(static_cast<int64_t>(t) * C::A + i) * B + b] = act[i];
-    float pen_sum = pen[0];
-#pragma unroll
-    for (int n = 1; n < C::N; ++n) pen_sum = pen_sum + pen[n];
-    const float cost = policy_cost<C>(r, s.solar[t], s.price[t], pv, d.dt) + kWVeh * pen_sum;
-    rewards[static_cast<int64_t>(t) * B + b] = -cost;
-  }
-#pragma unroll
-  for (int n = 0; n < C::N; ++n) soc_final[static_cast<int64_t>(n) * B + b] = c.prev_col[n];
-  batt_final[b] = batt;
 }
 
 // The actor kinds, NG_ACTOR's values: the PPO actor (tanh torso, the mean
@@ -1874,8 +1740,7 @@ ddpg_collect_day_kernel(const float* __restrict__ price, const float* __restrict
 // K6 (pallas_gen_policy_rollout.py::pallas_gen_policy_multiday) for every
 // torso: the PPO actor (the 64x64 torso of the artifacts and the bench's
 // 256x256) and the DDPG 400-300 ReLU actor (actor="ddpg"); K5
-// (::pallas_gen_policy_day) with an actor too large for MeanActor (the DDPG
-// actor, the 256x256 PPO torso); and K11b
+// (::pallas_gen_policy_day) for the same actors; and K11b
 // (pallas_policy_rollout.py::pallas_policy_day_rollout) for every PPO torso.
 // One template, block_actor_days, runs all three, its source of the day a
 // parameter (DaySource): K6's Philox days and stats, K5's one
@@ -2353,9 +2218,8 @@ gen_policy_multiday_block_kernel(const float* __restrict__ price, const float* _
   block_actor_days<C, KIND, BF16, kPhiloxDays>(price, price_norm, P, rad_norm, S, solar, weights, io, B, d);
 }
 
-// K5 with the block actor (actor="ddpg", or a PPO torso too large for
-// MeanActor): one explicit-uniform actor day; rewards (T, B), actions (T, A,
-// B), soc_final (N, B), batt_final (B), as gen_policy_day_kernel.
+// K5 for every actor: one explicit-uniform actor day; rewards (T, B),
+// actions (T, A, B), soc_final (N, B), batt_final (B).
 template <class C, int KIND>
 __global__ void __launch_bounds__(kDdpgCollectThreads)
 gen_policy_day_block_kernel(const float* __restrict__ price, const float* __restrict__ price_norm, int P,
@@ -2387,64 +2251,103 @@ policy_day_rollout_tables_kernel(const float* __restrict__ price, const float* _
   block_actor_days<C, kPpoActor, false, kTablesDay>(price, price_norm, P, rad_norm, S, solar, weights, io, B, d);
 }
 
-// ------------------------------------------------------- tables-in days ---
+// -------------------------------------------------------- RBC ring days ---
 
-// K11a's block: kRbcEnvs = 32 envs, one a lane, on one warp a charger (at most
-// kRbcMaxWarps; more chargers take several a thread).  Thread (w, e) copies
-// its chargers' seven table rows of env e for each step into a ring of DEPTH
-// one-step stages in shared memory by asynchronous 4-byte copies
-// (`cp.async`, zeros past the batch), one commit group a step, and reads back
-// only what it copied.
+// K7's and K11a's block: kRbcEnvs = 32 envs, one a lane, on one warp a charger
+// (at most kRbcMaxWarps; more chargers take several a thread), and a sum warp
+// after them.  Thread (w, e) of a charger warp copies its
+// chargers' rows of env e for each step, ROWS a charger (K7: the five uniform
+// kinds; K11a: the seven tables), into a ring of DEPTH one-step stages in
+// shared memory by asynchronous 4-byte copies (`cp.async`, zeros past the
+// batch), one commit group a step, and reads back only what it copied.
 constexpr int kRbcEnvs = 32;
 constexpr int kRbcMaxWarps = 8;
-constexpr int kRbcRingBytes = 32 * 1024;  // tables a block keeps in flight: seven blocks fit an SM
+constexpr int kRbcRingBytes = 32 * 1024;  // rows a block keeps in flight: seven blocks fit an SM
 constexpr int kRbcMaxDepth = 4;
 
-template <int N>
+template <int N, int ROWS_>
 struct RbcRing {
+  static constexpr int ROWS = ROWS_;
   static constexpr int WARPS = N < kRbcMaxWarps ? N : kRbcMaxWarps;
   static constexpr int SLOTS = (N + WARPS - 1) / WARPS;  // chargers of a thread: w, w + WARPS, ...
-  static constexpr int STEP = kTables * N * kRbcEnvs;    // floats of one step's tables of the block
+  static constexpr int STEP = ROWS * N * kRbcEnvs;       // floats of one step's rows of the block
   static constexpr int FIT = kRbcRingBytes / (4 * STEP);
   static constexpr int DEPTH = FIT < 2 ? 2 : (FIT > kRbcMaxDepth ? kRbcMaxDepth : FIT);  // steps in flight
   static constexpr int SUMS = 2 * 2 * N * kRbcEnvs;      // each charger's power and penalty, two steps
   static constexpr int FLOATS = DEPTH * STEP + SUMS;     // before the traces
+  static constexpr int THREADS = 32 * (WARPS + 1);       // the charger warps, then the sum warp
 };
 
-// K11a: one RBC day of a given state; rewards (T, B), soc_final (N, B).
-// prev_col0 (N, B) is the state's SoC column L-1, pmask0 (N, B) its
-// trailing-observe mask (pallas_rollout.py:46-141).
-template <class C>
-__global__ void __launch_bounds__(32 * RbcRing<C::N>::WARPS)
-    rbc_day_rollout_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
-                           const float* __restrict__ solar, const float* __restrict__ tables,
-                           const float* __restrict__ prev_col0, const float* __restrict__ pmask0,
-                           const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
-                           float* __restrict__ rewards, float* __restrict__ soc_final, int B, int T, float dt) {
-  using R = RbcRing<C::N>;
+// The ring of a day source: K7's uniform kinds (kExplicitDay), K11a's tables (kTablesDay).
+template <class C, int SOURCE>
+using RbcRingOf = RbcRing<C::N, SOURCE == kTablesDay ? kTables : kDrawKinds>;
+
+// StepDraws' source for K7's thread: its chargers' uniforms of the step from
+// its ring stage; `row` points at charger slot 0's kind-0 word of the thread
+// (slot i is charger w + i WARPS, a slot past N reads 0).
+template <class C, class LC>
+struct RingDraws {
+  const float* row;
+  int w;
+  __device__ void draw(int, int kind, float (&out)[LC::N]) const {
+    using R = RbcRingOf<C, kExplicitDay>;
+#pragma unroll
+    for (int i = 0; i < LC::N; ++i)
+      out[i] = w + i * R::WARPS < C::N ? row[(kind * C::N + i * R::WARPS) * kRbcEnvs] : 0.0f;
+  }
+};
+
+// One RBC day of the block's 32 envs: rewards (T, B), soc_final (N, B).  K7
+// (kExplicitDay): a fresh day generated from rows = u (T, 5, N, B), the
+// carry cleared.  K11a (kTablesDay): a given state's day from rows = its
+// tables (7, T, N, B), prev_col0 (N, B) its SoC column L-1 and pmask0 (N, B)
+// its trailing-observe mask (pallas_rollout.py:46-141).  A step's charger
+// warps write each charger's power and penalty; after the step's barrier the
+// sum warp adds them up in index order and writes the reward while the
+// charger warps go on to the next step (the sums are double-buffered).
+template <class C, int SOURCE>
+__device__ __forceinline__ void rbc_ring_day(const float* __restrict__ price, const float* __restrict__ rad_norm,
+                                             int S, const float* __restrict__ solar,
+                                             const float* __restrict__ rows, const float* __restrict__ prev_col0,
+                                             const float* __restrict__ pmask0, const float* __restrict__ batt_soc,
+                                             const float* __restrict__ pv_shift, float* __restrict__ rewards,
+                                             float* __restrict__ soc_final, int B, const Dims& d) {
+  constexpr bool TABLES = SOURCE == kTablesDay;
+  using R = RbcRingOf<C, SOURCE>;
+  using LC = Cfg<R::SLOTS, C::PV, C::BATT, C::PMODE, C::DIFF_CAPS, C::REQ_SOC, C::H1, C::H2>;  // a thread's chargers
   constexpr int N = C::N;
+  const int T = d.T;
   extern __shared__ float smem[];
   float* ring = smem;
   float* sums = ring + R::DEPTH * R::STEP;
   const int e = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const bool summer = w == R::WARPS;  // the sum warp: no charger of its own
   const int64_t b = static_cast<int64_t>(blockIdx.x) * kRbcEnvs + e;
   const bool active = b < B;
   const int64_t bs = active ? b : 0;  // the source address of a zero-filled copy
-  const int64_t plane = static_cast<int64_t>(T) * N * B;
+  // row k of step t for charger n at k * row_stride + (t * STEP_ROWS + n) * B:
+  // K11a's table k (a plane of T N B floats) at (t, n), K7's uniforms at (t, k, n)
+  const int64_t row_stride = TABLES ? static_cast<int64_t>(T) * N * B : static_cast<int64_t>(N) * B;
+  constexpr int STEP_ROWS = TABLES ? N : kDrawKinds * N;
 
   // step t's rows of this thread's chargers into its ring stage; one commit
-  // group a step, empty past the day, so that group t is step t
+  // group a step, empty past the day (and on the sum warp), so that group t
+  // is step t.  K7 copies the kinds StepDraws::fill reads: the capacity and
+  // the requested SoC when configured, the departure only when its window is open.
   auto stage = [&](int t) {
-    if (t < T) {
+    if (t < T && !summer) {
       float* slot = ring + (t % R::DEPTH) * R::STEP;
+      const bool dep = t + d.k4 < min(t + d.k10, T + d.k1);
 #pragma unroll
       for (int i = 0; i < R::SLOTS; ++i) {
         const int n = w + i * R::WARPS;
         if (n >= N) continue;
 #pragma unroll
-        for (int k = 0; k < kTables; ++k)
+        for (int k = 0; k < R::ROWS; ++k) {
+          if (!TABLES && ((k == 2 && !C::DIFF_CAPS) || (k == 3 && !C::REQ_SOC) || (k == 4 && !dep))) continue;
           async_copy_f32(slot + (k * N + n) * kRbcEnvs + e,
-                         tables + k * plane + (static_cast<int64_t>(t) * N + n) * B + bs, active);
+                         rows + k * row_stride + (static_cast<int64_t>(t) * STEP_ROWS + n) * B + bs, active);
+        }
       }
     }
     async_commit();
@@ -2453,14 +2356,19 @@ __global__ void __launch_bounds__(32 * RbcRing<C::N>::WARPS)
   for (int t = 0; t < R::DEPTH; ++t) stage(t);
 
   const SharedTraces s = load_traces(sums + R::SUMS, rad_norm, S, nullptr, 0, price, solar, T);
-  float prev_col[R::SLOTS], pmask[R::SLOTS], dep_prev[R::SLOTS];
+  // the thread's chargers: K7's generation carry; K11a's carried column and
+  // mask and the previous step's departure row (prev_col, pmask, prev_depcol)
+  Carry<LC> c;
+  c.clear();
+  if constexpr (TABLES) {
 #pragma unroll
-  for (int i = 0; i < R::SLOTS; ++i) {
-    const int n = w + i * R::WARPS;
-    const bool own = active && n < N;
-    prev_col[i] = own ? prev_col0[static_cast<int64_t>(n) * B + b] : 0.0f;
-    pmask[i] = own ? pmask0[static_cast<int64_t>(n) * B + b] : 0.0f;
-    dep_prev[i] = 0.0f;
+    for (int i = 0; i < R::SLOTS; ++i) {
+      const int n = w + i * R::WARPS;
+      if (active && !summer && n < N) {
+        c.prev_col[i] = prev_col0[static_cast<int64_t>(n) * B + b];
+        c.pmask[i] = pmask0[static_cast<int64_t>(n) * B + b];
+      }
+    }
   }
   const float pv = active ? pv_shift[b] : 0.0f;
   const float dod = idle_dod_penalty<C>(active ? batt_soc[b] : kBattInit);  // the RBC idles the BESS
@@ -2468,52 +2376,96 @@ __global__ void __launch_bounds__(32 * RbcRing<C::N>::WARPS)
 
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
-    async_wait<R::DEPTH - 1>();  // this thread's copies of step t have landed
-    const float* slot = ring + (t % R::DEPTH) * R::STEP;
     float* power = sums + (t & 1) * 2 * N * kRbcEnvs;  // [n][e], then the penalties
     float* pens = power + N * kRbcEnvs;
-    // the RBC acts on the previous step's observation: tables at o = max(t-1, 0)
-    const float fallback = rbc_fallback<C>(t > 0 ? t - 1 : 0, s.rad_norm, pv);
+    if (!summer) {
+      async_wait<R::DEPTH - 1>();  // this thread's copies of step t have landed
+      // its words: row k of charger n at (k N + n) kRbcEnvs + e, power and
+      // penalty at n kRbcEnvs + e
+      const float* slot = ring + (t % R::DEPTH) * R::STEP;
+      // the RBC acts on the previous step's observation: o = max(t-1, 0)
+      const float fallback = rbc_fallback<C>(t > 0 ? t - 1 : 0, s.rad_norm, pv);
+      if constexpr (TABLES) {
 #pragma unroll
-    for (int i = 0; i < R::SLOTS; ++i) {
-      const int n = w + i * R::WARPS;
-      if (n >= N) continue;
-      const float* row = slot + n * kRbcEnvs + e;
-      const auto tab = [&](int k) { return row[k * N * kRbcEnvs]; };
-      const float dep_t = tab(kDepObs);
-      const float a = rbc_action(t == 0 ? dep_t : dep_prev[i], fallback);
-      const bool occupied = tab(kOcc) > 0.0f;
-      const float soc_col = tab(kSocCols);
-      const float soc_eff = tab(kIsArr) > 0.0f ? soc_col : prev_col[i];
-      const float cap = tab(kCapEff);
-      const float safe_cap = cap > 0.0f ? cap : 1.0f;
-      const float p_raw = a * kMaxPEff;  // charge branch only: RBC actions are >= 0
-      const float calc = soc_eff + (p_raw * dt) / safe_cap;
-      power[n * kRbcEnvs + e] = (occupied && a > 0.0f) ? p_raw : 0.0f;
-      const float soc_new = a > 0.0f ? fminf(calc, 1.0f) : soc_eff;
-      pens[n * kRbcEnvs + e] = insufficiency_penalty(pmask[i], prev_col[i], tab(kReqPrev));
-      pmask[i] = tab(kPmask);  // the trailing observe's mask for the next step
-      prev_col[i] = occupied ? soc_new : soc_col;
-      dep_prev[i] = dep_t;
+        for (int i = 0; i < R::SLOTS; ++i) {
+          const int n = w + i * R::WARPS;
+          if (n >= N) continue;
+          const float* row = slot + n * kRbcEnvs + e;
+          const auto tab = [&](int k) { return row[k * N * kRbcEnvs]; };
+          const float dep_t = tab(kDepObs);
+          const float a = rbc_action(t == 0 ? dep_t : c.prev_depcol[i], fallback);
+          const bool occupied = tab(kOcc) > 0.0f;
+          const float soc_col = tab(kSocCols);
+          const float soc_eff = tab(kIsArr) > 0.0f ? soc_col : c.prev_col[i];
+          const float cap = tab(kCapEff);
+          const float safe_cap = cap > 0.0f ? cap : 1.0f;
+          const float p_raw = a * kMaxPEff;  // charge branch only: RBC actions are >= 0
+          const float calc = soc_eff + (p_raw * d.dt) / safe_cap;
+          power[n * kRbcEnvs + e] = (occupied && a > 0.0f) ? p_raw : 0.0f;
+          const float soc_new = a > 0.0f ? fminf(calc, 1.0f) : soc_eff;
+          pens[n * kRbcEnvs + e] = insufficiency_penalty(c.pmask[i], c.prev_col[i], tab(kReqPrev));
+          c.pmask[i] = tab(kPmask);  // the trailing observe's mask for the next step
+          c.prev_col[i] = occupied ? soc_new : soc_col;
+          c.prev_depcol[i] = dep_t;
+        }
+      } else {  // generate the thread's columns of step t and run the RBC on them
+        StepDraws<LC> u;
+        u.fill(RingDraws<C, LC>{slot + w * kRbcEnvs + e, w}, t, d);
+#pragma unroll
+        for (int i = 0; i < R::SLOTS; ++i) {
+          const int n = w + i * R::WARPS;
+          if (n >= N) continue;
+          float pen;
+          power[n * kRbcEnvs + e] = rbc_charger<LC>(t, i, u, c, fallback, d.dt, pen);
+          pens[n * kRbcEnvs + e] = pen;
+        }
+      }
     }
-    __syncthreads();  // every charger's power and penalty of step t; stage t read by all
+    __syncthreads();  // every charger's power and penalty of step t; stage t read by its copier
     stage(t + R::DEPTH);
-    if (w == 0) {  // the env's sums over its chargers, in index order
+    if (summer) {  // the env's sums over its chargers, in index order
       float charging = power[e], pen_sum = pens[e];
 #pragma unroll
       for (int n = 1; n < N; ++n) {
         charging = charging + power[n * kRbcEnvs + e];
         pen_sum = pen_sum + pens[n * kRbcEnvs + e];
       }
-      const float cost = rbc_reward<C>(charging, s.solar[t], s.price[t], pv, dod, dt) + kWVeh * pen_sum;
+      const float cost = rbc_reward<C>(charging, s.solar[t], s.price[t], pv, dod, d.dt) + kWVeh * pen_sum;
       if (active) rewards[static_cast<int64_t>(t) * B + b] = -cost;
     }
   }
 #pragma unroll
   for (int i = 0; i < R::SLOTS; ++i) {
     const int n = w + i * R::WARPS;
-    if (active && n < N) soc_final[static_cast<int64_t>(n) * B + b] = prev_col[i];
+    if (active && !summer && n < N) soc_final[static_cast<int64_t>(n) * B + b] = c.prev_col[i];
   }
+}
+
+// K7: one explicit-uniform RBC day (pallas_gen_rollout.py:511-557); u (T, 5,
+// N, B), the starting battery and the PV shift (B,); rewards (T, B),
+// soc_final (N, B).
+template <class C>
+__global__ void __launch_bounds__(RbcRingOf<C, kExplicitDay>::THREADS)
+    gen_rbc_day_ring_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
+                            const float* __restrict__ solar, const float* __restrict__ u,
+                            const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                            float* __restrict__ rewards, float* __restrict__ soc_final, int B, Dims d) {
+  rbc_ring_day<C, kExplicitDay>(price, rad_norm, S, solar, u, nullptr, nullptr, batt_soc, pv_shift, rewards,
+                                soc_final, B, d);
+}
+
+// K11a: one RBC day of a given state; rewards (T, B), soc_final (N, B).
+// prev_col0 (N, B) is the state's SoC column L-1, pmask0 (N, B) its
+// trailing-observe mask.  Only d.T and d.dt are read.
+template <class C>
+__global__ void __launch_bounds__(RbcRingOf<C, kTablesDay>::THREADS)
+    rbc_day_rollout_kernel(const float* __restrict__ price, const float* __restrict__ rad_norm, int S,
+                           const float* __restrict__ solar, const float* __restrict__ tables,
+                           const float* __restrict__ prev_col0, const float* __restrict__ pmask0,
+                           const float* __restrict__ batt_soc, const float* __restrict__ pv_shift,
+                           float* __restrict__ rewards, float* __restrict__ soc_final, int B, Dims d) {
+  rbc_ring_day<C, kTablesDay>(price, rad_norm, S, solar, tables, prev_col0, pmask0, batt_soc, pv_shift, rewards,
+                              soc_final, B, d);
 }
 
 }  // namespace ngk

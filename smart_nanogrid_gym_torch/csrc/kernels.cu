@@ -7,14 +7,11 @@
 //   0 the PPO actor (K5/K6 and the collection kernels K1/K2), 1 the DDPG
 //   actor (K5/K6 actor="ddpg" and the collection kernel K9).
 // Both kinds carry the RBC kernels K7/K8 and K11a; the PPO kind K11b.
-// K6 runs K9's block and ring (gen_policy_multiday_block_kernel) for every
-// torso, and takes the bf16 operand option as an argument (one template
-// instance each), so it adds no library; K11b runs the same block and ring
-// with the day's tables in (policy_day_rollout_tables_kernel) for every PPO
-// torso.  The design of K5 is fixed per library (kBlockActor): MeanActor, one
-// thread per env with the f32 actor block in shared memory, when the block
-// leaves kTraceReserveBytes for the traces; K6's block and ring otherwise
-// (gen_policy_day_block_kernel: the DDPG actor, the 256x256 PPO torso).
+// K5, K6 and K11b run K9's block and ring for every torso
+// (gen_policy_day_block_kernel, gen_policy_multiday_block_kernel,
+// policy_day_rollout_tables_kernel); K6 takes the bf16 operand option as an
+// argument (one template instance each), so it adds no library.  K7 and K11a
+// run one ring-block template (rbc_ring_day) on their own rows.
 // Every entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
 #include "day_step.cuh"
@@ -27,8 +24,12 @@
 namespace {
 
 using C = ngk::Cfg<NG_N, NG_PV != 0, NG_BATT != 0, NG_PMODE, NG_DIFF_CAPS != 0, NG_REQ_SOC != 0, NG_H1, NG_H2>;
-constexpr int kThreads = 128;
-constexpr bool kBlockActor =
+// An actor whose launches of K5, K6 and K11b count under a name of its own
+// (ngk_block_actor; the kernels are the same): the DDPG actor, or a PPO
+// actor whose f32 block alone leaves no room for the traces in a block's
+// shared memory (the bench's 256x256 torso), which K1/K2, holding the whole
+// actor-critic there, have no instance for.
+constexpr bool kWideActor =
     NG_ACTOR == ngk::kDdpgActor || C::WEIGHTS * sizeof(float) + ngk::kTraceReserveBytes > ngk::kMaxSmemBytes;
 
 // K8's lanes an env for a batch of B envs: one once the batch alone gives
@@ -40,7 +41,7 @@ constexpr int kRbcFull = ngk::RbcLanes<C, 1>::FULL;
 constexpr int64_t kRbcFillThreads = 32768;
 inline int rbc_lanes(int B) { return B >= kRbcFillThreads ? 1 : kRbcFull; }
 
-inline dim3 grid_for(int B, int threads = kThreads) { return dim3((B + threads - 1) / threads); }
+inline dim3 grid_for(int B, int threads) { return dim3((B + threads - 1) / threads); }
 
 inline ngk::Dims dims(int T, int k4, int k10, int k1, float dt) { return ngk::Dims{T, k4, k10, k1, dt}; }
 
@@ -55,11 +56,6 @@ int launch(void (*kernel)(Params...), dim3 grid, int threads, size_t smem, void*
   }
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
-}
-
-// MeanActor's shared memory: the f32 actor block, then the traces.
-size_t mean_actor_smem(int S, int P, int T) {
-  return static_cast<size_t>(C::WEIGHTS + S + P + 2 * T) * sizeof(float);
 }
 
 // The collection kernels: one block per kCollectEnvs envs, their shared
@@ -112,26 +108,32 @@ __global__ void ngk_philox_probe_base_kernel(uint4* out, unsigned int day, unsig
   out[i] = make_uint4(day + i, i * 3u, i ^ k0, (i + 7u) ^ k1);
 }
 
-int ngk_weights_size() { return C::WEIGHTS; }
+// Only the launch-count name: 1 when the actor's launches count as `_ddpg`
+// or `_block` (kWideActor), 0 for a PPO actor whose block fits.
+int ngk_block_actor() { return kWideActor ? 1 : 0; }
 
-int ngk_block_actor() { return kBlockActor ? 1 : 0; }
-
-// K8's lanes an env and threads a block; K11a's envs a block, ring depth
-// (steps in flight) and shared memory before the traces (floats: the ring
-// and the per-charger sums).
+// K8's lanes an env and threads a block; K7's and K11a's envs a block, and
+// each one's ring depth (steps in flight) and shared memory before the traces
+// (floats: the ring and the per-charger sums).
 int ngk_rbc_lanes(int B) { return rbc_lanes(B); }
 int ngk_rbc_lane_threads() { return ngk::kRbcLaneThreads; }
 int ngk_rbc_envs() { return ngk::kRbcEnvs; }
-int ngk_rbc_ring_depth() { return ngk::RbcRing<C::N>::DEPTH; }
-int ngk_rbc_ring_floats() { return ngk::RbcRing<C::N>::FLOATS; }
+int ngk_rbc_ring_depth() { return ngk::RbcRingOf<C, ngk::kTablesDay>::DEPTH; }
+int ngk_rbc_ring_floats() { return ngk::RbcRingOf<C, ngk::kTablesDay>::FLOATS; }
+int ngk_gen_rbc_ring_depth() { return ngk::RbcRingOf<C, ngk::kExplicitDay>::DEPTH; }
+int ngk_gen_rbc_ring_floats() { return ngk::RbcRingOf<C, ngk::kExplicitDay>::FLOATS; }
 
-// K6's block actor (and K5's in kBlockActor libraries, K11b's in PPO
-// libraries, whose f32 block is K6's): its packed block and its shared
-// memory before the traces (floats), f32 (bf16 = 0) or bf16, and the rows an
-// f32 k-row of layer 1 or 2 is padded to (ops/gen_policy_rollout.py::k6_block).
+// K6's block actor (and K5's, whose explicit-draw slots are the size of
+// K6's Philox ones, and K11b's in PPO libraries, whose f32 block is K6's):
+// its packed block and its shared memory before the traces (floats), f32
+// (bf16 = 0) or bf16, and the rows an f32 k-row of layer 1 or 2 is padded to
+// (ops/gen_policy_rollout.py::k6_block).
+int ngk_collect_envs() { return ngk::kCollectEnvs; }  // envs a block of K6's (K5's, K11b's) block actor
 int ngk_k6_weights_size(int bf16) { return bf16 ? ngk::K6<C, true>::G::BLOCK : ngk::K6<C, false>::G::BLOCK; }
 int ngk_k6_smem_floats(int bf16) { return bf16 ? ngk::K6<C, true>::FLOATS : ngk::K6<C, false>::FLOATS; }
 int ngk_k6_pad(int layer) { return layer == 1 ? ngk::K6<C, false>::G::R1 : ngk::K6<C, false>::G::R2; }
+static_assert(ngk::K6<C, false, ngk::kExplicitDay>::FLOATS == ngk::K6<C, false>::FLOATS,
+              "K5's layout is K6's f32 one: the wrapper checks and packs K6's");
 
 #ifdef NGK_K6_CLOCK
 // tools/profile_k6.py: block 0's step record of the last launch, then the ring-wait counter reset.
@@ -146,9 +148,10 @@ int ngk_k6_clock(unsigned long long* out) {
 int ngk_gen_rbc_day(const float* price, const float* rad_norm, int S, const float* solar, const float* u,
                     const float* batt_soc, const float* pv_shift, float* rewards, float* soc_final, int B, int T,
                     int k4, int k10, int k1, float dt, void* stream) {
-  return launch(ngk::gen_rbc_day_kernel<C>, grid_for(B), kThreads, static_cast<size_t>(S + 2 * T) * sizeof(float),
-                stream, price, rad_norm, S, solar, u, batt_soc, pv_shift, rewards, soc_final, B,
-                dims(T, k4, k10, k1, dt));
+  using R = ngk::RbcRingOf<C, ngk::kExplicitDay>;
+  return launch(ngk::gen_rbc_day_ring_kernel<C>, grid_for(B, ngk::kRbcEnvs), R::THREADS,
+                static_cast<size_t>(R::FLOATS + S + 2 * T) * sizeof(float), stream, price, rad_norm, S, solar, u,
+                batt_soc, pv_shift, rewards, soc_final, B, dims(T, k4, k10, k1, dt));
 }
 
 int ngk_gen_rbc_multiday(const float* price, const float* rad_norm, int S, const float* solar, unsigned int seed,
@@ -163,27 +166,22 @@ int ngk_gen_rbc_multiday(const float* price, const float* rad_norm, int S, const
 int ngk_rbc_day_rollout(const float* price, const float* rad_norm, int S, const float* solar, const float* tables,
                         const float* prev_col, const float* pmask, const float* batt_soc, const float* pv_shift,
                         float* rewards, float* soc_final, int B, int T, float dt, void* stream) {
-  using R = ngk::RbcRing<C::N>;
-  return launch(ngk::rbc_day_rollout_kernel<C>, grid_for(B, ngk::kRbcEnvs), 32 * R::WARPS,
+  using R = ngk::RbcRingOf<C, ngk::kTablesDay>;
+  return launch(ngk::rbc_day_rollout_kernel<C>, grid_for(B, ngk::kRbcEnvs), R::THREADS,
                 static_cast<size_t>(R::FLOATS + S + 2 * T) * sizeof(float), stream, price, rad_norm, S, solar,
-                tables, prev_col, pmask, batt_soc, pv_shift, rewards, soc_final, B, T, dt);
+                tables, prev_col, pmask, batt_soc, pv_shift, rewards, soc_final, B, dims(T, 0, 0, 0, dt));
 }
 
-// K5 for either actor; the kernel follows the library's design.
+// K5 for either actor and every torso: K6's block and ring with the day's
+// explicit uniforms in its draw slots; the weights in k6_block's f32 layout.
 int ngk_gen_policy_day(const float* price, const float* price_norm, int P, const float* rad_norm, int S,
                        const float* solar, const float* u, const float* batt_soc, const float* pv_shift,
                        const float* weights, float* rewards, float* actions, float* soc_final, float* batt_final,
                        int B, int T, int k4, int k10, int k1, float dt, void* stream) {
-  const ngk::Dims d = dims(T, k4, k10, k1, dt);
-  if constexpr (kBlockActor) {
-    return launch(ngk::gen_policy_day_block_kernel<C, NG_ACTOR>, collect_grid(B), ngk::kDdpgCollectThreads,
-                  collect_smem(ngk::K6<C, false>::FLOATS, S, P, T), stream, price, price_norm, P, rad_norm, S,
-                  solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final, batt_final, B, d);
-  } else {
-    return launch(ngk::gen_policy_day_kernel<C>, grid_for(B), kThreads, mean_actor_smem(S, P, T), stream, price,
-                  price_norm, P, rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final,
-                  batt_final, B, d);
-  }
+  return launch(ngk::gen_policy_day_block_kernel<C, NG_ACTOR>, collect_grid(B), ngk::kDdpgCollectThreads,
+                collect_smem(ngk::K6<C, false, ngk::kExplicitDay>::FLOATS, S, P, T), stream, price, price_norm, P,
+                rad_norm, S, solar, u, batt_soc, pv_shift, weights, rewards, actions, soc_final, batt_final, B,
+                dims(T, k4, k10, k1, dt));
 }
 
 // bf16 != 0: the mlp_dtype option, the weights already rounded to bf16 values.
@@ -227,7 +225,7 @@ int ngk_ppo_collect_day(const float* price, const float* price_norm, int P, cons
                         const float* pv_shift, const float* weights, float* obs, float* act, float* logp,
                         float* value, float* rewards, float* batt_final, int B, int T, int k4, int k10, int k1,
                         float dt, void* stream) {
-  if constexpr (kBlockActor) {
+  if constexpr (kWideActor) {
     return static_cast<int>(cudaErrorNotSupported);
   } else {
     return launch(ngk::ppo_collect_day_kernel<C, false>, collect_grid(B), ngk::kPpoCollectThreads,
@@ -242,7 +240,7 @@ int ngk_ppo_collect_day_seeded(const float* price, const float* price_norm, int 
                                float* obs, float* act, float* logp, float* value, float* rewards,
                                float* batt_final, int B, int T, int k4, int k10, int k1, float dt, void* stream) {
   const float* none = nullptr;
-  if constexpr (kBlockActor) {
+  if constexpr (kWideActor) {
     return static_cast<int>(cudaErrorNotSupported);
   } else {
     return launch(ngk::ppo_collect_day_kernel<C, true>, collect_grid(B), ngk::kPpoCollectThreads,

@@ -53,10 +53,10 @@ launch_counts: Counter = Counter()
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DAY_SIGNATURES = {
-    "ngk_weights_size": (),
     "ngk_block_actor": (),
     "ngk_collect_weights_size": (),
     "ngk_collect_smem_floats": (),
+    "ngk_collect_envs": (),
     "ngk_k6_weights_size": (_I,),
     "ngk_k6_smem_floats": (_I,),
     "ngk_k6_pad": (_I,),
@@ -65,6 +65,8 @@ _DAY_SIGNATURES = {
     "ngk_rbc_envs": (),
     "ngk_rbc_ring_depth": (),
     "ngk_rbc_ring_floats": (),
+    "ngk_gen_rbc_ring_depth": (),
+    "ngk_gen_rbc_ring_floats": (),
     "ngk_gen_rbc_day": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_gen_rbc_multiday": (_P, _P, _I, _P, _U, _I, _P, _I, _I, _I, _I, _I, _F, _P),
     "ngk_rbc_day_rollout": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),

@@ -26,18 +26,17 @@ clip and the squash stay f32 (pallas_gen_policy_rollout.py:140-154,
 The twins mirror the Pallas step body; the actor's products run as
 multiply-add loops in input order, the order the CUDA kernels use in f32, so
 the f32 kernels are bit-equal to them (the product of two bf16 values is
-exact in f32).  K6 runs K9's design for every torso (an env warp,
+exact in f32).  K5 and K6 run K9's design for every torso (an env warp,
 register-tiled products, W1 and W2 streamed through a shared-memory ring in
 the layout of :func:`k6_block`, its shared memory checked by
-:func:`check_k6_block`); its bf16 option runs there on the tensor cores, so
-that option meets its twin to a stated tolerance, not bit for bit.  K5 takes
-the same design, in f32, for the DDPG actor and for a PPO torso whose f32
-block does not fit in shared memory beside the traces (the bench's
-256x256): the library of the torso says which (``ngk_block_actor``), and
-the launches count under ``*_block`` or ``*_ddpg`` names; its 64x64 torsos
-keep ``MeanActor`` (one thread per env, the actor block in shared memory).
-K11b (:mod:`.policy_rollout`) takes K6's design for every PPO torso.
-K6 refuses torsos of more than 768 hidden units, as the JAX kernel does.
+:func:`check_k6_block`); K6's bf16 option runs there on the tensor cores, so
+that option meets its twin to a stated tolerance, not bit for bit.  The
+launches of the DDPG actor count under ``*_ddpg`` names, those of a PPO
+torso whose f32 block alone leaves no room for the traces in shared memory
+(the bench's 256x256: the library says which, ``ngk_block_actor``) under
+``*_block`` names.  K11b (:mod:`.policy_rollout`) takes K6's design for
+every PPO torso.  K6 refuses torsos of more than 768 hidden units, as the
+JAX kernel does.
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ from . import _build
 from .gen_rollout import (
     BATT_INIT_SOC,
     F32,
+    MAX_SHARED_BYTES,
     bf16_operands,
     round_bf16,
     GRID_W,
@@ -84,7 +84,6 @@ if TYPE_CHECKING:
     from ..solvers.networks import ActorCritic, DDPGActor
 
 B_CAP, B_MAXP, B_EFF = 80.0, 44.0, 0.95
-MAX_SHARED_BYTES = 232_448           # dynamic shared memory one H100 block may use
 MAX_HIDDEN_SUM = 768                 # K6's torso limit (pallas_gen_policy_rollout.py:590-596)
 
 
@@ -101,7 +100,8 @@ class ActorWeights(NamedTuple):
     high: torch.Tensor  # (A, 1)
 
     def packed(self) -> torch.Tensor:
-        """One contiguous block in the order ``csrc/day_step.cuh`` reads it."""
+        """One contiguous block in the order of ``Cfg::WEIGHTS`` (the actor
+        part of K1/K2's block, ``ops/collect.py``)."""
         return torch.cat([x.reshape(-1) for x in self]).contiguous()
 
 
@@ -364,15 +364,6 @@ def policy_day_costs(rows, price_col, solar_col, pv_shift, *, dt, pv, batt):
     return GRID_W * torch.abs(g_cost) + W_BATT * (rows["dod"] if batt else 0.0)
 
 
-def _packed(weights: ActorWeights, lib) -> torch.Tensor:
-    """The actor block, checked against the layout the library was built for."""
-    block = weights.packed()
-    if block.numel() != lib.ngk_weights_size():
-        raise ValueError(f"actor block has {block.numel()} floats, the kernel library "
-                         f"expects {lib.ngk_weights_size()}")
-    return block
-
-
 def policy_kwargs(config: NanogridConfig) -> dict:
     return dict(N=config.num_chargers, batt=config.battery_system, **step_kwargs(config))
 
@@ -390,26 +381,18 @@ def check_policy_config(config: NanogridConfig, params: NanogridParams, kernel: 
 
 def policy_library(config, device, weights, hidden, actor, traces, name, bf16=False):
     """The library of the actor, the actor block in the layout that kernel
-    ``name`` reads, and its launch-count name: ``name`` with ``_block`` for a
-    PPO torso whose K5 takes the block-level design (``ngk_block_actor``),
-    ``_ddpg`` for the DDPG actor and ``_bf16`` for bf16 operands.  K6
-    (``gen_policy_multiday``) and K11b (``policy_day_rollout``) run K9's ring
-    block for every torso, K5 (``gen_policy_day``) for the block-design
-    torsos: :func:`k6_block`, checked by :func:`check_k6_block`.  K5's
-    ``MeanActor`` reads :func:`_packed`.  Raises a ``ValueError`` naming the
-    limit, before any launch, for a torso the design cannot hold."""
+    ``name`` reads, and its launch-count name: ``name`` with ``_ddpg`` for
+    the DDPG actor, ``_block`` for a PPO torso whose f32 block alone fills
+    shared memory (``ngk_block_actor``) and ``_bf16`` for bf16 operands.  K5
+    (``gen_policy_day``), K6 (``gen_policy_multiday``) and K11b
+    (``policy_day_rollout``) run K9's ring block for every torso: the block
+    of :func:`k6_block`, checked by :func:`check_k6_block`, which raises a
+    ``ValueError`` naming the limit, before any launch, for a torso the
+    design cannot hold."""
     lib = _build.library(config, device, hidden, actor)
-    block = bool(lib.ngk_block_actor())
-    tables = name == "policy_day_rollout"
-    if tables or name == "gen_policy_multiday" or (block and name == "gen_policy_day"):
-        check_k6_block(config, traces, lib, hidden, bf16, tables)
-        packed = k6_block(weights, lib, bf16)
-    else:
-        if 4 * (lib.ngk_weights_size() + trace_floats(config, traces)) > MAX_SHARED_BYTES:
-            raise ValueError(f"actor torso {hidden[0]}x{hidden[1]} and the traces need more than "
-                             f"{MAX_SHARED_BYTES} bytes of shared memory per block")
-        packed = _packed(weights, lib)
-    suffix = "_ddpg" if actor == "ddpg" else ("_block" if block else "")
+    check_k6_block(config, traces, lib, hidden, bf16, name == "policy_day_rollout")
+    packed = k6_block(weights, lib, bf16)
+    suffix = "_ddpg" if actor == "ddpg" else ("_block" if lib.ngk_block_actor() else "")
     return lib, packed, name + suffix + ("_bf16" if bf16 else "")
 
 

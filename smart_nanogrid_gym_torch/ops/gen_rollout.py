@@ -11,7 +11,9 @@ Replaces ``smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py``:
   (:mod:`.philox`), returning ``stats (2, B)``: Σ day return and Σ (day return)².
 
 On CUDA tensors the wrappers launch the hand-written kernels of
-``csrc/day_step.cuh`` (K7: one thread per env, the whole day in registers;
+``csrc/day_step.cuh`` (K7: 32 envs a block on one warp a charger, each
+thread copying its chargers' uniforms a few steps ahead into a ring in
+shared memory, K11a's block, its size checked by :func:`check_rbc_ring`;
 K8: below 32,768 envs an env on 4-32 lanes of a warp, a lane a charger,
 the Philox draws of each group of 4 chargers split over its 4 lanes, and
 one thread an env from there); on CPU tensors they run the plain twins
@@ -44,6 +46,7 @@ ARRIVAL_THRESHOLD = 0.6
 SOC_LOW, SOC_SPAN = 0.1, 0.8
 CAP_LOW, CAP_SPAN, DEFAULT_CAP = 15.0, 105.0, 40.0
 BATT_INIT_SOC = 0.5
+MAX_SHARED_BYTES = 232_448  # dynamic shared memory one H100 block may use
 
 F32 = torch.float32
 
@@ -291,6 +294,19 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(F32)
 
 
+def check_rbc_ring(config: NanogridConfig, traces: Traces, floats: int, kernel: str) -> None:
+    """Raise before the launch when the shared memory of ``kernel``'s RBC
+    ring block, ``floats`` before the traces (the library's number: K11a's
+    ``ngk_rbc_ring_floats``, its ring of one-step stages of the table rows,
+    or K7's ``ngk_gen_rbc_ring_floats``, of the uniform rows; and the
+    per-charger sums), and its traces exceed a block's."""
+    need = 4 * (floats + traces.rad_norm.numel() + 2 * config.steps_per_day)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"{config.num_chargers} chargers at {config.steps_per_day} steps a day need {need} bytes "
+                         f"of shared memory per block in {kernel}, more than {MAX_SHARED_BYTES}; "
+                         f"roll the day with the plain engine")
+
+
 # --------------------------------------------------------------------- K7 ---
 
 def gen_rbc_day_plain(config, traces: Traces, uniforms, pv_shift, batt_soc):
@@ -340,6 +356,7 @@ def gen_rbc_day(config: NanogridConfig, params: NanogridParams, uniforms: torch.
     rewards = torch.empty((T, B), dtype=F32, device=u.device)
     soc_final = torch.empty((N, B), dtype=F32, device=u.device)
     lib = _build.library(config, u.device)
+    check_rbc_ring(config, traces, lib.ngk_gen_rbc_ring_floats(), "gen_rbc_day")
     _build.launch(
         "gen_rbc_day", lib.ngk_gen_rbc_day,
         traces.price, traces.rad_norm, traces.rad_norm.numel(), traces.solar,

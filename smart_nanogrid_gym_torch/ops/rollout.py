@@ -8,7 +8,8 @@ state's seven day tables with :func:`state_tables` (``build_day_tables`` plus
 one time-major copy, torch operations before the launch), and the kernel of
 ``csrc/day_step.cuh`` (``rbc_day_rollout_kernel``) reads them: a block takes
 32 envs on one warp a charger, and each thread streams its charger's rows
-of the seven tables a few steps ahead into a ring in shared memory
+of the seven tables a few steps ahead into a ring in shared memory, K7's
+block and ring with table rows in place of the uniforms
 (:func:`check_rbc_ring` checks its size before the launch).  The RBC acts
 on the previous step's observation, only the charge branch exists (non-v2x
 configs) and the battery idles, so its DoD penalty is a per-env constant.
@@ -34,6 +35,7 @@ from .gen_rollout import (
     MAX_P,
     Traces,
     _require_rbc_config,
+    check_rbc_ring,
     idle_battery_dod_penalty,
     insufficiency_penalty,
     kernel_device,
@@ -42,7 +44,6 @@ from .gen_rollout import (
     rbc_day_rewards,
     sum_rows,
 )
-from .gen_policy_rollout import MAX_SHARED_BYTES
 from .param_guard import check_baked_params
 
 # the packed tables, in the order csrc/day_step.cuh's TableKind reads them
@@ -127,24 +128,13 @@ def rbc_day_rollout_plain(config: NanogridConfig, traces: Traces, st: StateTable
     return rewards, prev_col
 
 
-def check_rbc_ring(config: NanogridConfig, traces: Traces, lib) -> None:
-    """Raise before the launch when K11a's shared memory (the library's
-    ``ngk_rbc_ring_floats``: its ring of one-step table stages and the
-    per-charger sums) and its traces exceed a block's."""
-    need = 4 * (lib.ngk_rbc_ring_floats() + traces.rad_norm.numel() + 2 * config.steps_per_day)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(f"{config.num_chargers} chargers at {config.steps_per_day} steps a day need {need} bytes "
-                         f"of shared memory per block in rbc_day_rollout, more than {MAX_SHARED_BYTES}; "
-                         f"roll the day with the plain engine")
-
-
 def launch_rbc_day(config: NanogridConfig, traces: Traces, st: StateTables):
     """Launch K11a on tables already on the card; ``(rewards (T, B), soc_final (N, B))``."""
     T, N = config.steps_per_day, config.num_chargers
     st = st.checked()
     device, B = st.tables.device, st.pv_shift.shape[0]
     lib = _build.library(config, device)
-    check_rbc_ring(config, traces, lib)
+    check_rbc_ring(config, traces, lib.ngk_rbc_ring_floats(), "rbc_day_rollout")
     rewards = torch.empty((T, B), dtype=F32, device=device)
     soc_final = torch.empty((N, B), dtype=F32, device=device)
     _build.launch(

@@ -1,4 +1,4 @@
-"""Device time of the RBC day kernels K8 and K11a, and of the other day kernels of their libraries, on one CUDA card.
+"""Device time of the RBC day kernels K7, K8 and K11a, and of the other day kernels of their libraries, on one CUDA card.
 
 Run from the root of a checkout (it builds the kernels first):
 
@@ -17,16 +17,21 @@ artifact (4 chargers, 64x64), and K11b with the artifact and with the
 bench's 256x256 torso (biases +0.05, bench.py:403-414), each on the tables
 of a fresh (card reset) and of a continued state (a plain RBC day later).
 Per row the device milliseconds per launch by ``torch.profiler`` (the
-kernels whose name holds the row's kernel: any of K11b's, old or new, hold
-``policy_day_rollout``) over a few launches after a warm-up, and for K8 and
-K11a the rate they imply (env-steps/s, table bytes/s); K11b's rows also by
-CUDA events around bare launches of the block its wrapper packs.
+kernels whose name holds the row's kernel, so that a parent's design is
+timed too: any of K7's holds ``gen_rbc_day``, K5's ``gen_policy_day`` and
+K11b's ``policy_day_rollout``) over a few launches after a warm-up, and for
+K8, K11a and K7 the rate they imply (env-steps/s; K11a's table bytes/s,
+K7's of the uniforms it reads: :func:`k7_uniform_floats`); K7's, K5's and
+K11b's rows also by CUDA events around bare launches (K11b's of the block
+its wrapper packs).
 
-``--check`` first holds K8 and K11a against their plain twins with
+``--check`` first holds K8, K11a, K7 and K5 against their plain twins with
 ``torch.equal`` at the main path's shapes (K8 at B=4096 x 20 days and
 131,072 x 2 days; K11a on a fresh and a continued state at B=4096 and on a
-card reset at 131,072) and prints each one's max abs difference; it uses
-only the package's public functions, so it runs on a parent checkout too.
+card reset at 131,072; K7 on the bench config and on the artifact's 4-charger
+one, and K5 with the PPO artifact, at B=4096) and prints
+each one's max abs difference; it uses only the package's public functions,
+so it runs on a parent checkout too.
 
 ``--ring`` (this checkout only) also times K11a at both batches on
 libraries built from copies of the sources under ``build/rbc_variants/``
@@ -41,9 +46,13 @@ around bare launches queued back to back (``torch.cuda.Event``).  ``--stage``
 ``store_tables`` stages the next step's table rows by ``cp.async`` (K11a's
 4-byte asynchronous copies, waited for before the step's first barrier) in
 place of loads through registers, beside the package's, in turns (package,
-copy, copy, package), each checked to give the package's outputs.  The last
-line is one JSON object with the numbers, the card's name and power limit,
-and the root.
+copy, copy, package), each checked to give the package's outputs.  ``--sass``
+reads the 8-charger library's K7 and K11a instances by ``cuobjdump -sass``
+(for the root's package, so a parent too): each one's instructions, and
+those of its step loop (the longest backward branch) with the sum of their
+stall counts from the scheduler's control bits, the cycles a warp waits
+between issues whatever the data.  The last line is one JSON object with
+the numbers, the card's name and power limit, and the root.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -84,6 +94,40 @@ STAGE_ASYNC = """#pragma unroll
 # batch: days, about 2e7 env-steps a launch
 LANE_BATCHES = {4096: 200, 8192: 100, 12288: 70, 16384: 50, 20480: 40, 24576: 35, 32768: 25, 65536: 15,
                 131072: 10}
+
+
+def k7_uniform_floats(config, batch: int) -> int:
+    """The uniforms K7 must read of its ``(T, 5, N, B)`` input: the arrival
+    and SoC kinds every step, the capacity and the requested SoC where the
+    config draws them, and the departure only in the steps whose window is
+    open (``StepDraws::fill``, ``ops/gen_rollout.py::gen_rbc_step``)."""
+    T, dt = config.steps_per_day, config.time_interval
+    k4, k10, k1 = int(4 / dt), int(10 / dt), int(1 / dt)
+    kinds = 2 + int(config.different_battery_capacities) + int(config.requested_state_of_charge)
+    open_steps = sum(1 for t in range(T) if t + k4 < min(t + k10, T + k1))
+    return (kinds * T + open_steps) * config.num_chargers * batch
+
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;\s*/\* 0x[0-9a-f]{16} \*/")
+
+
+def sass_loop(text: str, kernel: str) -> dict[str, int]:
+    """``kernel``'s instructions in a library's ``cuobjdump -sass`` listing,
+    and those of its longest loop (the range of its longest backward branch)
+    with their stall counts summed (bits 41-44 of an instruction's second word)."""
+    body = text[text.index(f"Function : {kernel}"):]
+    body = body[:body.find("Function : ", 1) if "Function : " in body[1:] else len(body)].splitlines()
+    ins = []  # (address, instruction, stall cycles)
+    for line, control in zip(body, body[1:]):
+        m = SASS_LINE.search(line)
+        if m:
+            word = int(re.search(r"0x([0-9a-f]{16})", control).group(1), 16)
+            ins.append((int(m.group(1), 16), m.group(2), (word >> 41) & 0xF))
+    back = [(int(m.group(1), 16), a) for a, op, _ in ins if (m := re.search(r"BRA (?:`\(\S+\) )?0x([0-9a-f]+)", op))
+            and int(m.group(1), 16) < a]
+    head, tail = max(back, key=lambda r: r[1] - r[0])
+    loop = [x for x in ins if head <= x[0] <= tail]
+    return {"instructions": len(ins), "loop_instructions": len(loop), "loop_stall_cycles": sum(x[2] for x in loop)}
 
 
 def device_ms(torch, fn, kernel: str, repeats: int) -> float:
@@ -149,6 +193,7 @@ def main() -> None:
     parser.add_argument("--ring", action="store_true", help="K11a with fixed ring depths (this checkout only)")
     parser.add_argument("--lanes", action="store_true", help="K8 with fixed lanes an env (this checkout only)")
     parser.add_argument("--stage", action="store_true", help="K11b staging by cp.async (this checkout only)")
+    parser.add_argument("--sass", action="store_true", help="K7's and K11a's step loops by cuobjdump -sass")
     args = parser.parse_args()
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
@@ -160,7 +205,8 @@ def main() -> None:
 
     from smart_nanogrid_gym_torch.core import NanogridConfig, SmartNanogridTorch, fused_day_rollout, make_params
     from smart_nanogrid_gym_torch.ops import _build
-    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import actor_weights, gen_policy_day, policy_library
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
+        actor_weights, gen_policy_day, gen_policy_day_plain, policy_library)
     from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day, gen_rbc_multiday, kernel_traces
     from smart_nanogrid_gym_torch.ops.policy_rollout import launch_policy_day
     from smart_nanogrid_gym_torch.ops.rollout import launch_rbc_day, state_tables
@@ -202,6 +248,7 @@ def main() -> None:
     big = big.to(dev)
     art_w, big_w = actor_weights(art_cfg, ppo, dev), actor_weights(cfg, big, dev)
     table_bytes = {b: 4 * 7 * T * N * b for b in (BATCH, FULL_BATCH)}
+    uniform_bytes = 4 * k7_uniform_floats(cfg, BATCH)
 
     rows = {
         f"K8 gen_rbc_multiday B={BATCH} x 20 days": (
@@ -213,9 +260,9 @@ def main() -> None:
             lambda: launch_rbc_day(cfg, traces, tables[BATCH]), "rbc_day_rollout_kernel", 20, BATCH * T),
         f"K11a rbc_day_rollout B={FULL_BATCH}": (
             lambda: launch_rbc_day(cfg, traces, tables[FULL_BATCH]), "rbc_day_rollout_kernel", 10, FULL_BATCH * T),
-        f"K7 gen_rbc_day B={BATCH}": (lambda: gen_rbc_day(cfg, params, u, pv), "gen_rbc_day_kernel", 20, None),
+        f"K7 gen_rbc_day B={BATCH}": (lambda: gen_rbc_day(cfg, params, u, pv), "gen_rbc_day", 20, BATCH * T),
         f"K5 gen_policy_day 64x64 B={BATCH}": (
-            lambda: gen_policy_day(art_cfg, art_params, ppo, u4, pv), "gen_policy_day_kernel", 20, None),
+            lambda: gen_policy_day(art_cfg, art_params, ppo, u4, pv), "gen_policy_day", 20, None),
     }
     # K11b: (config, traces, weights, hidden, tables by state) of each torso
     k11b = {"policy_day_rollout 64x64": (art_cfg, art_traces, art_w, ppo.hidden, art_tables),
@@ -229,7 +276,16 @@ def main() -> None:
         fresh, _ = SmartNanogridTorch(cfg).reset_batch(params, BATCH, gen)
         continued, _ = fused_day_rollout(cfg, params, fresh, make_rbc_policy_fn(cfg), generator=gen)
         big_state, _ = SmartNanogridTorch(cfg).reset_batch(params, FULL_BATCH, gen)
-        checks = {f"K8 B={BATCH} x 20 days": (lambda: (gen_rbc_multiday(cfg, params, 20, 5, BATCH),),
+        from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day_plain
+
+        batt = torch.full_like(pv, 0.5)
+        checks = {f"K7 B={BATCH}": (lambda: gen_rbc_day(cfg, params, u, pv),
+                                    lambda: gen_rbc_day_plain(cfg, traces, u, pv, batt)),
+                  f"K7 4ch B={BATCH}": (lambda: gen_rbc_day(art_cfg, art_params, u4, pv),
+                                        lambda: gen_rbc_day_plain(art_cfg, art_traces, u4, pv, batt)),
+                  f"K5 64x64 B={BATCH}": (lambda: gen_policy_day(art_cfg, art_params, ppo, u4, pv),
+                                          lambda: gen_policy_day_plain(art_cfg, art_traces, art_w, u4, pv, batt)),
+                  f"K8 B={BATCH} x 20 days": (lambda: (gen_rbc_multiday(cfg, params, 20, 5, BATCH),),
                                               lambda: (gen_rbc_multiday_plain(cfg, traces, 20, 5, BATCH),)),
                   f"K8 B={FULL_BATCH} x 2 days": (lambda: (gen_rbc_multiday(cfg, params, 2, 13, FULL_BATCH),),
                                                   lambda: (gen_rbc_multiday_plain(cfg, traces, 2, 13, FULL_BATCH),))}
@@ -256,6 +312,12 @@ def main() -> None:
             b = BATCH if f"B={BATCH}" in name else FULL_BATCH
             result[name]["table_bytes_per_s"] = table_bytes[b] / ms * 1e3
             extra += f", tables read at {table_bytes[b] / ms * 1e-9:.3f} TB/s"
+        if "K7" in name:
+            result[name]["uniform_bytes_per_s"] = uniform_bytes / ms * 1e3
+            extra += f", the uniforms it reads ({uniform_bytes / 1e6:.2f} MB) at {uniform_bytes / ms * 1e-9:.3f} TB/s"
+        if name.startswith(("K7", "K5")):
+            result[name]["event_ms"] = event_ms(torch, call, repeats)
+            extra += f"; {result[name]['event_ms']:.4f} ms a call by CUDA events (wrapper included)"
         print(f"  {name}: {ms:.4f} device ms per launch{extra}")
     for label, (config, tr, w, hidden, by_state) in k11b.items():
         lib, block, count = policy_library(config, dev, w, hidden, "ppo", tr, "policy_day_rollout")
@@ -346,6 +408,14 @@ def main() -> None:
                 print(f"  K11b {label} {kind} state: loads {row['package']} ms, cp.async {row['cp.async']} ms "
                       f"(device, profiler); outputs identical")
                 result["stage"][f"{label} {kind}"] = row
+    if args.sass:
+        result["sass"] = {}
+        text = subprocess.run(["cuobjdump", "-sass", package._name], capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for label, name in (("K7", "gen_rbc_day"), ("K11a", "rbc_day_rollout_kernel")):
+            mangled = next(k for k in re.findall(r"Function : (\S+)", text) if name in k)
+            result["sass"][label] = sass_loop(text, mangled)
+            print(f"  {label} {mangled}: {result['sass'][label]}")
     print(json.dumps({"card": card, "root": root, "kernels": result}))
 
 

@@ -6,7 +6,8 @@ runs on a machine that has only PyTorch: ``python -m pytest
 tests/test_torch_cuda.py -m cuda``.  Batches of 300 leave a ragged last
 block of threads; the collection kernels and the block actor of K5 and K6
 are also held at 1, 33 and 8192 envs, bit for bit, K8 and K11a at 1 and
-300 envs off the 1 h grid, and K11b at 300 and 4096 envs at 0.25-1 h.
+300 envs off the 1 h grid, K11b at 300 and 4096 envs at 0.25-1 h, and K7
+and K5's 64x64 torso at 1 to 4133 envs at 0.25-2 h.
 """
 
 import numpy as np
@@ -103,10 +104,8 @@ def test_rbc_kernels_match_twins(cuda, name):
     traces = kernel_traces(params, cuda)
     u, pv = _inputs(config, 5, 300, cuda)
     reset_launch_counts()
-    rew, soc = gen_rbc_day(config, params, u, pv)
-    rew_p, soc_p = gen_rbc_day_plain(config, traces, u, pv, torch.full_like(pv, 0.5))
-    torch.testing.assert_close(rew, rew_p, rtol=2e-5, atol=1e-5)
-    torch.testing.assert_close(soc, soc_p, rtol=2e-5, atol=1e-5)
+    assert_equal_outputs(gen_rbc_day(config, params, u, pv),
+                         gen_rbc_day_plain(config, traces, u, pv, torch.full_like(pv, 0.5)), ("rewards", "soc_final"))
     stats = gen_rbc_multiday(config, params, 3, 17, 300)
     stats_p = gen_rbc_multiday_plain(config, traces, 3, 17, 300)
     assert_equal_outputs((stats,), (stats_p,), ("stats",))  # K8's lanes sum in the twin's order
@@ -122,13 +121,11 @@ def test_policy_kernels_match_twins(cuda, name):
     weights = actor_weights(config, net, cuda)
     u, pv = _inputs(config, 6, 300, cuda)
     reset_launch_counts()
-    out = gen_policy_day(config, params, net, u, pv)
-    out_p = gen_policy_day_plain(config, traces, weights, u, pv, torch.full_like(pv, 0.5))
-    for got, want in zip(out, out_p):
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    stats = gen_policy_multiday(config, params, net, 3, 17, 300)
-    stats_p = gen_policy_multiday_plain(config, traces, weights, 3, 17, 300)
-    torch.testing.assert_close(stats, stats_p, rtol=2e-4, atol=1e-2)
+    assert_equal_outputs(gen_policy_day(config, params, net, u, pv),
+                         gen_policy_day_plain(config, traces, weights, u, pv, torch.full_like(pv, 0.5)),
+                         ("rewards", "actions", "soc_final", "batt_final"))
+    assert_equal_outputs((gen_policy_multiday(config, params, net, 3, 17, 300),),
+                         (gen_policy_multiday_plain(config, traces, weights, 3, 17, 300),), ("stats",))
     assert launch_counts["gen_policy_day"] == 1 and launch_counts["gen_policy_multiday"] == 1
 
 
@@ -512,6 +509,73 @@ def test_rbc_lane_and_ring_kernels_equal_twins(cuda, name, batch):
                              rbc_day_rollout_plain(config, traces, state_tables(config, params, state)),
                              ("rewards", "soc_final"))
     assert dict(launch_counts) == {"gen_rbc_multiday": 1, "rbc_day_rollout": 2}
+
+
+# K7 on its ring block and K5 at 64x64 on the block actor: one env, a ragged
+# block, the bench batch and a ragged batch past it (130 blocks)
+DAY_BATCHES = (1, 300, 4096, 4133)
+# K7's configs: the layouts above, and the 4-charger b-pv sparse 1 h config
+# of the paired evaluation (chip_smoke.py's main path: a 4-warp ring block)
+K7_CONFIGS = {**RBC_LAYOUT_CONFIGS, **RBC_CONFIGS, "b-pv-sparse-4ch-1h": POLICY_CONFIGS["b-pv-4ch"]}
+
+
+@pytest.mark.parametrize("batch", DAY_BATCHES)
+@pytest.mark.parametrize("name", list(K7_CONFIGS))
+def test_k7_ring_kernel_equals_twin(cuda, name, batch):
+    """K7 on K11a's ring block at 0.25, 0.5, 1 and 2 h with 1, 4, 5, 6 and 8
+    chargers: rewards and soc_final ``torch.equal`` to the twin's from
+    random starting batteries, one ``gen_rbc_day`` launch a call; the
+    library's ring is the mirror's (``RbcRing<N, 5>``)."""
+    from smart_nanogrid_gym_torch.ops import _build
+
+    from test_torch_rbc_block import KINDS, rbc_ring
+
+    config = K7_CONFIGS[name]
+    params = make_params(config, torch.float32, cuda)
+    lib = _build.library(config, cuda)
+    assert (lib.ngk_gen_rbc_ring_depth(), lib.ngk_gen_rbc_ring_floats()) == rbc_ring(config.num_chargers, KINDS)[1:]
+    u, pv = _inputs(config, 8, batch, cuda)
+    batt = torch.rand(batch, generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    reset_launch_counts()
+    got = gen_rbc_day(config, params, u, pv, batt)
+    assert dict(launch_counts) == {"gen_rbc_day": 1}
+    assert_equal_outputs(got, gen_rbc_day_plain(config, kernel_traces(params, cuda), u, pv, batt),
+                         ("rewards", "soc_final"))
+
+
+K5_64_CONFIGS = {
+    "b-pv-4ch-15min": NanogridConfig(num_chargers=4, time_interval=0.25),
+    "b-pv-8ch-30min": NanogridConfig(num_chargers=8, time_interval=0.5),
+    "v2x-b-pv-8ch-15min": NanogridConfig(vehicle_to_everything=True, time_interval=0.25),
+    "v2x-reqsoc-4ch-30min": NanogridConfig(num_chargers=4, pv_system=False, battery_system=False,
+                                           vehicle_to_everything=True, penalty_mode="dense",
+                                           requested_state_of_charge=True, time_interval=0.5),
+    "b-pv-4ch-1h": POLICY_CONFIGS["b-pv-4ch"],
+    "v2x-b-pv-8ch-1h": POLICY_CONFIGS["v2x-b-pv"],
+    "b-pv-6ch-2h": NanogridConfig(num_chargers=6, time_interval=2.0, penalty_mode="on_departure"),
+}
+
+
+@pytest.mark.parametrize("batch", DAY_BATCHES)
+@pytest.mark.parametrize("name", list(K5_64_CONFIGS))
+def test_k5_64x64_block_kernel_equals_twin(cuda, name, batch):
+    """K5 with the 64x64 PPO torso on the block actor at 0.25, 0.5, 1 and 2
+    h, v2x included (chargers alternate charge and discharge): rewards,
+    actions, soc_final and batt_final ``torch.equal`` to the twin's from
+    random starting batteries, one ``gen_policy_day`` launch a call."""
+    config = K5_64_CONFIGS[name]
+    params = make_params(config, torch.float32, cuda)
+    net = shifted_actor(config, 17, cuda)
+    u, pv = _inputs(config, 10, batch, cuda)
+    batt = torch.rand(batch, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    reset_launch_counts()
+    got = gen_policy_day(config, params, net, u, pv, batt)
+    assert dict(launch_counts) == {"gen_policy_day": 1}
+    want = gen_policy_day_plain(config, kernel_traces(params, cuda), actor_weights(config, net, cuda), u, pv, batt)
+    assert_equal_outputs(got, want, ("rewards", "actions", "soc_final", "batt_final"))
+    if config.vehicle_to_everything and batch >= 300:
+        chargers = got[1][:, :config.num_chargers]
+        assert bool((chargers > 0).any() and (chargers < 0).any())
 
 
 @pytest.mark.parametrize("batch", [8192, 12289, 32768])

@@ -82,9 +82,9 @@ def test_k11b_layout_keeps_the_draw_layouts_ring(name, interval):
 def test_k11b_wrapper_hands_the_kernel_k6_block(monkeypatch, name):
     """With the library and the launch replaced, ``policy_day_rollout``
     launches ``ngk_policy_day_rollout`` once with the actor in
-    ``k6_block``'s f32 layout (not the packed MeanActor block) for every
-    torso, counted as ``policy_day_rollout`` or, for the torso whose K5
-    takes the block design, ``policy_day_rollout_block``."""
+    ``k6_block``'s f32 layout (not ``ActorWeights.packed``) for every
+    torso, counted as ``policy_day_rollout`` or, for the torso whose f32
+    block alone fills shared memory, ``policy_day_rollout_block``."""
     from smart_nanogrid_gym_torch.ops import _build, policy_rollout
 
     config, actor, hidden = SHAPES[name]

@@ -353,7 +353,6 @@ class _Recorder:
         fake_bf16 = _fake_library(w, True)
         self.lib = SimpleNamespace(
             ngk_block_actor=lambda: int(block_actor),
-            ngk_weights_size=lambda: w.packed().numel(),
             ngk_k6_pad=fake.ngk_k6_pad,
             ngk_k6_weights_size=lambda bf16: (fake_bf16 if bf16 else fake).ngk_k6_weights_size(bf16),
             ngk_k6_smem_floats=lambda bf16: smem_floats,
@@ -402,7 +401,7 @@ def test_k5_block_library_packs_and_checks_through_k6_block(monkeypatch, name):
     assert label == "gen_policy_day" + ("_ddpg" if actor == "ddpg" else "_block") and fn == "ngk_gen_policy_day"
     block = args[9]
     assert torch.equal(block, k6_block(w, rec.lib, False))
-    assert not torch.equal(block, w.packed())  # not MeanActor's layout
+    assert not torch.equal(block, w.packed())  # not K1/K2's layout
     traces = kernel_traces(params, CPU)
     over = MAX_SHARED_BYTES // 4 - trace_floats(config, traces) + 1
     rec, *_ = _record_wrapper(monkeypatch, name, block_actor=True, smem_floats=over)
@@ -413,10 +412,12 @@ def test_k5_block_library_packs_and_checks_through_k6_block(monkeypatch, name):
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_k6_packs_the_64x64_torso_for_its_block_kernel(monkeypatch, bf16):
-    """K6 with the 64x64 PPO torso, in a library whose K5 keeps
-    MeanActor, packs through ``k6_block`` (f32 ring layout or bf16 fragments)
-    all the same, under the plain launch name; K5 there keeps MeanActor's
-    packed block."""
+    """K6 with the 64x64 PPO torso (``ngk_block_actor`` 0) packs through
+    ``k6_block`` (f32 ring layout or bf16 fragments) under the plain launch
+    name, and so does K5 (f32: it has no bf16 option), whose launch gets the
+    ring layout, not ``ActorWeights.packed``; a library whose K5 shared memory
+    and traces exceed a block's is refused by ``check_k6_block``, naming
+    ``gen_policy_day``, before any launch."""
     from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day, gen_policy_multiday
 
     mm = BF16 if bf16 else torch.float32
@@ -426,8 +427,16 @@ def test_k6_packs_the_64x64_torso_for_its_block_kernel(monkeypatch, bf16):
     (label, fn, args), = rec.calls
     assert label == "gen_policy_multiday" + ("_bf16" if bf16 else "") and fn == "ngk_gen_policy_multiday"
     assert torch.equal(args[8], k6_block(w, rec.lib, bf16)) and args[-1] == int(bf16)
-    if not bf16:
-        T, N = config.steps_per_day, config.num_chargers
-        gen_policy_day(config, params, net, torch.rand((T, 5, N, 3)), torch.full((3,), 0.4))
-        label, _, args = rec.calls[-1]
-        assert label == "gen_policy_day" and torch.equal(args[9], w.packed())
+    T, N = config.steps_per_day, config.num_chargers
+    u, pv = torch.rand((T, 5, N, 3), generator=torch.Generator().manual_seed(2)), torch.full((3,), 0.4)
+    gen_policy_day(config, params, net, u, pv)
+    label, fn, args = rec.calls[-1]
+    w32 = actor_weights(config, net, CPU)
+    assert (label, fn) == ("gen_policy_day", "ngk_gen_policy_day") and len(rec.calls) == 2
+    assert torch.equal(args[9], k6_block(w32, rec.lib, False)) and not torch.equal(args[9], w32.packed())
+    traces = kernel_traces(params, CPU)
+    over = MAX_SHARED_BYTES // 4 - trace_floats(config, traces) + 1
+    rec, *_ = _record_wrapper(monkeypatch, "ppo-4ch-64x64", block_actor=False, smem_floats=over, mlp_dtype=mm)
+    with pytest.raises(ValueError, match="block actor of gen_policy_multiday and gen_policy_day"):
+        gen_policy_day(config, params, net, u, pv)
+    assert not rec.calls

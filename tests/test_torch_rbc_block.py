@@ -14,7 +14,9 @@ their twins there); what decides their layout is mirrored here:
   block drawn by one lane only.
 - K11a keeps a ring of one-step stages of the day tables in shared memory;
   its size is what the library reports (``ngk_rbc_ring_floats``), checked by
-  ``ops/rollout.py::check_rbc_ring`` before the launch.
+  ``ops/rollout.py::check_rbc_ring`` before the launch.  K7 runs the same
+  block and ring with the five uniform kinds a charger-step in place of the
+  seven tables (``ngk_gen_rbc_ring_floats``), checked by the same function.
 """
 
 from types import SimpleNamespace
@@ -29,7 +31,7 @@ from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
 from smart_nanogrid_gym_torch.ops.philox import day_uniforms, philox4x32_10, to_uniform
 
 CPU = torch.device("cpu")
-TABLES = 7
+TABLES, KINDS = 7, 5  # rows a charger-step: K11a's tables, K7's uniform kinds
 RBC_ENVS, RBC_MAX_WARPS, RBC_RING_BYTES, RBC_MAX_DEPTH = 32, 8, 32 * 1024, 4
 
 
@@ -185,18 +187,21 @@ def test_k8_layout_fills_the_card_at_the_bench_batch():
     assert [k8_layout(n, True, False)[1:3] for n in (1, 5, 16, 17, 40)] == [(4, 1), (8, 1), (16, 1), (32, 1), (32, 2)]
 
 
-def rbc_ring(N: int) -> tuple[int, int, int]:
-    """``RbcRing<N>``: warps of a block, steps in flight, floats before the traces."""
+def rbc_ring(N: int, rows: int = TABLES) -> tuple[int, int, int]:
+    """``RbcRing<N, rows>``: charger warps of a block, steps in flight, floats before the traces."""
     warps = min(N, RBC_MAX_WARPS)
-    step = TABLES * N * RBC_ENVS
+    step = rows * N * RBC_ENVS
     depth = min(max(RBC_RING_BYTES // (4 * step), 2), RBC_MAX_DEPTH)
     return warps, depth, depth * step + 2 * 2 * N * RBC_ENVS
 
 
 def _ring_library(N, floats=None):
-    warps, depth, ring = rbc_ring(N)
+    """The library's ring numbers of K11a and K7 (``floats`` in place of both sizes)."""
+    (_, depth, ring), (_, gen_depth, gen_ring) = rbc_ring(N), rbc_ring(N, KINDS)
     return SimpleNamespace(ngk_rbc_ring_floats=lambda: ring if floats is None else floats,
-                           ngk_rbc_ring_depth=lambda: depth, ngk_rbc_day_rollout="ngk_rbc_day_rollout")
+                           ngk_rbc_ring_depth=lambda: depth, ngk_rbc_day_rollout="ngk_rbc_day_rollout",
+                           ngk_gen_rbc_ring_floats=lambda: gen_ring if floats is None else floats,
+                           ngk_gen_rbc_ring_depth=lambda: gen_depth, ngk_gen_rbc_day="ngk_gen_rbc_day")
 
 
 @pytest.mark.parametrize("n", [1, 4, 8])
@@ -210,7 +215,7 @@ def test_k11a_ring_plan_fits_a_block(n, interval):
     traces = kernel_traces(make_params(config, torch.float32, "cpu"), CPU)
     warps, depth, ring = rbc_ring(n)
     assert (warps, depth) == ({1: 1, 4: 4, 8: 8}[n], 4)
-    check_rbc_ring(config, traces, _ring_library(n))
+    check_rbc_ring(config, traces, _ring_library(n).ngk_rbc_ring_floats(), "rbc_day_rollout")
     need = 4 * (ring + traces.rad_norm.numel() + 2 * config.steps_per_day)
     assert 6 * need <= MAX_SHARED_BYTES
 
@@ -239,4 +244,51 @@ def test_k11a_wrapper_checks_the_ring_before_the_launch(monkeypatch):
     monkeypatch.setattr(_build, "library", lambda *a, **k: _ring_library(8, room + 1))
     with pytest.raises(ValueError, match=f"{MAX_SHARED_BYTES + 4} bytes"):
         rollout.launch_rbc_day(config, traces, st)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("n", [1, 4, 8])
+@pytest.mark.parametrize("interval", [2.0, 1.0, 0.5, 0.25])
+def test_k7_ring_plan_fits_a_block(n, interval):
+    """K7's ring, K11a's block with five uniform rows a charger-step
+    (``RbcRing<N, 5>``): a warp a charger and a sum warp, 4 steps in flight, 5/7 of K11a's
+    stage; with its sums and traces it passes ``check_rbc_ring`` for T in
+    {12, 24, 48, 96}, seven blocks and more an SM."""
+    from smart_nanogrid_gym_torch.ops.gen_rollout import check_rbc_ring
+
+    config = NanogridConfig(num_chargers=n, time_interval=interval)
+    traces = kernel_traces(make_params(config, torch.float32, "cpu"), CPU)
+    warps, depth, ring = rbc_ring(n, KINDS)
+    assert (warps, depth) == ({1: 1, 4: 4, 8: 8}[n], 4)
+    assert ring - 2 * 2 * n * RBC_ENVS == depth * KINDS * n * RBC_ENVS
+    assert 7 * (ring - 2 * 2 * n * RBC_ENVS) == 5 * (rbc_ring(n)[2] - 2 * 2 * n * RBC_ENVS)
+    check_rbc_ring(config, traces, _ring_library(n).ngk_gen_rbc_ring_floats(), "gen_rbc_day")
+    need = 4 * (ring + traces.rad_norm.numel() + 2 * config.steps_per_day)
+    assert 7 * need <= MAX_SHARED_BYTES
+
+
+def test_k7_wrapper_checks_the_ring_before_the_launch(monkeypatch):
+    """With the library and the launch replaced: a ring that fits launches
+    ``gen_rbc_day`` once on the explicit uniforms; one a float too large
+    raises, naming the bytes and the kernel, and launches nothing."""
+    from smart_nanogrid_gym_torch.ops import _build, gen_rollout
+
+    config = NanogridConfig(num_chargers=8, time_interval=0.25)
+    params = make_params(config, torch.float32, "cpu")
+    traces = kernel_traces(params, CPU)
+    u = torch.rand((96, 5, 8, 5), generator=torch.Generator().manual_seed(3))
+    pv = torch.full((5,), 0.6)
+    calls = []
+    monkeypatch.setattr(gen_rollout, "kernel_device", lambda t: True)
+    monkeypatch.setattr(_build, "check_f32", lambda t, name: t)
+    monkeypatch.setattr(_build, "launch", lambda name, fn, *args, device: calls.append((name, fn, args)))
+    monkeypatch.setattr(_build, "library", lambda *a, **k: _ring_library(8))
+    rewards, soc_final = gen_rollout.gen_rbc_day(config, params, u, pv)
+    (name, fn, args), = calls
+    assert (name, fn) == ("gen_rbc_day", "ngk_gen_rbc_day")
+    assert args[4] is u and rewards.shape == (96, 5) and soc_final.shape == (8, 5)
+    room = MAX_SHARED_BYTES // 4 - traces.rad_norm.numel() - 2 * 96
+    monkeypatch.setattr(_build, "library", lambda *a, **k: _ring_library(8, room + 1))
+    with pytest.raises(ValueError, match=f"{MAX_SHARED_BYTES + 4} bytes of shared memory per block in gen_rbc_day"):
+        gen_rollout.gen_rbc_day(config, params, u, pv)
     assert len(calls) == 1
