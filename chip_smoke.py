@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's evaluation, training and stateful-env paths once on a CUDA card.
+"""Drive the PyTorch port's evaluation, training and stateful-env paths and its CLIs once on a CUDA card.
 
 Run from the root of the repository, on a machine with one NVIDIA card and
 the CUDA toolkit:
@@ -7,7 +7,7 @@ the CUDA toolkit:
 
 It builds the hand-written kernels K1-K11 from ``smart_nanogrid_gym_torch/csrc``
 with nvcc (one process per library, all at once), holds each against its
-plain-PyTorch twin on the card, and drives five paths through their user
+plain-PyTorch twin on the card, and drives six paths through their user
 entry points, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -40,7 +40,17 @@ just after:
   K11b, the DDPG artifact through K6 in bf16, PPO training with
   ``update_matmul_dtype=torch.bfloat16`` (50 updates, K2 + K3 bf16, and two
   ``env``-scheme updates, K4 bf16) and DDPG training (30 updates, K9 + K10
-  bf16), and each new row timed against its f32 counterpart.
+  bf16), and each new row timed against its f32 counterpart;
+- the CLIs through their ``main(argv)`` (phases 29-32, outputs under
+  ``build/chip_smoke_cli/``): ``train_ppo --impl kernel --guard`` at B=4096
+  (K2 + K3 once per update, no recovery, 2 epochs + ``--resume`` to 3
+  ``torch.equal`` to the straight run, the CLI's env-steps/s with and without
+  the guard), ``train_ddpg --impl kernel`` (K9 seeded + K10), ``evaluate
+  --models-root --at-scale 20`` over those runs (K6 once per checkpoint) and
+  with the PPO artifact (its at-scale figure equal to a direct
+  ``evaluate_policy_at_scale`` call, its same-day mean above the RBC's),
+  ``predict --with-rbc`` with the artifact (28-key JSON) and ``visualize``
+  (the PNGs only where matplotlib is installed; the HTML explorer always).
 
 It checks the launch counts (each training sweep, K3, K4 and K10, is one
 cooperative launch per update), the statistics of the in-kernel draws
@@ -68,9 +78,12 @@ ptxas's registers and spills), and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -135,6 +148,7 @@ BIG_ROW_DAYS = 1000  # the bench row's days
 SMALL_ROW_DAYS = 2500  # the bench row pallas_gen_policy_multiday (bench.py:394-401): 64x64, 8ch
 ROW_SECONDS = 5.0  # a bench row that would take longer on its first run runs fewer days
 BF16_TRAIN_UPDATES = 30  # the bf16 DDPG training run
+CLI_UPDATES = 5  # updates an epoch of phase 29's train_ppo runs
 # days of the new K6 rows where phase 24 times them against their twins
 NEW_ROW_DAYS = {"gen_policy_multiday_bf16": 4, "gen_policy_multiday_block": 2, "gen_policy_multiday_block_bf16": 2,
                 "gen_policy_multiday_ddpg_bf16": 2}
@@ -1832,6 +1846,184 @@ def bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_a
     return device_times, instances
 
 
+def run_cli(main, argv):
+    """``main(argv)`` of a CLI with its standard output captured (and echoed
+    with a prefix); returns ``(result, output)``."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    for line in out.getvalue().splitlines():
+        print(f"  | {line}")
+    return result, out.getvalue()
+
+
+def last_json(output: str) -> dict:
+    """The last line of a CLI's output that is one JSON object."""
+    return json.loads([line for line in output.splitlines() if line.startswith("{")][-1])
+
+
+def cli_launches(label: str, fn):
+    """``fn()`` with the launch counts set to 0 just before it and read just after."""
+    from smart_nanogrid_gym_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    print(f"{label} launches: {counts}")
+    return result, counts
+
+
+def cli_train_ppo_path(root, card):
+    """Phase 29, ``train_ppo`` through ``main(argv)`` on the bench config at
+    B=4096 with ``--impl kernel --guard``, 3 epochs of CLI_UPDATES updates:
+    K2 and K3 once per update, no recovery, a 2-epoch run resumed to 3 equal
+    to the straight run (params, Adam moments, batteries), a progress.csv row
+    per epoch, and the CLI's env-steps/s beside a run without the guard."""
+    from smart_nanogrid_gym_torch.tools import train_ppo
+    from smart_nanogrid_gym_torch.utils import guard as guard_module
+
+    def argv(models, epochs, *extra):
+        return ["--variant", "b-pv", "--num-chargers", "8", "--batch", str(BENCH_BATCH), "--epochs", str(epochs),
+                "--episodes-per-epoch", str(CLI_UPDATES * BENCH_BATCH), "--impl", "kernel", "--device", "cuda",
+                "--seed", "0", "--models-dir", os.path.join(root, models), *extra]
+
+    guards = []
+
+    class RecordedGuard(guard_module.TrainGuard):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            guards.append(self)
+
+    original, guard_module.TrainGuard = guard_module.TrainGuard, RecordedGuard
+    try:
+        (straight, out), counts = cli_launches("phase 29 train_ppo (3 epochs)",
+                                               lambda: run_cli(train_ppo.main, argv("runs", 3, "--guard")))
+        updates = 3 * CLI_UPDATES
+        check(counts == {"ppo_collect_day_seeded": updates, "ppo_sweep_streamed": updates},
+              f"phase 29: launch counts {counts} are not 1 K2 + 1 K3 launch per update ({updates} updates)")
+        check(len(guards) == 1 and guards[0].recoveries == 0, "phase 29: the NaN guard recovered")
+        (_, _), first = cli_launches("phase 29 train_ppo (2 epochs)",
+                                     lambda: run_cli(train_ppo.main, argv("resume", 2, "--guard")))
+        (resumed, _), second = cli_launches("phase 29 train_ppo --resume (to 3 epochs)",
+                                            lambda: run_cli(train_ppo.main, argv("resume", 3, "--guard", "--resume")))
+    finally:
+        guard_module.TrainGuard = original
+    check(first.get("ppo_sweep_streamed", 0) + second.get("ppo_sweep_streamed", 0) == updates,
+          "phase 29: the resumed run reran or skipped updates")
+    pairs = list(zip(resumed.params + resumed.opt_state.mu + resumed.opt_state.nu + [resumed.batt_soc],
+                     straight.params + straight.opt_state.mu + straight.opt_state.nu + [straight.batt_soc]))
+    check(all(torch.equal(a, b) for a, b in pairs) and resumed.opt_state.count == straight.opt_state.count,
+          "phase 29: the resumed run does not equal the straight run")
+    print(f"phase 29 2 epochs + --resume to 3: params, Adam moments ({resumed.opt_state.count} steps) and batteries "
+          f"torch.equal to the straight run at B={BENCH_BATCH} (--impl kernel)")
+    run = os.path.join(root, "runs", "PPO-b-pv-bounded-sparse-8ch-1.0h")
+    with open(os.path.join(run, "logs", "progress.csv")) as fp:
+        rows = fp.read().splitlines()
+    check(len(rows) == 1 + 3 and rows[0].startswith("step,"), f"phase 29: progress.csv has {len(rows)} lines")
+    guarded = last_json(out)["steps_per_sec"]
+    (_, plain_out), _ = cli_launches("phase 29 train_ppo without --guard (3 epochs)",
+                                     lambda: run_cli(train_ppo.main, argv("unguarded", 3)))
+    unguarded = last_json(plain_out)["steps_per_sec"]
+    per_update = BENCH_BATCH * 24
+    print(f"phase 29 train_ppo --impl kernel at B={BENCH_BATCH}, 3 epochs x {CLI_UPDATES} updates: CLI "
+          f"{guarded:.1f} env-steps/s with --guard = {per_update / guarded * 1e3:.3f} ms per update, "
+          f"{unguarded:.1f} without = {per_update / unguarded * 1e3:.3f} ms per update (epoch checkpoints "
+          f"included) on {card}")
+    return counts
+
+
+def cli_train_ddpg_path(root, card):
+    """Phase 30, ``train_ddpg --impl kernel`` at B=4096 on the bench config, 2
+    epochs of 2 updates: K9 seeded and K10 once per update."""
+    from smart_nanogrid_gym_torch.tools import train_ddpg
+
+    argv = ["--variant", "b-pv", "--num-chargers", "8", "--batch", str(BENCH_BATCH), "--epochs", "2",
+            "--episodes-per-epoch", str(2 * BENCH_BATCH), "--impl", "kernel", "--device", "cuda",
+            "--models-dir", os.path.join(root, "runs")]
+    (state, out), counts = cli_launches("phase 30 train_ddpg", lambda: run_cli(train_ddpg.main, argv))
+    check(counts == {"ddpg_collect_day_seeded": 4, "ddpg_sweep": 4},
+          f"phase 30: launch counts {counts} are not 1 K9 + 1 K10 launch per update (4 updates)")
+    check(state.update_step == 4 and math.isfinite(last_json(out)["critic_loss"]), "phase 30: training state")
+    rate = last_json(out)["steps_per_sec"]
+    print(f"phase 30 train_ddpg --impl kernel at B={BENCH_BATCH}, 2 epochs x 2 updates: CLI {rate:.1f} env-steps/s "
+          f"= {BENCH_BATCH * 24 / rate * 1e3:.3f} ms per update (epoch checkpoints included) on {card}")
+    return counts
+
+
+def cli_evaluate_path(root, art_cfg, art_params, artifact):
+    """Phase 31, ``evaluate``: ``--models-root`` over phases 29-30's runs
+    with ``--at-scale 20`` (K6 once per checkpoint, PPO and DDPG), then the
+    committed PPO artifact, whose at-scale figure equals a direct
+    ``evaluate_policy_at_scale`` call and whose same-day mean beats the RBC's."""
+    from smart_nanogrid_gym_torch.solvers.evaluator import evaluate_policy_at_scale
+    from smart_nanogrid_gym_torch.tools import evaluate
+
+    argv = ["--variant", "b-pv", "--num-chargers", "8", "--days", "100", "--device", "cuda",
+            "--models-root", os.path.join(root, "runs"), "--at-scale", "20"]
+    (results, out), counts = cli_launches("phase 31 evaluate --models-root", lambda: run_cli(evaluate.main, argv))
+    report = json.loads(out[out.index("{"):])
+    scaled = [name for name in report if name.endswith("(at-scale)")]
+    check(len(scaled) == 2 and counts == {"gen_policy_multiday": 1, "gen_policy_multiday_ddpg": 1},
+          f"phase 31: at-scale rows {scaled} with launches {counts} are not one K6 per checkpoint")
+    check(all(math.isfinite(report[n]["mean_day_return"]) for n in scaled) and len(results) == 4,
+          "phase 31: evaluation of the trained runs")
+    run = os.path.join(ROOT, "artifacts", "PPO-b-pv-bounded-sparse-4ch-1h")
+    argv = ["--variant", "b-pv", "--num-chargers", "4", "--days", "256", "--device", "cuda", "--models-dir", run,
+            "--at-scale", "20"]
+    (results, out), art_counts = cli_launches("phase 31 evaluate (PPO artifact)", lambda: run_cli(evaluate.main, argv))
+    report = json.loads(out[out.index("{"):])
+    direct = evaluate_policy_at_scale(art_cfg, art_params, artifact, num_days=20, seed=0)
+    got = report["PPO-b-pv-bounded-sparse-4ch-1h@108134400 (at-scale)"]
+    check(got == direct, f"phase 31: the CLI's at-scale figure {got} is not evaluate_policy_at_scale's {direct}")
+    ppo, rbc = (float(np.mean(results[n])) for n in ("PPO-b-pv-bounded-sparse-4ch-1h@108134400", "RBC"))
+    print(f"phase 31 PPO artifact: at-scale (20 days x {BENCH_BATCH}) {got['mean_day_return']:.4f}, equal to "
+          f"evaluate_policy_at_scale; same 256 days: PPO {ppo:.4f}, RBC {rbc:.4f}")
+    check(ppo > rbc and art_counts == {"gen_policy_multiday": 1}, "phase 31: the artifact should beat the RBC")
+    return {name: counts.get(name, 0) + art_counts.get(name, 0) for name in {*counts, *art_counts}}
+
+
+def cli_predict_path(root):
+    """Phase 32, ``predict`` with the PPO artifact and ``--with-rbc`` on the
+    card (28-key JSON per policy), then ``visualize`` on its JSON.  The PNGs
+    need matplotlib; where it is not installed the phase says so and renders
+    visualize's HTML explorer alone."""
+    import importlib.util
+
+    from smart_nanogrid_gym_torch.tools import predict, visualize
+
+    plots = importlib.util.find_spec("matplotlib") is not None
+    out_dir = os.path.join(root, "predict")
+    argv = ["--variant", "b-pv", "--num-chargers", "4", "--device", "cuda", "--out", out_dir, "--with-rbc",
+            "--models-dir", os.path.join(ROOT, "artifacts", "PPO-b-pv-bounded-sparse-4ch-1h")]
+    if plots:
+        argv += ["--plot", os.path.join(root, "bars.png")]
+    else:
+        print("phase 32: matplotlib is not installed, so predict runs without --plot and "
+              "visualize renders its HTML explorer only")
+    (_, out), counts = cli_launches("phase 32 predict", lambda: run_cli(predict.main, argv))
+    day_returns = last_json(out)["day_returns"]
+    check(set(day_returns) == {"PPO-b-pv-bounded-sparse-4ch-1h@108134400", "RBC"}
+          and all(math.isfinite(v) for v in day_returns.values()), f"phase 32: day returns {day_returns}")
+    files = sorted(f for f in os.listdir(os.path.join(out_dir, "RL", "single_prediction_files"))
+                   if f.endswith("-prediction_results.json"))
+    check(len(files) == 2, f"phase 32: prediction files {files}")
+    path = os.path.join(out_dir, "RL", "single_prediction_files", files[0])
+    with open(path) as fp:
+        results = json.load(fp)
+    check(len(results) == 28, f"phase 32: {len(results)} keys in {files[0]}, not 28")
+    html = os.path.join(root, "day.html")
+    if plots:
+        run_cli(visualize.main, ["--results", path, "--out", os.path.join(root, "day.png"), "--html", html])
+    else:
+        visualize.render_html(results, html)
+    check(os.path.getsize(html) > 10_000 and len(visualize.build_panels(results)) >= 8, "phase 32: visualize")
+    print(f"phase 32 predict on the card: {day_returns}; {files} with 28 keys; visualize wrote "
+          f"{os.path.getsize(html)} bytes of HTML{' and the PNGs' if plots else ''}")
+    return counts
+
+
 def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days, philox):
     """The least time of each kernel at the shape phase 7/12/19/24 times it;
     a Philox block takes ``philox`` lane instructions by pipe."""
@@ -2280,6 +2472,16 @@ def main() -> None:
               f"only) {library[name]:.4f} ms per day, the kernel {times[name][1]:.4f} ms (wrapper, whole day) "
               f"on {card}")
 
+    # ---- phases 29-32: the CLIs through their main(argv) on the card ----
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 29")
+    cli_root = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(cli_root, ignore_errors=True)
+    ppo_cli = cli_train_ppo_path(cli_root, card)
+    ddpg_cli = cli_train_ddpg_path(cli_root, card)
+    eval_cli = cli_evaluate_path(cli_root, art_cfg, art_params, artifact)
+    cli_predict_path(cli_root)
+    cli_counts = {**ppo_cli, **ddpg_cli, **eval_cli}
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
     check(not jax_modules, f"the port loaded JAX modules: {jax_modules[:5]}")
@@ -2310,6 +2512,8 @@ def main() -> None:
             "library_ms": library.get(name), "shape": times[name][0], "kernel": instances.get(name),
             "device_ms": device_times.get(name),
         })
+        if name in cli_counts:  # the kernel's launches in phases 29-31, the CLIs' runs
+            kernels[-1]["cli_launches"] = cli_counts[name]
         if name in design:
             kernels[-1]["design"] = design[name]
             kernels[-1]["ptxas"] = ptxas_line(design_libraries.get(name, built[0][0]), instances[name])

@@ -142,10 +142,19 @@ COLLECT_CONFIGS = {
     "basic-4ch-dense": NanogridConfig(num_chargers=4, pv_system=False, battery_system=False,
                                       penalty_mode="dense", requested_state_of_charge=True),
     "b-pv-2h": NanogridConfig(num_chargers=6, time_interval=2.0, penalty_mode="on_departure"),
+    # the CLIs' --time-interval below 1 h (96 and 48 steps a day)
+    "b-pv-0.25h": NanogridConfig(num_chargers=4, time_interval=0.25),
+    "b-pv-0.5h": NanogridConfig(num_chargers=8, time_interval=0.5, penalty_mode="dense"),
 }
 # batches of 1 and 33 leave a block of one env and a ragged one; 300 spans ten blocks;
 # 8192 is 256 blocks of 32 envs, more than one wave of the 132 SMs
 COLLECT_BATCHES = (1, 33, 300, 8192)
+
+
+def batch_cases(names, batches):
+    """``(name, batch)`` pairs: every batch, and only the small ones (up to
+    300, ten blocks) for the sub-hour cases."""
+    return [(n, b) for n in names for b in batches if b <= 300 or not n.endswith(("0.25h", "0.5h"))]
 
 
 def assert_equal_outputs(got, want, names):
@@ -161,8 +170,7 @@ def _leaves(config, seed, device):
     return [x.detach() for x in actor_critic_leaves(shifted_actor(config, seed, device))]
 
 
-@pytest.mark.parametrize("batch", COLLECT_BATCHES)
-@pytest.mark.parametrize("name", list(COLLECT_CONFIGS))
+@pytest.mark.parametrize("name, batch", batch_cases(COLLECT_CONFIGS, COLLECT_BATCHES))
 def test_collect_kernels_match_twins(cuda, name, batch):
     config = COLLECT_CONFIGS[name]
     params = make_params(config, torch.float32, cuda)
@@ -299,11 +307,12 @@ DDPG_COLLECT_CONFIGS = {
     "b-pv-8ch": COLLECT_CONFIGS["b-pv-8ch"],
     "b-pv-4ch": DDPG_CONFIGS["b-pv-4ch"],
     "b-pv-2h": COLLECT_CONFIGS["b-pv-2h"],
+    "b-pv-0.25h": COLLECT_CONFIGS["b-pv-0.25h"],
+    "b-pv-0.5h": COLLECT_CONFIGS["b-pv-0.5h"],
 }
 
 
-@pytest.mark.parametrize("batch", COLLECT_BATCHES)
-@pytest.mark.parametrize("name", list(DDPG_COLLECT_CONFIGS))
+@pytest.mark.parametrize("name, batch", batch_cases(DDPG_COLLECT_CONFIGS, COLLECT_BATCHES))
 def test_ddpg_collect_kernels_match_twins(cuda, name, batch):
     from smart_nanogrid_gym_torch.ops.ddpg_collect import (
         ddpg_collect_day, ddpg_collect_day_plain, ddpg_collect_day_seeded, ddpg_collect_day_seeded_plain,
@@ -773,6 +782,11 @@ K6_BLOCK_CASES = {
     "ppo-8ch-64": (NanogridConfig(num_chargers=8, pv_system=True, battery_system=True), "ppo", (64, 64)),
     "ppo-8ch-64-2h": (NanogridConfig(num_chargers=8, time_interval=2.0, penalty_mode="on_departure"), "ppo",
                       (64, 64)),
+    # below 1 h, both actors (the collection cases' configs and libraries)
+    "ppo-4ch-64-0.25h": (COLLECT_CONFIGS["b-pv-0.25h"], "ppo", (64, 64)),
+    "ddpg-4ch-0.25h": (COLLECT_CONFIGS["b-pv-0.25h"], "ddpg", (400, 300)),
+    "ppo-8ch-64-0.5h": (COLLECT_CONFIGS["b-pv-0.5h"], "ppo", (64, 64)),
+    "ddpg-8ch-0.5h": (COLLECT_CONFIGS["b-pv-0.5h"], "ddpg", (400, 300)),
 }
 # the cases whose K5 runs the block actor too (the DDPG actor, the 256x256 PPO torso)
 K5_BLOCK_CASES = [name for name, (_, actor, hidden) in K6_BLOCK_CASES.items() if actor == "ddpg" or hidden[0] > 64]
@@ -799,8 +813,7 @@ def _block_net(config, actor, hidden, seed, device):
     return net.to(device)
 
 
-@pytest.mark.parametrize("batch", K6_BATCHES)
-@pytest.mark.parametrize("name", list(K6_BLOCK_CASES))
+@pytest.mark.parametrize("name, batch", batch_cases(K6_BLOCK_CASES, K6_BATCHES))
 def test_k6_block_kernel_f32_equals_twin(cuda, name, batch):
     """K6's block actor in f32 is ``torch.equal`` to its twin for both
     actors and every torso at every batch (one env, a ragged block, ten
@@ -853,11 +866,10 @@ def test_k6_block_kernel_bf16_meets_contract(cuda, name):
     print(f"K6 {name} bf16 B=4096 x 2 days: shares {shares}, mean gap {rel:.3e}, max |d| {err:.3e}")
 
 
-@pytest.mark.parametrize("batch", K6_BATCHES)
-@pytest.mark.parametrize("name", K5_BLOCK_CASES)
+@pytest.mark.parametrize("name, batch", batch_cases(K5_BLOCK_CASES, K6_BATCHES))
 def test_k5_block_kernel_equals_twin(cuda, name, batch):
-    """K5 on K6's block and ring (the DDPG actor, the 256x256 PPO torso, 2 h
-    included): rewards, actions, soc_final and batt_final ``torch.equal`` to
+    """K5 on K6's block and ring (the DDPG actor, the 256x256 PPO torso, 2 h,
+    0.5 h and 0.25 h included): rewards, actions, soc_final and batt_final ``torch.equal`` to
     the twin's at every batch, from random starting batteries; one launch a
     call."""
     config, actor, hidden = K6_BLOCK_CASES[name]

@@ -1,7 +1,9 @@
 """The port runs without JAX or the JAX package: importing it, rolling a
 day, running one PPO and one DDPG training update (and a bf16 one of each
 learner path), a DDPG at-scale evaluation, K6's bf16 twin, the tables-in
-day twins, the gym adapter and the vector env on the CPU leave ``jax`` and
+day twins, the gym adapter, the vector env, ``train_ppo --guard`` and
+``evaluate --models-root`` (with the utils and the SB3 loader imported) on
+the CPU leave ``jax`` and
 ``smart_nanogrid_gym_tpu`` out of ``sys.modules``, and no file of the port
 imports them.  The port's copies of the JAX-free tables equal the JAX
 package's."""
@@ -78,6 +80,15 @@ for impl in ("plain", "kernel"):
                                           sweep_impl=impl, update_matmul_dtype=torch.bfloat16), device="cpu")
     state, metrics = ddpg.build_train_step()(ddpg.init(0, params, 8), params)
     assert bool(torch.isfinite(metrics.critic_loss)) and state.actor[0].dtype == torch.float32
+# the entry points: utils, the SB3 loader and the CLIs, two of them run
+from smart_nanogrid_gym_torch.compat import sb3_loader
+from smart_nanogrid_gym_torch.tools import evaluate, predict, train_ddpg, train_multi, train_ppo, visualize
+from smart_nanogrid_gym_torch.utils import checkpoint, guard, metrics as metrics_module, profiling
+models = tempfile.mkdtemp()
+train_ppo.main(["--variant", "basic", "--num-chargers", "4", "--batch", "8", "--epochs", "1",
+                "--episodes-per-epoch", "8", "--models-dir", models, "--device", "cpu", "--guard"])
+assert len(evaluate.main(["--variant", "basic", "--num-chargers", "4", "--days", "4", "--models-root", models,
+                          "--device", "cpu"])) == 3
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "smart_nanogrid_gym_tpu")]
 assert not loaded, loaded
