@@ -50,7 +50,20 @@ just after:
   with the PPO artifact (its at-scale figure equal to a direct
   ``evaluate_policy_at_scale`` call, its same-day mean above the RBC's),
   ``predict --with-rbc`` with the artifact (28-key JSON) and ``visualize``
-  (the PNGs only where matplotlib is installed; the HTML explorer always).
+  (the PNGs only where matplotlib is installed; the HTML explorer always);
+- the native runtime and the multi-process runtime (phases 33-35, outputs
+  under ``build/chip_smoke_parallel/``): the g++ build of ``native/``, 4096
+  days replayed from bare reference seeds (``schedules_from_reference_seeds``)
+  reset on the card and rolled by K11a, bit-equal to its twin and within
+  1e-4 of the plain f64 engine, the native engines' host throughput; a
+  one-process NCCL group driving K8 and K6 (f32 and bf16) through
+  ``sharded_multiday_kernel_fn`` (``torch.equal`` to the unsharded calls),
+  ``scaling_sweep(path="kernel")`` and ``train_ppo --mesh --impl kernel``
+  (``torch.equal`` to the run without ``--mesh``); two ranks on the one card
+  over gloo (this script with ``--phase35-rank``, each rank's K8 equal to the
+  direct launch at ``seed·2 + rank``, ``distributed_reset`` at W=2 equal to
+  W=1, three plain-path PPO updates leaving equal params, the kernel path
+  refused).
 
 It checks the launch counts (each training sweep, K3, K4 and K10, is one
 cooperative launch per update), the statistics of the in-kernel draws
@@ -149,6 +162,10 @@ SMALL_ROW_DAYS = 2500  # the bench row pallas_gen_policy_multiday (bench.py:394-
 ROW_SECONDS = 5.0  # a bench row that would take longer on its first run runs fewer days
 BF16_TRAIN_UPDATES = 30  # the bf16 DDPG training run
 CLI_UPDATES = 5  # updates an epoch of phase 29's train_ppo runs
+NATIVE_ENVS = 1024  # phase 33: envs of the native engines' host throughput
+SHARDED_DAYS = 20  # phases 34-35: days of the sharded K8 and K6 runs
+PPO_RANK_UPDATES = 3  # phase 35: plain-path PPO updates on two ranks
+RANK_WORKER_FLAG = "--phase35-rank"
 # days of the new K6 rows where phase 24 times them against their twins
 NEW_ROW_DAYS = {"gen_policy_multiday_bf16": 4, "gen_policy_multiday_block": 2, "gen_policy_multiday_block_bf16": 2,
                 "gen_policy_multiday_ddpg_bf16": 2}
@@ -1862,6 +1879,37 @@ def last_json(output: str) -> dict:
     return json.loads([line for line in output.splitlines() if line.startswith("{")][-1])
 
 
+def free_port() -> int:
+    """A TCP port on localhost that was free a moment ago (bound to port 0)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(argv: list[str], nproc: int, timeout_s: float, env: dict) -> str:
+    """``torchrun --nproc-per-node nproc argv`` on a free localhost port;
+    returns the ranks' merged output.  torchrun stops every rank when one
+    fails, and when it is stopped itself at the time limit; either raises."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc), "--master-addr",
+           "localhost", "--master-port", str(free_port()), "--monitor-interval", "0.1", *argv]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env={**os.environ, **env}, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.terminate()  # torchrun stops its ranks on SIGTERM
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        raise RuntimeError(f"torchrun timed out after {timeout_s} s:\n{out[-4000:]}")
+    check(proc.returncode == 0, f"torchrun exited with {proc.returncode}:\n{out[-4000:]}")
+    return out
+
+
 def cli_launches(label: str, fn):
     """``fn()`` with the launch counts set to 0 just before it and read just after."""
     from smart_nanogrid_gym_torch.ops import _build
@@ -2022,6 +2070,278 @@ def cli_predict_path(root):
     print(f"phase 32 predict on the card: {day_returns}; {files} with 28 keys; visualize wrote "
           f"{os.path.getsize(html)} bytes of HTML{' and the PNGs' if plots else ''}")
     return counts
+
+
+def launches_of(label: str, fn, counts: collections.Counter):
+    """:func:`cli_launches` with the counts added to ``counts``."""
+    result, got = cli_launches(label, fn)
+    counts.update(got)
+    return result
+
+
+def native_seed_replay_path(rbc_cfg, rbc_params, device, card, errors):
+    """Phase 33: the native runtime's g++ build, BENCH_BATCH days replayed
+    from the bare reference seeds 0..4095 (``schedules_from_reference_seeds``)
+    reset on the card and rolled by K11a: bit-equal to its twin on the same
+    tables, the day returns within 1e-4 of the plain f64 engine's; and the
+    native engines' host env-steps/s."""
+    from smart_nanogrid_gym_torch import native
+    from smart_nanogrid_gym_torch.core import fused_day_rollout, make_params, reset, schedules_from_reference_seeds
+    from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
+    from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout, rbc_day_rollout_plain, state_tables
+    from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
+
+    path, seconds = native.build()
+    flags = native.compiler_flags()
+    check("-ffp-contract=off" in flags, "phase 33: the native build lost -ffp-contract=off")
+    print(f"phase 33 native build: {path.relative_to(ROOT)} in {seconds:.3f} s (g++ {' '.join(flags)})")
+    seeds = range(BENCH_BATCH)
+    pv = (torch.arange(BENCH_BATCH, device=device) % 181).float() / 100.0
+    t0 = time.perf_counter()
+    schedule = schedules_from_reference_seeds(seeds, rbc_cfg, torch.float32, device)
+    torch.cuda.synchronize()
+    schedule_ms = (time.perf_counter() - t0) * 1e3
+    counts = collections.Counter()
+    state = launches_of("phase 33 reset + K11a (reference seeds)",
+                        lambda: reset(rbc_cfg, rbc_params, schedule, pv_shift=pv)[0], counts)
+    got = launches_of("phase 33 K11a", lambda: rbc_day_rollout(rbc_cfg, rbc_params, state), counts)
+    check(dict(counts) == {"rbc_day_rollout": 1}, f"phase 33: launch counts {dict(counts)} are not one K11a")
+    traces = kernel_traces(rbc_params, device)
+    label = f"phase 33 K11a rbc_day_rollout ({BENCH_BATCH} reference-seeded days, 8ch b-pv)"
+    errors["rbc_day_rollout"] = max(errors["rbc_day_rollout"], check_equal(
+        label, got, rbc_day_rollout_plain(rbc_cfg, traces, state_tables(rbc_cfg, rbc_params, state)),
+        ("rewards", "soc_final")))
+    p64 = make_params(rbc_cfg, torch.float64, device)
+    s64, _ = reset(rbc_cfg, p64, schedules_from_reference_seeds(seeds, rbc_cfg, torch.float64, device),
+                   pv_shift=pv.double())
+    _, (_, r64, _) = fused_day_rollout(rbc_cfg, p64, s64, make_rbc_policy_fn(rbc_cfg), next_pv_shift=s64.pv_shift)
+    compare(f"phase 33 K11a day returns ({BENCH_BATCH} reference-seeded days)", (got[0].sum(0).double(),),
+            (r64.sum(0),), rtol=1e-4, atol=1e-4, against="plain f64 engine (fused_day_rollout, RBC)")
+    table_ms = cuda_ms(lambda: state_tables(rbc_cfg, rbc_params, state), 5)
+    k11a_ms = device_ms(lambda: rbc_day_rollout(rbc_cfg, rbc_params, state), "rbc_day_rollout_kernel", 5)
+    print(f"phase 33 reference-seeded days at B={BENCH_BATCH}: schedules (native, host) {schedule_ms:.3f} ms, "
+          f"table build {table_ms:.4f} ms (CUDA events), K11a {k11a_ms:.4f} ms of device time (profiler) on {card}")
+
+    T, A = rbc_cfg.steps_per_day, rbc_cfg.num_actions
+    days = [native.generate_schedule_native(s, rbc_cfg.num_chargers, rbc_cfg.time_interval,
+                                            table_len=rbc_cfg.table_len) for s in range(NATIVE_ENVS)]
+    actions = np.random.default_rng(0).random((T, NATIVE_ENVS, A))
+    engines = [native.NativeEngine(rbc_cfg) for _ in range(NATIVE_ENVS)]
+    for engine, day in zip(engines, days):
+        engine.reset(day, batt_soc=0.5, pv_shift=1.0)
+    t0 = time.perf_counter()
+    for t in range(T):
+        singles = [engine.step(actions[t, i]) for i, engine in enumerate(engines)]
+    single_s = time.perf_counter() - t0
+    fleet = native.NativeBatchEngine(rbc_cfg, NATIVE_ENVS)
+    fleet.reset(days, batt_soc=0.5, pv_shifts=np.ones(NATIVE_ENVS))
+    t0 = time.perf_counter()
+    for t in range(T):
+        obs, rewards, dones, _ = fleet.step_batch(actions[t])
+    fleet_s = time.perf_counter() - t0
+    check(np.array_equal(obs, np.stack([s[0] for s in singles])) and bool(dones.all()),
+          "phase 33: NativeBatchEngine differs from the single engines")
+    steps = NATIVE_ENVS * T
+    print(f"phase 33 native engines (host, {NATIVE_ENVS} envs x {T} steps, beside {card}): NativeEngine "
+          f"{steps / single_s:.1f} env-steps/s, NativeBatchEngine {steps / fleet_s:.1f} env-steps/s "
+          f"({os.cpu_count()} host cores)")
+    return dict(counts)
+
+
+def world_size_one_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card):
+    """Phase 34: a one-process NCCL group (a file store under build/): K8 and
+    K6 (f32 and bf16) through ``sharded_multiday_kernel_fn`` ``torch.equal``
+    to the unsharded calls at the same seed, ``scaling_sweep(path="kernel")``
+    with its report, and ``train_ppo --mesh --impl kernel`` (one epoch of
+    CLI_UPDATES updates at B=4096) ``torch.equal`` to the run without it."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_multiday
+    from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_multiday
+    from smart_nanogrid_gym_torch.parallel import distributed as D
+    from smart_nanogrid_gym_torch.parallel.mesh import make_mesh
+    from smart_nanogrid_gym_torch.tools import train_ppo
+
+    root = os.path.join(ROOT, "build", "chip_smoke_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    store = tempfile.mkdtemp(prefix="store_", dir=root)
+    check(D.initialize_distributed(f"file://{store}/rendezvous", 1, 0, backend="nccl", timeout_s=120) == (0, 1),
+          "phase 34: the one-process group")
+    check(dist.get_backend() == "nccl", "phase 34: the group is not NCCL")
+    mesh = make_mesh(device)
+    counts = collections.Counter()
+    run = D.sharded_multiday_kernel_fn(rbc_cfg, mesh, SHARDED_DAYS, BENCH_BATCH)
+    got = launches_of("phase 34 K8 sharded_multiday_kernel_fn (W=1)", lambda: run(rbc_params, 31), counts)
+    check_equal(f"phase 34 K8 sharded (W=1, B={BENCH_BATCH} x {SHARDED_DAYS} days) against the unsharded call",
+                (got,), (gen_rbc_multiday(rbc_cfg, rbc_params, SHARDED_DAYS, 31, BENCH_BATCH),), ("stats",))
+    for dtype in (torch.float32, BF16):
+        run = D.sharded_multiday_kernel_fn(art_cfg, mesh, SHARDED_DAYS, BENCH_BATCH, kernel="policy",
+                                           net_params=artifact, mlp_dtype=dtype)
+        got = launches_of(f"phase 34 K6 sharded ({dtype})", lambda: run(art_params, 32), counts)
+        check_equal(f"phase 34 K6 sharded (W=1, PPO artifact, {dtype}) against the unsharded call", (got,),
+                    (gen_policy_multiday(art_cfg, art_params, artifact, SHARDED_DAYS, 32, BENCH_BATCH,
+                                         mlp_dtype=dtype),), ("stats",))
+    records = launches_of("phase 34 scaling_sweep(path='kernel')", lambda: D.scaling_sweep(
+        rbc_cfg, rbc_params, mesh, batch_per_device=BENCH_BATCH, num_days=SHARDED_DAYS, timed_calls=3,
+        path="kernel"), counts)
+    report = os.path.join(root, "scaling.json")
+    D.write_scaling_report(records, report, {"card": card, "world_size": 1, "backend": "nccl"})
+    with open(report) as fp:
+        check(json.load(fp)["records"] == records and records[0]["path"] == "kernel", "phase 34: the report")
+    print(f"phase 34 scaling_sweep (K8, B={BENCH_BATCH} x {SHARDED_DAYS} days a rank, 3 calls, CUDA events): "
+          f"{records} on {card}")
+
+    def argv(models, *extra):
+        return ["--variant", "b-pv", "--num-chargers", "8", "--batch", str(BENCH_BATCH), "--epochs", "1",
+                "--episodes-per-epoch", str(CLI_UPDATES * BENCH_BATCH), "--impl", "kernel", "--device", "cuda",
+                "--seed", "0", "--models-dir", os.path.join(root, models), *extra]
+
+    meshed, out = launches_of("phase 34 train_ppo --mesh", lambda: run_cli(train_ppo.main, argv("mesh", "--mesh")),
+                              counts)
+    plain, plain_out = run_cli(train_ppo.main, argv("plain"))
+    pairs = list(zip(meshed.params + meshed.opt_state.mu + meshed.opt_state.nu + [meshed.batt_soc],
+                     plain.params + plain.opt_state.mu + plain.opt_state.nu + [plain.batt_soc]))
+    check(all(torch.equal(a, b) for a, b in pairs) and meshed.opt_state.count == plain.opt_state.count,
+          "phase 34: train_ppo --mesh differs from the run without it")
+    rates = [last_json(o)["steps_per_sec"] for o in (out, plain_out)]
+    print(f"phase 34 train_ppo --mesh --impl kernel (W=1, B={BENCH_BATCH}, {CLI_UPDATES} updates): params, Adam "
+          f"moments ({meshed.opt_state.count} steps) and batteries torch.equal to the run without --mesh; CLI "
+          f"{rates[0]:.1f} / {rates[1]:.1f} env-steps/s with / without on {card}")
+    dist.destroy_process_group()
+
+    from smart_nanogrid_gym_torch.parallel import multihost_demo
+
+    demo = subprocess.run([sys.executable, "-m", "smart_nanogrid_gym_torch.parallel.multihost_demo", "--process-id",
+                           "0", "--num-processes", "1", "--coordinator", f"localhost:{free_port()}"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(demo.returncode == 0, f"phase 34: multihost_demo --platform cuda failed:\n{demo.stderr[-3000:]}")
+    on_card = last_json(demo.stdout)
+    on_host = last_json(run_cli(multihost_demo.main, ["--platform", "cpu"])[1])
+    check(on_card["num_processes"] == 1 and all(
+        math.isclose(on_card[k], on_host[k], rel_tol=1e-4) for k in ("rollout_mean_day_return", "ppo_mean_return")),
+        f"phase 34: multihost_demo on the card {on_card} differs from the CPU run {on_host}")
+    print(f"phase 34 multihost_demo --platform cuda (one NCCL process): {on_card}; within 1e-4 of --platform cpu")
+    return dict(counts)
+
+
+def two_ranks_path(card):
+    """Phase 35: this script's ``--phase35-rank`` worker on two ranks sharing
+    the one card, over gloo (NCCL refuses two ranks on one device; the mesh
+    stages gloo's CUDA collectives through the host).  Each rank checks its
+    K8 against the direct launch at ``seed·2 + rank`` and the gathered stats
+    against both, ``distributed_reset`` at W=2 against W=1, three plain-path
+    PPO updates leaving equal params on both ranks, and the kernel path's
+    refusal; any failure fails the run."""
+    t0 = time.perf_counter()
+    out = torchrun([os.path.abspath(__file__), RANK_WORKER_FLAG], 2, timeout_s=400, env={"OMP_NUM_THREADS": "2"})
+    seconds = time.perf_counter() - t0
+    for line in out.splitlines():
+        print(f"  | {line}")
+    reports = sorted((json.loads(line) for line in out.splitlines() if line.startswith('{"rank"')),
+                     key=lambda r: r["rank"])
+    check([r["rank"] for r in reports] == [0, 1] and all(r["ok"] for r in reports), "phase 35: a rank's checks")
+    check(reports[0]["params_digest"] == reports[1]["params_digest"], "phase 35: the ranks' params differ")
+    for r in reports:
+        print(f"phase 35 rank {r['rank']}: plain PPO update {r['ppo_ms_per_update']:.1f} ms (host clock), of which "
+              f"the host draws of the global batch {r['draw_ms_w2']:.1f} ms (W=1 at the same local batch: "
+              f"{r['draw_ms_w1']:.1f} ms) on {card}")
+    counts = collections.Counter()
+    for r in reports:
+        counts.update(r["launches"])
+    print(f"phase 35 two ranks on one card (gloo, collectives of CUDA tensors staged through the host): every "
+          f"check passed in {seconds:.1f} s wall (process start included); sharded launches {dict(counts)} on {card}")
+    return dict(counts)
+
+
+def tensor_leaves(tree) -> list:
+    """The tensors of a nested tuple (NamedTuples included), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for x in tree for leaf in tensor_leaves(x)]
+
+
+def rank_worker() -> None:
+    """One rank of phase 35 (run by :func:`two_ranks_path` through
+    ``torchrun``, which sets RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT);
+    prints one JSON line, raises on any failed check."""
+    if not torch.cuda.is_available():
+        raise SystemExit("the phase 35 rank needs a CUDA device")
+    sys.path.insert(0, ROOT)
+    import hashlib
+
+    import torch.distributed as dist
+
+    from smart_nanogrid_gym_torch.core import NanogridConfig, make_params
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_multiday
+    from smart_nanogrid_gym_torch.parallel import distributed as D
+    from smart_nanogrid_gym_torch.parallel.mesh import EnvMesh, make_mesh
+    from smart_nanogrid_gym_torch.solvers.ppo import PPOConfig, PPOLearner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = D.initialize_distributed(backend="gloo", timeout_s=120)
+    check(world == 2, f"phase 35: world size {world}")
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(device)
+    cfg = NanogridConfig()
+    params = make_params(cfg, torch.float32, device)
+    _build.reset_launch_counts()
+    local = D.sharded_multiday_kernel_fn(cfg, mesh, SHARDED_DAYS, BENCH_BATCH)(params, 7)
+    gathered = D.sharded_multiday_kernel_fn(cfg, mesh, SHARDED_DAYS, BENCH_BATCH, gather=True)(params, 7)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    check(launches == {"gen_rbc_multiday": 2}, f"phase 35 rank {rank}: launches {launches}")
+    direct = [gen_rbc_multiday(cfg, params, SHARDED_DAYS, 7 * world + r, BENCH_BATCH) for r in range(world)]
+    check(torch.equal(local, direct[rank]), f"phase 35 rank {rank}: K8 is not the direct launch at seed*2+rank")
+    check(torch.equal(gathered, torch.cat(direct, dim=1)), f"phase 35 rank {rank}: the gathered K8 stats")
+
+    B = 2 * BENCH_BATCH
+    _, s2, o2 = D.distributed_reset(cfg, params, mesh, B, seed=5)
+    _, s1, o1 = D.distributed_reset(cfg, params, EnvMesh(None, 0, 1, device), B, seed=5)
+    pairs = list(zip(tensor_leaves(D.make_global_array((s2, o2), mesh, B)), tensor_leaves((s1, o1))))
+    check(len(pairs) == 16 and all(torch.equal(a, b) for a, b in pairs),
+          f"phase 35 rank {rank}: distributed_reset at W=2 differs from W=1")
+
+    learner = PPOLearner(cfg, PPOConfig(), mesh=mesh)
+    state = learner.init_distributed(0, params, global_batch=BENCH_BATCH, env_seed=3)
+    step = learner.build_train_step()
+    t0 = time.perf_counter()
+    for _ in range(PPO_RANK_UPDATES):
+        state, metrics = step(state, params)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3 / PPO_RANK_UPDATES
+
+    def draw_ms(draw_learner) -> float:
+        """Host ms of one update's draws (``draw_plain``) for this rank's envs."""
+        gen = torch.Generator().manual_seed(11)
+        draw_learner.draw_plain(gen, BENCH_BATCH // world)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PPO_RANK_UPDATES):
+            draw_learner.draw_plain(gen, BENCH_BATCH // world)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / PPO_RANK_UPDATES
+
+    draw_w2, draw_w1 = draw_ms(learner), draw_ms(PPOLearner(cfg, PPOConfig(), device=device))
+    flat = torch.cat([p.reshape(-1) for p in state.params])
+    rows = mesh.all_gather(flat[None])
+    check(bool(torch.isfinite(flat).all()) and torch.equal(rows[0], rows[1]),
+          f"phase 35 rank {rank}: the ranks' params differ after {PPO_RANK_UPDATES} updates")
+    try:
+        PPOLearner(cfg, PPOConfig(collect_impl="kernel", sweep_impl="kernel"), mesh=mesh)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "world size 1 only" in refused, f"phase 35 rank {rank}: the kernel path ran")
+    print(json.dumps({"rank": rank, "ok": True, "launches": launches, "ppo_updates": PPO_RANK_UPDATES,
+                      "ppo_ms_per_update": update_ms, "draw_ms_w2": draw_w2, "draw_ms_w1": draw_w1,
+                      "mean_return": float(metrics.mean_return),
+                      "params_digest": hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()[:16],
+                      "kernel_path_refused": refused}), flush=True)
+    dist.destroy_process_group()
 
 
 def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days, philox):
@@ -2482,6 +2802,14 @@ def main() -> None:
     cli_predict_path(cli_root)
     cli_counts = {**ppo_cli, **ddpg_cli, **eval_cli}
 
+    # ---- phases 33-35: the native runtime, one NCCL rank, two ranks on the card ----
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 33")
+    phase_counts = {"33": native_seed_replay_path(rbc_cfg, rbc_params, device, card, errors)}
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 34")
+    phase_counts["34"] = world_size_one_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 35")
+    phase_counts["35"] = two_ranks_path(card)
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
     check(not jax_modules, f"the port loaded JAX modules: {jax_modules[:5]}")
@@ -2514,6 +2842,9 @@ def main() -> None:
         })
         if name in cli_counts:  # the kernel's launches in phases 29-31, the CLIs' runs
             kernels[-1]["cli_launches"] = cli_counts[name]
+        slice_launches = {phase: counts[name] for phase, counts in phase_counts.items() if counts.get(name)}
+        if slice_launches:  # the kernel's launches in phases 33-35 (native, one NCCL rank, two ranks)
+            kernels[-1]["phase_launches"] = slice_launches
         if name in design:
             kernels[-1]["design"] = design[name]
             kernels[-1]["ptxas"] = ptxas_line(design_libraries.get(name, built[0][0]), instances[name])
@@ -2524,4 +2855,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [RANK_WORKER_FLAG]:
+        rank_worker()
+    else:
+        main()

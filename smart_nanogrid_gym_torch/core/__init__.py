@@ -4,7 +4,8 @@ fused day rollout and the batched env."""
 from .config import NanogridConfig, PenaltyMode
 
 from .env import SmartNanogridTorch
-from .generate import draw_uniforms, generate_schedule
+from .generate import (
+    draw_uniforms, generate_schedule, schedule_from_reference_seed, schedules_from_reference_seeds)
 from .params import NanogridParams, broadcast_params, make_params
 from .rollout import build_day_tables, fused_day_rollout
 from .state import DaySchedule, EnvState, StepInfo
@@ -26,6 +27,8 @@ __all__ = [
     "step",
     "draw_uniforms",
     "generate_schedule",
+    "schedule_from_reference_seed",
+    "schedules_from_reference_seeds",
     "build_day_tables",
     "fused_day_rollout",
 ]

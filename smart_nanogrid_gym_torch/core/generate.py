@@ -11,9 +11,11 @@ backend emits for them.  The seeded path draws that block from a
 The host-side replay helpers (``generate.py:149-289``) read and write the
 reference's ``initial_values.json`` day: :func:`schedule_from_arrays`,
 :func:`load_initial_values_json` and :func:`schedule_to_json_dict` work on
-one env's ``(N, L)`` tables, as the JAX helpers do.  The bit-exact replay
-from a reference seed (``schedule_from_reference_seed``, the native MT19937
-generator) is not ported yet.
+one env's ``(N, L)`` tables, as the JAX helpers do.
+:func:`schedule_from_reference_seed` replays the day the reference generates
+under ``np.random.seed(seed)`` bit for bit (the native MT19937 generator of
+:mod:`..native`), and :func:`schedules_from_reference_seeds` stacks one such
+day per seed into ``(B, N, L)`` tables for the batched engine and the kernels.
 """
 
 from __future__ import annotations
@@ -211,6 +213,36 @@ def schedule_from_arrays(
         mask_departing=table(m1),
         mask_departing3=table(m3),
     )
+
+
+def _native_tables(seed: int, config: NanogridConfig) -> dict:
+    from ..native import generate_schedule_native
+
+    return generate_schedule_native(
+        seed, config.num_chargers, config.time_interval, table_len=config.table_len,
+        different_capacities=config.different_battery_capacities,
+        requested_soc=config.requested_state_of_charge)
+
+
+def schedule_from_reference_seed(seed: int, config: NanogridConfig, dtype: torch.dtype = torch.float64,
+                                 device: torch.device | str = "cuda") -> DaySchedule:
+    """One env's ``(N, L)`` schedule **bit-identical** to what the reference
+    generates under ``np.random.seed(seed)`` (charging_station.py:152-186),
+    from the native C++ MT19937 generator (:mod:`..native`, a host engine),
+    moved to ``device``.  With :func:`..core.transition.reset` this replays a
+    trajectory from the bare seed, the correctness north star."""
+    tables = _native_tables(seed, config)
+    return DaySchedule(*(torch.as_tensor(tables[name], device=device).to(dtype) for name in DaySchedule._fields))
+
+
+def schedules_from_reference_seeds(seeds, config: NanogridConfig, dtype: torch.dtype = torch.float64,
+                                   device: torch.device | str = "cuda") -> DaySchedule:
+    """:func:`schedule_from_reference_seed` for each of ``seeds``, stacked into
+    ``(B, N, L)`` tables on ``device``: one native call per seed on the host,
+    one copy to the device per table."""
+    days = [_native_tables(int(s), config) for s in seeds]
+    return DaySchedule(*(torch.as_tensor(np.stack([d[name] for d in days]), device=device).to(dtype)
+                         for name in DaySchedule._fields))
 
 
 def load_initial_values_json(path: str, config: NanogridConfig, dtype: torch.dtype = torch.float64,

@@ -78,15 +78,16 @@ def to_uniform(word: torch.Tensor) -> torch.Tensor:
 
 
 def day_uniforms(seed: int, day: int, batch: int, steps: int, num_chargers: int,
-                 device: torch.device | str) -> tuple[torch.Tensor, torch.Tensor]:
-    """The multiday kernels' draws of one day for envs ``0..batch-1``.
+                 device: torch.device | str, env0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The multiday kernels' draws of one day for envs ``env0..env0+batch-1``.
 
     Returns ``(u (T, 5, N, B), u_pv (B,))`` as f32, ``u`` in the layout the
-    explicit-uniform kernels take.
+    explicit-uniform kernels take.  ``env0`` offsets the env index of the key,
+    so that a slice of a global batch draws what the whole batch draws there.
     """
     groups = (num_chargers + 3) // 4
     i64 = dict(dtype=torch.int64, device=device)
-    env = torch.arange(batch, **i64)
+    env = torch.arange(env0, env0 + batch, **i64)
     key = (torch.full((), seed & MASK32, **i64), env)
     t = torch.arange(steps, **i64).view(steps, 1, 1, 1)
     k = torch.arange(5, **i64).view(1, 5, 1, 1)

@@ -28,8 +28,20 @@ instead.  The kernel path's OU gaussians have the shape ``(T, A, B)``, the
 plain path's ``(T, B, A)``, as in the JAX learner (ddpg.py:210-220): the two
 streams are not comparable across implementations.  The replay buffer is
 updated in place (at B = 4096 it holds 1.2 GB).  The learner runs on the card
-unless it is given ``device="cpu"``.  Multi-device meshes are not ported and
-raise ``NotImplementedError``.
+unless it is given ``device="cpu"``.
+
+With ``mesh=`` an :class:`..parallel.mesh.EnvMesh` the learner is one rank of
+a data-parallel run, with the JAX learner's mesh semantics (ddpg.py:335-402):
+the networks, targets and Adam states are replicated (broadcast from rank 0
+at init), the batteries and the replay buffer stay on their rank, and the
+critic's and the actor's gradients of each step are averaged across ranks
+(one flat all-reduce each), as are the metrics.  The collection and sampling
+draws differ between ranks (JAX's ``fold_in(k, shard)``): each rank draws the
+days and OU gaussians of the global batch and keeps its envs' slice, and
+draws every rank's minibatch indices and keeps its own, so each rank's host
+draws cost O(W·B) for its B envs.  At world size 1 a
+mesh changes nothing; the kernel paths apply Adam locally and raise
+``ValueError`` at world size > 1, as in the JAX package.
 
 ``update_matmul_dtype=torch.bfloat16`` follows the JAX learner per path:
 ``sweep_impl="kernel"`` hands it to K10 and its twin (both operands of every
@@ -55,8 +67,9 @@ from ..ops.ddpg_sweep import DDPGSweepHypers, ddpg_sweep
 from ..ops.gen_rollout import bf16_operands
 from ..ops.param_guard import check_baked_params
 from ..ops.ppo_sweep import AdamState, zeros_adam
+from ..parallel.mesh import EnvMesh, replicate
 from .networks import DDPG_HIDDEN, DDPGActor, DDPGCritic, ddpg_leaves
-from .ppo import optax_adam_step
+from .ppo import check_mesh, mean_over_ranks, optax_adam_step
 
 F32 = torch.float32
 IMPLS = ("plain", "kernel")
@@ -149,12 +162,10 @@ def critic_apply(leaves, obs, action):
 
 
 class DDPGLearner:
-    """The DDPG learner for one env config on one device."""
+    """The DDPG learner for one env config on one device (one rank of ``mesh``)."""
 
     def __init__(self, env_config: NanogridConfig, ddpg_config: DDPGConfig | None = None,
-                 mesh=None, device: torch.device | str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError("multi-device training is not ported yet")
+                 mesh: EnvMesh | None = None, device: torch.device | str = "cuda"):
         self.env_config = env_config
         self.cfg = ddpg_config or DDPGConfig()
         self._bf16 = bf16_operands(self.cfg.update_matmul_dtype)
@@ -162,7 +173,8 @@ class DDPGLearner:
             if getattr(self.cfg, field) not in IMPLS:
                 raise ValueError(f"DDPGConfig.{field} must be one of {IMPLS}, got "
                                  f"{getattr(self.cfg, field)!r}")
-        self.device = torch.device(device)
+        self.mesh = check_mesh(mesh, self.cfg.collect_impl, self.cfg.sweep_impl)
+        self.device = torch.device(mesh.device if mesh is not None else device)
         self.hidden = DDPG_HIDDEN
         low, high = env_config.action_bounds()
         self._low_high = (low, high)
@@ -178,13 +190,16 @@ class DDPGLearner:
         """Fresh networks with the flax initialisation (targets equal to
         them), zero Adam states, an empty buffer and the battery at its
         initial SoC for ``batch_size`` envs; every later draw comes from a
-        host generator seeded with ``seed``."""
+        host generator seeded with ``seed`` (this rank's envs and the
+        networks of rank 0, with a mesh)."""
         generator = torch.Generator().manual_seed(seed)
         cfg = self.env_config
         low, high = self._low_high
         actor = DDPGActor(cfg.obs_dim, cfg.num_actions, low, high, self.hidden, generator)
         critic = DDPGCritic(cfg.obs_dim, cfg.num_actions, self.hidden, generator)
         a, c = ([x.detach().to(self.device) for x in ddpg_leaves(net)] for net in (actor, critic))
+        if self.mesh is not None:
+            a, c = replicate([a, c], self.mesh)
         batt = nanogrid_params.batt_init_soc.reshape(-1)[0].to(device=self.device, dtype=F32)
         return self.state_from(a, c, a, c, zeros_adam(a), zeros_adam(c), batt.expand(batch_size).clone(),
                                generator, nanogrid_params)
@@ -231,24 +246,28 @@ class DDPGLearner:
             return x.pin_memory().to(self.device, non_blocking=True)
         return x.to(self.device)
 
-    def _indices(self, generator: torch.Generator, batch: int, filled: int):
-        shape = (self.cfg.gradient_steps, self.cfg.batch_size)
+    def _indices(self, generator: torch.Generator, batch: int, filled: int, world: int = 1, rank: int = 0):
+        shape = (world, self.cfg.gradient_steps, self.cfg.batch_size)
         t_idx = torch.randint(0, max(filled, 1), shape, generator=generator)
-        return t_idx, torch.randint(0, batch, shape, generator=generator)
+        return t_idx[rank], torch.randint(0, batch, shape, generator=generator)[rank]
 
     def draw(self, generator: torch.Generator, batch: int, filled: int) -> DDPGDraws:
-        """One update's draws from ``generator`` (host); ``filled`` is the
-        buffer's fill after the update's collect (``_sample`` draws ``t_idx <
-        max(filled, 1)``, ddpg.py:320-331)."""
+        """One update's draws from ``generator`` (host) for ``batch`` envs;
+        ``filled`` is the buffer's fill after the update's collect (``_sample``
+        draws ``t_idx < max(filled, 1)``, ddpg.py:320-331).  With a mesh, the
+        day and the gaussians of the global batch, of which this rank keeps
+        its envs', and this rank's own minibatch indices."""
         T, A = self.cfg.steps_per_update, self.env_config.num_actions
+        world, rank = (self.mesh.world_size, self.mesh.rank) if self.mesh is not None else (1, 0)
+        lo, hi = rank * batch, (rank + 1) * batch
         if self.cfg.collect_impl == "kernel":
             seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
             gaussians = torch.randn((T, A, batch), generator=generator)
             return DDPGDraws(gaussians, *self._indices(generator, batch, filled), seed=seed)
-        uniforms = draw_uniforms(self.env_config, batch, generator, F32, "cpu")
-        pv_shift = draw_pv_shift(batch, generator, F32, "cpu")
-        gaussians = torch.randn((T, batch, A), generator=generator)
-        return DDPGDraws(gaussians, *self._indices(generator, batch, filled), uniforms, pv_shift)
+        uniforms = draw_uniforms(self.env_config, batch * world, generator, F32, "cpu")[lo:hi]
+        pv_shift = draw_pv_shift(batch * world, generator, F32, "cpu")[lo:hi]
+        gaussians = torch.randn((T, batch * world, A), generator=generator)[:, lo:hi].contiguous()
+        return DDPGDraws(gaussians, *self._indices(generator, batch, filled, world, rank), uniforms, pv_shift)
 
     def _ou_sequence(self, gaussians: torch.Tensor) -> torch.Tensor:
         """The OU states of one collect from zero (each collect is a fresh
@@ -352,11 +371,13 @@ class DDPGLearner:
                                                                                                  high))
             leaves = [p.detach().clone().requires_grad_(True) for p in critic]
             c_loss = ((critic_apply(leaves, obs, act) - target_q) ** 2).mean()
-            critic, c_opt = optax_adam_step(critic, c_opt, torch.autograd.grad(c_loss, leaves), lr)
+            c_grads = mean_over_ranks(self.mesh, torch.autograd.grad(c_loss, leaves))
+            critic, c_opt = optax_adam_step(critic, c_opt, c_grads, lr)
             critic = [p.detach() for p in critic]
             leaves = [p.detach().clone().requires_grad_(True) for p in actor]
             a_loss = -critic_apply(critic, obs, actor_apply(leaves, obs, low, high)).mean()
-            actor, a_opt = optax_adam_step(actor, a_opt, torch.autograd.grad(a_loss, leaves), lr)
+            a_grads = mean_over_ranks(self.mesh, torch.autograd.grad(a_loss, leaves))
+            actor, a_opt = optax_adam_step(actor, a_opt, a_grads, lr)
             actor = [p.detach() for p in actor]
             t_actor = [(1 - tau) * t + tau * p for t, p in zip(t_actor, actor)]
             t_critic = [(1 - tau) * t + tau * p for t, p in zip(t_critic, critic)]
@@ -379,7 +400,8 @@ class DDPGLearner:
         else:
             out = self._plain_sweep(state, batches)
         actor, critic, t_actor, t_critic, a_opt, c_opt, metrics_g = out
-        metrics = DDPGMetrics(metrics_g[:, 0].mean(), metrics_g[:, 1].mean(), rewards.sum(dim=0).mean())
+        metrics = DDPGMetrics(*mean_over_ranks(self.mesh, [metrics_g[:, 0].mean(), metrics_g[:, 1].mean(),
+                                                            rewards.sum(dim=0).mean()]))
         new = DDPGTrainState(actor, critic, t_actor, t_critic, a_opt, c_opt, buffer, batt, obs, ou,
                              state.generator, state.update_step + 1)
         return new, metrics

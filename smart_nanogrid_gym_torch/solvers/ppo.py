@@ -38,8 +38,21 @@ Every random draw (the days, the action noise, the Philox seeds, the
 minibatch permutations) comes from the state's host ``torch.Generator``, so an
 update never waits on the card; a test passes JAX's own draws through
 :class:`PlainDraws` instead.  The learner runs on the card unless it is given
-``device="cpu"``.  Multi-device meshes are not ported and raise
-``NotImplementedError``.
+``device="cpu"``.
+
+With ``mesh=`` an :class:`..parallel.mesh.EnvMesh` the learner is one rank of
+a data-parallel run, with the JAX learner's mesh semantics (ppo.py:217-250,
+514-536): the params and Adam state are replicated (broadcast from rank 0 at
+init), the batteries, days and trajectories stay on their rank, each
+gradient step takes the mean of the ranks' gradients (one flat all-reduce
+per step) before the clip and Adam, and the metrics are averaged across
+ranks.  Every rank shares the generator seed: each draws the days and the
+action noise of the **global** batch and keeps its own envs' slice, and all
+draw the same minibatch permutations over their local samples.  So each
+rank's host draws cost O(W·B) for its B envs, and grow with the world size
+W; ``chip_smoke.py`` phase 35 times them beside the update.  At world
+size 1 a mesh changes nothing.  The kernel path applies Adam inside K3, so
+at world size > 1 it raises ``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -67,6 +80,7 @@ from ..ops.ppo_sweep import (
     ppo_sweep_streamed,
     zeros_adam,
 )
+from ..parallel.mesh import EnvMesh, replicate
 from .networks import ActorCritic, actor_critic_leaves
 
 F32 = torch.float32
@@ -169,13 +183,37 @@ def apply_actor_critic_bf16(leaves, obs):
     return mean.to(F32), log_std.to(F32), value[..., 0].to(F32)
 
 
+def check_mesh(mesh, collect_impl: str, sweep_impl: str) -> EnvMesh | None:
+    """``mesh`` when it is None or an ``EnvMesh`` the implementations can run
+    on: the kernel sweeps apply Adam locally, so they take world size 1 only."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, EnvMesh):
+        raise TypeError(f"mesh must be a parallel.mesh.EnvMesh, got {type(mesh).__name__}")
+    if mesh.world_size > 1:
+        if sweep_impl == "kernel":
+            raise ValueError("sweep_impl='kernel' supports world size 1 only (the kernel applies Adam "
+                             "locally; a mesh of more than one rank needs the per-step gradient mean of the "
+                             "plain sweep)")
+        if collect_impl == "kernel":
+            raise ValueError("collect_impl='kernel' supports world size 1 only (see sweep_impl)")
+    return mesh
+
+
+def mean_over_ranks(mesh: EnvMesh | None, tensors):
+    """The ranks' mean of each tensor of ``tensors``, through one flat
+    all-reduce; the tensors themselves without a mesh or at world size 1."""
+    if mesh is None or mesh.world_size == 1:
+        return list(tensors)
+    flat = mesh.all_reduce_mean(torch.cat([x.reshape(-1) for x in tensors]))
+    return [y.view_as(x) for x, y in zip(tensors, torch.split(flat, [x.numel() for x in tensors]))]
+
+
 class PPOLearner:
-    """The PPO learner for one env config on one device."""
+    """The PPO learner for one env config on one device (one rank of ``mesh``)."""
 
     def __init__(self, env_config: NanogridConfig, ppo_config: PPOConfig | None = None,
-                 mesh=None, device: torch.device | str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError("multi-device training is not ported yet")
+                 mesh: EnvMesh | None = None, device: torch.device | str = "cuda"):
         self.env_config = env_config
         self.ppo = ppo_config or PPOConfig()
         self._bf16 = bf16_operands(self.ppo.update_matmul_dtype)
@@ -183,7 +221,8 @@ class PPOLearner:
             if getattr(self.ppo, field) not in IMPLS:
                 raise ValueError(f"PPOConfig.{field} must be one of {IMPLS}, got "
                                  f"{getattr(self.ppo, field)!r}")
-        self.device = torch.device(device)
+        self.mesh = check_mesh(mesh, self.ppo.collect_impl, self.ppo.sweep_impl)
+        self.device = torch.device(mesh.device if mesh is not None else device)
         self.hidden = (64, 64)
         low, high = env_config.action_bounds()
         self._action_low = torch.as_tensor(low, dtype=F32, device=self.device)
@@ -194,15 +233,38 @@ class PPOLearner:
 
     def init(self, seed: int, nanogrid_params: NanogridParams, batch_size: int) -> PPOTrainState:
         """A fresh network with the flax initialisation, zero Adam state and
-        the battery at its initial SoC for ``batch_size`` envs; every later
-        draw comes from a host generator seeded with ``seed``."""
+        the battery at its initial SoC for ``batch_size`` envs (this rank's,
+        with a mesh); every later draw comes from a host generator seeded with
+        ``seed``.  With a mesh the network is rank 0's on every rank."""
+        generator, leaves = self._network(seed)
+        batt = nanogrid_params.batt_init_soc.reshape(-1)[0].to(device=self.device, dtype=F32)
+        return self.state_from(leaves, zeros_adam(leaves), batt.expand(batch_size).clone(),
+                               generator, nanogrid_params)
+
+    def _network(self, seed: int):
         generator = torch.Generator().manual_seed(seed)
         net = ActorCritic(self.env_config.obs_dim, self.env_config.num_actions, self.hidden,
                           generator=generator)
         leaves = [x.detach().to(self.device) for x in actor_critic_leaves(net)]
-        batt = nanogrid_params.batt_init_soc.reshape(-1)[0].to(device=self.device, dtype=F32)
-        return self.state_from(leaves, zeros_adam(leaves), batt.expand(batch_size).clone(),
-                               generator, nanogrid_params)
+        if self.mesh is not None:
+            leaves = replicate(leaves, self.mesh)
+        return generator, leaves
+
+    def init_distributed(self, seed: int, nanogrid_params: NanogridParams, global_batch: int,
+                         env_seed: int = 0) -> PPOTrainState:
+        """Multi-process init (ppo.py:217-250): the network from the shared
+        ``seed`` (replicated from rank 0), and this rank's envs from
+        :func:`..parallel.distributed.distributed_reset` of the global batch
+        (days keyed by global env index, so the envs do not depend on the
+        number of processes).  At world size 1 it equals :meth:`init`."""
+        if self.mesh is None:
+            raise ValueError("init_distributed requires a mesh")
+        from ..parallel.distributed import distributed_reset
+
+        generator, leaves = self._network(seed)
+        _, env_states, _ = distributed_reset(self.env_config, nanogrid_params, self.mesh, global_batch,
+                                             seed=env_seed)
+        return self.state_from(leaves, zeros_adam(leaves), env_states.batt_soc, generator, nanogrid_params)
 
     def state_from(self, params, opt_state: AdamState, batt_soc: torch.Tensor,
                    generator: torch.Generator, nanogrid_params: NanogridParams) -> PPOTrainState:
@@ -285,14 +347,18 @@ class PPOLearner:
     # -------------------------------------------------------- plain collect --
 
     def draw_plain(self, generator: torch.Generator, batch: int) -> PlainDraws:
-        """One update's days and action noise drawn from ``generator`` (host)."""
+        """One update's days and action noise drawn from ``generator`` (host)
+        for ``batch`` envs; with a mesh the draws of the global batch, of
+        which this rank keeps its own envs'."""
         T, A = self.env_config.steps_per_day, self.env_config.num_actions
+        world, rank = (self.mesh.world_size, self.mesh.rank) if self.mesh is not None else (1, 0)
+        lo, hi = rank * batch, (rank + 1) * batch
         days = []
         for _ in range(self.ppo.rollout_days):
-            u = draw_uniforms(self.env_config, batch, generator, F32, "cpu")
-            pv = draw_pv_shift(batch, generator, F32, "cpu")
-            normals = torch.randn((T, batch, A), generator=generator)
-            days.append(tuple(self._to_device(x) for x in (u, pv, normals)))
+            u = draw_uniforms(self.env_config, batch * world, generator, F32, "cpu")[lo:hi]
+            pv = draw_pv_shift(batch * world, generator, F32, "cpu")[lo:hi]
+            normals = torch.randn((T, batch * world, A), generator=generator)[:, lo:hi]
+            days.append(tuple(self._to_device(x.contiguous()) for x in (u, pv, normals)))
         return PlainDraws(days)
 
     def _rollout(self, params, env_params, batt_soc, draws: PlainDraws):
@@ -334,7 +400,8 @@ class PPOLearner:
         params, opt, metrics_g = self._sweep(state, batch, num_mb, mb_envs, draws.perms)
         T = self.env_config.steps_per_day
         day_returns = t_rew.reshape(self.ppo.rollout_days, T, -1).sum(dim=1)
-        metrics = PPOMetrics(*(metrics_g[:, i].mean() for i in range(4)), day_returns.mean())
+        metrics = PPOMetrics(*mean_over_ranks(self.mesh, [metrics_g[:, i].mean() for i in range(4)]
+                                              + [day_returns.mean()]))
         return state._replace(params=params, opt_state=opt, batt_soc=batt,
                               update_step=state.update_step + 1), metrics
 
@@ -372,7 +439,7 @@ class PPOLearner:
             for i in range(num_mb):
                 leaves = [p.clone().requires_grad_(True) for p in params]
                 _, aux = self._loss(leaves, *(x[i] for x in mbs))
-                grads = torch.autograd.grad(_, leaves)
+                grads = mean_over_ranks(self.mesh, torch.autograd.grad(_, leaves))
                 params, opt = self._optax_step(params, opt, grads)
                 auxs.append(torch.stack([a.detach() for a in aux]))
         return params, opt, torch.stack(auxs)

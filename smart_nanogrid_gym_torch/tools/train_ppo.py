@@ -15,8 +15,20 @@ raises.  ``--impl kernel`` trains through K2 + K3 (one launch each per
 update), ``plain`` (the default, the JAX CLI's ``xla``) through the plain
 engine and autograd.
 
+``--mesh`` trains data-parallel over the ranks of the process's world
+(``PPOLearner(mesh=...)``; world size 1 outside a launcher, where it equals
+the run without it), ``--distributed`` first opens the process group from
+the launcher's variables (a no-op without them) and builds the envs of the
+global batch rank by rank (``PPOLearner.init_distributed``).  With either,
+``--batch`` is the global batch, the kernel path needs world size 1, and
+only rank 0 prints and writes checkpoints and metrics (the full-state
+checkpoint holds the global batch's batteries; with ``--guard`` each rank
+keeps its own rollback points).
+
 Run:  python -m smart_nanogrid_gym_torch.tools.train_ppo --variant b-pv \\
           --num-chargers 4 --batch 256 --epochs 5
+      torchrun --nproc-per-node 2 -m smart_nanogrid_gym_torch.tools.train_ppo \\
+          --distributed --batch 512 --epochs 5
 """
 
 from __future__ import annotations
@@ -44,8 +56,6 @@ VARIANTS = {
     "v2x-b-pv": dict(pv_system=True, battery_system=True, vehicle_to_everything=True),
 }
 PENALTY_MODES = ["no_penalty", "on_departure", "sparse", "dense"]
-MESH_NOT_PORTED = ("--mesh/--distributed: multi-device training is not ported yet "
-                   "(ROADMAP queue 1, the parallel/ item)")
 
 
 def build_config(args) -> NanogridConfig:
@@ -99,8 +109,11 @@ def main(argv=None):
     p.add_argument("--models-dir", default="models")
     p.add_argument("--impl", choices=["plain", "kernel"], default="plain",
                    help="collection and update sweep: the plain engine, or K2 + K3")
-    p.add_argument("--mesh", action="store_true", help="shard envs over all devices (not ported: raises)")
-    p.add_argument("--distributed", action="store_true", help="multi-host training (not ported: raises)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard envs over the ranks of this process's world (--batch is then the global batch)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process: open the process group from the launcher's variables (torchrun) and "
+                        "build each rank's envs of the global batch (implies --mesh)")
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--log-dir", default=None,
                    help="write progress.csv + TensorBoard events here "
@@ -111,16 +124,33 @@ def main(argv=None):
     p.add_argument("--guard", action="store_true",
                    help="wrap training in a NaN guard with auto-rollback")
     args = p.parse_args(argv)
-    if args.mesh or args.distributed:
-        raise NotImplementedError(MESH_NOT_PORTED)
 
     device = resolve_device(args.device)
     config = build_config(args)
+    mesh = None
+    if args.distributed:
+        from ..parallel.distributed import initialize_distributed
+
+        rank, world = initialize_distributed(backend="gloo" if device.type == "cpu" else "nccl")
+        print(f"process {rank}/{world}", flush=True)
+    if args.mesh or args.distributed:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(device)
+        device = mesh.device
+    main_rank = mesh is None or mesh.rank == 0
     learner = PPOLearner(config, PPOConfig(learning_rate=args.learning_rate, collect_impl=args.impl,
-                                           sweep_impl=args.impl), device=device)
+                                           sweep_impl=args.impl), mesh=mesh, device=device)
     params = make_params(config, torch.float32, device)
-    state = learner.init(args.seed, params, batch_size=args.batch)
+    if args.distributed:
+        state = learner.init_distributed(args.seed, params, global_batch=args.batch, env_seed=args.seed)
+    else:
+        lo, hi = (0, args.batch) if mesh is None else mesh.shard_bounds(args.batch)
+        state = learner.init(args.seed, params, batch_size=hi - lo)
     train_step = learner.build_train_step()
+
+    def global_state(s):  # the full state with the global batch's batteries
+        return s if mesh is None else s._replace(batt_soc=mesh.all_gather(s.batt_soc))
 
     name = run_name("PPO", args, config)
     models_dir = os.path.join(args.models_dir, name)
@@ -132,17 +162,25 @@ def main(argv=None):
     if args.resume:
         step = latest_step(full_state_dir)
         if step is not None:
-            state = restore_checkpoint(full_state_dir, step, state)
-            start_epoch = int(step)
-            print(f"resumed from epoch {start_epoch}", flush=True)
+            state = restore_checkpoint(full_state_dir, step, global_state(state))
+            if mesh is not None:
+                from ..parallel.mesh import shard_env_batch
 
-    print(f"training {name}: {args.epochs} epochs x {n_updates} updates "
-          f"x {steps_per_update} env-steps on {device}", flush=True)
-    writer = MetricsWriter(args.log_dir or os.path.join(models_dir, "logs"))
+                state = state._replace(batt_soc=shard_env_batch(state.batt_soc, mesh))
+            start_epoch = int(step)
+            if main_rank:
+                print(f"resumed from epoch {start_epoch}", flush=True)
+
+    if main_rank:
+        print(f"training {name}: {args.epochs} epochs x {n_updates} updates "
+              f"x {steps_per_update} env-steps on {device}"
+              + (f" (rank 0 of {mesh.world_size})" if mesh is not None else ""), flush=True)
+        writer = MetricsWriter(args.log_dir or os.path.join(models_dir, "logs"))
     if args.guard:
         from ..utils.guard import TrainGuard
 
-        guard = TrainGuard(lambda s: train_step(s, params), ckpt_dir=os.path.join(models_dir, "guard"),
+        guard_dir = "guard" if main_rank else f"guard-rank{mesh.rank}"
+        guard = TrainGuard(lambda s: train_step(s, params), ckpt_dir=os.path.join(models_dir, guard_dir),
                            save_every=n_updates)
 
     start = time.time()
@@ -160,7 +198,8 @@ def main(argv=None):
             for _ in range(n_updates):
                 state, metrics = train_step(state, params)
         total_steps += steps_per_update * n_updates
-        if epoch % args.log_every == 0 or epoch == args.epochs - 1:
+        full = global_state(state)
+        if main_rank and (epoch % args.log_every == 0 or epoch == args.epochs - 1):
             m = type(metrics)(*map(float, metrics))
             elapsed = time.time() - start
             print(json.dumps({
@@ -181,13 +220,15 @@ def main(argv=None):
                 approx_kl=m.approx_kl,
                 steps_per_sec=total_steps / elapsed,
             )
-        save_checkpoint(models_dir, steps_per_update * n_updates * (epoch + 1), state.params, env_config=config)
-        save_checkpoint(full_state_dir, epoch + 1, state)
+        if main_rank:
+            save_checkpoint(models_dir, steps_per_update * n_updates * (epoch + 1), state.params, env_config=config)
+            save_checkpoint(full_state_dir, epoch + 1, full)
 
-    writer.close()
-    elapsed = time.time() - start
-    print(f"Training lasted: {elapsed/3600:.0f} h and {elapsed%3600/60:.1f} min "
-          f"({total_steps/elapsed:,.0f} env-steps/s)", flush=True)
+    if main_rank:
+        writer.close()
+        elapsed = time.time() - start
+        print(f"Training lasted: {elapsed/3600:.0f} h and {elapsed%3600/60:.1f} min "
+              f"({total_steps/elapsed:,.0f} env-steps/s)", flush=True)
     return state
 
 

@@ -884,3 +884,73 @@ def test_k5_block_kernel_equals_twin(cuda, name, batch):
     assert dict(launch_counts) == {"gen_policy_day" + ("_ddpg" if actor == "ddpg" else "_block"): 1}
     want = gen_policy_day_plain(config, traces, weights, u, pv, batt, actor=actor)
     assert_equal_outputs(got, want, ("rewards", "actions", "soc_final", "batt_final"))
+
+
+def test_reference_seeded_days_through_k11a_equal_twin(cuda):
+    """Days replayed from bare reference seeds (the native runtime), reset on
+    the card and rolled by K11a: bit-equal to the twin on the same tables."""
+    from smart_nanogrid_gym_torch.core import reset, schedules_from_reference_seeds
+    from smart_nanogrid_gym_torch.ops.rollout import rbc_day_rollout, rbc_day_rollout_plain, state_tables
+
+    cfg = RBC_CONFIGS["b-pv-sparse"]
+    params = make_params(cfg, torch.float32, cuda)
+    schedule = schedules_from_reference_seeds(range(300), cfg, torch.float32, cuda)
+    state, _ = reset(cfg, params, schedule, pv_shift=torch.linspace(0.0, 1.8, 300, device=cuda))
+    reset_launch_counts()
+    got = rbc_day_rollout(cfg, params, state)
+    assert dict(launch_counts) == {"rbc_day_rollout": 1}
+    want = rbc_day_rollout_plain(cfg, kernel_traces(params, cuda), state_tables(cfg, params, state))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_sharded_multiday_kernels_and_train_ppo_mesh_on_one_nccl_rank(cuda, tmp_path):
+    """A one-process NCCL group: K8 and K6 (f32, bf16) through
+    ``sharded_multiday_kernel_fn`` equal the unsharded calls at the same seed,
+    and ``train_ppo --mesh --impl kernel`` equals the run without it."""
+    import torch.distributed as dist
+
+    from smart_nanogrid_gym_torch.parallel import distributed as D
+    from smart_nanogrid_gym_torch.parallel.mesh import make_mesh
+    from smart_nanogrid_gym_torch.tools import train_ppo
+
+    assert D.initialize_distributed(f"file://{tmp_path}/store", 1, 0, backend="nccl", timeout_s=60) == (0, 1)
+    try:
+        mesh = make_mesh(cuda)
+        cfg, art = RBC_CONFIGS["b-pv-sparse"], POLICY_CONFIGS["b-pv-4ch"]
+        params, art_params = make_params(cfg, torch.float32, cuda), make_params(art, torch.float32, cuda)
+        got = D.sharded_multiday_kernel_fn(cfg, mesh, 3, 300, gather=True)(params, 9)
+        assert torch.equal(got, gen_rbc_multiday(cfg, params, 3, 9, 300))
+        net = ActorCritic(art.obs_dim, art.num_actions, generator=torch.Generator().manual_seed(2)).to(cuda)
+        for dtype in (torch.float32, torch.bfloat16):
+            run = D.sharded_multiday_kernel_fn(art, mesh, 2, 300, kernel="policy", net_params=net, mlp_dtype=dtype)
+            assert torch.equal(run(art_params, 10), gen_policy_multiday(art, art_params, net, 2, 10, 300,
+                                                                      mlp_dtype=dtype))
+        records = D.scaling_sweep(cfg, params, mesh, batch_per_device=300, num_days=2, timed_calls=1)
+        assert records[0]["path"] == "kernel" and records[0]["steps_per_sec"] > 0
+        argv = ["--variant", "b-pv", "--num-chargers", "8", "--batch", "256", "--epochs", "1",
+                "--episodes-per-epoch", "512", "--impl", "kernel", "--device", "cuda"]
+        meshed = train_ppo.main(argv + ["--models-dir", str(tmp_path / "mesh"), "--mesh"])
+        plain = train_ppo.main(argv + ["--models-dir", str(tmp_path / "plain")])
+        for a, b in zip(meshed.params + meshed.opt_state.mu + [meshed.batt_soc],
+                        plain.params + plain.opt_state.mu + [plain.batt_soc]):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_ranks_on_one_card(cuda):
+    """``chip_smoke.py``'s phase-35 rank on two ranks sharing the card over
+    gloo: K8 per rank equal to the direct launch at ``seed·2 + rank``,
+    ``distributed_reset`` at W=2 equal to W=1, plain-path PPO updates leaving
+    equal params, the kernel path refused."""
+    import json
+    import os
+
+    from torch_launch import torchrun
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = torchrun([os.path.join(repo, "chip_smoke.py"), "--phase35-rank"], 2, timeout_s=400,
+                    env={"OMP_NUM_THREADS": "2"}, cwd=repo)
+    reports = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    assert [r["rank"] for r in reports] == [0, 1] and all(r["ok"] for r in reports)
+    assert reports[0]["params_digest"] == reports[1]["params_digest"]

@@ -22,6 +22,7 @@ from smart_nanogrid_gym_tpu.solvers.ddpg import DDPGConfig as JaxDDPGConfig, DDP
 
 from smart_nanogrid_gym_torch.core.params import make_params
 from smart_nanogrid_gym_torch.ops.ddpg_collect import ddpg_collect_day_seeded
+from smart_nanogrid_gym_torch.parallel import EnvMesh
 from smart_nanogrid_gym_torch.solvers.ddpg import DDPGConfig, DDPGDraws, DDPGLearner, ReplayBuffer, ou_step
 from smart_nanogrid_gym_torch.utils.weights import ddpg_state_from_jax, ddpg_state_to_jax
 
@@ -189,8 +190,15 @@ def test_learner_rejects_what_is_not_ported_or_not_a_whole_day():
     for impl in ("plain", "kernel"):  # the bf16 sweep option is accepted (the plain sweep ignores it)
         bf16 = DDPGLearner(CFG, DDPGConfig(update_matmul_dtype=torch.bfloat16, sweep_impl=impl), device="cpu")
         assert bf16._hypers().matmul_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="EnvMesh"):
         DDPGLearner(CFG, mesh=object(), device="cpu")
+    two_ranks = EnvMesh(None, 0, 2, torch.device("cpu"))  # the kernel paths apply Adam locally
+    for kw, field in (({"sweep_impl": "kernel"}, "sweep_impl"), ({"collect_impl": "kernel"}, "collect_impl")):
+        with pytest.raises(ValueError, match=f"{field}='kernel' supports world size 1 only"):
+            DDPGLearner(CFG, DDPGConfig(**kw), mesh=two_ranks)
+    one_rank = DDPGLearner(CFG, DDPGConfig(collect_impl="kernel", sweep_impl="kernel"),
+                           mesh=EnvMesh(None, 0, 1, torch.device("cpu")))
+    assert one_rank.device == torch.device("cpu")
     with pytest.raises(ValueError, match="sweep_impl"):
         DDPGLearner(CFG, DDPGConfig(sweep_impl="pallas"), device="cpu")
     learner = DDPGLearner(CFG, DDPGConfig(steps_per_update=12, collect_impl="kernel"), device="cpu")

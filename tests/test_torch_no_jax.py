@@ -2,8 +2,10 @@
 day, running one PPO and one DDPG training update (and a bf16 one of each
 learner path), a DDPG at-scale evaluation, K6's bf16 twin, the tables-in
 day twins, the gym adapter, the vector env, ``train_ppo --guard`` and
-``evaluate --models-root`` (with the utils and the SB3 loader imported) on
-the CPU leave ``jax`` and
+``evaluate --models-root`` (with the utils and the SB3 loader imported), a
+seed-replayed day from the native runtime and K8's twin through
+``sharded_multiday_kernel_fn`` (with ``parallel``, ``multihost_demo`` and
+``gen_api_docs`` imported) on the CPU leave ``jax`` and
 ``smart_nanogrid_gym_tpu`` out of ``sys.modules``, and no file of the port
 imports them.  The port's copies of the JAX-free tables equal the JAX
 package's."""
@@ -89,6 +91,16 @@ train_ppo.main(["--variant", "basic", "--num-chargers", "4", "--batch", "8", "--
                 "--episodes-per-epoch", "8", "--models-dir", models, "--device", "cpu", "--guard"])
 assert len(evaluate.main(["--variant", "basic", "--num-chargers", "4", "--days", "4", "--models-root", models,
                           "--device", "cpu"])) == 3
+# the last modules: the native runtime and its seed replay, the env mesh and the multi-process runtime
+from smart_nanogrid_gym_torch import native
+from smart_nanogrid_gym_torch.core import schedule_from_reference_seed
+from smart_nanogrid_gym_torch.parallel import distributed, make_mesh, multihost_demo
+from smart_nanogrid_gym_torch.tools import gen_api_docs
+day = schedule_from_reference_seed(0, config, device="cpu")
+assert day.occupancy.shape == (4, config.table_len) and day.occupancy.dtype == torch.float64
+assert native.NativeEngine(config).obs_dim == config.obs_dim
+assert distributed.sharded_multiday_kernel_fn(config, make_mesh("cpu"), 1, 8)(params, 0).shape == (2, 8)
+assert "smart_nanogrid_gym_torch.native" in gen_api_docs.render()
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "smart_nanogrid_gym_tpu")]
 assert not loaded, loaded

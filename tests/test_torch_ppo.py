@@ -28,6 +28,7 @@ from smart_nanogrid_gym_tpu.solvers.ppo import PPOConfig as JaxPPOConfig, PPOLea
 from smart_nanogrid_gym_torch.core.params import make_params
 from smart_nanogrid_gym_torch.ops.gen_rollout import pv_shift_from_uniform
 from smart_nanogrid_gym_torch.ops.philox import collect_draws
+from smart_nanogrid_gym_torch.parallel import EnvMesh
 from smart_nanogrid_gym_torch.solvers.networks import ActorCritic, actor_critic_leaves
 from smart_nanogrid_gym_torch.solvers.ppo import PlainDraws, PPOConfig, PPOLearner
 from smart_nanogrid_gym_torch.utils.weights import leaves_to_flax, ppo_state_from_jax, ppo_state_to_jax
@@ -183,8 +184,16 @@ def test_kernel_path_rejects_what_the_jax_package_rejects():
         assert bf16._hypers().matmul_dtype == torch.bfloat16
     with pytest.raises(ValueError, match="operand dtype"):
         PPOLearner(CFG, PPOConfig(update_matmul_dtype=torch.float16), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="EnvMesh"):
         PPOLearner(CFG, mesh=object(), device="cpu")
+    two_ranks = EnvMesh(None, 0, 2, torch.device("cpu"))  # K3 applies Adam locally
+    for kw, field in (({"sweep_impl": "kernel"}, "sweep_impl"),
+                      ({"collect_impl": "kernel", "sweep_impl": "kernel"}, "sweep_impl"),
+                      ({"collect_impl": "kernel"}, "collect_impl")):
+        with pytest.raises(ValueError, match=f"{field}='kernel' supports world size 1 only"):
+            PPOLearner(CFG, PPOConfig(**kw), mesh=two_ranks)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        PPOLearner(CFG, device="cpu").init_distributed(0, params, 8)
 
 
 def test_train_improves_the_mean_return_on_the_kernel_path():

@@ -11,8 +11,9 @@ the same thing.
   ``visualize``.
 - The committed PPO and DDPG artifacts act alike through the port's loading
   and the JAX ``policy_fn`` on the same ``.npz``.
-- ``--mesh``/``--distributed`` raise ``NotImplementedError``, ``--device cuda``
-  without a card raises.
+- ``train_ppo --mesh`` at world size 1 and ``--distributed`` without a
+  coordinator equal the plain run; ``--device cuda`` without a card raises.
+- ``docs/API_torch.md`` is current.
 """
 
 import json
@@ -184,9 +185,27 @@ def test_artifact_actions_equal_jax(algo):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("flag", ["--mesh", "--distributed"])
+def test_train_ppo_mesh_at_world_size_one_equals_the_plain_run(monkeypatch, tmp_path, flag):
+    """``--mesh`` in one process is a mesh of world size 1, and
+    ``--distributed`` without a coordinator opens no process group: both
+    train exactly as the run without them (params, Adam moments, batteries)."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    argv = ENV + ["--batch", "8", "--epochs", "1", "--episodes-per-epoch", "16", "--seed", "5"]
+    plain = train_ppo.main(argv + ["--models-dir", str(tmp_path / "plain")])
+    meshed = train_ppo.main(argv + ["--models-dir", str(tmp_path / "mesh"), flag])
+    assert not torch.distributed.is_initialized()
+    assert meshed.update_step == plain.update_step == 2
+    for got, want in zip(meshed.params + meshed.opt_state.mu + meshed.opt_state.nu + [meshed.batt_soc],
+                         plain.params + plain.opt_state.mu + plain.opt_state.nu + [plain.batt_soc]):
+        assert torch.equal(got, want)
+    assert latest_step(str(tmp_path / "mesh" / PPO_RUN)) == latest_step(str(tmp_path / "plain" / PPO_RUN))
+
+
 @pytest.mark.parametrize("cli, argv, error", [
-    (train_ppo, ["--mesh"], NotImplementedError),
-    (train_ppo, ["--distributed"], NotImplementedError),
+    (train_ppo, ["--mesh"], RuntimeError),
+    (train_ppo, ["--distributed"], RuntimeError),
     (train_ppo, [], RuntimeError),
     (train_ddpg, [], RuntimeError),
     (evaluate, [], RuntimeError),
@@ -194,8 +213,20 @@ def test_artifact_actions_equal_jax(algo):
     (train_multi, ["--algos", "ppo"], RuntimeError),
 ])
 def test_cli_refuses(monkeypatch, tmp_path, cli, argv, error):
-    """``--mesh``/``--distributed`` are not ported; ``--device cuda`` (the
-    default) without a card raises and never runs on the CPU instead."""
+    """``--device cuda`` (the default) without a card raises and never runs
+    on the CPU instead, with ``--mesh`` or ``--distributed`` too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(error, match="parallel/" if error is NotImplementedError else "needs a CUDA card"):
+    with pytest.raises(error, match="needs a CUDA card"):
         cli.main(argv + ["--models-dir", str(tmp_path)])
+
+
+def test_torch_api_docs_current():
+    """docs/API_torch.md matches the port's live public surface (regenerate
+    with python -m smart_nanogrid_gym_torch.tools.gen_api_docs); docs/API.md
+    stays the JAX package's."""
+    from smart_nanogrid_gym_torch.tools.gen_api_docs import render
+
+    with open(os.path.join(REPO, "docs", "API_torch.md")) as fp:
+        assert fp.read() == render(), ("docs/API_torch.md is stale: run python -m "
+                                       "smart_nanogrid_gym_torch.tools.gen_api_docs")
+    assert "## `smart_nanogrid_gym_torch.parallel.distributed`" in render()
