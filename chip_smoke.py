@@ -7,7 +7,7 @@ the CUDA toolkit:
 
 It builds the hand-written kernels K1-K11 from ``smart_nanogrid_gym_torch/csrc``
 with nvcc (one process per library, all at once), holds each against its
-plain-PyTorch twin on the card, and drives six paths through their user
+plain-PyTorch twin on the card, and drives these paths through their user
 entry points, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -63,7 +63,14 @@ just after:
   over gloo (this script with ``--phase35-rank``, each rank's K8 equal to the
   direct launch at ``seed·2 + rank``, ``distributed_reset`` at W=2 equal to
   W=1, three plain-path PPO updates leaving equal params, the kernel path
-  refused).
+  refused);
+- the port's bench (phase 36, ``tools/bench.py``, outputs under
+  ``build/chip_smoke_bench/``) at B=4096 with its depth cut: the headline (K8
+  after its statistical gate against the plain engine), every row of
+  ``bench_all`` under the JAX table's keys (K8, K11a, K6 at 64x64 and
+  256x256 f32/bf16, K2 + K3, K9 seeded + K10 bf16, the plain engine and
+  learners, the native engines), the train profile and the scaling records
+  (W=1, and the plain engine on two gloo ranks on the CPU).
 
 It checks the launch counts (each training sweep, K3, K4 and K10, is one
 cooperative launch per update), the statistics of the in-kernel draws
@@ -166,6 +173,16 @@ NATIVE_ENVS = 1024  # phase 33: envs of the native engines' host throughput
 SHARDED_DAYS = 20  # phases 34-35: days of the sharded K8 and K6 runs
 PPO_RANK_UPDATES = 3  # phase 35: plain-path PPO updates on two ranks
 RANK_WORKER_FLAG = "--phase35-rank"
+# phase 36: the port's bench at B=4096, depth cut (tools/bench.py's ROW_DEPTH at full depth)
+BENCH_HEADLINE_DAYS = 40_000
+BENCH_DEPTH = {"pallas_gen_rbc_multiday": 2000, "xla_gen_plus_fused_day": 3, "xla_gen_plus_pallas_rbc_day": 3,
+               "xla_policy_in_loop": 3, "pallas_gen_policy_multiday": 100, "pallas_gen_policy_multiday_256x256_f32": 50,
+               "pallas_gen_policy_multiday_256x256_bf16": 50, "ppo_train_update": 3, "ppo_train_update_kernel": 3,
+               "ddpg_train_update": 3, "ddpg_train_update_kernel": 3}
+# the launch names of the kernels the bench drives: K8, K11a, K6 (64x64, 256x256 f32 and bf16), K2, K3, K9, K10
+BENCH_KERNELS = ("gen_rbc_multiday", "rbc_day_rollout", "gen_policy_multiday", "gen_policy_multiday_block",
+                 "gen_policy_multiday_block_bf16", "ppo_collect_day_seeded", "ppo_sweep_streamed",
+                 "ddpg_collect_day_seeded", "ddpg_sweep_bf16")
 # days of the new K6 rows where phase 24 times them against their twins
 NEW_ROW_DAYS = {"gen_policy_multiday_bf16": 4, "gen_policy_multiday_block": 2, "gen_policy_multiday_block_bf16": 2,
                 "gen_policy_multiday_ddpg_bf16": 2}
@@ -193,12 +210,6 @@ ALU_OPCODES = {"LOP3", "LOP", "IADD3", "IADD", "SHF", "SHL", "SHR", "ISETP", "SE
 def check(ok: bool, message: str) -> None:
     if not ok:
         raise RuntimeError(message)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def compare(name: str, got, want, rtol: float, atol: float, against: str = "twin") -> float:
@@ -495,32 +506,13 @@ def explicit_inputs(config, batch: int, seed: int, device):
 
 
 def stats_match(label, kernel_fn, oracle_fn, n_kernel, n_oracle, attempts=3):
-    """Day-return mean/std of a multiday kernel against the plain engine:
-    z=6 bounds of the sampling error, floored at 1 % (mean) and 3 % (std),
-    median of up to 3 fresh draws of both sides (tests/test_tpu_kernels.py)."""
-    k_draws, o_draws = [], []
-    for attempt in range(attempts):
-        k_draws.append(kernel_fn(attempt))
-        o_draws.append(oracle_fn(attempt))
-        mean_k, std_k = (float(np.median(v)) for v in zip(*k_draws))
-        mean_o, std_o = (float(np.median(v)) for v in zip(*o_draws))
-        se_mean = std_o * math.sqrt(1.0 / n_kernel + 1.0 / n_oracle)
-        se_std = std_o * math.sqrt(0.5 / n_kernel + 0.5 / n_oracle)
-        mean_tol = max(6.0 * se_mean, 0.01 * abs(mean_o))
-        std_tol = max(6.0 * se_std, 0.03 * std_o)
-        line = (f"{label}: kernel mean {mean_k:.4f} std {std_k:.4f} | plain engine mean "
-                f"{mean_o:.4f} std {std_o:.4f} | tol {mean_tol:.4f}/{std_tol:.4f} "
-                f"(draw {attempt + 1})")
-        print(line)
-        if abs(mean_k - mean_o) < mean_tol and abs(std_k - std_o) < std_tol:
-            return
-    raise RuntimeError(f"{label}: statistics disagree after {attempts} draws: {line}")
+    """Day-return mean/std of a multiday kernel against the plain engine by
+    the bench's gate (``tools/bench.py::check_multiday_stats``): z=6 bounds
+    of the sampling error, floored at 1 % (mean) and 3 % (std), median of up
+    to 3 fresh draws of both sides; each draw's line goes to standard error."""
+    from smart_nanogrid_gym_torch.tools.bench import check_multiday_stats
 
-
-def mean_std(stats: torch.Tensor, n: int) -> tuple[float, float]:
-    s = stats.double()
-    mean = float(s[0].sum()) / n
-    return mean, math.sqrt(max(float(s[1].sum()) / n - mean * mean, 0.0))
+    check_multiday_stats(kernel_fn, n_kernel, None, None, label, attempts, oracle_fn=oracle_fn, n_oracle=n_oracle)
 
 
 def sm_ms(n_ops: float, philox_blocks: float = 0.0, pipes: dict | None = None) -> float:
@@ -1628,6 +1620,7 @@ def big_evaluation_main_path(rbc_cfg, rbc_params, art_cfg, art_params, ddpg_art,
     from smart_nanogrid_gym_torch.ops.gen_policy_rollout import gen_policy_day, gen_policy_multiday
     from smart_nanogrid_gym_torch.ops.gen_rollout import gen_rbc_day
     from smart_nanogrid_gym_torch.ops.policy_rollout import policy_day_rollout
+    from smart_nanogrid_gym_torch.tools.bench import mean_std
 
     T = rbc_cfg.steps_per_day
     torch.cuda.synchronize()
@@ -1877,37 +1870,6 @@ def run_cli(main, argv):
 def last_json(output: str) -> dict:
     """The last line of a CLI's output that is one JSON object."""
     return json.loads([line for line in output.splitlines() if line.startswith("{")][-1])
-
-
-def free_port() -> int:
-    """A TCP port on localhost that was free a moment ago (bound to port 0)."""
-    import socket
-
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def torchrun(argv: list[str], nproc: int, timeout_s: float, env: dict) -> str:
-    """``torchrun --nproc-per-node nproc argv`` on a free localhost port;
-    returns the ranks' merged output.  torchrun stops every rank when one
-    fails, and when it is stopped itself at the time limit; either raises."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc), "--master-addr",
-           "localhost", "--master-port", str(free_port()), "--monitor-interval", "0.1", *argv]
-    proc = subprocess.Popen(cmd, cwd=ROOT, env={**os.environ, **env}, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    try:
-        out, _ = proc.communicate(timeout=timeout_s)
-    except subprocess.TimeoutExpired:
-        proc.terminate()  # torchrun stops its ranks on SIGTERM
-        try:
-            out, _ = proc.communicate(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-        raise RuntimeError(f"torchrun timed out after {timeout_s} s:\n{out[-4000:]}")
-    check(proc.returncode == 0, f"torchrun exited with {proc.returncode}:\n{out[-4000:]}")
-    return out
 
 
 def cli_launches(label: str, fn):
@@ -2163,6 +2125,7 @@ def world_size_one_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, devi
     from smart_nanogrid_gym_torch.parallel import distributed as D
     from smart_nanogrid_gym_torch.parallel.mesh import make_mesh
     from smart_nanogrid_gym_torch.tools import train_ppo
+    from smart_nanogrid_gym_torch.tools.bench import free_port
 
     root = os.path.join(ROOT, "build", "chip_smoke_parallel")
     shutil.rmtree(root, ignore_errors=True)
@@ -2235,6 +2198,8 @@ def two_ranks_path(card):
     against both, ``distributed_reset`` at W=2 against W=1, three plain-path
     PPO updates leaving equal params on both ranks, and the kernel path's
     refusal; any failure fails the run."""
+    from smart_nanogrid_gym_torch.tools.bench import torchrun
+
     t0 = time.perf_counter()
     out = torchrun([os.path.abspath(__file__), RANK_WORKER_FLAG], 2, timeout_s=400, env={"OMP_NUM_THREADS": "2"})
     seconds = time.perf_counter() - t0
@@ -2253,6 +2218,55 @@ def two_ranks_path(card):
         counts.update(r["launches"])
     print(f"phase 35 two ranks on one card (gloo, collectives of CUDA tensors staged through the host): every "
           f"check passed in {seconds:.1f} s wall (process start included); sharded launches {dict(counts)} on {card}")
+    return dict(counts)
+
+
+def bench_path(rbc_cfg, rbc_params, device, card):
+    """Phase 36: the port's bench (``tools/bench.py``) through its functions
+    at B=4096 with the depth cut (outputs under build/chip_smoke_bench/): the
+    headline (K8 over BENCH_HEADLINE_DAYS days, after its gate against the
+    plain engine at full strength), every ``bench_all`` row (K8, the plain
+    engine, reset + K11a, K6 at 64x64 and 256x256 f32/bf16, plain PPO and
+    DDPG, K2 + K3, K9 seeded + K10 bf16, the native engines) at BENCH_DEPTH,
+    the train profile at 3 updates a call, and the scaling records at W=1
+    (K8, 2,000 days) with the plain engine on two gloo ranks on the CPU.
+    Every value is finite and > 0, and the rows carry the keys of the JAX
+    bench's committed BENCH_TABLE.json, in its order."""
+    from smart_nanogrid_gym_torch.tools import bench
+
+    root = os.path.join(ROOT, "build", "chip_smoke_bench")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    counts = collections.Counter()
+    t0 = time.perf_counter()
+    rate = launches_of("phase 36 headline", lambda: bench.bench_headline(
+        rbc_cfg, rbc_params, BENCH_BATCH, BENCH_HEADLINE_DAYS), counts)
+    line = bench.headline_line(rate, card)
+    print(f"phase 36 headline (K8, B={BENCH_BATCH} x {BENCH_HEADLINE_DAYS} days a call, the gate passed): "
+          f"{json.dumps(line)}")
+    table = launches_of("phase 36 bench_all", lambda: bench.bench_all(
+        rbc_cfg, rbc_params, BENCH_BATCH, BENCH_DEPTH, out_path=os.path.join(root, "BENCH_TABLE_torch.json")),
+        counts)
+    profile = launches_of("phase 36 train profile", lambda: bench.bench_train_profile(
+        rbc_cfg, rbc_params, BENCH_BATCH, reps=3, out_path=os.path.join(root, "TRAIN_PROFILE_torch.json")), counts)
+    scaling = launches_of("phase 36 scaling", lambda: bench.bench_scaling(
+        rbc_cfg, rbc_params, BENCH_BATCH, num_days=2000, virtual_ranks=2,
+        out_path=os.path.join(root, "SCALING_torch.json")), counts)
+    with open(os.path.join(ROOT, "BENCH_TABLE.json")) as fp:
+        jax_keys = list(json.load(fp)["paths"])
+    check(list(table["paths"]) == jax_keys, f"phase 36: the rows {list(table['paths'])} are not the JAX table's")
+    values = [line["value"], *table["paths"].values(), *profile["phases_sec_per_update"].values(),
+              profile["kernel_path_sec_per_update"], profile["train_env_steps_per_sec"],
+              profile["kernel_train_env_steps_per_sec"],
+              *(r["steps_per_sec"] for p in scaling["platforms"].values() for r in p["records"])]
+    check(all(math.isfinite(v) and v > 0 for v in values), f"phase 36: a value is not finite and > 0: {values}")
+    check(scaling["records"][0]["path"] == "kernel" and table["card"] == card, "phase 36: the records' path or card")
+    print(f"phase 36 train profile (B={BENCH_BATCH}, 3 updates a call): {json.dumps(profile)}")
+    print(f"phase 36 scaling: {json.dumps(scaling['platforms'])}")
+    print(f"phase 36 the port's bench at cut depth: every value finite and > 0, the JAX table's {len(jax_keys)} "
+          f"keys, {time.perf_counter() - t0:.1f} s wall on {card}")
+    missing = [name for name in BENCH_KERNELS if not counts.get(name)]
+    check(not missing, f"phase 36: kernels not launched by the bench: {missing}")
     return dict(counts)
 
 
@@ -2446,11 +2460,12 @@ def main() -> None:
     from smart_nanogrid_gym_torch.solvers.evaluator import evaluate_policy_at_scale
     from smart_nanogrid_gym_torch.solvers.networks import make_actor_policy_fn
     from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
+    from smart_nanogrid_gym_torch.tools.bench import card_line, mean_std
     from smart_nanogrid_gym_torch.utils.weights import load_actor_critic_npz, load_ddpg_actor_npz
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain engine's actor in full f32
     device = torch.device("cuda", 0)
-    card = card_line()
+    card = card_line(device)
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
@@ -2802,13 +2817,15 @@ def main() -> None:
     cli_predict_path(cli_root)
     cli_counts = {**ppo_cli, **ddpg_cli, **eval_cli}
 
-    # ---- phases 33-35: the native runtime, one NCCL rank, two ranks on the card ----
+    # ---- phases 33-36: the native runtime, one NCCL rank, two ranks on the card, the bench ----
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 33")
     phase_counts = {"33": native_seed_replay_path(rbc_cfg, rbc_params, device, card, errors)}
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 34")
     phase_counts["34"] = world_size_one_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card)
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 35")
     phase_counts["35"] = two_ranks_path(card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 36")
+    phase_counts["36"] = bench_path(rbc_cfg, rbc_params, device, card)
 
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
@@ -2843,7 +2860,7 @@ def main() -> None:
         if name in cli_counts:  # the kernel's launches in phases 29-31, the CLIs' runs
             kernels[-1]["cli_launches"] = cli_counts[name]
         slice_launches = {phase: counts[name] for phase, counts in phase_counts.items() if counts.get(name)}
-        if slice_launches:  # the kernel's launches in phases 33-35 (native, one NCCL rank, two ranks)
+        if slice_launches:  # the kernel's launches in phases 33-36 (native, one NCCL rank, two ranks, the bench)
             kernels[-1]["phase_launches"] = slice_launches
         if name in design:
             kernels[-1]["design"] = design[name]

@@ -4,7 +4,7 @@
 
 Introspects the port's public surface (the engine, the gym-compatible
 adapter, the solvers, the env mesh and multi-process runtime, the kernels'
-wrappers, the native serving path, the utils and the CLIs) and emits one
+wrappers, the native serving path, the utils, the CLIs and the bench) and emits one
 markdown file with the signature and the first docstring paragraph of every
 public class and function.  Regenerate after API changes:
 
@@ -63,6 +63,9 @@ SURFACE: list[tuple[str, list[str] | None]] = [
     (f"{PACKAGE}.tools.evaluate", ["main"]),
     (f"{PACKAGE}.tools.predict", ["main"]),
     (f"{PACKAGE}.tools.visualize", ["main"]),
+    (f"{PACKAGE}.tools.bench", ["bench_headline", "bench_all", "bench_scaling", "bench_train_profile",
+                                "check_multiday_stats", "stats_bounds", "plain_day_return_stats", "main"]),
+    (f"{PACKAGE}.tools.gen_bench_table", ["render", "load_table", "update_readme"]),
     (f"{PACKAGE}.parallel.multihost_demo", ["main"]),
 ]
 

@@ -4,8 +4,8 @@ learner path), a DDPG at-scale evaluation, K6's bf16 twin, the tables-in
 day twins, the gym adapter, the vector env, ``train_ppo --guard`` and
 ``evaluate --models-root`` (with the utils and the SB3 loader imported), a
 seed-replayed day from the native runtime and K8's twin through
-``sharded_multiday_kernel_fn`` (with ``parallel``, ``multihost_demo`` and
-``gen_api_docs`` imported) on the CPU leave ``jax`` and
+``sharded_multiday_kernel_fn`` (with ``parallel``, ``multihost_demo``,
+``gen_api_docs``, the bench and ``gen_bench_table`` imported) on the CPU leave ``jax`` and
 ``smart_nanogrid_gym_tpu`` out of ``sys.modules``, and no file of the port
 imports them.  The port's copies of the JAX-free tables equal the JAX
 package's."""
@@ -95,12 +95,15 @@ assert len(evaluate.main(["--variant", "basic", "--num-chargers", "4", "--days",
 from smart_nanogrid_gym_torch import native
 from smart_nanogrid_gym_torch.core import schedule_from_reference_seed
 from smart_nanogrid_gym_torch.parallel import distributed, make_mesh, multihost_demo
-from smart_nanogrid_gym_torch.tools import gen_api_docs
+from smart_nanogrid_gym_torch.tools import bench, gen_api_docs, gen_bench_table
 day = schedule_from_reference_seed(0, config, device="cpu")
 assert day.occupancy.shape == (4, config.table_len) and day.occupancy.dtype == torch.float64
 assert native.NativeEngine(config).obs_dim == config.obs_dim
 assert distributed.sharded_multiday_kernel_fn(config, make_mesh("cpu"), 1, 8)(params, 0).shape == (2, 8)
 assert "smart_nanogrid_gym_torch.native" in gen_api_docs.render()
+# the bench and its table generator: the statistical gate, the README table
+assert bench.stats_bounds(-350.0, 70.0, 1024, 1024)[0] > 0
+assert gen_bench_table.render({"batch": 8, "config": "c", "card": "cpu", "torch": "t", "paths": {"x": 1.0}})
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "smart_nanogrid_gym_tpu")]
 assert not loaded, loaded

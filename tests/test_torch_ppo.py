@@ -7,6 +7,8 @@ package's, one update on the same inputs.
   JAX state's key exactly as ``_shard_train_step`` splits it.  Parameters
   after the ``G``-step sweep agree at rtol 1e-4 (the sweep bar of
   tests/test_ppo_sweep_kernel.py).
+- The same on a heterogeneous batch (G2: per-env masks, capacities, powers,
+  price and PV), five more updates staying finite, the kernel path refusing it.
 - The kernel path (K2's twin, GAE, K3's twin in the featlane layout) against
   the JAX composition ``pallas_ppo_collect_day`` + ``PPOLearner._gae`` +
   ``ppo_sweep_pallas_streamed(data_layout="featlane")`` fed K2's Philox draws
@@ -25,7 +27,7 @@ from smart_nanogrid_gym_tpu.ops.pallas_ppo_sweep import SweepHypers as JaxHypers
 from smart_nanogrid_gym_tpu.solvers.networks import ActorCritic as FlaxActorCritic
 from smart_nanogrid_gym_tpu.solvers.ppo import PPOConfig as JaxPPOConfig, PPOLearner as JaxPPOLearner
 
-from smart_nanogrid_gym_torch.core.params import make_params
+from smart_nanogrid_gym_torch.core.params import NanogridParams, make_params
 from smart_nanogrid_gym_torch.ops.gen_rollout import pv_shift_from_uniform
 from smart_nanogrid_gym_torch.ops.philox import collect_draws
 from smart_nanogrid_gym_torch.parallel import EnvMesh
@@ -92,6 +94,62 @@ def test_plain_learner_update_matches_jax_xla_learner(scheme):
     for name in ("policy_loss", "value_loss", "entropy", "approx_kl"):
         np.testing.assert_allclose(float(getattr(met, name)), float(getattr(jmet, name)), rtol=1e-3, atol=1e-6,
                                    err_msg=name)
+
+
+def heterogeneous_params(jax_batched, B):
+    """tests/test_heterogeneous_compile.py:74-85's batch: per-env charger
+    masks (column 0 set), BESS capacities, charger powers, and price and PV
+    tables scaled per env; returned for JAX and as the port's params."""
+    rng = np.random.RandomState(1)
+    masks = (rng.rand(B, 4) > 0.3).astype(np.float32)
+    masks[:, 0] = 1.0
+    het = jax_batched._replace(
+        charger_mask=jnp.asarray(masks),
+        batt_capacity=jnp.asarray(rng.uniform(40, 160, B), jnp.float32),
+        charger_max_power=jnp.asarray(rng.uniform(11, 44, B), jnp.float32),
+        price=jax_batched.price * jnp.asarray(rng.uniform(0.5, 2.0, (B, 1)), jnp.float32),
+        solar_power=jax_batched.solar_power * jnp.asarray(rng.uniform(0.2, 3.0, (B, 1)), jnp.float32),
+    )
+    port = NanogridParams(**{name: torch.from_numpy(np.array(getattr(het, name))) for name in NanogridParams._fields})
+    return het, port
+
+
+def test_plain_learner_heterogeneous_update_matches_jax_xla_learner():
+    """G2: one plain update over a batch whose every env has its own params
+    against the JAX XLA learner (same draws, the tolerance of the
+    homogeneous test), five more staying finite, and the kernel path
+    refusing the batch through the param guard."""
+    B, E, num_mb = 32, 2, 2
+    kw = dict(num_epochs=E, num_minibatches=num_mb)
+    with jax.enable_x64(False):
+        jl = JaxPPOLearner(CFG, JaxPPOConfig(**kw))
+        jstate = jl.init(jax.random.PRNGKey(0), jax_make_params(CFG, dtype=jnp.float32), batch_size=B)
+        het, params = heterogeneous_params(jl.nanogrid_params_batched, B)
+        jnew, jmet = jl.build_train_step()(jstate, het)
+        draws = jax_update_draws(jstate, CFG, B, E, B)
+    assert params.batched and params.dtype == torch.float32
+
+    learner = PPOLearner(CFG, PPOConfig(**kw), device="cpu")
+    step = learner.build_train_step()
+    new, met = step(port_state(learner, jstate, params), params, draws)
+    got_params, _ = ppo_state_to_jax(new.params, new.opt_state)
+    assert_tree_close(got_params, jnew.params, 1e-4, 1e-6, "params")
+    np.testing.assert_allclose(float(met.mean_return), float(jmet.mean_return), rtol=1e-5)
+    np.testing.assert_allclose(new.batt_soc.numpy(), np.asarray(jnew.env_states.batt_soc), rtol=1e-5, atol=1e-6)
+    for name in ("policy_loss", "value_loss", "entropy", "approx_kl"):
+        np.testing.assert_allclose(float(getattr(met, name)), float(getattr(jmet, name)), rtol=1e-3, atol=1e-6,
+                                   err_msg=name)
+
+    returns = []
+    for _ in range(5):
+        new, met = step(new, params)
+        returns.append(float(met.mean_return))
+    assert np.isfinite(returns).all() and np.isfinite(float(met.policy_loss)), returns
+    assert all(bool(torch.isfinite(x).all()) for x in new.params)
+
+    kernel = PPOLearner(CFG, PPOConfig(collect_impl="kernel", sweep_impl="kernel"), device="cpu")
+    with pytest.raises(ValueError, match="bakes params.charger_max_power"):
+        kernel.build_train_step()(kernel.init(0, params, 128), params)
 
 
 def test_kernel_path_update_matches_jax_kernel_composition():

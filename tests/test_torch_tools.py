@@ -13,7 +13,7 @@ the same thing.
   and the JAX ``policy_fn`` on the same ``.npz``.
 - ``train_ppo --mesh`` at world size 1 and ``--distributed`` without a
   coordinator equal the plain run; ``--device cuda`` without a card raises.
-- ``docs/API_torch.md`` is current.
+- ``docs/API_torch.md`` and README's port bench table are current.
 """
 
 import json
@@ -230,3 +230,26 @@ def test_torch_api_docs_current():
         assert fp.read() == render(), ("docs/API_torch.md is stale: run python -m "
                                        "smart_nanogrid_gym_torch.tools.gen_api_docs")
     assert "## `smart_nanogrid_gym_torch.parallel.distributed`" in render()
+
+
+def test_readme_torch_bench_table_current():
+    """README's port table is ``render(BENCH_TABLE_torch.json)`` (regenerate
+    with python -m smart_nanogrid_gym_torch.tools.gen_bench_table): every
+    row has a label naming the port's code and no TPU term, the JSON names
+    the card, and the JAX package's table stays its own generator's."""
+    from smart_nanogrid_gym_torch.tools import gen_bench_table as g
+    from smart_nanogrid_gym_tpu.tools import gen_bench_table as jax_g
+
+    with open(os.path.join(REPO, "README.md")) as fp:
+        text = fp.read()
+    table = g.load_table(REPO)
+    start, end = text.index(g.START_MARK), text.index(g.END_MARK) + len(g.END_MARK)
+    assert text[start:end] == g.render(table), ("README's port bench table is stale: run python -m "
+                                                "smart_nanogrid_gym_torch.tools.gen_bench_table")
+    labels = dict(g.ROW_LABELS)
+    assert set(table["paths"]) <= set(labels) and "unlabelled" not in g.render(table)
+    for label in labels.values():
+        assert not any(word in label for word in ("MXU", "VMEM", "TPU", "tunnel")), label
+    assert "H100" in table["card"] and " W" in table["card"] and table["batch"] == 4096
+    jax_start, jax_end = text.index(jax_g.START_MARK), text.index(jax_g.END_MARK) + len(jax_g.END_MARK)
+    assert jax_end < start and text[jax_start:jax_end] == jax_g.render(jax_g.load_table(REPO))
