@@ -32,6 +32,7 @@ except ImportError:
 from ..core.config import NanogridConfig
 from ..core.env import SmartNanogridTorch
 from ..core.params import make_params
+from ..utils.profiling import span, spanned
 from .gym_adapter import build_spaces
 
 
@@ -68,6 +69,7 @@ class VectorSmartNanogridEnv(_VECTOR_BASE):
 
     # -------------------------------------------------------------- VectorEnv --
 
+    @spanned("vecenv.reset")
     def reset(self, seed=None, options=None):
         if seed is not None:
             self._generator.manual_seed(seed)
@@ -79,9 +81,10 @@ class VectorSmartNanogridEnv(_VECTOR_BASE):
         actions = torch.as_tensor(np.asarray(actions, dtype=np.float32), device=self.device)
         res = self.engine.step_batch(self.params, self._states, actions, self._generator)
         self._states = res.state
-        obs = res.obs.cpu().numpy()
-        rewards = res.reward.cpu().numpy()
-        dones = res.done.cpu().numpy()
+        with span("to_host"):
+            obs = res.obs.cpu().numpy()
+            rewards = res.reward.cpu().numpy()
+            dones = res.done.cpu().numpy()
         infos = {}
         if dones.all():
             # synchronized day end: autoreset with fresh days

@@ -14,6 +14,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.profiling import span, spanned
 from .config import NanogridConfig
 
 from .generate import generate_schedule
@@ -96,9 +97,11 @@ class SmartNanogridTorch:
     def reset_batch(self, params: NanogridParams, batch: int, generator: torch.Generator,
                     batt_soc: torch.Tensor | None = None) -> tuple[EnvState, torch.Tensor]:
         """Fresh generated days for ``batch`` envs, drawn from ``generator``."""
-        schedule = generate_schedule(self.config, params, generator=generator, batch=batch)
+        with span("generate"):
+            schedule = generate_schedule(self.config, params, generator=generator, batch=batch)
         return reset(self.config, params, schedule, batt_soc=batt_soc, generator=generator)
 
+    @spanned("engine.step")
     def step_batch(self, params: NanogridParams, states: EnvState, actions: torch.Tensor,
                    generator: torch.Generator) -> StepResult:
         return step(self.config, params, states, actions, generator=generator)

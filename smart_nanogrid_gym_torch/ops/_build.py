@@ -35,6 +35,7 @@ from pathlib import Path
 import torch
 
 from ..core.config import NanogridConfig
+from ..utils.profiling import span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -300,7 +301,8 @@ def launch(name: str, fn, *args, device: torch.device) -> None:
     c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*c_args, ctypes.c_void_p(stream))
+        with span("launch"):
+            err = fn(*c_args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     launch_counts[name] += 1

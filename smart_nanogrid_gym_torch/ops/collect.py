@@ -30,6 +30,7 @@ from torch import nn
 
 from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
+from ..utils.profiling import spanned
 from . import _build
 from .gen_policy_rollout import (
     ActorWeights,
@@ -209,6 +210,7 @@ def ppo_collect_day_seeded_plain(config: NanogridConfig, traces: Traces, weights
                                  batt_soc.to(F32))
 
 
+@spanned("collect")
 def ppo_collect_day_seeded(config: NanogridConfig, params: NanogridParams, net, seed: int,
                            batt_soc: torch.Tensor, batch: int, check_params: bool = True):
     """One collection day per env with every draw made in the kernel (K2).

@@ -49,6 +49,7 @@ from torch import nn
 
 from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
+from ..utils.profiling import spanned
 from . import _build
 from .gen_rollout import (
     BATT_INIT_SOC,
@@ -498,6 +499,7 @@ def gen_policy_multiday_plain(config, traces: Traces, weights: ActorWeights, num
     return torch.stack([rew_total, sq_total, batt_soc])
 
 
+@spanned("policy_days")
 def gen_policy_multiday(config: NanogridConfig, params: NanogridParams, net: ActorCritic | DDPGActor,
                         num_days: int, seed: int, batch: int, actor: str = "ppo", mlp_dtype=torch.float32):
     """``num_days`` fresh actor-driven days × ``batch`` envs in one launch (K6).

@@ -30,6 +30,7 @@ import torch
 
 from ..core.config import NanogridConfig, PenaltyMode
 from ..core.params import NanogridParams
+from ..utils.profiling import spanned
 from . import _build
 from .param_guard import check_baked_params
 from .philox import day_uniforms
@@ -396,6 +397,7 @@ def gen_rbc_multiday_plain(config, traces: Traces, num_days: int, seed: int, bat
     return torch.stack([rew_total, sq_total])
 
 
+@spanned("rbc_days")
 def gen_rbc_multiday(config: NanogridConfig, params: NanogridParams, num_days: int,
                      seed: int, batch: int):
     """``num_days`` fresh RBC days × ``batch`` envs in one launch (K8).

@@ -13,6 +13,7 @@ import torch
 
 from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
+from ..utils.profiling import spanned
 
 PHYSICS_CONSTANTS = {
     "charger_max_power": 22.0,
@@ -43,6 +44,7 @@ GENERATION_CONSTANTS = {
 }
 
 
+@spanned("guard")
 def check_baked_params(
     config: NanogridConfig,
     params: NanogridParams,

@@ -61,6 +61,7 @@ from typing import Iterable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from . import _build
 from .gen_rollout import bf16_operands, kernel_device, round_bf16
 
@@ -381,6 +382,7 @@ def ppo_sweep_streamed_plain(params, adam: AdamState, obs, act, logp, adv, ret, 
     return ppo_sweep_plain(params, adam, minibatches(), hypers)
 
 
+@spanned("sweep")
 def ppo_sweep_streamed(params, adam: AdamState, obs, act, logp, adv, ret, block_perm: torch.Tensor,
                        granule: int, hypers: SweepHypers, data_layout: str = "featlane"):
     """All ``G`` gradient steps of one update over the sample blocks that

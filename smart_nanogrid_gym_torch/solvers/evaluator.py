@@ -28,6 +28,7 @@ from ..core.state import DaySchedule, EnvState, StepInfo
 from ..core.transition import reset, step
 from ..ops.gen_policy_rollout import gen_policy_multiday
 from ..ops.param_guard import check_baked_params
+from ..utils.profiling import spanned
 from .networks import ActorCritic, DDPGActor
 
 
@@ -71,6 +72,7 @@ def evaluate_policies_same_days(
     return results
 
 
+@spanned("evaluate")
 def evaluate_policy_at_scale(
     config: NanogridConfig,
     params: NanogridParams,

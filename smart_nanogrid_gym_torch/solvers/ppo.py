@@ -81,6 +81,7 @@ from ..ops.ppo_sweep import (
     zeros_adam,
 )
 from ..parallel.mesh import EnvMesh, replicate
+from ..utils.profiling import span, spanned
 from .networks import ActorCritic, actor_critic_leaves
 
 F32 = torch.float32
@@ -495,18 +496,21 @@ class PPOLearner:
                              for _ in range(self.ppo.num_epochs)])
         return seed, perms
 
+    @spanned("ppo.update")
     def _kernel_step(self, state: PPOTrainState, env_params):
         """K2 → GAE → K3 featlane (``_kernel_train_step``, ppo.py:340-430)."""
         B = state.batt_soc.shape[0]
         T = self.env_config.steps_per_day
         num_mb, slab, n_bl = self.kernel_layout(B)
-        seed, perms = self.draw_kernel(state.generator, n_bl)
+        with span("ppo.draw"):
+            seed, perms = self.draw_kernel(state.generator, n_bl)
         obs_tfb, act_tab, logp_tb, val_tb, rew_tb, batt_fin = ppo_collect_day_seeded(
             self.env_config, env_params, state.params, seed, state.batt_soc, B, check_params=False)
-        # the day ends at t = T-1: GAE's bootstrap is multiplied by 0 there
-        dones = torch.zeros((T, B), dtype=torch.bool, device=rew_tb.device)
-        dones[-1] = True
-        advantages, returns = self._gae(rew_tb, val_tb, dones, torch.zeros(B, device=rew_tb.device))
+        with span("ppo.gae"):
+            # the day ends at t = T-1: GAE's bootstrap is multiplied by 0 there
+            dones = torch.zeros((T, B), dtype=torch.bool, device=rew_tb.device)
+            dones[-1] = True
+            advantages, returns = self._gae(rew_tb, val_tb, dones, torch.zeros(B, device=rew_tb.device))
         E, K = self.ppo.num_epochs, n_bl // num_mb
         block_perm = perms.reshape(E * num_mb, K)
         params, opt, metrics_g = ppo_sweep_streamed(

@@ -443,6 +443,9 @@ def virtual_rank(batch_per_device: int, num_days: int) -> None:
                             batch_per_device=batch_per_device, num_days=num_days, path="plain")
     if rank == 0:
         print("SCALING_RECORDS=" + json.dumps(records), flush=True)
+    # gloo's threads left running at exit can abort the rank ("terminate called
+    # without an active exception")
+    torch.distributed.destroy_process_group()
 
 
 def virtual_scaling_records(ranks: int = VIRTUAL_RANKS, batch_per_device: int = 256,

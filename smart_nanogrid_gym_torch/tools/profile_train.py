@@ -35,6 +35,27 @@ KERNELS = {  # substring of the CUDA kernel's name -> the port's kernel
 }
 
 
+def device_by_kernel(prof) -> tuple[dict[str, list[float]], float]:
+    """Launches and device milliseconds by kernel, and the device microseconds
+    in all, of a finished ``torch.profiler`` run.  Device-side events only (a
+    CPU op's self device time repeats its kernels'), less the user
+    annotations: a ``record_function`` (the port's ``ng.`` spans) also writes
+    one on the device's timeline, whose device time is the span's length."""
+    per_kernel: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
+    device_total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        device_us = evt.self_device_time_total
+        if device_us <= 0:
+            continue
+        device_total += device_us
+        name = next((label for key, label in KERNELS.items() if key in evt.key), "other: " + evt.key[:60])
+        per_kernel[name][0] += evt.count
+        per_kernel[name][1] += device_us / 1e3
+    return per_kernel, device_total
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--batch", type=int, default=4096)
@@ -68,19 +89,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    per_kernel: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
-    device_total = 0.0
-    for evt in prof.key_averages():
-        # device-side events only: a CPU op's self device time repeats its kernels'
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        device_us = evt.self_device_time_total
-        if device_us <= 0:
-            continue
-        device_total += device_us
-        name = next((label for key, label in KERNELS.items() if key in evt.key), "other: " + evt.key[:60])
-        per_kernel[name][0] += evt.count
-        per_kernel[name][1] += device_us / 1e3
+    per_kernel, device_total = device_by_kernel(prof)
     n = args.updates
     print(f"card: {card}")
     idle_ms = max(wall * 1e3 - device_total / 1e3, 0.0) / n

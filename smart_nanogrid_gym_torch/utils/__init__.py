@@ -1,12 +1,15 @@
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from .profiling import PhaseTimer, ThroughputMeter, device_trace
-from .weights import (
-    ddpg_state_from_jax,
-    ddpg_state_to_jax,
-    load_actor_critic_npz,
-    load_ddpg_actor_npz,
-    ppo_state_from_jax,
-    ppo_state_to_jax,
+from .profiling import device_trace
+
+# the weight loaders import the learners, whose modules import ``profiling``
+# from this package: they load on first use
+_WEIGHTS = (
+    "ddpg_state_from_jax",
+    "ddpg_state_to_jax",
+    "load_actor_critic_npz",
+    "load_ddpg_actor_npz",
+    "ppo_state_from_jax",
+    "ppo_state_to_jax",
 )
 
 __all__ = [
@@ -14,8 +17,6 @@ __all__ = [
     "restore_checkpoint",
     "latest_step",
     "device_trace",
-    "PhaseTimer",
-    "ThroughputMeter",
     "load_actor_critic_npz",
     "load_ddpg_actor_npz",
     "ppo_state_from_jax",
@@ -23,3 +24,11 @@ __all__ = [
     "ddpg_state_from_jax",
     "ddpg_state_to_jax",
 ]
+
+
+def __getattr__(name):
+    if name in _WEIGHTS:
+        from . import weights
+
+        return getattr(weights, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -10,6 +10,8 @@ are also held at 1, 33 and 8192 envs, bit for bit, K8 and K11a at 1 and
 and K5's 64x64 torso at 1 to 4133 envs at 0.25-2 h.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -256,6 +258,77 @@ def test_kernel_learner_launches_one_collection_and_two_per_step(cuda):
     torch.cuda.synchronize()
     assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "ppo_sweep_streamed": 1}
     assert all(bool(torch.isfinite(x)) for x in metrics)
+
+
+def _profiled_kernel_update(cuda, tries=3):
+    """One kernel-path PPO update at B=256 run plainly, and the same update
+    under ``torch.profiler``: ``(plain state, traced state, kineto events,
+    profiler)``.  The profiler can drop a kernel's record, so the profiled
+    update runs again, up to ``tries`` times, until its trace holds a record
+    of every hand-kernel launch that ``launch_counts`` counted."""
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    params = make_params(config, torch.float32, cuda)
+    learner = PPOLearner(config, PPOConfig(num_epochs=2, num_minibatches=4, collect_impl="kernel",
+                                           sweep_impl="kernel"), device=cuda)
+    step = learner.build_train_step()
+    plain, _ = step(learner.init(0, params, 256), params)
+    for _ in range(tries):
+        reset_launch_counts()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            traced, _ = step(learner.init(0, params, 256), params)
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        hand = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation() and re.search(r"\bng[a-z]::", e.name())]
+        if len(hand) == sum(launch_counts.values()):
+            return plain, traced, events, prof
+    pytest.fail(f"the profiler kept {len(hand)} of {sum(launch_counts.values())} hand-kernel records in {tries} tries")
+
+
+def test_kernel_learner_launches_inside_its_spans(cuda):
+    """Under the profiler each hand kernel of a kernel-path update is
+    launched inside ``ng.launch``, inside its wrapper's span, inside
+    ``ng.ppo.update``; the spans' device-side records are user annotations,
+    never device ops; and the update is bit-equal to one with no profiler."""
+    plain, traced, events, _ = _profiled_kernel_update(cuda)
+    for a, b in zip(plain.params + plain.opt_state.mu + [plain.batt_soc],
+                    traced.params + traced.opt_state.mu + [traced.batt_soc]):
+        assert torch.equal(a, b)
+    assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "ppo_sweep_streamed": 1}
+    on_device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    annotations = [e for e in on_device if e.name().startswith("ng.")]
+    assert {e.name() for e in annotations} >= {"ng.ppo.update", "ng.collect", "ng.sweep", "ng.launch"}
+    assert all(e.is_user_annotation() for e in annotations)
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
+             if e.device_type() != torch.autograd.DeviceType.CUDA and e.name().startswith("ng.")]
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != torch.autograd.DeviceType.CUDA and e.name().startswith("cu")}
+    hand = [e for e in on_device if re.search(r"\bng[a-z]::", e.name()) and not e.is_user_annotation()]
+
+    def around(t):
+        return sorted(name for s, e, name in spans if s <= t <= e)
+
+    assert [around(launches[e.correlation_id()]) for e in sorted(hand, key=lambda e: e.start_ns())] == [
+        ["ng.collect", "ng.launch", "ng.ppo.update"], ["ng.launch", "ng.ppo.update", "ng.sweep"]]
+
+
+def test_profile_train_device_time_leaves_out_the_spans(cuda):
+    """``profile_train``'s device total of a kernel-path update is the sum of
+    the device ops the profiler recorded, its kernels, copies and fills: the
+    ``ng.`` spans' device-side annotations, which last as long as the spans,
+    count for nothing and name no row."""
+    from smart_nanogrid_gym_torch.tools.profile_train import device_by_kernel
+
+    _, _, events, prof = _profiled_kernel_update(cuda)
+    ops = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+    annotated = sum(e.duration_ns() for e in events
+                    if e.device_type() == torch.autograd.DeviceType.CUDA and e.is_user_annotation())
+    per_kernel, device_total = device_by_kernel(prof)
+    assert annotated > 0
+    assert device_total == pytest.approx(sum(e.duration_ns() for e in ops) / 1e3, rel=1e-6)
+    assert not any(name.startswith("other: ng.") for name in per_kernel)
+    assert per_kernel["K2 ppo_collect_day_seeded"][0] == per_kernel["K3 ppo_sweep_kernel"][0] == 1
 
 
 # ---------------------------------------------------------------- DDPG ---

@@ -9,6 +9,8 @@
 - Both train states round-trip with ``torch.equal`` on every tensor, equal
   generator states, and an equal next update.
 - ``TrainGuard`` rolls back a poisoned update (the JAX guard test's script).
+- ``device_trace`` writes a Chrome trace that holds the port's ``ng.``
+  spans (a param guard's ``ng.guard``).
 - An SB3-format zip written here with ``torch.save`` loads through both
   loaders into equal arrays, and both ``make_sb3_policy_fn``s act alike.
 """
@@ -33,10 +35,10 @@ from smart_nanogrid_gym_tpu.utils import checkpoint as jax_checkpoint, metrics a
 from smart_nanogrid_gym_torch.compat import sb3_loader
 from smart_nanogrid_gym_torch.core import NanogridConfig
 from smart_nanogrid_gym_torch.core.params import make_params
+from smart_nanogrid_gym_torch.ops.param_guard import check_baked_params
 from smart_nanogrid_gym_torch.solvers import DDPGConfig, DDPGLearner, PPOConfig, PPOLearner
 from smart_nanogrid_gym_torch.tools.train_ppo import VARIANTS
-from smart_nanogrid_gym_torch.utils import (
-    PhaseTimer, ThroughputMeter, device_trace, latest_step, restore_checkpoint, save_checkpoint)
+from smart_nanogrid_gym_torch.utils import device_trace, latest_step, restore_checkpoint, save_checkpoint
 from smart_nanogrid_gym_torch.utils import metrics
 from smart_nanogrid_gym_torch.utils.checkpoint import tree_leaves
 from smart_nanogrid_gym_torch.utils.guard import TrainGuard, check_finite, reseeded
@@ -203,22 +205,15 @@ def test_reseeded_is_deterministic():
 
 
 def test_profiling_helpers(tmp_path):
-    t = PhaseTimer()
-    with t.phase("a", block_on={"x": torch.ones(3)}):
-        _ = sum(range(1000))
-    with t.phase("a"):
-        pass
-    s = t.summary()
-    assert s["a"]["count"] == 2 and s["a"]["total_s"] > 0
+    config = NanogridConfig()
     with device_trace(str(tmp_path / "trace")) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
+        check_baked_params(config, make_params(config, torch.float32, "cpu"), "probe")
     traces = os.listdir(tmp_path / "trace")
-    assert len(traces) == 1 and json.loads((tmp_path / "trace" / traces[0]).read_text())["traceEvents"]
+    assert len(traces) == 1
+    events = json.loads((tmp_path / "trace" / traces[0]).read_text())["traceEvents"]
+    assert events and "ng.guard" in {e.get("name") for e in events}
     assert prof.key_averages()
-    meter = ThroughputMeter()
-    assert meter.steps_per_sec == 0.0
-    meter.record(100)
-    assert meter.steps_per_sec > 0
 
 
 # ------------------------------------------------------------------ SB3 zip ---
