@@ -5,8 +5,9 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels K1-K11 from ``smart_nanogrid_gym_torch/csrc``
-with nvcc (one process per library, all at once), holds each against its
+It builds the hand-written kernels K1-K11 and the day generation from
+``smart_nanogrid_gym_torch/csrc`` with nvcc (one process per library, all at
+once), holds each against its
 plain-PyTorch twin on the card, and drives these paths through their user
 entry points, each with the launch counts set to 0 just before it and read
 just after:
@@ -25,7 +26,9 @@ just after:
   sweep_impl="kernel")`` for 50 updates at B=4096 on the bench config, the
   trained actor with zero noise on explicit days (K9 explicit), and a
   learning run on the artifact's 4-charger config scored by K6;
-- the stateful env (K11a, K11b): card resets rolled by ``rbc_day_rollout``
+- the stateful env (K11a, K11b, the day generation of ``csrc/generate.cu``,
+  held to ``torch.equal`` against ``generate_schedule_plain`` at 1024 and
+  4096 envs first): card resets rolled by ``rbc_day_rollout``
   (the bench's reset + RBC day row, 50 days at B=4096 and one day at
   B=131,072), the PPO artifact's day from given states
   (``policy_day_rollout``), ``VectorSmartNanogridEnv`` at 4096 envs against
@@ -117,6 +120,7 @@ DDPG_ARTIFACT_NPZ = os.path.join(ROOT, "artifacts", "DDPG-b-pv-bounded-sparse-4c
 DAY_SOURCE = "smart_nanogrid_gym_torch/csrc/day_step.cuh"
 SWEEP_SOURCE = "smart_nanogrid_gym_torch/csrc/ppo_sweep.cuh"
 DDPG_SWEEP_SOURCE = "smart_nanogrid_gym_torch/csrc/ddpg_sweep.cuh"
+GENERATE_SOURCE = "smart_nanogrid_gym_torch/csrc/generate.cu"
 REPLACES = {
     "gen_rbc_day": "smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py:511",
     "gen_rbc_multiday": "smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py:580",
@@ -136,6 +140,8 @@ DDPG_REPLACES = {
 TABLES_REPLACES = {
     "rbc_day_rollout": "smart_nanogrid_gym_tpu/ops/pallas_rollout.py:144",
     "policy_day_rollout": "smart_nanogrid_gym_tpu/ops/pallas_policy_rollout.py:186",
+    # no Pallas kernel: XLA fuses the JAX package's generation loop
+    "generate_day": "smart_nanogrid_gym_tpu/core/generate.py:46",
 }
 DDPG_TRAIN_REPLACES = {
     "ddpg_collect_day": "smart_nanogrid_gym_tpu/ops/pallas_collect.py:424",
@@ -1314,6 +1320,43 @@ def tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg
     errors["policy_day_rollout"] = err
 
 
+def generation_checks(rbc_cfg, rbc_params, device, card, errors, times):
+    """Phase 20 (generation): ``generate_schedule`` on the card, one launch
+    of ``csrc/generate.cu``, bit-equal to ``generate_schedule_plain`` on the
+    same uniforms at the vector env's 1024 envs and at B=4096; at each, the
+    kernel's device time (profiler), the wrapper's and the twin's (CUDA
+    events) and the bytes bound.  Returns the device ms at B=4096 and the
+    instance the profiler saw."""
+    from smart_nanogrid_gym_torch.core.generate import draw_uniforms, generate_schedule, generate_schedule_plain
+    from smart_nanogrid_gym_torch.core.state import DaySchedule
+    from smart_nanogrid_gym_torch.ops import _build
+
+    N, T, L = rbc_cfg.num_chargers, rbc_cfg.steps_per_day, rbc_cfg.table_len
+    gen = torch.Generator(device=device).manual_seed(19)
+    err = 0.0
+    for batch in (1024, BENCH_BATCH):
+        u = draw_uniforms(rbc_cfg, batch, gen, torch.float32, device)
+
+        def kernel(u=u):
+            return generate_schedule(rbc_cfg, rbc_params, u)
+
+        plain_ms, want = once_ms(lambda: generate_schedule_plain(rbc_cfg, rbc_params, u))
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = kernel()
+        launches = dict(_build.launch_counts)
+        check(launches == {"generate_day": 1}, f"phase 20 generate_schedule (B={batch}): launches {launches}")
+        label = f"phase 20 generate_day (B={batch}, 8ch b-pv, f32)"
+        err = max(err, check_equal(label, got, want, DaySchedule._fields))
+        seen = profile_kernels(kernel, "generate_day_kernel", 20)
+        moved = 4 * (batch * T * 5 * N + 8 * batch * N * L)
+        print(f"{label}: kernel {seen[0]:.4f} ms of device time, wrapper {cuda_ms(kernel, 20):.4f} ms, plain twin "
+              f"{plain_ms:.4f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved / 1e6:.1f} MB) on {card}")
+    times["generate_day"] = (f"B={BENCH_BATCH}, 1 day, 8ch b-pv, f32", seen[0], plain_ms)
+    errors["generate_day"] = err
+    return seen
+
+
 def rbc_actions_on(device, config):
     """The RBC as the adapters' caller runs it: numpy observations in, numpy
     actions out, the rule evaluated on ``device``."""
@@ -1975,8 +2018,9 @@ def cli_evaluate_path(root, art_cfg, art_params, artifact):
     (results, out), counts = cli_launches("phase 31 evaluate --models-root", lambda: run_cli(evaluate.main, argv))
     report = json.loads(out[out.index("{"):])
     scaled = [name for name in report if name.endswith("(at-scale)")]
-    check(len(scaled) == 2 and counts == {"gen_policy_multiday": 1, "gen_policy_multiday_ddpg": 1},
-          f"phase 31: at-scale rows {scaled} with launches {counts} are not one K6 per checkpoint")
+    check(len(scaled) == 2 and counts == {"gen_policy_multiday": 1, "gen_policy_multiday_ddpg": 1, "generate_day": 1},
+          f"phase 31: at-scale rows {scaled} with launches {counts} are not one K6 per checkpoint and one "
+          f"generation for the same-day comparison")
     check(all(math.isfinite(report[n]["mean_day_return"]) for n in scaled) and len(results) == 4,
           "phase 31: evaluation of the trained runs")
     run = os.path.join(ROOT, "artifacts", "PPO-b-pv-bounded-sparse-4ch-1h")
@@ -1990,7 +2034,9 @@ def cli_evaluate_path(root, art_cfg, art_params, artifact):
     ppo, rbc = (float(np.mean(results[n])) for n in ("PPO-b-pv-bounded-sparse-4ch-1h@108134400", "RBC"))
     print(f"phase 31 PPO artifact: at-scale (20 days x {BENCH_BATCH}) {got['mean_day_return']:.4f}, equal to "
           f"evaluate_policy_at_scale; same 256 days: PPO {ppo:.4f}, RBC {rbc:.4f}")
-    check(ppo > rbc and art_counts == {"gen_policy_multiday": 1}, "phase 31: the artifact should beat the RBC")
+    check(ppo > rbc, "phase 31: the artifact should beat the RBC")
+    check(art_counts == {"gen_policy_multiday": 1, "generate_day": 1},
+          f"phase 31: the artifact's launches {art_counts} are not one K6 and one generation")
     return {name: counts.get(name, 0) + art_counts.get(name, 0) for name in {*counts, *art_counts}}
 
 
@@ -2421,6 +2467,8 @@ def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days, philox):
         return 4 * (7 * T * N * B + 2 * N * B + 2 * B + T * B + T * A * B + N * B)
 
     out["rbc_day_rollout"] = bound(tables_in_bytes(N8, 0), 0)
+    # the day generation: its uniforms read once, its eight (N, L) tables written once
+    out["generate_day"] = bound(4 * (T * 5 * N8 * B + 8 * N8 * rbc_cfg.table_len * B), 0)
     out["policy_day_rollout"] = bound(tables_in_bytes(N4, A4), actor4 * T * B)
 
     # phase 24's rows: the 256x256 torso's products at the f32 rate, a bf16
@@ -2487,7 +2535,8 @@ def main() -> None:
                          + [_build.config_flags(rbc_cfg, BIG_HIDDEN)]
                          + [_build.sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64)]
                          + [_build.config_flags(c, DDPG_HIDDEN, "ddpg") for c in (rbc_cfg, art_cfg)]
-                         + [_build.ddpg_sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN)])
+                         + [_build.ddpg_sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN)]
+                         + [_build.generate_flags(rbc_cfg)])
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall; "
           + ", ".join(f"{p.name} {s:.2f} s" for p, s in built))
     sweeps = (_build.sweep_library(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64, device),
@@ -2701,6 +2750,7 @@ def main() -> None:
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 20")
     # ---- phases 20-23: K11a/K11b against their twins, then the stateful-env path ----
     tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg, v2x_params, device, errors)
+    generation_seen = generation_checks(rbc_cfg, rbc_params, device, card, errors, times)
     torch.cuda.synchronize()
     tables_launches = stateful_env_main_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card)
 
@@ -2762,7 +2812,7 @@ def main() -> None:
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 28")
     device_times, instances = bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big, u, pv, u4,
                                      pv4, featlane, gathered, trained_state, learner, sweep_args, card, timing_days)
-    for name, seen in (("gen_rbc_multiday", k8_device), *tables_in_seen.items()):
+    for name, seen in (("gen_rbc_multiday", k8_device), ("generate_day", generation_seen), *tables_in_seen.items()):
         device_times[name], instances[name] = seen
 
     library = {name: k10_products_ms(sweep_args, dtype) for name, dtype in
@@ -2848,6 +2898,7 @@ def main() -> None:
              (BF16_DDPG_REPLACES, bf16_ddpg_launches))
     sources = {name: SWEEP_SOURCE for name in ("ppo_sweep_streamed", "ppo_sweep", *BF16_TRAIN_REPLACES)}
     sources.update({name: DDPG_SWEEP_SOURCE for name in ("ddpg_sweep", *BF16_DDPG_REPLACES)})
+    sources["generate_day"] = GENERATE_SOURCE
     for name, replaces, count in ((n, r, path_launches[n]) for table, path_launches in paths
                                   for n, r in table.items()):
         kernels.append({

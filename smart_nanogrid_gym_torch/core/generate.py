@@ -6,7 +6,11 @@ per-env ``(T, 5, N)`` contract of the JAX ``generate_schedule(uniforms=...)``
 the same tables bit for bit: its two multiply-adds go through
 ``torch.addcmul``, which rounds once like the fused multiply-add XLA's CPU
 backend emits for them.  The seeded path draws that block from a
-``torch.Generator`` (:func:`draw_uniforms`).
+``torch.Generator`` (:func:`draw_uniforms`).  On the CPU the eager loop
+:func:`generate_schedule_plain` builds the tables; on the card one launch of
+the kernel of ``csrc/generate.cu`` does, bit-equal to that loop.  That
+dispatch is the package's one import from ``core`` into ``ops``, made at the
+call, since ``ops`` imports ``core``.
 
 The host-side replay helpers (``generate.py:149-289``) read and write the
 reference's ``initial_values.json`` day: :func:`schedule_from_arrays`,
@@ -43,6 +47,16 @@ def draw_uniforms(
     return torch.rand(shape, generator=generator, dtype=dtype, device=device)
 
 
+def _uniform_block(config: NanogridConfig, params: NanogridParams, uniforms: torch.Tensor | None,
+                   generator: torch.Generator | None, batch: int | None) -> torch.Tensor:
+    """``uniforms``, or a block drawn from ``generator``."""
+    if uniforms is not None:
+        return uniforms
+    if generator is None or batch is None:
+        raise ValueError("generate_schedule needs uniforms, or a generator and a batch size")
+    return draw_uniforms(config, batch, generator, params.dtype, params.device)
+
+
 def generate_schedule(
     config: NanogridConfig,
     params: NanogridParams,
@@ -54,13 +68,33 @@ def generate_schedule(
     """One day's schedule per env, ``(B, N, L)`` tables.
 
     Pass ``uniforms (B, T, 5, N)``, or ``generator`` and ``batch`` to draw them.
+    With params on the CPU the plain twin :func:`generate_schedule_plain`
+    builds the tables; elsewhere the kernel of ``csrc/generate.cu`` writes
+    them in one launch (``ops/generate.py::generate_day``, f32 or f64), bit
+    for bit the same.  Each checks the block's shape.
     """
+    uniforms = _uniform_block(config, params, uniforms, generator, batch)
+    if params.device.type == "cpu":
+        return generate_schedule_plain(config, params, uniforms)
+    # the package's one import from core into ops, at the call: ops imports core
+    from ..ops.generate import generate_day
+
+    return generate_day(config, params, uniforms)
+
+
+def generate_schedule_plain(
+    config: NanogridConfig,
+    params: NanogridParams,
+    uniforms: torch.Tensor | None = None,
+    *,
+    generator: torch.Generator | None = None,
+    batch: int | None = None,
+) -> DaySchedule:
+    """:func:`generate_schedule` as an eager loop of element-wise ops, on
+    any device: the kernel's twin."""
     N, T, L = config.num_chargers, config.steps_per_day, config.table_len
     dtype, device = params.dtype, params.device
-    if uniforms is None:
-        if generator is None or batch is None:
-            raise ValueError("generate_schedule needs uniforms, or a generator and a batch size")
-        uniforms = draw_uniforms(config, batch, generator, dtype, device)
+    uniforms = _uniform_block(config, params, uniforms, generator, batch)
     B = uniforms.shape[0]
     if tuple(uniforms.shape) != (B, T, 5, N):
         raise ValueError(f"uniforms must be (B, {T}, 5, {N}), got {tuple(uniforms.shape)}")

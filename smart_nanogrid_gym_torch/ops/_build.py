@@ -7,12 +7,13 @@ count, config flags, actor hidden sizes and kind: the PPO actor's library
 holds K5/K6, K1/K2 and K11b, the DDPG actor's K5/K6 ``actor="ddpg"`` and K9,
 both K7/K8 and K11a),
 ``sweep.cu`` (the PPO update sweep K3/K4) and ``ddpg_sweep.cu`` (the DDPG
-update sweep K10) once per network shape.  The bf16 operand options (K6's
-``mlp_dtype``, the sweeps' ``matmul_dtype``) are launch arguments of the
-same libraries.  Libraries land in ``build/torch_kernels/`` at the root of
-the checkout, named by the flags and a digest of the sources and nvcc flags,
-which is computed once per process: an edited source rebuilds in a new
-process.  They are loaded with ``ctypes``; every launch goes on PyTorch's
+update sweep K10) once per network shape, ``generate.cu`` (the plain
+engine's day generation) once per charger count and generation flags.  The
+bf16 operand options (K6's ``mlp_dtype``, the sweeps' ``matmul_dtype``) are
+launch arguments of the same libraries.  Libraries land in
+``build/torch_kernels/`` at the root of the checkout, named by the flags and
+a digest of the sources and nvcc flags, which is computed once per process:
+an edited source rebuilds in a new process.  They are loaded with ``ctypes``; every launch goes on PyTorch's
 current stream and its ``cudaGetLastError()`` is checked.
 
 ``launch_counts`` counts the launches of each kernel by name: a wrapper adds
@@ -40,7 +41,7 @@ from ..utils.profiling import span
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("operand.cuh", "day_step.cuh", "kernels.cu", "ppo_sweep.cuh", "sweep.cu", "ddpg_sweep.cuh",
-           "ddpg_sweep.cu")
+           "ddpg_sweep.cu", "generate.cu")
 # --fmad=false: no FMA contraction, so the kernels round like their twins;
 # IEEE division stays on (no --use_fast_math).
 NVCC_FLAGS = (
@@ -53,6 +54,7 @@ ACTORS = {"ppo": 0, "ddpg": 1}
 launch_counts: Counter = Counter()
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 _DAY_SIGNATURES = {
     "ngk_block_actor": (),
     "ngk_collect_weights_size": (),
@@ -104,7 +106,12 @@ _DDPG_SWEEP_SIGNATURES = {
     "ngk_ddpg_grid_blocks": (),
     "ngk_ddpg_sweep": (_P, _P, _P, _P),
 }
-_LIBRARIES: dict[Path, ctypes.CDLL] = {}
+_GENERATE_SIGNATURES = {
+    # u, the seven params, out, strides, B, T, L, k4, k10, k1, f64, stream
+    "ngk_generate_day": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _I, _I, _P),
+}
+# the loaded libraries by their flags: a launch after the first reads no file
+_LIBRARIES: dict[tuple, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -150,7 +157,16 @@ def ddpg_sweep_flags(F: int, A: int, H1: int, H2: int) -> dict[str, int]:
     return {**sweep_flags(F, A, H1, H2), "NG_DDPG": 1}
 
 
+def generate_flags(config: NanogridConfig) -> dict[str, int]:
+    """The static configuration a day-generation library is built for."""
+    return {"NG_GEN": 1, "NG_N": config.num_chargers,
+            "NG_DIFF_CAPS": int(config.different_battery_capacities),
+            "NG_REQ_SOC": int(config.requested_state_of_charge)}
+
+
 def _source(flags: dict[str, int]) -> str:
+    if "NG_GEN" in flags:
+        return "generate.cu"
     if "NG_DDPG" in flags:
         return "ddpg_sweep.cu"
     return "sweep.cu" if "NG_F" in flags else "kernels.cu"
@@ -158,6 +174,8 @@ def _source(flags: dict[str, int]) -> str:
 
 def _signatures(flags: dict[str, int]) -> dict:
     source = _source(flags)
+    if source == "generate.cu":
+        return _GENERATE_SIGNATURES
     if source == "kernels.cu":
         return _DDPG_SIGNATURES if flags["NG_ACTOR"] else _PPO_SIGNATURES
     return _DDPG_SWEEP_SIGNATURES if source == "ddpg_sweep.cu" else _SWEEP_SIGNATURES
@@ -166,8 +184,8 @@ def _signatures(flags: dict[str, int]) -> dict:
 @functools.lru_cache(maxsize=1)
 def source_digest() -> str:
     """The digest of the nvcc flags and the ``csrc/`` sources, read once per
-    process: every launch reaches :func:`library_path`, so an edited source
-    takes effect in a new process."""
+    process: a library is named by it and loaded once per process, so an
+    edited source takes effect in a new process."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
@@ -249,15 +267,16 @@ def patched_library(flags: dict[str, int], out_dir: Path, edits: dict) -> ctypes
 def _load(flags: dict[str, int], device: torch.device) -> ctypes.CDLL:
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels need a CUDA device, got {device}")
-    path, _ = compile_library(flags)
-    lib = _LIBRARIES.get(path)
+    key = tuple(flags.items())
+    lib = _LIBRARIES.get(key)
     if lib is None:
+        path, _ = compile_library(flags)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _signatures(flags).items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        _LIBRARIES[path] = lib
+        _LIBRARIES[key] = lib
     return lib
 
 
@@ -276,6 +295,11 @@ def sweep_library(F: int, A: int, H1: int, H2: int, device: torch.device) -> cty
 def ddpg_sweep_library(F: int, A: int, H1: int, H2: int, device: torch.device) -> ctypes.CDLL:
     """The loaded DDPG sweep library for the network shape, built first if needed."""
     return _load(ddpg_sweep_flags(F, A, H1, H2), device)
+
+
+def generate_library(config: NanogridConfig, device: torch.device) -> ctypes.CDLL:
+    """The loaded day-generation library for ``config``, built first if needed."""
+    return _load(generate_flags(config), device)
 
 
 def check_f32(t: torch.Tensor, name: str) -> torch.Tensor:

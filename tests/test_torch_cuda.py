@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K11 of the PyTorch port against their plain twins.
+"""The CUDA kernels K1-K11 and the day generation of the PyTorch port
+against their plain twins.
 
 Marked ``cuda``: each test skips without a CUDA device (and needs ``nvcc``
 to build the kernels at first use).  The file imports no JAX, so it also
@@ -7,7 +8,8 @@ tests/test_torch_cuda.py -m cuda``.  Batches of 300 leave a ragged last
 block of threads; the collection kernels and the block actor of K5 and K6
 are also held at 1, 33 and 8192 envs, bit for bit, K8 and K11a at 1 and
 300 envs off the 1 h grid, K11b at 300 and 4096 envs at 0.25-1 h, and K7
-and K5's 64x64 torso at 1 to 4133 envs at 0.25-2 h.
+and K5's 64x64 torso at 1 to 4133 envs at 0.25-2 h, the day generation at
+1 to 4133 envs at 0.25-2 h in f32 and f64.
 """
 
 import re
@@ -501,7 +503,7 @@ def test_tables_in_kernels_match_twins(cuda, name):
                              ("rewards", "soc_final"))
         assert_equal_outputs(policy_day_rollout(config, params, state, net),
                              policy_day_rollout_plain(config, traces, weights, st), ("rewards", "actions", "soc_final"))
-    assert dict(launch_counts) == {"rbc_day_rollout": 2, "policy_day_rollout": 2}
+    assert dict(launch_counts) == {"generate_day": 1, "rbc_day_rollout": 2, "policy_day_rollout": 2}
 
 
 # K11b off the 1 h grid and on v2x (both charger branches), each torso: the
@@ -590,7 +592,7 @@ def test_rbc_lane_and_ring_kernels_equal_twins(cuda, name, batch):
         assert_equal_outputs(rbc_day_rollout(config, params, state),
                              rbc_day_rollout_plain(config, traces, state_tables(config, params, state)),
                              ("rewards", "soc_final"))
-    assert dict(launch_counts) == {"gen_rbc_multiday": 1, "rbc_day_rollout": 2}
+    assert dict(launch_counts) == {"gen_rbc_multiday": 1, "generate_day": 1, "rbc_day_rollout": 2}
 
 
 # K7 on its ring block and K5 at 64x64 on the block actor: one env, a ragged
@@ -747,7 +749,8 @@ def test_policy_kernels_at_256x256_match_twins(cuda):
                          policy_day_rollout_plain(config, traces, weights, state_tables(config, params, state)),
                          ("rewards", "actions", "soc_final"))
     assert dict(launch_counts) == {"gen_policy_day_block": 1, "gen_policy_multiday_block": 1,
-                                   "gen_policy_multiday_block_bf16": 1, "policy_day_rollout_block": 1}
+                                   "gen_policy_multiday_block_bf16": 1, "generate_day": 1,
+                                   "policy_day_rollout_block": 1}
 
 
 def test_sweep_kernels_bf16_match_twins(cuda):
@@ -1027,3 +1030,162 @@ def test_two_ranks_on_one_card(cuda):
     reports = [json.loads(o.strip().splitlines()[-1]) for o in outs]
     assert [r["rank"] for r in reports] == [0, 1] and all(r["ok"] for r in reports)
     assert reports[0]["params_digest"] == reports[1]["params_digest"]
+
+
+# ------------------------------------------------------- day generation ---
+
+GEN_CONFIGS = {
+    "b-pv-8ch-1h": NanogridConfig(num_chargers=8),
+    "6ch-30min-reqsoc": NanogridConfig(num_chargers=6, time_interval=0.5, requested_state_of_charge=True),
+    "8ch-15min-fixedcap": NanogridConfig(num_chargers=8, time_interval=0.25, different_battery_capacities=False),
+    "5ch-2h-fixedcap-reqsoc": NanogridConfig(num_chargers=5, time_interval=2.0, different_battery_capacities=False,
+                                             requested_state_of_charge=True),
+}
+
+
+def _gen_params(config, dtype, device, batch, batched):
+    """The default params with charger 1 masked off; ``batched``: a value per
+    env for each param the generation reads."""
+    params = make_params(config, dtype, device)
+    mask = params.charger_mask.clone()
+    mask[1] = 0
+    params = params._replace(charger_mask=mask)
+    if not batched:
+        return params
+    g = torch.Generator(device=device).manual_seed(batch)
+    params = params._replace(**{f: getattr(params, f).expand((batch,) + getattr(params, f).shape).clone()
+                                for f in params._fields})
+
+    def spread(x, width):
+        return x + width * torch.rand(x.shape, generator=g, dtype=dtype, device=device)
+
+    return params._replace(arrival_threshold=spread(params.arrival_threshold, 0.2), soc_low=spread(params.soc_low, 0.1),
+                           soc_span=spread(params.soc_span, -0.1), cap_low=spread(params.cap_low, 5.0),
+                           cap_span=spread(params.cap_span, 20.0), default_capacity=spread(params.default_capacity, 10.0))
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["unbatched", "batched"])
+@pytest.mark.parametrize("name", list(GEN_CONFIGS))
+@pytest.mark.parametrize("batch", [1, 300, 1024, 4133])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_generate_day_equals_twin(cuda, dtype, batch, name, batched):
+    """``generate_schedule`` on the card launches ``csrc/generate.cu`` once,
+    and its eight tables equal ``generate_schedule_plain``'s bit for bit:
+    per-env params read through their strides, charger 1 masked off, the
+    2 h config's no-draw departures, the zero columns from T on."""
+    from smart_nanogrid_gym_torch.core.generate import generate_schedule, generate_schedule_plain
+    from smart_nanogrid_gym_torch.ops.generate import LAUNCH_NAME
+
+    config = GEN_CONFIGS[name]
+    params = _gen_params(config, dtype, cuda, batch, batched)
+    u = torch.rand((batch, config.steps_per_day, 5, config.num_chargers),
+                   generator=torch.Generator(device=cuda).manual_seed(batch + 7), dtype=dtype, device=cuda)
+    reset_launch_counts()
+    got = generate_schedule(config, params, u)
+    assert dict(launch_counts) == {LAUNCH_NAME: 1}
+    want = generate_schedule_plain(config, params, u)
+    for field, g, w in zip(want._fields, got, want):
+        assert g.shape == (batch, config.num_chargers, config.table_len) and g.dtype == dtype, field
+        assert torch.equal(g, w), field
+    assert want.occupancy[:, 1].abs().sum() == 0 and want.occupancy.sum() > 0
+
+
+def test_generate_day_refuses_what_it_does_not_take(cuda):
+    """The wrapper raises on bf16 params and on uniforms of a wrong shape, and
+    takes a non-contiguous uniform block as its contiguous copy."""
+    from smart_nanogrid_gym_torch.core.generate import generate_schedule, generate_schedule_plain
+    from smart_nanogrid_gym_torch.ops.generate import generate_day
+
+    config = GEN_CONFIGS["b-pv-8ch-1h"]
+    params = make_params(config, torch.float32, cuda)
+    u = torch.rand((64, 24, 5, 8), generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        generate_schedule(config, make_params(config, torch.bfloat16, cuda), u.bfloat16())
+    with pytest.raises(ValueError, match="uniforms must be"):
+        generate_day(config, params, u[..., :7])
+    strided = u.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+    assert not strided.is_contiguous()
+    for g, w in zip(generate_schedule(config, params, strided), generate_schedule_plain(config, params, u)):
+        assert torch.equal(g, w)
+
+
+def test_generate_day_takes_any_day_size(cuda):
+    """A day of 64 chargers at 15 min in f64 (97 columns of eight tables an
+    env) generates in one launch, bit-equal to the twin: the kernel stages
+    nothing in shared memory, so no size of day is refused."""
+    from smart_nanogrid_gym_torch.core.generate import generate_schedule, generate_schedule_plain
+
+    config = NanogridConfig(num_chargers=64, time_interval=0.25)
+    params = make_params(config, torch.float64, cuda)
+    u = torch.rand((300, config.steps_per_day, 5, 64), generator=torch.Generator(device=cuda).manual_seed(64),
+                   dtype=torch.float64, device=cuda)
+    reset_launch_counts()
+    got = generate_schedule(config, params, u)
+    assert dict(launch_counts) == {"generate_day": 1}
+    for field, g, w in zip(got._fields, got, generate_schedule_plain(config, params, u)):
+        assert torch.equal(g, w), field
+
+
+def _vector_env_days(device, days, plain=False, monkeypatch=None):
+    """A 1024-env vector env on a fixed seed and every observation, reward
+    and done of its first ``days`` days under seeded random actions
+    (``plain``: with the env's generation patched to the eager twin)."""
+    from smart_nanogrid_gym_torch.compat.vector_env import VectorSmartNanogridEnv
+    from smart_nanogrid_gym_torch.core import env as core_env
+    from smart_nanogrid_gym_torch.core.generate import generate_schedule_plain
+
+    if plain:
+        monkeypatch.setattr(core_env, "generate_schedule", generate_schedule_plain)
+    venv = VectorSmartNanogridEnv(num_envs=1024, seed=11, device=device)
+    low, high = venv.config.action_bounds()
+    rng = np.random.default_rng(5)
+    obs, _ = venv.reset()
+    out = [obs]
+    for _ in range(days * venv.config.steps_per_day):
+        obs, rewards, dones, _, _ = venv.step(rng.uniform(low, high, (1024, len(low))).astype(np.float32))
+        out += [obs, rewards, dones]
+    if plain:
+        monkeypatch.undo()
+    return venv, out
+
+
+def test_vector_env_day_end_generates_in_one_launch(cuda, monkeypatch):
+    """A day-end step of ``VectorSmartNanogridEnv(num_envs=1024)`` launches the
+    generation kernel once, inside ``ng.generate``; two days of observations,
+    rewards and dones equal a run on the same seed generating by the twin."""
+    from smart_nanogrid_gym_torch.ops.generate import LAUNCH_NAME
+
+    _, plain = _vector_env_days(cuda, 2, plain=True, monkeypatch=monkeypatch)
+    reset_launch_counts()
+    venv, kernel = _vector_env_days(cuda, 2)
+    assert launch_counts[LAUNCH_NAME] == 3  # the first reset and two day ends
+    assert len(kernel) == len(plain)
+    for a, b in zip(kernel, plain):
+        assert np.array_equal(a, b)
+
+    T, low, high = venv.config.steps_per_day, *venv.config.action_bounds()
+    actions = np.full((1024, len(low)), 0.5, dtype=np.float32)
+    for _ in range(T - 1):
+        venv.step(actions)
+    for _ in range(3):
+        before = launch_counts[LAUNCH_NAME]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            *_, dones, _, _ = venv.step(actions)
+            torch.cuda.synchronize()
+        assert dones.all() and launch_counts[LAUNCH_NAME] == before + 1
+        events = prof.profiler.kineto_results.events()
+        hand = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation() and re.search(r"\bngk::generate_day_kernel", e.name())]
+        if len(hand) == 1:
+            break
+        for _ in range(T - 1):
+            venv.step(actions)
+    else:
+        pytest.fail("the profiler kept no record of the generation kernel in 3 tries")
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
+             if e.device_type() != torch.autograd.DeviceType.CUDA and e.name().startswith("ng.")]
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != torch.autograd.DeviceType.CUDA and e.name().startswith("cu")}
+    t = launches[hand[0].correlation_id()]
+    assert sorted(name for s, e, name in spans if s <= t <= e) == ["ng.generate", "ng.launch", "ng.vecenv.reset"]

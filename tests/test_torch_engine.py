@@ -23,10 +23,12 @@ from smart_nanogrid_gym_tpu.solvers.networks import ActorCritic as FlaxActorCrit
 from smart_nanogrid_gym_tpu.solvers.rbc import make_rbc_policy_fn as jax_rbc_fn
 
 from smart_nanogrid_gym_torch.core import physics
-from smart_nanogrid_gym_torch.core.generate import generate_schedule
+from smart_nanogrid_gym_torch.core.generate import generate_schedule, generate_schedule_plain
 from smart_nanogrid_gym_torch.core.params import make_params
 from smart_nanogrid_gym_torch.core.rollout import fused_day_rollout
 from smart_nanogrid_gym_torch.core.transition import step
+from smart_nanogrid_gym_torch.ops import launch_counts, reset_launch_counts
+from smart_nanogrid_gym_torch.ops.generate import generate_day
 from smart_nanogrid_gym_torch.solvers.networks import actor_critic_from_flax, make_actor_policy_fn
 from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
 
@@ -62,6 +64,51 @@ def test_generate_schedule_bitwise(config):
     got = generate_schedule(config, make_params(config, F64, "cpu"), torch.from_numpy(u))
     for name, r, g in zip(ref._fields, ref, got):
         np.testing.assert_array_equal(to_numpy(g), np.asarray(r), err_msg=name)
+
+
+GEN_CONFIGS = [
+    NanogridConfig(num_chargers=8),
+    NanogridConfig(num_chargers=5, different_battery_capacities=False, requested_state_of_charge=True),
+    NanogridConfig(num_chargers=4, pv_system=False, battery_system=False, time_interval=2.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("config", GEN_CONFIGS, ids=["b-pv-1h", "reqsoc-fixedcap", "basic-2h"])
+def test_generate_schedule_on_the_cpu_is_the_plain_twin(config, dtype):
+    """On CPU params ``generate_schedule`` returns ``generate_schedule_plain``'s
+    tables exactly, from given uniforms and from a generator, and launches
+    nothing."""
+    params = make_params(config, dtype, "cpu")
+    u = torch.rand((16, config.steps_per_day, 5, config.num_chargers), dtype=dtype,
+                   generator=torch.Generator().manual_seed(2))
+    reset_launch_counts()
+    pairs = [(generate_schedule(config, params, u), generate_schedule_plain(config, params, u)),
+             (generate_schedule(config, params, generator=torch.Generator().manual_seed(3), batch=16),
+              generate_schedule_plain(config, params, generator=torch.Generator().manual_seed(3), batch=16))]
+    assert sum(launch_counts.values()) == 0
+    for got, want in pairs:
+        for name, g, w in zip(want._fields, got, want):
+            assert g.dtype == dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("case", ["shape", "device"])
+def test_generate_day_checks_before_it_launches(case):
+    """The kernel's wrapper refuses a uniform block of the wrong shape and
+    params off the card, before it loads a library or launches."""
+    config = GEN_CONFIGS[0]
+    params = make_params(config, torch.float32, "cpu")
+    u = torch.rand((4, config.steps_per_day, 5, config.num_chargers), generator=torch.Generator().manual_seed(0))
+    reset_launch_counts()
+    if case == "shape":
+        with pytest.raises(ValueError, match="uniforms must be"):
+            generate_day(config, params, u[..., :-1])
+        with pytest.raises(ValueError, match="uniforms must be"):
+            generate_schedule(config, params, u[..., :-1])
+    else:
+        with pytest.raises(ValueError, match="CUDA device"):
+            generate_day(config, params, u)
+    assert sum(launch_counts.values()) == 0
 
 
 def test_physics_matches_on_every_branch():
