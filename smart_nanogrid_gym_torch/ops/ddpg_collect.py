@@ -32,6 +32,7 @@ from torch import nn
 
 from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
+from ..utils.profiling import spanned
 from . import _build
 from .gen_policy_rollout import (
     ActorWeights,
@@ -211,6 +212,7 @@ def ddpg_collect_day_seeded_plain(config: NanogridConfig, traces: Traces, weight
                                   batt_soc.to(F32))
 
 
+@spanned("collect")
 def ddpg_collect_day_seeded(config: NanogridConfig, params: NanogridParams, net, seed: int,
                             ou_seq: torch.Tensor, batt_soc: torch.Tensor, batch: int,
                             check_params: bool = True):

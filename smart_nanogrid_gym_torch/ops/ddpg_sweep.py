@@ -46,6 +46,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from . import _build
 from .gen_policy_rollout import relu
 from .gen_rollout import bf16_operands, kernel_device, round_bf16
@@ -204,6 +205,7 @@ def _check(actor, critic, b_obs, b_act, b_rew, b_next, b_done):
                          f"{critic[0].shape[1]}; the data has F={F}, A={A}")
 
 
+@spanned("sweep")
 def ddpg_sweep(actor, critic, t_actor, t_critic, a_adam: AdamState, c_adam: AdamState,
                b_obs: torch.Tensor, b_act: torch.Tensor, b_rew: torch.Tensor, b_next: torch.Tensor,
                b_done: torch.Tensor, low: torch.Tensor, high: torch.Tensor, hp: DDPGSweepHypers):

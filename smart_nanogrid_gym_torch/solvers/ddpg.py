@@ -68,6 +68,7 @@ from ..ops.gen_rollout import bf16_operands
 from ..ops.param_guard import check_baked_params
 from ..ops.ppo_sweep import AdamState, zeros_adam
 from ..parallel.mesh import EnvMesh, replicate
+from ..utils.profiling import span, spanned
 from .networks import DDPG_HIDDEN, DDPGActor, DDPGCritic, ddpg_leaves
 from .ppo import check_mesh, mean_over_ranks, optax_adam_step
 
@@ -162,7 +163,11 @@ def critic_apply(leaves, obs, action):
 
 
 class DDPGLearner:
-    """The DDPG learner for one env config on one device (one rank of ``mesh``)."""
+    """The DDPG learner for one env config on one device (one rank of ``mesh``).
+    Under a ``torch.profiler`` an update records the span ``ng.ddpg.update``
+    around ``ng.ddpg.draw`` (the host draws), ``ng.ddpg.ou`` (the OU
+    sequence), ``ng.collect`` (the collection day), ``ng.ddpg.replay`` (the
+    day's insert, then the minibatches' gather) and ``ng.sweep``."""
 
     def __init__(self, env_config: NanogridConfig, ddpg_config: DDPGConfig | None = None,
                  mesh: EnvMesh | None = None, device: torch.device | str = "cuda"):
@@ -310,16 +315,18 @@ class DDPGLearner:
         T = self.cfg.steps_per_update
         B = state.batt_soc.shape[0]
         low, high = self._action_low, self._action_high
-        ou_seq = self._ou_sequence(self._to_device(draws.gaussians))
+        with span("ddpg.ou"):
+            ou_seq = self._ou_sequence(self._to_device(draws.gaussians))
         if self.cfg.collect_impl == "kernel" and not self._force_sequential_collect:
             obs, act, rew, nxt, batt = ddpg_collect_day_seeded(
                 self.env_config, env_params, state.actor, draws.seed, ou_seq, state.batt_soc, B,
                 check_params=False)
-            dones = torch.zeros((T, B), dtype=torch.bool, device=rew.device)
-            dones[-1] = True
-            t_next = nxt.permute(0, 2, 1)
-            buffer = self._insert_day(state.buffer, obs.permute(0, 2, 1), act.permute(0, 2, 1), rew,
-                                      t_next, dones)
+            with span("ddpg.replay"):
+                dones = torch.zeros((T, B), dtype=torch.bool, device=rew.device)
+                dones[-1] = True
+                t_next = nxt.permute(0, 2, 1)
+                buffer = self._insert_day(state.buffer, obs.permute(0, 2, 1), act.permute(0, 2, 1), rew,
+                                          t_next, dones)
             return batt, t_next[-1], ou_seq[-1].T, buffer, rew
 
         schedule = generate_schedule(self.env_config, env_params, self._to_device(draws.uniforms))
@@ -337,7 +344,8 @@ class DDPGLearner:
             final, (obs_traj, rewards, dones, (t_obs, t_act)) = fused_day_rollout(
                 self.env_config, env_params, st, policy_step, next_pv_shift=st.pv_shift, policy_aux=True,
                 policy_xs=ou_seq)
-            buffer = self._insert_day(state.buffer, t_obs, t_act, rewards, obs_traj, dones)
+            with span("ddpg.replay"):
+                buffer = self._insert_day(state.buffer, t_obs, t_act, rewards, obs_traj, dones)
             return final.batt_soc, obs_traj[-1], ou_seq[-1], buffer, rewards
 
         # a partial-day window steps the env one step at a time, one buffer row each
@@ -384,15 +392,18 @@ class DDPGLearner:
             rows.append(torch.stack([c_loss.detach(), a_loss.detach()]))
         return actor, critic, t_actor, t_critic, a_opt, c_opt, torch.stack(rows)
 
+    @spanned("ddpg.update")
     def _train_body(self, state: DDPGTrainState, env_params, draws: DDPGDraws | None = None):
         """One update: collect, insert, sample, sweep (ddpg.py:333-403)."""
         B = state.batt_soc.shape[0]
         C = state.buffer.obs.shape[0]
         filled = min(state.buffer.filled + self.cfg.steps_per_update, C)
-        draws = draws or self.draw(state.generator, B, filled)
+        if draws is None:
+            with span("ddpg.draw"):
+                draws = self.draw(state.generator, B, filled)
         batt, obs, ou, buffer, rewards = self._collect(state, env_params, draws)
-        t_idx, b_idx = self._to_device(draws.t_idx), self._to_device(draws.b_idx)
-        batches = self._sample(buffer, t_idx, b_idx)
+        with span("ddpg.replay"):
+            batches = self._sample(buffer, self._to_device(draws.t_idx), self._to_device(draws.b_idx))
         if self.cfg.sweep_impl == "kernel":
             out = ddpg_sweep(state.actor, state.critic, state.target_actor, state.target_critic,
                              state.actor_opt, state.critic_opt, *batches, self._action_low, self._action_high,

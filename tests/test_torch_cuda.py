@@ -463,6 +463,48 @@ def test_ddpg_kernel_learner_launches_one_collection_and_one_per_step(cuda):
     assert state.buffer.filled == config.steps_per_day
 
 
+def test_ddpg_kernel_learner_launches_inside_its_spans(cuda):
+    """Under the profiler K9 seeded is launched inside ``ng.launch`` inside
+    ``ng.collect``, K10 inside ``ng.launch`` inside ``ng.sweep``, both inside
+    ``ng.ddpg.update``; the OU loop's kernels inside ``ng.ddpg.ou``.  The
+    profiler can drop a kernel's record, so the update runs again, up to
+    three times, until its trace holds a record of every hand-kernel launch."""
+    from smart_nanogrid_gym_torch.solvers.ddpg import DDPGConfig, DDPGLearner
+
+    config = COLLECT_CONFIGS["b-pv-8ch"]
+    params = make_params(config, torch.float32, cuda)
+    learner = DDPGLearner(config, DDPGConfig(buffer_days=2, gradient_steps=4, collect_impl="kernel",
+                                             sweep_impl="kernel"), device=cuda)
+    step = learner.build_train_step()
+    step(learner.init(0, params, 256), params)
+    for _ in range(3):
+        reset_launch_counts()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step(learner.init(0, params, 256), params)
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        on_device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation()]
+        hand = [e for e in on_device if re.search(r"\bng[a-z]::", e.name())]
+        if len(hand) == sum(launch_counts.values()):
+            break
+    assert dict(launch_counts) == {"ddpg_collect_day_seeded": 1, "ddpg_sweep": 1}
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
+             if e.device_type() != torch.autograd.DeviceType.CUDA and e.name().startswith("ng.")]
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != torch.autograd.DeviceType.CUDA and e.name().startswith("cu")}
+
+    def around(e):
+        t = launches[e.correlation_id()]
+        return sorted(name for s, end, name in spans if s <= t <= end)
+
+    assert [around(e) for e in sorted(hand, key=lambda e: e.start_ns())] == [
+        ["ng.collect", "ng.ddpg.update", "ng.launch"], ["ng.ddpg.update", "ng.launch", "ng.sweep"]]
+    ou = [e for e in on_device if e.correlation_id() in launches and "ng.ddpg.ou" in around(e)]
+    assert ou and all(around(e) == ["ng.ddpg.ou", "ng.ddpg.update"] for e in ou)
+
+
 # ----------------------------------------------------------- tables-in days ---
 
 TABLES_IN_CONFIGS = {

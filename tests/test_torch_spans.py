@@ -3,8 +3,8 @@
 - With no profiler running, ``span`` returns one shared null context and
   records nothing.
 - Under ``torch.profiler`` each path records its spans at its layer
-  boundaries, nested as the calls nest: a kernel-path PPO update through
-  the twins, ``evaluate_policy_at_scale``, ``gen_rbc_multiday`` and a 16-env
+  boundaries, nested as the calls nest: a kernel-path PPO update and a
+  kernel-path DDPG update through the twins, ``evaluate_policy_at_scale``, ``gen_rbc_multiday`` and a 16-env
   vector env stepped through a day end.
 - A span leaves every output bit-equal to a run with no profiler.
 - A function under ``spanned`` keeps its name, docstring and signature,
@@ -23,8 +23,10 @@ from smart_nanogrid_gym_torch.core import NanogridConfig, make_params
 from smart_nanogrid_gym_torch.compat.vector_env import VectorSmartNanogridEnv as VectorEnv
 from smart_nanogrid_gym_torch.core.env import SmartNanogridTorch
 from smart_nanogrid_gym_torch.ops import gen_policy_multiday, gen_rbc_multiday, ppo_collect_day_seeded, ppo_sweep_streamed
+from smart_nanogrid_gym_torch.ops.ddpg_collect import ddpg_collect_day_seeded
+from smart_nanogrid_gym_torch.ops.ddpg_sweep import ddpg_sweep
 from smart_nanogrid_gym_torch.ops.param_guard import check_baked_params
-from smart_nanogrid_gym_torch.solvers import PPOConfig, PPOLearner, evaluate_policy_at_scale
+from smart_nanogrid_gym_torch.solvers import DDPGConfig, DDPGLearner, PPOConfig, PPOLearner, evaluate_policy_at_scale
 from smart_nanogrid_gym_torch.solvers.networks import ActorCritic
 from smart_nanogrid_gym_torch.utils import profiling
 
@@ -45,6 +47,15 @@ def ppo_update():
     learner = PPOLearner(CONFIG, PPOConfig(num_epochs=2, collect_impl="kernel", sweep_impl="kernel"), device="cpu")
     state, metrics = learner.build_train_step()(learner.init(0, params, 32), params)
     return state.params + state.opt_state.mu + state.opt_state.nu + [state.batt_soc] + list(metrics)
+
+
+def ddpg_update():
+    params = make_params(CONFIG, torch.float32, "cpu")
+    learner = DDPGLearner(CONFIG, DDPGConfig(buffer_days=2, batch_size=16, gradient_steps=2, collect_impl="kernel",
+                                             sweep_impl="kernel"), device="cpu")
+    state, metrics = learner.build_train_step()(learner.init(0, params, 8), params)
+    return (state.actor + state.critic + state.target_actor + state.target_critic + state.actor_opt.mu
+            + state.critic_opt.mu + list(state.buffer[:5]) + [state.batt_soc] + list(metrics))
 
 
 def evaluate():
@@ -72,6 +83,8 @@ def vector_env():
 # each path: the spans it must record, as (a span, the spans directly inside it in order)
 PATHS = {
     "ppo_update": (ppo_update, [("ng.ppo.update", ["ng.ppo.draw", "ng.collect", "ng.ppo.gae", "ng.sweep"])]),
+    "ddpg_update": (ddpg_update, [("ng.ddpg.update", ["ng.ddpg.draw", "ng.ddpg.ou", "ng.collect", "ng.ddpg.replay",
+                                                      "ng.ddpg.replay", "ng.sweep"])]),
     "evaluate": (evaluate, [("ng.evaluate", ["ng.guard", "ng.policy_days"])]),
     "rbc_days": (rbc_days, [("ng.rbc_days", ["ng.guard"])]),
     "vector_env": (vector_env, [("ng.vecenv.reset", ["ng.generate"])]),
@@ -132,6 +145,9 @@ SPANNED = {
     "ng.ppo.update": PPOLearner._kernel_step,
     "ng.collect": ppo_collect_day_seeded,
     "ng.sweep": ppo_sweep_streamed,
+    "ng.ddpg.update": DDPGLearner._train_body,
+    "ng.collect (DDPG)": ddpg_collect_day_seeded,
+    "ng.sweep (DDPG)": ddpg_sweep,
     "ng.guard": check_baked_params,
     "ng.evaluate": evaluate_policy_at_scale,
     "ng.rbc_days": gen_rbc_multiday,
