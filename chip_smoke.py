@@ -26,9 +26,10 @@ just after:
   sweep_impl="kernel")`` for 50 updates at B=4096 on the bench config, the
   trained actor with zero noise on explicit days (K9 explicit), and a
   learning run on the artifact's 4-charger config scored by K6;
-- the stateful env (K11a, K11b, the day generation of ``csrc/generate.cu``,
-  held to ``torch.equal`` against ``generate_schedule_plain`` at 1024 and
-  4096 envs first): card resets rolled by ``rbc_day_rollout``
+- the stateful env (K11a, K11b, the day generation of ``csrc/generate.cu``
+  and the step of ``csrc/engine_step.cu``, held to ``torch.equal`` against
+  ``generate_schedule_plain`` and ``step_plain`` at 1024 and 4096 envs
+  first): card resets rolled by ``rbc_day_rollout``
   (the bench's reset + RBC day row, 50 days at B=4096 and one day at
   B=131,072), the PPO artifact's day from given states
   (``policy_day_rollout``), ``VectorSmartNanogridEnv`` at 4096 envs against
@@ -121,6 +122,7 @@ DAY_SOURCE = "smart_nanogrid_gym_torch/csrc/day_step.cuh"
 SWEEP_SOURCE = "smart_nanogrid_gym_torch/csrc/ppo_sweep.cuh"
 DDPG_SWEEP_SOURCE = "smart_nanogrid_gym_torch/csrc/ddpg_sweep.cuh"
 GENERATE_SOURCE = "smart_nanogrid_gym_torch/csrc/generate.cu"
+ENGINE_STEP_SOURCE = "smart_nanogrid_gym_torch/csrc/engine_step.cu"
 REPLACES = {
     "gen_rbc_day": "smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py:511",
     "gen_rbc_multiday": "smart_nanogrid_gym_tpu/ops/pallas_gen_rollout.py:580",
@@ -140,8 +142,9 @@ DDPG_REPLACES = {
 TABLES_REPLACES = {
     "rbc_day_rollout": "smart_nanogrid_gym_tpu/ops/pallas_rollout.py:144",
     "policy_day_rollout": "smart_nanogrid_gym_tpu/ops/pallas_policy_rollout.py:186",
-    # no Pallas kernel: XLA fuses the JAX package's generation loop
+    # no Pallas kernel: XLA fuses the JAX package's generation loop and its step
     "generate_day": "smart_nanogrid_gym_tpu/core/generate.py:46",
+    "engine_step": "smart_nanogrid_gym_tpu/core/transition.py:155",
 }
 DDPG_TRAIN_REPLACES = {
     "ddpg_collect_day": "smart_nanogrid_gym_tpu/ops/pallas_collect.py:424",
@@ -1357,6 +1360,78 @@ def generation_checks(rbc_cfg, rbc_params, device, card, errors, times):
     return seen
 
 
+def step_bytes(config, batch: int) -> int:
+    """The bytes a step of ``batch`` envs moves at least, in f32: the SoC
+    history read and written; the tables' columns t and t-1 (occupancy,
+    arrival, capacity twice, requested SoC, departure, penalty table), the
+    penalty mask, the actions, t, day, the draw and the BESS and PV rows in;
+    the float rows, the powers, the next mask, the observation, t, day and
+    done out."""
+    from smart_nanogrid_gym_torch.ops.engine_step import ROWS
+
+    N, L, A, F, B = config.num_chargers, config.table_len, config.num_actions, config.obs_dim, batch
+    return (4 * (2 * B * N * L + 8 * B * N + B * A + 3 * B) + 8 * 3 * B
+            + 4 * (len(ROWS) * B + 2 * B * N + B * F) + 8 * 2 * B + B)
+
+
+def engine_step_checks(rbc_cfg, rbc_params, device, card, errors, times):
+    """Phase 20 (step): ``transition.step`` on the card, one launch of
+    ``csrc/engine_step.cu`` a step, bit-equal to ``step_plain`` from the same
+    inputs through a day and its end at the vector env's 1024 envs and at
+    B=4096, the PV shift drawn and the generator left where the twin leaves
+    it; at each, the kernel's device time (profiler), the wrapper's and the
+    twin's (CUDA events) and the bytes bound.  Returns the device ms at
+    B=4096 and the instance the profiler saw."""
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch
+    from smart_nanogrid_gym_torch.core.state import EnvState, StepInfo
+    from smart_nanogrid_gym_torch.core.transition import step, step_plain
+    from smart_nanogrid_gym_torch.ops import _build
+
+    T, A = rbc_cfg.steps_per_day, rbc_cfg.num_actions
+    names = ("obs", "reward", "done", *(f"state.{f}" for f in EnvState._fields if f != "schedule"),
+             *(f"info.{f}" for f in StepInfo._fields))
+
+    def leaves(res):
+        return (res.obs, res.reward, res.done, *(x for f, x in zip(EnvState._fields, res.state) if f != "schedule"),
+                *res.info)
+
+    for batch in (1024, BENCH_BATCH):
+        gen = torch.Generator(device=device).manual_seed(batch)
+        state, _ = SmartNanogridTorch(rbc_cfg).reset_batch(rbc_params, batch, gen)
+        label = f"phase 20 engine_step (B={batch}, 8ch b-pv, f32)"
+        for t in range(T):
+            actions = 2.4 * torch.rand((batch, A), generator=gen, device=device) - 1.2
+            actions[:, t % A] = 0.0
+            twin_gen = torch.Generator(device=device).set_state(gen.get_state())
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            got = step(rbc_cfg, rbc_params, state, actions, generator=gen)
+            launches = dict(_build.launch_counts)
+            check(launches == {"engine_step": 1}, f"{label} t={t}: launches {launches}")
+            want = step_plain(rbc_cfg, rbc_params, state, actions, generator=twin_gen)
+            for name, g, w in zip(names, leaves(got), leaves(want)):
+                check(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w),
+                      f"{label} t={t} {name}: not bit-equal to the twin")
+            check(torch.equal(gen.get_state(), twin_gen.get_state()), f"{label} t={t}: the generators differ")
+            if t == T // 2:  # a mid-day state for the timings
+                mid, mid_actions = state, actions
+            state = got.state
+        check(bool((state.t == 0).all()) and bool((state.day == 1).all()), f"{label}: no day end")
+        print(f"{label}: every leaf bit-equal to the twin at each of the day's {T} steps, one launch a step")
+
+        def kernel(mid=mid, mid_actions=mid_actions, gen=gen):
+            return step(rbc_cfg, rbc_params, mid, mid_actions, generator=gen)
+
+        plain_ms, _ = once_ms(lambda: step_plain(rbc_cfg, rbc_params, mid, mid_actions, generator=gen))
+        seen = profile_kernels(kernel, "engine_step_kernel", 20)
+        moved = step_bytes(rbc_cfg, batch)
+        print(f"{label}: kernel {seen[0]:.4f} ms of device time, wrapper {cuda_ms(kernel, 20):.4f} ms, plain twin "
+              f"{plain_ms:.4f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved / 1e6:.2f} MB) on {card}")
+    times["engine_step"] = (f"B={BENCH_BATCH}, 1 step, 8ch b-pv, f32", seen[0], plain_ms)
+    errors["engine_step"] = 0.0  # every leaf bit-equal
+    return seen
+
+
 def rbc_actions_on(device, config):
     """The RBC as the adapters' caller runs it: numpy observations in, numpy
     actions out, the rule evaluated on ``device``."""
@@ -2018,9 +2093,11 @@ def cli_evaluate_path(root, art_cfg, art_params, artifact):
     (results, out), counts = cli_launches("phase 31 evaluate --models-root", lambda: run_cli(evaluate.main, argv))
     report = json.loads(out[out.index("{"):])
     scaled = [name for name in report if name.endswith("(at-scale)")]
-    check(len(scaled) == 2 and counts == {"gen_policy_multiday": 1, "gen_policy_multiday_ddpg": 1, "generate_day": 1},
-          f"phase 31: at-scale rows {scaled} with launches {counts} are not one K6 per checkpoint and one "
-          f"generation for the same-day comparison")
+    steps = 24 * len(results)  # the same-day comparison steps each policy through a day at 1 h
+    check(len(scaled) == 2 and counts == {"gen_policy_multiday": 1, "gen_policy_multiday_ddpg": 1, "generate_day": 1,
+                                          "engine_step": steps},
+          f"phase 31: at-scale rows {scaled} with launches {counts} are not one K6 per checkpoint, and one "
+          f"generation and a step kernel a policy and step for the same-day comparison")
     check(all(math.isfinite(report[n]["mean_day_return"]) for n in scaled) and len(results) == 4,
           "phase 31: evaluation of the trained runs")
     run = os.path.join(ROOT, "artifacts", "PPO-b-pv-bounded-sparse-4ch-1h")
@@ -2035,8 +2112,9 @@ def cli_evaluate_path(root, art_cfg, art_params, artifact):
     print(f"phase 31 PPO artifact: at-scale (20 days x {BENCH_BATCH}) {got['mean_day_return']:.4f}, equal to "
           f"evaluate_policy_at_scale; same 256 days: PPO {ppo:.4f}, RBC {rbc:.4f}")
     check(ppo > rbc, "phase 31: the artifact should beat the RBC")
-    check(art_counts == {"gen_policy_multiday": 1, "generate_day": 1},
-          f"phase 31: the artifact's launches {art_counts} are not one K6 and one generation")
+    check(art_counts == {"gen_policy_multiday": 1, "generate_day": 1, "engine_step": 24 * len(results)},
+          f"phase 31: the artifact's launches {art_counts} are not one K6, one generation and a step kernel a "
+          f"policy and step")
     return {name: counts.get(name, 0) + art_counts.get(name, 0) for name in {*counts, *art_counts}}
 
 
@@ -2469,6 +2547,7 @@ def bounds(rbc_cfg, art_cfg, timing_days, ddpg_days, philox):
     out["rbc_day_rollout"] = bound(tables_in_bytes(N8, 0), 0)
     # the day generation: its uniforms read once, its eight (N, L) tables written once
     out["generate_day"] = bound(4 * (T * 5 * N8 * B + 8 * N8 * rbc_cfg.table_len * B), 0)
+    out["engine_step"] = bound(step_bytes(rbc_cfg, B), 0)
     out["policy_day_rollout"] = bound(tables_in_bytes(N4, A4), actor4 * T * B)
 
     # phase 24's rows: the 256x256 torso's products at the f32 rate, a bf16
@@ -2536,7 +2615,7 @@ def main() -> None:
                          + [_build.sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64)]
                          + [_build.config_flags(c, DDPG_HIDDEN, "ddpg") for c in (rbc_cfg, art_cfg)]
                          + [_build.ddpg_sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN)]
-                         + [_build.generate_flags(rbc_cfg)])
+                         + [_build.engine_flags(rbc_cfg)])
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall; "
           + ", ".join(f"{p.name} {s:.2f} s" for p, s in built))
     sweeps = (_build.sweep_library(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64, device),
@@ -2751,6 +2830,7 @@ def main() -> None:
     # ---- phases 20-23: K11a/K11b against their twins, then the stateful-env path ----
     tables_in_checks(rbc_cfg, rbc_params, art_cfg, art_params, artifact, v2x_cfg, v2x_params, device, errors)
     generation_seen = generation_checks(rbc_cfg, rbc_params, device, card, errors, times)
+    step_seen = engine_step_checks(rbc_cfg, rbc_params, device, card, errors, times)
     torch.cuda.synchronize()
     tables_launches = stateful_env_main_path(rbc_cfg, rbc_params, art_cfg, art_params, artifact, device, card)
 
@@ -2812,7 +2892,8 @@ def main() -> None:
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 28")
     device_times, instances = bf16_device_times(rbc_cfg, rbc_params, art_cfg, art_params, artifact, ddpg_art, big, u, pv, u4,
                                      pv4, featlane, gathered, trained_state, learner, sweep_args, card, timing_days)
-    for name, seen in (("gen_rbc_multiday", k8_device), ("generate_day", generation_seen), *tables_in_seen.items()):
+    for name, seen in (("gen_rbc_multiday", k8_device), ("generate_day", generation_seen), ("engine_step", step_seen),
+                       *tables_in_seen.items()):
         device_times[name], instances[name] = seen
 
     library = {name: k10_products_ms(sweep_args, dtype) for name, dtype in
@@ -2899,6 +2980,7 @@ def main() -> None:
     sources = {name: SWEEP_SOURCE for name in ("ppo_sweep_streamed", "ppo_sweep", *BF16_TRAIN_REPLACES)}
     sources.update({name: DDPG_SWEEP_SOURCE for name in ("ddpg_sweep", *BF16_DDPG_REPLACES)})
     sources["generate_day"] = GENERATE_SOURCE
+    sources["engine_step"] = ENGINE_STEP_SOURCE
     for name, replaces, count in ((n, r, path_launches[n]) for table, path_launches in paths
                                   for n, r in table.items()):
         kernels.append({

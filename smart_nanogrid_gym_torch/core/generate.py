@@ -9,8 +9,8 @@ backend emits for them.  The seeded path draws that block from a
 ``torch.Generator`` (:func:`draw_uniforms`).  On the CPU the eager loop
 :func:`generate_schedule_plain` builds the tables; on the card one launch of
 the kernel of ``csrc/generate.cu`` does, bit-equal to that loop.  That
-dispatch is the package's one import from ``core`` into ``ops``, made at the
-call, since ``ops`` imports ``core``.
+dispatch, like ``transition.step``'s, imports from ``ops`` at the call,
+since ``ops`` imports ``core``.
 
 The host-side replay helpers (``generate.py:149-289``) read and write the
 reference's ``initial_values.json`` day: :func:`schedule_from_arrays`,
@@ -76,7 +76,7 @@ def generate_schedule(
     uniforms = _uniform_block(config, params, uniforms, generator, batch)
     if params.device.type == "cpu":
         return generate_schedule_plain(config, params, uniforms)
-    # the package's one import from core into ops, at the call: ops imports core
+    # from core into ops at the call: ops imports core
     from ..ops.generate import generate_day
 
     return generate_day(config, params, uniforms)

@@ -17,6 +17,14 @@ from typing import NamedTuple
 import torch
 
 
+def sum_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum over ``dim`` in index order, the order the kernels use."""
+    acc = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
 class ChargerStepResult(NamedTuple):
     power: torch.Tensor
     soc_new: torch.Tensor
@@ -115,6 +123,23 @@ def battery_step(
                              over_discharging, remaining)
 
 
+def vehicle_insufficiency_terms(
+    mask: torch.Tensor,
+    soc: torch.Tensor,
+    requested: torch.Tensor,
+    margin_ratio: torch.Tensor,
+    gain: torch.Tensor,
+) -> torch.Tensor:
+    """Each vehicle's term of Penaliser.penalise_state_of_charge_outside_margin
+    (utils/penaliser.py:71-87): ((req - soc)·10)² outside a 5 % margin,
+    where ``mask`` checks it."""
+    lower = margin_ratio * requested
+    insufficient = soc < requested - lower
+    diff = (requested - soc) * gain
+    pen = diff * diff
+    return mask * torch.where(insufficient, pen, torch.zeros_like(pen))
+
+
 def vehicle_insufficiency_penalty(
     mask: torch.Tensor,
     soc: torch.Tensor,
@@ -122,13 +147,8 @@ def vehicle_insufficiency_penalty(
     margin_ratio: torch.Tensor,
     gain: torch.Tensor,
 ) -> torch.Tensor:
-    """Penaliser.penalise_state_of_charge_outside_margin (utils/penaliser.py:71-87):
-    ((req - soc)·10)² outside a 5 % margin, summed over the last axis."""
-    lower = margin_ratio * requested
-    insufficient = soc < requested - lower
-    diff = (requested - soc) * gain
-    pen = diff * diff
-    return torch.sum(mask * torch.where(insufficient, pen, torch.zeros_like(pen)), dim=-1)
+    """:func:`vehicle_insufficiency_terms` summed over the last axis."""
+    return torch.sum(vehicle_insufficiency_terms(mask, soc, requested, margin_ratio, gain), dim=-1)
 
 
 def battery_dod_penalty(soc: torch.Tensor, dod: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:

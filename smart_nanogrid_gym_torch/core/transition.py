@@ -10,6 +10,11 @@ The reference's ordering is kept as the JAX package keeps it:
 - the penaliser reads SoC and requested SoC at ``(t-1) mod L``;
 - a finished day resets t and redraws the PV shift but keeps the schedule and
   the battery SoC.
+
+:func:`step` runs the plain twin :func:`step_plain` for params on the CPU and
+one launch of the kernel of ``csrc/engine_step.cu`` for params on the card
+(``ops/engine_step.py``), bit for bit the same; the twin sums over the
+chargers in index order, as the kernel does.
 """
 
 from __future__ import annotations
@@ -85,11 +90,16 @@ def observe(config: NanogridConfig, params: NanogridParams, state: EnvState) -> 
     return _finish_obs(config, parts)
 
 
+def draw_pv_percent(batch: int, generator: torch.Generator, device: torch.device | str) -> torch.Tensor:
+    """randint(0, 180) with both ends inclusive (env.py:349): the PV shift in
+    percent, int64."""
+    return torch.randint(0, 181, (batch,), generator=generator, device=device)
+
+
 def draw_pv_shift(batch: int, generator: torch.Generator, dtype: torch.dtype,
                   device: torch.device | str) -> torch.Tensor:
     """randint(0, 180)/100 with both ends inclusive (env.py:349)."""
-    draw = torch.randint(0, 181, (batch,), generator=generator, device=device)
-    return draw.to(dtype) / 100.0
+    return draw_pv_percent(batch, generator, device).to(dtype) / 100.0
 
 
 def reset(
@@ -151,11 +161,32 @@ def step(
     next_pv_shift: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
 ) -> StepResult:
-    """One environment step for every env (SURVEY.md §3.3 call stack).
+    """One environment step for every env (SURVEY.md §3.3 call stack): with
+    params on the CPU the plain twin :func:`step_plain`, elsewhere one launch
+    of the kernel of ``csrc/engine_step.cu`` (``engine_step`` of
+    ``ops/engine_step.py``, f32 or f64), bit for bit the same.
 
     Envs that finish their day take ``next_pv_shift (B,)`` as their new PV
     shift, or a value drawn from ``generator``.
     """
+    if params.device.type == "cpu":
+        return step_plain(config, params, state, action, next_pv_shift=next_pv_shift, generator=generator)
+    # from core into ops at the call: ops imports core
+    from ..ops.engine_step import engine_step
+
+    return engine_step(config, params, state, action, next_pv_shift, generator)
+
+
+def step_plain(
+    config: NanogridConfig,
+    params: NanogridParams,
+    state: EnvState,
+    action: torch.Tensor,
+    *,
+    next_pv_shift: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> StepResult:
+    """:func:`step` as eager element-wise ops on any device: the kernel's twin."""
     N, L, T = config.num_chargers, config.table_len, config.steps_per_day
     dt = config.time_interval
     B = state.t.shape[0]
@@ -190,16 +221,16 @@ def step(
     new_soc_col = torch.where(occupied & (p.charger_mask > 0), ch.soc_new, soc_col_t)
     soc_hist = state.soc.scatter(2, t.view(-1, 1, 1).expand(-1, N, 1), new_soc_col[:, :, None])
 
-    total_charging = torch.sum(torch.where(ch.power > 0, ch.power, zero), dim=-1)
-    total_discharging = torch.sum(torch.where(ch.power < 0, ch.power, zero), dim=-1)
+    total_charging = physics.sum_rows(torch.where(ch.power > 0, ch.power, zero), -1)
+    total_discharging = physics.sum_rows(torch.where(ch.power < 0, ch.power, zero), -1)
 
     # --- vehicle penalties (penaliser.py:31-87), lagged check set ---
-    vehicle_penalty = physics.vehicle_insufficiency_penalty(
+    vehicle_penalty = physics.sum_rows(physics.vehicle_insufficiency_terms(
         state.pmask, _col(soc_hist, tm1), _col(sched.requested_soc, tm1),
         p.soc_margin_ratio[:, None], p.penalty_gain[:, None],
-    )
+    ), -1)
     pmask_next = _col(_penalty_mask_table(config, sched), t)
-    nonexistent_penalty = torch.sum(ch.nonexistent, dim=-1)
+    nonexistent_penalty = physics.sum_rows(ch.nonexistent, -1)
 
     # --- PV (pv_system_manager.py:87-91) ---
     if config.pv_system:

@@ -7,8 +7,9 @@ count, config flags, actor hidden sizes and kind: the PPO actor's library
 holds K5/K6, K1/K2 and K11b, the DDPG actor's K5/K6 ``actor="ddpg"`` and K9,
 both K7/K8 and K11a),
 ``sweep.cu`` (the PPO update sweep K3/K4) and ``ddpg_sweep.cu`` (the DDPG
-update sweep K10) once per network shape, ``generate.cu`` (the plain
-engine's day generation) once per charger count and generation flags.  The
+update sweep K10) once per network shape, ``generate.cu`` with
+``engine_step.cu`` (the plain engine's day generation and step, one
+library) once per static configuration.  The
 bf16 operand options (K6's ``mlp_dtype``, the sweeps' ``matmul_dtype``) are
 launch arguments of the same libraries.  Libraries land in
 ``build/torch_kernels/`` at the root of the checkout, named by the flags and
@@ -41,7 +42,7 @@ from ..utils.profiling import span
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("operand.cuh", "day_step.cuh", "kernels.cu", "ppo_sweep.cuh", "sweep.cu", "ddpg_sweep.cuh",
-           "ddpg_sweep.cu", "generate.cu")
+           "ddpg_sweep.cu", "generate.cu", "engine_step.cu")
 # --fmad=false: no FMA contraction, so the kernels round like their twins;
 # IEEE division stays on (no --use_fast_math).
 NVCC_FLAGS = (
@@ -54,6 +55,7 @@ ACTORS = {"ppo": 0, "ddpg": 1}
 launch_counts: Counter = Counter()
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_LL, _D = ctypes.c_longlong, ctypes.c_double
 _LLP = ctypes.POINTER(ctypes.c_longlong)
 _DAY_SIGNATURES = {
     "ngk_block_actor": (),
@@ -106,9 +108,11 @@ _DDPG_SWEEP_SIGNATURES = {
     "ngk_ddpg_grid_blocks": (),
     "ngk_ddpg_sweep": (_P, _P, _P, _P),
 }
-_GENERATE_SIGNATURES = {
+_ENGINE_SIGNATURES = {
     # u, the seven params, out, strides, B, T, L, k4, k10, k1, f64, stream
     "ngk_generate_day": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _I, _I, _P),
+    # operands, their strides, rows, soc, obs, ints, done, B, T, L, price_len, rad_len, dt, f64, drawn, stream
+    "ngk_engine_step": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _D, _I, _I, _P),
 }
 # the loaded libraries by their flags: a launch after the first reads no file
 _LIBRARIES: dict[tuple, ctypes.CDLL] = {}
@@ -157,25 +161,34 @@ def ddpg_sweep_flags(F: int, A: int, H1: int, H2: int) -> dict[str, int]:
     return {**sweep_flags(F, A, H1, H2), "NG_DDPG": 1}
 
 
-def generate_flags(config: NanogridConfig) -> dict[str, int]:
-    """The static configuration a day-generation library is built for."""
-    return {"NG_GEN": 1, "NG_N": config.num_chargers,
+def engine_flags(config: NanogridConfig) -> dict[str, int]:
+    """The static configuration a plain-engine library (the day generation
+    and the step) is built for."""
+    return {"NG_ENGINE": 1, "NG_N": config.num_chargers,
             "NG_DIFF_CAPS": int(config.different_battery_capacities),
-            "NG_REQ_SOC": int(config.requested_state_of_charge)}
+            "NG_REQ_SOC": int(config.requested_state_of_charge),
+            "NG_PV": int(config.pv_system), "NG_BATT": int(config.battery_system),
+            "NG_PMODE": int(config.penalty_mode), "NG_LOOKAHEAD": int(config.lookahead),
+            "NG_CAST_OBS": int(config.cast_obs_to_f32)}
 
 
-def _source(flags: dict[str, int]) -> str:
-    if "NG_GEN" in flags:
-        return "generate.cu"
+def _sources(flags: dict[str, int]) -> tuple[str, ...]:
+    """The entry sources a library is compiled from, the first naming it."""
+    if "NG_ENGINE" in flags:
+        return "generate.cu", "engine_step.cu"
     if "NG_DDPG" in flags:
-        return "ddpg_sweep.cu"
-    return "sweep.cu" if "NG_F" in flags else "kernels.cu"
+        return ("ddpg_sweep.cu",)
+    return ("sweep.cu",) if "NG_F" in flags else ("kernels.cu",)
+
+
+def _stem(flags: dict[str, int]) -> str:
+    return "engine" if "NG_ENGINE" in flags else Path(_sources(flags)[0]).stem
 
 
 def _signatures(flags: dict[str, int]) -> dict:
-    source = _source(flags)
-    if source == "generate.cu":
-        return _GENERATE_SIGNATURES
+    if "NG_ENGINE" in flags:
+        return _ENGINE_SIGNATURES
+    source = _sources(flags)[0]
     if source == "kernels.cu":
         return _DDPG_SIGNATURES if flags["NG_ACTOR"] else _PPO_SIGNATURES
     return _DDPG_SWEEP_SIGNATURES if source == "ddpg_sweep.cu" else _SWEEP_SIGNATURES
@@ -194,8 +207,7 @@ def source_digest() -> str:
 
 def library_path(flags: dict[str, int]) -> Path:
     tag = "_".join(f"{k[3:].lower()}{v}" for k, v in flags.items())
-    stem = Path(_source(flags)).stem
-    return BUILD_DIR / f"libngk_{stem}_{tag}_{source_digest()}.so"
+    return BUILD_DIR / f"libngk_{_stem(flags)}_{tag}_{source_digest()}.so"
 
 
 def compile_library(flags: dict[str, int]) -> tuple[Path, float]:
@@ -208,7 +220,7 @@ def compile_library(flags: dict[str, int]) -> tuple[Path, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()),
-           "-o", str(tmp), str(CSRC / _source(flags))]
+           "-o", str(tmp), *(str(CSRC / name) for name in _sources(flags))]
     start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - start
@@ -248,10 +260,10 @@ def patched_library(flags: dict[str, int], out_dir: Path, edits: dict) -> ctypes
     for name in SOURCES:
         (out_dir / name).write_text(texts[name])
         digest.update(texts[name].encode())
-    lib_path = out_dir / f"libngk_{Path(_source(flags)).stem}_{digest.hexdigest()[:12]}.so"
+    lib_path = out_dir / f"libngk_{_stem(flags)}_{digest.hexdigest()[:12]}.so"
     if not lib_path.exists():
         cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in flags.items()), "-o", str(lib_path),
-               str(out_dir / _source(flags))]
+               *(str(out_dir / name) for name in _sources(flags))]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         lib_path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
@@ -297,9 +309,10 @@ def ddpg_sweep_library(F: int, A: int, H1: int, H2: int, device: torch.device) -
     return _load(ddpg_sweep_flags(F, A, H1, H2), device)
 
 
-def generate_library(config: NanogridConfig, device: torch.device) -> ctypes.CDLL:
-    """The loaded day-generation library for ``config``, built first if needed."""
-    return _load(generate_flags(config), device)
+def engine_library(config: NanogridConfig, device: torch.device) -> ctypes.CDLL:
+    """The loaded plain-engine library for ``config`` (the day generation
+    and the step), built first if needed."""
+    return _load(engine_flags(config), device)
 
 
 def check_f32(t: torch.Tensor, name: str) -> torch.Tensor:

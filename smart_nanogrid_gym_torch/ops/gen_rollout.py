@@ -30,6 +30,7 @@ import torch
 
 from ..core.config import NanogridConfig, PenaltyMode
 from ..core.params import NanogridParams
+from ..core.physics import sum_rows
 from ..utils.profiling import spanned
 from . import _build
 from .param_guard import check_baked_params
@@ -89,14 +90,6 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     Python scalar into a multiplication by its reciprocal, which the kernels
     (and the Pallas bodies) do not do."""
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
-
-
-def sum_rows(x: torch.Tensor) -> torch.Tensor:
-    """Sum over axis 0 in index order, the order the kernels use."""
-    acc = x[0]
-    for i in range(1, x.shape[0]):
-        acc = acc + x[i]
-    return acc
 
 
 def fresh_carry(N: int, B: int, device, diff_caps: bool, req_soc: bool) -> dict:

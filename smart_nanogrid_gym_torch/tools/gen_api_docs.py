@@ -30,7 +30,7 @@ SURFACE: list[tuple[str, list[str] | None]] = [
     (f"{PACKAGE}.core.params", ["NanogridParams", "make_params", "broadcast_params"]),
     (f"{PACKAGE}.core.state", None),
     (f"{PACKAGE}.core.generate", None),
-    (f"{PACKAGE}.core.transition", ["reset", "observe", "step"]),
+    (f"{PACKAGE}.core.transition", ["reset", "observe", "step", "step_plain"]),
     (f"{PACKAGE}.core.rollout", None),
     (f"{PACKAGE}.core.env", ["SmartNanogridTorch"]),
     (f"{PACKAGE}.compat.gym_adapter", ["SmartNanogridEnv"]),
@@ -52,6 +52,7 @@ SURFACE: list[tuple[str, list[str] | None]] = [
     (f"{PACKAGE}.ops.rollout", ["rbc_day_rollout"]),
     (f"{PACKAGE}.ops.policy_rollout", ["policy_day_rollout"]),
     (f"{PACKAGE}.ops.param_guard", None),
+    (f"{PACKAGE}.ops.engine_step", ["engine_step"]),
     (f"{PACKAGE}.native", ["NativeEngine", "NativeBatchEngine", "generate_schedule_native"]),
     (f"{PACKAGE}.utils.checkpoint", None),
     (f"{PACKAGE}.utils.guard", None),

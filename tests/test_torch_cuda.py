@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K11 and the day generation of the PyTorch port
-against their plain twins.
+"""The CUDA kernels K1-K11, the day generation and the plain engine's step
+of the PyTorch port against their plain twins.
 
 Marked ``cuda``: each test skips without a CUDA device (and needs ``nvcc``
 to build the kernels at first use).  The file imports no JAX, so it also
@@ -9,7 +9,8 @@ block of threads; the collection kernels and the block actor of K5 and K6
 are also held at 1, 33 and 8192 envs, bit for bit, K8 and K11a at 1 and
 300 envs off the 1 h grid, K11b at 300 and 4096 envs at 0.25-1 h, and K7
 and K5's 64x64 torso at 1 to 4133 envs at 0.25-2 h, the day generation at
-1 to 4133 envs at 0.25-2 h in f32 and f64.
+1 to 4133 envs at 0.25-2 h in f32 and f64, and the step at 1 to 4133 envs
+through a day end in f32 and f64, under each penalty mode.
 """
 
 import re
@@ -1231,3 +1232,150 @@ def test_vector_env_day_end_generates_in_one_launch(cuda, monkeypatch):
                 if e.device_type() != torch.autograd.DeviceType.CUDA and e.name().startswith("cu")}
     t = launches[hand[0].correlation_id()]
     assert sorted(name for s, e, name in spans if s <= t <= e) == ["ng.generate", "ng.launch", "ng.vecenv.reset"]
+
+
+# ------------------------------------------------------------ engine step ---
+
+# the generation's configs (sparse penalties) and one with each other penalty
+# mode, across PV and BESS, the lookahead and the observation's dtype
+STEP_CONFIGS = {
+    **GEN_CONFIGS,
+    "4ch-on_departure-basic": NanogridConfig(num_chargers=4, pv_system=False, battery_system=False,
+                                             penalty_mode="on_departure"),
+    "3ch-dense-pv-lookahead2": NanogridConfig(num_chargers=3, battery_system=False, penalty_mode="dense",
+                                              lookahead=2),
+    "6ch-30min-no_penalty-batt-f64obs": NanogridConfig(num_chargers=6, time_interval=0.5, pv_system=False,
+                                                       penalty_mode="no_penalty", cast_obs_to_f32=False),
+}
+
+
+def _step_params(config, dtype, device, batch, batched):
+    """``_gen_params``, and with ``batched`` a value per env of the params
+    the step reads too."""
+    params = _gen_params(config, dtype, device, batch, batched)
+    if not batched:
+        return params
+    g = torch.Generator(device=device).manual_seed(batch + 1)
+
+    def scaled(x, low, high):
+        return x * (low + (high - low) * torch.rand(x.shape, generator=g, dtype=dtype, device=device))
+
+    return params._replace(**{name: scaled(getattr(params, name), 0.8, 1.2) for name in (
+        "price", "price_norm", "rad_norm", "solar_power", "charger_max_power", "charger_efficiency", "batt_capacity",
+        "batt_max_power", "batt_efficiency", "batt_dod", "soc_margin_ratio", "penalty_gain", "w_battery_penalty",
+        "w_vehicle_penalty", "grid_cost_weight", "sell_coefficient", "nonexistent_marker")})
+
+
+def _step_actions(config, g, batch, dtype, device):
+    """Actions in [-1.2, 1.2] (past the box both ways), a fifth of them 0."""
+    a = 2.4 * torch.rand((batch, config.num_actions), generator=g, dtype=dtype, device=device) - 1.2
+    return torch.where(torch.rand(a.shape, generator=g, device=device) < 0.2, torch.zeros_like(a), a)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["unbatched", "batched"])
+@pytest.mark.parametrize("name", list(STEP_CONFIGS))
+@pytest.mark.parametrize("batch", [1, 300, 1024, 4133])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_engine_step_equals_twin(cuda, dtype, batch, name, batched):
+    """``transition.step`` on the card launches ``csrc/engine_step.cu`` once
+    a step, and every leaf of its result equals ``step_plain``'s bit for bit,
+    aliasing as the twin's do: a day and one step more from a reset (t = 0
+    reads the trailing column and the reset's strided penalty mask; the day
+    end rolls t to 0, takes the new PV shift and counts the day), the PV
+    shift drawn (the generator left where the twin leaves it) and, at t = 0,
+    mid-day and the day end, given; charger 1 masked off."""
+    from smart_nanogrid_gym_torch.core.generate import generate_schedule
+    from smart_nanogrid_gym_torch.core.transition import reset, step, step_plain
+    from smart_nanogrid_gym_torch.ops.engine_step import LAUNCH_NAME
+
+    from torch_parity import assert_same_step
+
+    config = STEP_CONFIGS[name]
+    T = config.steps_per_day
+    params = _step_params(config, dtype, cuda, batch, batched)
+    g = torch.Generator(device=cuda).manual_seed(batch + 3)
+    state, _ = reset(config, params, generate_schedule(config, params, generator=g, batch=batch), generator=g)
+    assert state.pmask.stride() != (config.num_chargers, 1)
+    days = torch.zeros(batch, dtype=torch.int64, device=cuda)
+    for k in range(T + 1):
+        action = _step_actions(config, g, batch, dtype, cuda)
+        if k in (0, T // 2, T - 1):
+            shift = 1.8 * torch.rand(batch, generator=g, dtype=dtype, device=cuda)
+            reset_launch_counts()
+            got = step(config, params, state, action, next_pv_shift=shift)
+            assert dict(launch_counts) == {LAUNCH_NAME: 1}
+            assert_same_step(got, step_plain(config, params, state, action, next_pv_shift=shift))
+        twin_g = torch.Generator(device=cuda).set_state(g.get_state())
+        reset_launch_counts()
+        got = step(config, params, state, action, generator=g)
+        assert dict(launch_counts) == {LAUNCH_NAME: 1}
+        want = step_plain(config, params, state, action, generator=twin_g)
+        assert_same_step(got, want)
+        assert torch.equal(g.get_state(), twin_g.get_state())
+        state = got.state
+        assert bool((state.t == (k + 1) % T).all()) and bool((state.day == days + (k == T - 1)).all())
+        days = state.day
+    assert bool((want.info.charger_power_values[:, 1] == 0).all())
+
+
+def test_engine_step_refuses_what_it_does_not_take(cuda):
+    """The wrapper raises, before it draws or launches, on bf16 params, on a
+    bf16 action, on operands of a wrong shape, on another device or that
+    require grad; an f64 action and next PV shift under f32 params are
+    converted as the twin converts them."""
+    from smart_nanogrid_gym_torch.core import SmartNanogridTorch
+    from smart_nanogrid_gym_torch.core.transition import step, step_plain
+    from smart_nanogrid_gym_torch.ops.engine_step import engine_step
+
+    from torch_parity import assert_same_step
+
+    config = STEP_CONFIGS["b-pv-8ch-1h"]
+    params = make_params(config, torch.float32, cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state, _ = SmartNanogridTorch(config).reset_batch(params, 64, g)
+    action = _step_actions(config, g, 64, torch.float32, cuda)
+    before = g.get_state()
+    reset_launch_counts()
+    refused = {
+        "float32 or float64": lambda: step(config, make_params(config, torch.bfloat16, cuda), state, action,
+                                           generator=g),
+        "action is torch.bfloat16": lambda: step(config, params, state, action.bfloat16(), generator=g),
+        "action must be": lambda: step(config, params, state, action[:, :-1], generator=g),
+        "state.soc must be": lambda: step(config, params, state._replace(soc=state.soc[..., :-1]), action,
+                                          generator=g),
+        "state.pmask must be": lambda: step(config, params, state._replace(pmask=state.pmask[:-1]), action,
+                                            generator=g),
+        "params.price must be": lambda: step(config, params._replace(price=params.price[:5]), state, action,
+                                             generator=g),
+        "params.charger_mask must be": lambda: step(config, params._replace(charger_mask=params.charger_mask[:3]),
+                                                    state, action, generator=g),
+        "next_pv_shift must be": lambda: step(config, params, state, action, next_pv_shift=state.pv_shift[:3]),
+        "requires grad": lambda: step(config, params, state, action.clone().requires_grad_(), generator=g),
+        "is on cpu": lambda: step(config, params, state, action.cpu(), generator=g),
+        "needs next_pv_shift or a generator": lambda: engine_step(config, params, state, action),
+    }
+    for message, call in refused.items():
+        with pytest.raises(ValueError, match=message):
+            call()
+    assert not launch_counts and torch.equal(g.get_state(), before)
+    shift = torch.rand(64, dtype=torch.float64, device=cuda)
+    assert_same_step(step(config, params, state, action.double(), next_pv_shift=shift),
+                     step_plain(config, params, state, action.double(), next_pv_shift=shift))
+    assert dict(launch_counts) == {"engine_step": 1}
+
+
+def test_vector_env_day_launches_one_step_kernel_a_step(cuda):
+    """A whole day of ``VectorSmartNanogridEnv(num_envs=1024)`` launches the
+    step kernel once a step and the generation kernel once, at its day-end
+    autoreset, and no other hand-written kernel."""
+    from smart_nanogrid_gym_torch.compat.vector_env import VectorSmartNanogridEnv
+
+    venv = VectorSmartNanogridEnv(num_envs=1024, seed=21, device=cuda)
+    low, high = venv.config.action_bounds()
+    rng = np.random.default_rng(21)
+    venv.reset()
+    reset_launch_counts()
+    for _ in range(venv.config.steps_per_day):
+        *_, dones, _, infos = venv.step(rng.uniform(low, high, (1024, len(low))).astype(np.float32))
+    assert dones.all() and "final_observation" in infos
+    assert dict(launch_counts) == {"engine_step": venv.config.steps_per_day, "generate_day": 1}

@@ -22,17 +22,19 @@ from smart_nanogrid_gym_tpu.core.transition import reset as jax_reset, step as j
 from smart_nanogrid_gym_tpu.solvers.networks import ActorCritic as FlaxActorCritic
 from smart_nanogrid_gym_tpu.solvers.rbc import make_rbc_policy_fn as jax_rbc_fn
 
-from smart_nanogrid_gym_torch.core import physics
+from smart_nanogrid_gym_torch.core import SmartNanogridTorch, physics
+from smart_nanogrid_gym_torch.core.config import NanogridConfig as TorchConfig
 from smart_nanogrid_gym_torch.core.generate import generate_schedule, generate_schedule_plain
 from smart_nanogrid_gym_torch.core.params import make_params
 from smart_nanogrid_gym_torch.core.rollout import fused_day_rollout
-from smart_nanogrid_gym_torch.core.transition import step
+from smart_nanogrid_gym_torch.core.transition import step, step_plain
 from smart_nanogrid_gym_torch.ops import launch_counts, reset_launch_counts
+from smart_nanogrid_gym_torch.ops.engine_step import engine_step
 from smart_nanogrid_gym_torch.ops.generate import generate_day
 from smart_nanogrid_gym_torch.solvers.networks import actor_critic_from_flax, make_actor_policy_fn
 from smart_nanogrid_gym_torch.solvers.rbc import make_rbc_policy_fn
 
-from torch_parity import params_to_torch, state_to_torch, to_numpy, to_torch
+from torch_parity import assert_same_step, params_to_torch, state_to_torch, to_numpy, to_torch
 
 F64 = torch.float64
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -109,6 +111,69 @@ def test_generate_day_checks_before_it_launches(case):
         with pytest.raises(ValueError, match="CUDA device"):
             generate_day(config, params, u)
     assert sum(launch_counts.values()) == 0
+
+
+STEP_CONFIGS = {
+    "b-pv-sparse": TorchConfig(num_chargers=8),
+    "reqsoc-fixedcap-dense": TorchConfig(num_chargers=5, different_battery_capacities=False,
+                                         requested_state_of_charge=True, penalty_mode="dense"),
+    "basic-2h-on_departure": TorchConfig(num_chargers=4, pv_system=False, battery_system=False, time_interval=2.0,
+                                         penalty_mode="on_departure"),
+    "pv-no_penalty-lookahead2-f64obs": TorchConfig(num_chargers=3, battery_system=False, penalty_mode="no_penalty",
+                                                   lookahead=2, cast_obs_to_f32=False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(STEP_CONFIGS))
+def test_step_on_the_cpu_is_the_plain_twin(name, dtype):
+    """On CPU params ``step`` returns ``step_plain``'s result exactly, leaf by
+    leaf and alias by alias, through a day end, with the PV shift given and
+    drawn (the generator left where the twin leaves it), and launches
+    nothing."""
+    config = STEP_CONFIGS[name]
+    params = make_params(config, dtype, "cpu")
+    g = torch.Generator().manual_seed(5)
+    state, _ = SmartNanogridTorch(config).reset_batch(params, 16, g)
+    reset_launch_counts()
+    for k in range(config.steps_per_day + 1):
+        action = 2.4 * torch.rand((16, config.num_actions), generator=g, dtype=dtype) - 1.2
+        action[:, k % config.num_actions] = 0.0
+        shift = torch.rand(16, generator=g, dtype=dtype)
+        assert_same_step(step(config, params, state, action, next_pv_shift=shift),
+                         step_plain(config, params, state, action, next_pv_shift=shift))
+        twin_g = torch.Generator().set_state(g.get_state())
+        got = step(config, params, state, action, generator=g)
+        assert_same_step(got, step_plain(config, params, state, action, generator=twin_g))
+        assert torch.equal(g.get_state(), twin_g.get_state())
+        state = got.state
+    assert bool((state.day == 1).all()) and bool((state.t == 1).all())
+    assert sum(launch_counts.values()) == 0
+
+
+@pytest.mark.parametrize("case", ["bf16", "action", "state", "params", "grad", "device"])
+def test_engine_step_checks_before_it_launches(case):
+    """The kernel's wrapper refuses bf16 params, operands of a wrong shape,
+    operands that require grad and params off the card, before it draws from
+    the generator, loads a library or launches."""
+    config = STEP_CONFIGS["b-pv-sparse"]
+    params = make_params(config, torch.float32, "cpu")
+    g = torch.Generator().manual_seed(0)
+    state, _ = SmartNanogridTorch(config).reset_batch(params, 4, g)
+    action = torch.rand((4, config.num_actions), generator=g)
+    args, match = {
+        "bf16": ((make_params(config, torch.bfloat16, "cpu"), state, action), "float32 or float64"),
+        "action": ((params, state, action[:, :-1]), "action must be"),
+        "state": ((params, state._replace(batt_soc=state.batt_soc[:2]), action), "state.batt_soc must be"),
+        "params": ((params._replace(rad_norm=params.rad_norm[None]), state, action), "params.rad_norm must be"),
+        "grad": ((params, state, action.clone().requires_grad_()), "requires grad"),
+        "device": ((params, state, action), "CUDA device"),
+    }[case]
+    before = g.get_state()
+    reset_launch_counts()
+    with pytest.raises(ValueError, match=match):
+        engine_step(config, *args, generator=g)
+    assert sum(launch_counts.values()) == 0 and torch.equal(g.get_state(), before)
 
 
 def test_physics_matches_on_every_branch():

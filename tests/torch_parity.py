@@ -230,3 +230,34 @@ def k6_bf16_close(got, want, f32, msg, share=0.99, mean_rel=0.005):
 if __name__ == "__main__":
     print(write_artifact_npz())
     print(write_ddpg_artifact_npz())
+
+
+def step_leaves(result, prefix: str = "") -> dict[str, torch.Tensor]:
+    """Every tensor of a ``StepResult`` (or any tree of named tuples) by its
+    dotted path."""
+    out = {}
+    for name, value in zip(result._fields, result):
+        if isinstance(value, tuple):
+            out.update(step_leaves(value, f"{prefix}{name}."))
+        else:
+            out[f"{prefix}{name}"] = value
+    return out
+
+
+def alias_classes(leaves: dict[str, torch.Tensor]) -> list[int]:
+    """For each leaf in order, the index of the first leaf that is the same
+    view of the same memory (pointer, shape and strides)."""
+    first: dict = {}
+    return [first.setdefault((x.data_ptr(), tuple(x.shape), x.stride()), i) for i, x in enumerate(leaves.values())]
+
+
+def assert_same_step(got, want) -> None:
+    """Two ``StepResult``s equal leaf by leaf (``torch.equal``, the same dtype
+    and shape), with the same leaves aliasing one another."""
+    g, w = step_leaves(got), step_leaves(want)
+    assert list(g) == list(w)
+    for name in w:
+        assert g[name].dtype == w[name].dtype and g[name].shape == w[name].shape, name
+        if not torch.equal(g[name], w[name]):
+            raise AssertionError(f"{name}: max |d| {float((g[name].double() - w[name].double()).abs().max()):.3e}")
+    assert alias_classes(g) == alias_classes(w)
