@@ -2474,11 +2474,14 @@ def rank_worker() -> None:
     except ValueError as e:
         refused = str(e)
     check(refused is not None and "world size 1 only" in refused, f"phase 35 rank {rank}: the kernel path ran")
-    print(json.dumps({"rank": rank, "ok": True, "launches": launches, "ppo_updates": PPO_RANK_UPDATES,
-                      "ppo_ms_per_update": update_ms, "draw_ms_w2": draw_w2, "draw_ms_w1": draw_w1,
-                      "mean_return": float(metrics.mean_return),
-                      "params_digest": hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()[:16],
-                      "kernel_path_refused": refused}), flush=True)
+    # the line and its newline in one write: the ranks share the output, and with unbuffered
+    # output print's two writes let the other rank's line in between
+    sys.stdout.write(json.dumps({"rank": rank, "ok": True, "launches": launches, "ppo_updates": PPO_RANK_UPDATES,
+                                 "ppo_ms_per_update": update_ms, "draw_ms_w2": draw_w2, "draw_ms_w1": draw_w1,
+                                 "mean_return": float(metrics.mean_return),
+                                 "params_digest": hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()[:16],
+                                 "kernel_path_refused": refused}) + "\n")
+    sys.stdout.flush()
     dist.destroy_process_group()
 
 
@@ -2610,22 +2613,22 @@ def main() -> None:
 
     # ---- phase 1: build every kernel from the sources ----
     t0 = time.perf_counter()
-    built = _build.build([_build.config_flags(c) for c in (rbc_cfg, art_cfg)]
-                         + [_build.config_flags(rbc_cfg, BIG_HIDDEN)]
-                         + [_build.sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64)]
-                         + [_build.config_flags(c, DDPG_HIDDEN, "ddpg") for c in (rbc_cfg, art_cfg)]
-                         + [_build.ddpg_sweep_flags(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN)]
-                         + [_build.engine_flags(rbc_cfg)])
+    built = _build.build([_build.config_spec(c) for c in (rbc_cfg, art_cfg)]
+                         + [_build.config_spec(rbc_cfg, BIG_HIDDEN)]
+                         + [_build.sweep_spec(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64)]
+                         + [_build.config_spec(c, DDPG_HIDDEN, "ddpg") for c in (rbc_cfg, art_cfg)]
+                         + [_build.ddpg_sweep_spec(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN)]
+                         + [_build.engine_spec(rbc_cfg)])
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall; "
           + ", ".join(f"{p.name} {s:.2f} s" for p, s in built))
-    sweeps = (_build.sweep_library(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64, device),
-              _build.ddpg_sweep_library(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN, device))
+    sweeps = (_build.load(_build.sweep_spec(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64), device),
+              _build.load(_build.ddpg_sweep_spec(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN), device))
     print(f"phase 1 cooperative grids: K3/K4 {sweeps[0].ngk_sweep_grid_blocks()} blocks, "
           f"K10 {sweeps[1].ngk_ddpg_grid_blocks()} blocks of 512 threads")
     philox, philox_opcodes = philox_pipes(built[0][0])
     print(f"phase 1 one Philox4x32-10 block in the SASS (cuobjdump -sass), lane instructions by pipe: {philox}; "
           f"opcodes {philox_opcodes}")
-    rbc_lib, art_lib = _build.library(rbc_cfg, device), _build.library(art_cfg, device)
+    rbc_lib, art_lib = (_build.load(_build.config_spec(c), device) for c in (rbc_cfg, art_cfg))
     design = {  # the library's own numbers (8ch b-pv)
         "gen_rbc_multiday": {"lanes_an_env": {B: rbc_lib.ngk_rbc_lanes(B) for B in (BENCH_BATCH, FULL_BATCH)},
                              "block_threads": rbc_lib.ngk_rbc_lane_threads()},
@@ -2638,7 +2641,7 @@ def main() -> None:
     design_libraries = {"gen_policy_day": built[1][0], "policy_day_rollout": built[1][0],
                         "policy_day_rollout_block": built[2][0]}
     for name, lib in (("policy_day_rollout", art_lib),
-                      ("policy_day_rollout_block", _build.library(rbc_cfg, device, BIG_HIDDEN))):
+                      ("policy_day_rollout_block", _build.load(_build.config_spec(rbc_cfg, BIG_HIDDEN), device))):
         design[name] = {"envs_a_block": lib.ngk_collect_envs(), "smem_floats": lib.ngk_k11b_smem_floats()}
     print(f"phase 1 K5/K7/K8/K11a/K11b layouts: {design}")
     for path, _ in built:

@@ -8,8 +8,8 @@ from .generate import (
     draw_uniforms, generate_schedule, schedule_from_reference_seed, schedules_from_reference_seeds)
 from .params import NanogridParams, broadcast_params, make_params
 from .rollout import build_day_tables, fused_day_rollout
-from .state import DaySchedule, EnvState, StepInfo
-from .transition import StepResult, observe, reset, step
+from .state import DaySchedule, EnvState, StepInfo, StepResult
+from .transition import observe, reset, step
 
 __all__ = [
     "NanogridConfig",

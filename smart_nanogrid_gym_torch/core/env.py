@@ -20,8 +20,8 @@ from .config import NanogridConfig
 from .generate import generate_schedule
 from .params import NanogridParams, broadcast_params, make_params
 from .rollout import fused_day_rollout
-from .state import DaySchedule, EnvState
-from .transition import StepResult, draw_pv_shift, observe, reset, step
+from .state import DaySchedule, EnvState, StepResult
+from .transition import draw_pv_shift, observe, reset, step
 
 
 def _map(fn, tree):

@@ -47,6 +47,12 @@ def draw_uniforms(
     return torch.rand(shape, generator=generator, dtype=dtype, device=device)
 
 
+def draw_pv_percent(batch: int, generator: torch.Generator, device: torch.device | str) -> torch.Tensor:
+    """randint(0, 180) with both ends inclusive (env.py:349): the PV shift in
+    percent, int64."""
+    return torch.randint(0, 181, (batch,), generator=generator, device=device)
+
+
 def _uniform_block(config: NanogridConfig, params: NanogridParams, uniforms: torch.Tensor | None,
                    generator: torch.Generator | None, batch: int | None) -> torch.Tensor:
     """``uniforms``, or a block drawn from ``generator``."""
@@ -69,17 +75,18 @@ def generate_schedule(
 
     Pass ``uniforms (B, T, 5, N)``, or ``generator`` and ``batch`` to draw them.
     With params on the CPU the plain twin :func:`generate_schedule_plain`
-    builds the tables; elsewhere the kernel of ``csrc/generate.cu`` writes
-    them in one launch (``ops/generate.py::generate_day``, f32 or f64), bit
-    for bit the same.  Each checks the block's shape.
+    builds the tables; on a CUDA device the kernel of ``csrc/generate.cu``
+    writes them in one launch (``ops/generate.py::generate_day``, f32 or
+    f64), bit for bit the same; another device raises ``ValueError``.  Each
+    checks the block's shape.
     """
     uniforms = _uniform_block(config, params, uniforms, generator, batch)
-    if params.device.type == "cpu":
-        return generate_schedule_plain(config, params, uniforms)
-    # from core into ops at the call: ops imports core
-    from ..ops.generate import generate_day
+    # from core into ops at the call, once: ops imports core
+    from ..ops import _build, generate as kernel
 
-    return generate_day(config, params, uniforms)
+    if not _build.kernel_device(params.price):
+        return generate_schedule_plain(config, params, uniforms)
+    return kernel.generate_day(config, params, uniforms)
 
 
 def generate_schedule_plain(

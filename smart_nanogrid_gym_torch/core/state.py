@@ -71,3 +71,13 @@ class StepInfo(NamedTuple):
     battery_state_of_charge: torch.Tensor
     initial_battery_state_of_charge: torch.Tensor
     discharging_nonexistent_vehicles_penalty: torch.Tensor
+
+
+class StepResult(NamedTuple):
+    """What one environment step returns for every env."""
+
+    state: EnvState
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    info: StepInfo

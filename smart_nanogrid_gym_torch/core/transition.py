@@ -19,15 +19,14 @@ chargers in index order, as the kernel does.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from .config import NanogridConfig, PenaltyMode
 
 from . import physics
+from .generate import draw_pv_percent
 from .params import NanogridParams, broadcast_params
-from .state import DaySchedule, EnvState, StepInfo
+from .state import DaySchedule, EnvState, StepInfo, StepResult
 
 
 def _col(table: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -90,12 +89,6 @@ def observe(config: NanogridConfig, params: NanogridParams, state: EnvState) -> 
     return _finish_obs(config, parts)
 
 
-def draw_pv_percent(batch: int, generator: torch.Generator, device: torch.device | str) -> torch.Tensor:
-    """randint(0, 180) with both ends inclusive (env.py:349): the PV shift in
-    percent, int64."""
-    return torch.randint(0, 181, (batch,), generator=generator, device=device)
-
-
 def draw_pv_shift(batch: int, generator: torch.Generator, dtype: torch.dtype,
                   device: torch.device | str) -> torch.Tensor:
     """randint(0, 180)/100 with both ends inclusive (env.py:349)."""
@@ -144,14 +137,6 @@ def reset(
     return state, observe(config, params, state)
 
 
-class StepResult(NamedTuple):
-    state: EnvState
-    obs: torch.Tensor
-    reward: torch.Tensor
-    done: torch.Tensor
-    info: StepInfo
-
-
 def step(
     config: NanogridConfig,
     params: NanogridParams,
@@ -162,19 +147,20 @@ def step(
     generator: torch.Generator | None = None,
 ) -> StepResult:
     """One environment step for every env (SURVEY.md §3.3 call stack): with
-    params on the CPU the plain twin :func:`step_plain`, elsewhere one launch
-    of the kernel of ``csrc/engine_step.cu`` (``engine_step`` of
-    ``ops/engine_step.py``, f32 or f64), bit for bit the same.
+    params on the CPU the plain twin :func:`step_plain`, on a CUDA device one
+    launch of the kernel of ``csrc/engine_step.cu`` (``engine_step`` of
+    ``ops/engine_step.py``, f32 or f64), bit for bit the same; another
+    device raises ``ValueError``.
 
     Envs that finish their day take ``next_pv_shift (B,)`` as their new PV
     shift, or a value drawn from ``generator``.
     """
-    if params.device.type == "cpu":
-        return step_plain(config, params, state, action, next_pv_shift=next_pv_shift, generator=generator)
-    # from core into ops at the call: ops imports core
-    from ..ops.engine_step import engine_step
+    # from core into ops at the call, once: ops imports core
+    from ..ops import _build, engine_step as kernel
 
-    return engine_step(config, params, state, action, next_pv_shift, generator)
+    if not _build.kernel_device(params.price):
+        return step_plain(config, params, state, action, next_pv_shift=next_pv_shift, generator=generator)
+    return kernel.engine_step(config, params, state, action, next_pv_shift, generator)
 
 
 def step_plain(

@@ -32,6 +32,7 @@ from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
 from ..utils.profiling import spanned
 from . import _build
+from ._build import kernel_device
 from .gen_policy_rollout import (
     ActorWeights,
     check_collect_block,
@@ -41,8 +42,8 @@ from .gen_policy_rollout import (
     policy_day_costs,
     policy_kwargs,
 )
-from .gen_rollout import F32, W_VEH, Traces, fresh_carry, kernel_device, kernel_traces, \
-    pv_shift_from_uniform, sum_rows
+from .gen_rollout import F32, Traces, fresh_carry, kernel_traces, pv_shift_from_uniform, sum_rows
+from .param_guard import W_VEH
 from .philox import collect_draws
 from .ppo_sweep import LOG_2PI
 
@@ -148,7 +149,7 @@ def _library(config, traces, weights, device):
     """The library of K1/K2, whose shared memory holds the actor-critic: the
     learner's 64×64 torsos fit, a 256×256 pair does not."""
     hidden = _hidden(weights)
-    lib = _build.library(config, device, hidden)
+    lib = _build.load(_build.config_spec(config, hidden), device)
     check_collect_block(config, traces, lib, hidden)
     return lib
 

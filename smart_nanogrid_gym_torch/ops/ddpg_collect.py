@@ -34,6 +34,7 @@ from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
 from ..utils.profiling import spanned
 from . import _build
+from ._build import kernel_device
 from .gen_policy_rollout import (
     ActorWeights,
     actor_weights,
@@ -45,8 +46,8 @@ from .gen_policy_rollout import (
     policy_kwargs,
     ring_block,
 )
-from .gen_rollout import F32, W_VEH, Traces, div, fresh_carry, kernel_device, kernel_traces, \
-    pv_shift_from_uniform, sum_rows
+from .gen_rollout import F32, Traces, div, fresh_carry, kernel_traces, pv_shift_from_uniform, sum_rows
+from .param_guard import W_VEH
 from .philox import collect_day_draws
 
 
@@ -162,7 +163,7 @@ def k9_block(weights: ActorWeights, lib) -> torch.Tensor:
 
 def _library(config, traces, weights, device):
     hidden = _hidden(weights)
-    lib = _build.library(config, device, hidden, "ddpg")
+    lib = _build.load(_build.config_spec(config, hidden, "ddpg"), device)
     check_collect_block(config, traces, lib, hidden)
     return lib
 

@@ -49,7 +49,7 @@ import torch
 from ..utils.profiling import spanned
 from . import _build
 from .gen_policy_rollout import relu
-from .gen_rollout import bf16_operands, kernel_device, round_bf16
+from ._build import bf16_operands, kernel_device, round_bf16
 from .ppo_sweep import AdamState, adam_update_plain
 
 F32 = torch.float32
@@ -228,7 +228,7 @@ def ddpg_sweep(actor, critic, t_actor, t_critic, a_adam: AdamState, c_adam: Adam
     H1, H2 = actor[0].shape[0], actor[2].shape[0]
     if tuple(critic[0].shape) != (H1, F + A) or critic[2].shape[0] != H2:
         raise ValueError("the kernel takes actor and critic torsos of the same hidden sizes")
-    lib = _build.ddpg_sweep_library(F, A, H1, H2, device)
+    lib = _build.load(_build.ddpg_sweep_spec(F, A, H1, H2), device)
     nets = [flat(x).to(device) for x in (actor, critic, t_actor, t_critic)]
     moments = [flat(x).to(device) for x in (a_adam.mu, a_adam.nu, c_adam.mu, c_adam.nu)]
     sizes = (lib.ngk_ddpg_actor_size(), lib.ngk_ddpg_critic_size())

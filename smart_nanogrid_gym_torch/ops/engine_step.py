@@ -27,8 +27,8 @@ import torch
 
 from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
-from ..core.state import EnvState, StepInfo
-from ..core.transition import StepResult, draw_pv_percent
+from ..core.generate import draw_pv_percent
+from ..core.state import EnvState, StepInfo, StepResult
 from . import _build
 
 LAUNCH_NAME = "engine_step"
@@ -131,7 +131,7 @@ def engine_step(config: NanogridConfig, params: NanogridParams, state: EnvState,
     obs = torch.empty((B, config.obs_dim), dtype=torch.float32 if config.cast_obs_to_f32 else dtype, device=device)
     steps = torch.empty((2, B), dtype=torch.int64, device=device)
     done = torch.empty(B, dtype=torch.bool, device=device)
-    lib = _build.engine_library(config, device)
+    lib = _build.load(_build.engine_spec(config), device)
     _build.launch(LAUNCH_NAME, lib.ngk_engine_step, ctypes.c_void_p(pointers.buffer_info()[0]),
                   ctypes.c_void_p(packed.buffer_info()[0]), rows, soc, obs, steps, done, B, T, L,
                   params.price_norm.shape[-1], params.rad_norm.shape[-1], float(config.time_interval),

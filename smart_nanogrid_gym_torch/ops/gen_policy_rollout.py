@@ -51,26 +51,13 @@ from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
 from ..utils.profiling import spanned
 from . import _build
+from ._build import MAX_SHARED_BYTES, bf16_operands, kernel_device, round_bf16
 from .gen_rollout import (
-    BATT_INIT_SOC,
     F32,
-    MAX_SHARED_BYTES,
-    bf16_operands,
-    round_bf16,
-    GRID_W,
-    MAX_P,
-    EFF,
-    SELL,
-    W_BATT,
-    W_VEH,
-    BATT_DOD,
-    GAIN,
-    DEFAULT_CAP,
     Traces,
     div,
     fresh_carry,
     generate_column,
-    kernel_device,
     kernel_traces,
     next_carry,
     pv_shift_from_uniform,
@@ -78,13 +65,13 @@ from .gen_rollout import (
     sum_rows,
     vehicle_penalty,
 )
-from .param_guard import check_baked_params
+from .param_guard import (B_CAP, B_EFF, B_MAXP, BATT_DOD, BATT_INIT_SOC, DEFAULT_CAP, EFF, GAIN, GRID_W, MAX_P, SELL,
+                          W_BATT, W_VEH, check_baked_params)
 from .philox import day_uniforms
 
 if TYPE_CHECKING:
     from ..solvers.networks import ActorCritic, DDPGActor
 
-B_CAP, B_MAXP, B_EFF = 80.0, 44.0, 0.95
 MAX_HIDDEN_SUM = 768                 # K6's torso limit (pallas_gen_policy_rollout.py:590-596)
 
 
@@ -390,7 +377,7 @@ def policy_library(config, device, weights, hidden, actor, traces, name, bf16=Fa
     of :func:`k6_block`, checked by :func:`check_k6_block`, which raises a
     ``ValueError`` naming the limit, before any launch, for a torso the
     design cannot hold."""
-    lib = _build.library(config, device, hidden, actor)
+    lib = _build.load(_build.config_spec(config, hidden, actor), device)
     check_k6_block(config, traces, lib, hidden, bf16, name == "policy_day_rollout")
     packed = k6_block(weights, lib, bf16)
     suffix = "_ddpg" if actor == "ddpg" else ("_block" if lib.ngk_block_actor() else "")

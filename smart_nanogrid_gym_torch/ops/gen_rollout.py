@@ -33,22 +33,11 @@ from ..core.params import NanogridParams
 from ..core.physics import sum_rows
 from ..utils.profiling import spanned
 from . import _build
-from .param_guard import check_baked_params
+from ._build import MAX_SHARED_BYTES, kernel_device
+from .param_guard import (ARRIVAL_THRESHOLD, BATT_DOD, BATT_INIT_SOC, CAP_LOW, CAP_SPAN, DEFAULT_CAP,
+                          DEPARTURE_SOON_THRESHOLD, EFF, GAIN, GRID_W, MARGIN, MAX_P, SELL, SOC_LOW, SOC_SPAN, W_BATT,
+                          W_VEH, check_baked_params)
 from .philox import day_uniforms
-
-# RBC threshold (solvers/RBC/rbc.py:14): normalised departure < 0.16667
-DEPARTURE_SOON_THRESHOLD = 0.16667
-
-# reference constants (charger.py:20-23, central_management_system.py:35,
-# penaliser.py:7,79,177-181, accountant.py:6,35, charging_station.py:214,257-269)
-MAX_P, EFF = 22.0, 0.95
-BATT_DOD, MARGIN, GAIN = 0.15, 0.05, 10.0
-W_BATT, W_VEH, GRID_W, SELL = 0.8, 1.0, 0.75, 0.8
-ARRIVAL_THRESHOLD = 0.6
-SOC_LOW, SOC_SPAN = 0.1, 0.8
-CAP_LOW, CAP_SPAN, DEFAULT_CAP = 15.0, 105.0, 40.0
-BATT_INIT_SOC = 0.5
-MAX_SHARED_BYTES = 232_448  # dynamic shared memory one H100 block may use
 
 F32 = torch.float32
 
@@ -263,31 +252,6 @@ def _require_rbc_config(config: NanogridConfig) -> None:
         raise ValueError("the RBC kernels cover non-v2x configs")
 
 
-def kernel_device(t: torch.Tensor) -> bool:
-    """True for CUDA (launch the kernel), False for CPU (run the twin)."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain version for device {t.device}")
-
-
-def bf16_operands(dtype) -> bool:
-    """Whether a kernel's operand-dtype option (``mlp_dtype``,
-    ``matmul_dtype``) asks for bf16 products: None or ``torch.float32`` is
-    exact f32, ``torch.bfloat16`` rounds the product operands."""
-    if dtype is None or dtype == torch.float32:
-        return False
-    if dtype == torch.bfloat16:
-        return True
-    raise ValueError(f"operand dtype must be None, torch.float32 or torch.bfloat16, got {dtype!r}")
-
-
-def round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to the nearest bf16 value (ties to even), as f32."""
-    return x.to(torch.bfloat16).to(F32)
-
-
 def check_rbc_ring(config: NanogridConfig, traces: Traces, floats: int, kernel: str) -> None:
     """Raise before the launch when the shared memory of ``kernel``'s RBC
     ring block, ``floats`` before the traces (the library's number: K11a's
@@ -349,7 +313,7 @@ def gen_rbc_day(config: NanogridConfig, params: NanogridParams, uniforms: torch.
     batt = _build.check_f32(batt_soc.contiguous(), "batt_soc")
     rewards = torch.empty((T, B), dtype=F32, device=u.device)
     soc_final = torch.empty((N, B), dtype=F32, device=u.device)
-    lib = _build.library(config, u.device)
+    lib = _build.load(_build.config_spec(config), u.device)
     check_rbc_ring(config, traces, lib.ngk_gen_rbc_ring_floats(), "gen_rbc_day")
     _build.launch(
         "gen_rbc_day", lib.ngk_gen_rbc_day,
@@ -406,7 +370,7 @@ def gen_rbc_multiday(config: NanogridConfig, params: NanogridParams, num_days: i
         return gen_rbc_multiday_plain(config, traces, num_days, seed, batch)
 
     stats = torch.empty((2, batch), dtype=F32, device=device)
-    lib = _build.library(config, device)
+    lib = _build.load(_build.config_spec(config), device)
     _build.launch(
         "gen_rbc_multiday", lib.ngk_gen_rbc_multiday,
         traces.price, traces.rad_norm, traces.rad_norm.numel(), traces.solar,

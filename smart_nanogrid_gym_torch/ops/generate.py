@@ -72,7 +72,7 @@ def generate_day(config: NanogridConfig, params: NanogridParams, uniforms: torch
             raise ValueError(f"params.{name} is {x.dtype}, the params are {dtype}")
     out = torch.empty((8, B, N, L), dtype=dtype, device=device)
     _, k4, k10, k1, _ = _build.day_dims(config)
-    lib = _build.engine_library(config, device)
+    lib = _build.load(_build.engine_spec(config), device)
     _build.launch(LAUNCH_NAME, lib.ngk_generate_day, u, *values, mask, out, (ctypes.c_longlong * 8)(*strides),
                   B, T, L, k4, k10, k1, int(dtype == torch.float64), device=device)
     return DaySchedule(*out.unbind(0))

@@ -15,32 +15,46 @@ from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
 from ..utils.profiling import spanned
 
+# reference constants (charger.py:20-23, central_management_system.py:35,
+# penaliser.py:7,79,177-181, accountant.py:6,35, charging_station.py:214,257-269):
+# the values the kernels bake (csrc/day_step.cuh) and their twins compute with
+MAX_P, EFF = 22.0, 0.95
+MARGIN, GAIN = 0.05, 10.0
+W_BATT, W_VEH, GRID_W, SELL = 0.8, 1.0, 0.75, 0.8
+B_CAP, B_MAXP, B_EFF, BATT_DOD = 80.0, 44.0, 0.95, 0.15
+BATT_INIT_SOC = 0.5
+ARRIVAL_THRESHOLD = 0.6
+SOC_LOW, SOC_SPAN = 0.1, 0.8
+CAP_LOW, CAP_SPAN, DEFAULT_CAP = 15.0, 105.0, 40.0
+# RBC threshold (solvers/RBC/rbc.py:14): normalised departure < 0.16667 (4h/24)
+DEPARTURE_SOON_THRESHOLD = 0.16667
+
 PHYSICS_CONSTANTS = {
-    "charger_max_power": 22.0,
-    "charger_efficiency": 0.95,
+    "charger_max_power": MAX_P,
+    "charger_efficiency": EFF,
     "charger_mask": 1.0,  # kernels assume every charger is active
-    "soc_margin_ratio": 0.05,
-    "penalty_gain": 10.0,
-    "w_battery_penalty": 0.8,
-    "w_vehicle_penalty": 1.0,
-    "grid_cost_weight": 0.75,
-    "sell_coefficient": 0.8,
+    "soc_margin_ratio": MARGIN,
+    "penalty_gain": GAIN,
+    "w_battery_penalty": W_BATT,
+    "w_vehicle_penalty": W_VEH,
+    "grid_cost_weight": GRID_W,
+    "sell_coefficient": SELL,
 }
 
 BATTERY_CONSTANTS = {
-    "batt_dod": 0.15,
-    "batt_capacity": 80.0,
-    "batt_max_power": 44.0,
-    "batt_efficiency": 0.95,
+    "batt_dod": BATT_DOD,
+    "batt_capacity": B_CAP,
+    "batt_max_power": B_MAXP,
+    "batt_efficiency": B_EFF,
 }
 
 GENERATION_CONSTANTS = {
-    "arrival_threshold": 0.6,
-    "soc_low": 0.1,
-    "soc_span": 0.8,
-    "cap_low": 15.0,
-    "cap_span": 105.0,
-    "default_capacity": 40.0,
+    "arrival_threshold": ARRIVAL_THRESHOLD,
+    "soc_low": SOC_LOW,
+    "soc_span": SOC_SPAN,
+    "cap_low": CAP_LOW,
+    "cap_span": CAP_SPAN,
+    "default_capacity": DEFAULT_CAP,
 }
 
 
@@ -56,7 +70,7 @@ def check_baked_params(
     """Raise ``ValueError`` unless every param ``kernel`` bakes has its baked value.
 
     ``generation``: the kernel also bakes the schedule-generation constants.
-    ``battery_init``: the kernel starts the BESS at the baked 0.5, so
+    ``battery_init``: the kernel starts the BESS at ``BATT_INIT_SOC``, so
     ``batt_init_soc`` must match too.  Values are compared in the params'
     dtype, so an f32 param matches the f32 rounding of its constant.
     """
@@ -64,7 +78,7 @@ def check_baked_params(
     if config.battery_system:
         expected.update(BATTERY_CONSTANTS)
         if battery_init:
-            expected["batt_init_soc"] = 0.5
+            expected["batt_init_soc"] = BATT_INIT_SOC
     if generation:
         expected.update(GENERATION_CONSTANTS)
 

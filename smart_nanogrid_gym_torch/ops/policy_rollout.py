@@ -31,6 +31,7 @@ from ..core.config import NanogridConfig
 from ..core.params import NanogridParams
 from ..core.state import EnvState
 from . import _build
+from ._build import kernel_device
 from .gen_policy_rollout import (
     ActorWeights,
     actor_mean,
@@ -42,9 +43,8 @@ from .gen_policy_rollout import (
     policy_library,
     policy_obs,
 )
-from .gen_rollout import (
-    EFF, F32, MAX_P, W_VEH, Traces, insufficiency_penalty, kernel_device, kernel_traces, sum_rows)
-from .param_guard import check_baked_params
+from .gen_rollout import F32, Traces, insufficiency_penalty, kernel_traces, sum_rows
+from .param_guard import EFF, MAX_P, W_VEH, check_baked_params
 from .rollout import StateTables, state_tables
 
 if TYPE_CHECKING:

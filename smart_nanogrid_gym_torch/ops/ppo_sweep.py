@@ -63,7 +63,7 @@ import torch
 
 from ..utils.profiling import spanned
 from . import _build
-from .gen_rollout import bf16_operands, kernel_device, round_bf16
+from ._build import bf16_operands, kernel_device, round_bf16
 
 F32 = torch.float32
 N_PARAMS = 13
@@ -446,7 +446,7 @@ def _launch_sweep(name, params, adam, hp, layout, data, block_perm, stats, *, G,
     if obs.shape[feat_axis] != F or act.shape[feat_axis] != A:
         raise ValueError(f"data has obs {tuple(obs.shape)} and act {tuple(act.shape)}, "
                          f"the network takes F={F}, A={A}")
-    lib = _build.sweep_library(F, A, H1, H2, device)
+    lib = _build.load(_build.sweep_spec(F, A, H1, H2), device)
     n_params = lib.ngk_sweep_params_size()
     p = flatten_leaves(params).to(device)
     if p.numel() != n_params:

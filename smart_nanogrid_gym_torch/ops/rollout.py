@@ -29,22 +29,20 @@ from ..core.params import NanogridParams
 from ..core.rollout import build_day_tables
 from ..core.state import EnvState
 from . import _build
+from ._build import kernel_device
 from .gen_rollout import (
-    EFF,
     F32,
-    MAX_P,
     Traces,
     _require_rbc_config,
     check_rbc_ring,
     idle_battery_dod_penalty,
     insufficiency_penalty,
-    kernel_device,
     kernel_traces,
     rbc_actions,
     rbc_day_rewards,
     sum_rows,
 )
-from .param_guard import check_baked_params
+from .param_guard import EFF, MAX_P, check_baked_params
 
 # the packed tables, in the order csrc/day_step.cuh's TableKind reads them
 TABLE_FIELDS = ("occupancy", "capacity_eff", "requested_prev", "soc_cols", "is_arrival", "dep_obs",
@@ -133,7 +131,7 @@ def launch_rbc_day(config: NanogridConfig, traces: Traces, st: StateTables):
     T, N = config.steps_per_day, config.num_chargers
     st = st.checked()
     device, B = st.tables.device, st.pv_shift.shape[0]
-    lib = _build.library(config, device)
+    lib = _build.load(_build.config_spec(config), device)
     check_rbc_ring(config, traces, lib.ngk_rbc_ring_floats(), "rbc_day_rollout")
     rewards = torch.empty((T, B), dtype=F32, device=device)
     soc_final = torch.empty((N, B), dtype=F32, device=device)

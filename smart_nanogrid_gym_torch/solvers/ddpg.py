@@ -64,7 +64,7 @@ from ..core.rollout import fused_day_rollout
 from ..core.transition import draw_pv_shift, reset, step
 from ..ops.ddpg_collect import ddpg_collect_day_seeded
 from ..ops.ddpg_sweep import DDPGSweepHypers, ddpg_sweep
-from ..ops.gen_rollout import bf16_operands
+from ..ops._build import bf16_operands
 from ..ops.param_guard import check_baked_params
 from ..ops.ppo_sweep import AdamState, zeros_adam
 from ..parallel.mesh import EnvMesh, replicate

@@ -69,7 +69,7 @@ from ..core.params import NanogridParams
 from ..core.rollout import fused_day_rollout
 from ..core.transition import draw_pv_shift, reset
 from ..ops.collect import ppo_collect_day_seeded
-from ..ops.gen_rollout import bf16_operands
+from ..ops._build import bf16_operands
 from ..ops.param_guard import check_baked_params
 from ..ops.ppo_sweep import (
     AdamState,

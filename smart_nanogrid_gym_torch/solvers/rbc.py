@@ -16,8 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import NanogridConfig
-
-DEPARTURE_SOON_THRESHOLD = 0.16667  # 4h/24 (reference solvers/RBC/rbc.py:14)
+from ..ops.param_guard import DEPARTURE_SOON_THRESHOLD
 
 
 def rbc_policy(config: NanogridConfig, obs: torch.Tensor) -> torch.Tensor:

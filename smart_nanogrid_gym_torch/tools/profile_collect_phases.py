@@ -107,9 +107,9 @@ def instrument(cuh: str, cu: str) -> tuple[str, str]:
     return cuh, cu
 
 
-def build_instrumented(flags: dict[str, int]) -> ctypes.CDLL:
+def build_instrumented(spec: _build.Spec) -> ctypes.CDLL:
     cuh, cu = instrument((_build.CSRC / "day_step.cuh").read_text(), (_build.CSRC / "kernels.cu").read_text())
-    lib = _build.patched_library(flags, OUT_DIR, {"day_step.cuh": lambda _: cuh, "kernels.cu": lambda _: cu})
+    lib = _build.patched_library(spec, OUT_DIR, {"day_step.cuh": lambda _: cuh, "kernels.cu": lambda _: cu})
     lib.ngk_collect_clock.argtypes = [ctypes.c_void_p]
     lib.ngk_collect_clock.restype = ctypes.c_int
     return lib
@@ -165,19 +165,19 @@ def main() -> None:
     ddpg = [x.detach().to(dev) for x in ddpg_leaves(
         DDPGActor(cfg.obs_dim, A, low, high, generator=torch.Generator().manual_seed(2)))]
     kernels = {
-        "K2 ppo_collect_day_seeded": (_build.config_flags(cfg), False,
+        "K2 ppo_collect_day_seeded": (_build.config_spec(cfg), False,
                                       lambda: ppo_collect_day_seeded(cfg, params, ppo, 11, batt, B)),
-        "K9 ddpg_collect_day_seeded": (_build.config_flags(cfg, (400, 300), "ddpg"), True,
+        "K9 ddpg_collect_day_seeded": (_build.config_spec(cfg, (400, 300), "ddpg"), True,
                                        lambda: ddpg_collect_day_seeded(cfg, params, ddpg, 11, ou, batt, B)),
     }
     print(f"card: {card}")
     result = {"card": card, "batch": B}
-    for label, (flags, is_ddpg, call) in kernels.items():
+    for label, (spec, is_ddpg, call) in kernels.items():
         plain_out = call()  # the package's own kernel
-        lib = build_instrumented(flags)
+        lib = build_instrumented(spec)
         record = np.zeros(STEPS * SLOTS, np.uint64)
         samples, events = [], []
-        with mock.patch.object(_build, "library", return_value=lib):
+        with mock.patch.object(_build, "load", return_value=lib):
             for rep in range(LAUNCHES):
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()

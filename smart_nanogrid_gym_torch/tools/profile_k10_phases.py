@@ -74,9 +74,9 @@ def instrument(cuh: str, cu: str) -> tuple[str, str]:
     return cuh, cu
 
 
-def build_instrumented(flags: dict[str, int]) -> ctypes.CDLL:
+def build_instrumented(spec: _build.Spec) -> ctypes.CDLL:
     cuh, cu = instrument((_build.CSRC / "ddpg_sweep.cuh").read_text(), (_build.CSRC / "ddpg_sweep.cu").read_text())
-    lib = _build.patched_library(flags, OUT_DIR, {"ddpg_sweep.cuh": lambda _: cuh, "ddpg_sweep.cu": lambda _: cu})
+    lib = _build.patched_library(spec, OUT_DIR, {"ddpg_sweep.cuh": lambda _: cuh, "ddpg_sweep.cu": lambda _: cu})
     lib.ngk_phase_clock.argtypes = [ctypes.c_void_p]
     lib.ngk_phase_clock.restype = ctypes.c_int
     return lib
@@ -107,10 +107,10 @@ def main() -> None:
             (torch.rand(G, M, generator=gen, device=dev) < 0.05).float())
     box = (torch.zeros(A, device=dev), torch.ones(A, device=dev))
     hp = DDPGSweepHypers(lr=1e-3, gamma=0.99, tau=0.005, matmul_dtype=torch.bfloat16 if args.bf16 else None)
-    lib = build_instrumented(_build.ddpg_sweep_flags(F, A, H1, H2))
+    lib = build_instrumented(_build.ddpg_sweep_spec(F, A, H1, H2))
     record = np.zeros(2 * SLOTS, np.uint64)
     steps, builds, events = [], [], []
-    with mock.patch.object(_build, "ddpg_sweep_library", return_value=lib):
+    with mock.patch.object(_build, "load", return_value=lib):
         for rep in range(args.updates):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()

@@ -75,12 +75,12 @@ def step_parts(record: np.ndarray, steps: int) -> dict[str, np.ndarray]:
     }
 
 
-def wide_tiles_library(flags: dict[str, int]) -> ctypes.CDLL:
-    """The day-kernel library for ``flags`` built from a copy of the sources
+def wide_tiles_library(spec) -> ctypes.CDLL:
+    """The day-kernel library for ``spec`` built from a copy of the sources
     whose ``choose_tiles`` lacks the 4 x 2 shape."""
     from smart_nanogrid_gym_torch.ops import _build
 
-    return _build.patched_library(flags, _build.BUILD_DIR.parent / "k6_tiles", {
+    return _build.patched_library(spec, _build.BUILD_DIR.parent / "k6_tiles", {
         "day_step.cuh": lambda code: _build.replace_once(code, NARROW, WIDE, "day_step.cuh")})
 
 
@@ -185,12 +185,12 @@ def main() -> None:
         for name, (cfg, params, net) in {"K6 64x64 f32 (PPO artifact 4ch, 20 days)": (art_cfg, art_params, ppo),
                                          "K6 64x64 f32 (bench 8ch, 20 days)": (bench_cfg, bench_params, small)}.items():
             call = caller(cfg, params, net, 20, "ppo", None)
-            wide = wide_tiles_library(_build.config_flags(cfg, net.hidden))
+            wide = wide_tiles_library(_build.config_spec(cfg, net.hidden))
             own = call()
             times = {"4 x 2": [], "4 x 4": []}
             for tag in ("4 x 2", "4 x 4", "4 x 4", "4 x 2"):
                 if tag == "4 x 4":
-                    with mock.patch.object(_build, "library", return_value=wide):
+                    with mock.patch.object(_build, "load", return_value=wide):
                         times[tag].append(device_ms(call, "gen_policy_multiday"))
                         same = torch.equal(call(), own)
                     if not same:
@@ -206,15 +206,15 @@ def main() -> None:
         for name, (cfg, params, net, days, actor, mm) in rows.items():
             if days is None:
                 continue
-            flags = {**_build.config_flags(cfg, net.hidden, actor), "NGK_K6_CLOCK": 1}
-            lib = _build._load(flags, dev)
+            spec = _build.config_spec(cfg, net.hidden, actor)
+            lib = _build.load(spec._replace(flags={**spec.flags, "NGK_K6_CLOCK": 1}), dev)
             lib.ngk_k6_clock.argtypes = [ctypes.c_void_p]
             lib.ngk_k6_clock.restype = ctypes.c_int
             call = caller(cfg, params, net, days, actor, mm)
             own = call()
             record = np.zeros(STEPS * SLOTS, np.uint64)
             samples = []
-            with mock.patch.object(_build, "library", return_value=lib):
+            with mock.patch.object(_build, "load", return_value=lib):
                 for rep in range(5):
                     out = call()
                     torch.cuda.synchronize()

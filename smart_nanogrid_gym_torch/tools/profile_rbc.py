@@ -164,7 +164,7 @@ def event_ms(torch, fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def variants(flags: dict[str, int], kind: str) -> dict[int, ctypes.CDLL]:
+def variants(spec, kind: str) -> dict[int, ctypes.CDLL]:
     """The ring-depth (``kind`` "ring") or lane-count ("lanes") variants,
     built in parallel from copies of the sources under ``build/rbc_variants/``."""
     from concurrent.futures import ThreadPoolExecutor
@@ -178,7 +178,7 @@ def variants(flags: dict[str, int], kind: str) -> dict[int, ctypes.CDLL]:
                 for n, text in LANES.items()}
 
     def build(key, source, anchor, text):
-        return _build.patched_library(flags, _build.BUILD_DIR.parent / "rbc_variants" / f"{kind}{key}", {
+        return _build.patched_library(spec, _build.BUILD_DIR.parent / "rbc_variants" / f"{kind}{key}", {
             source: lambda code: _build.replace_once(code, anchor, text, source)})
 
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
@@ -220,7 +220,7 @@ def main() -> None:
     cfg = NanogridConfig()
     art_cfg = NanogridConfig(num_chargers=4, pv_system=True, battery_system=True, penalty_mode="sparse",
                              time_interval=1.0)
-    _build.build([_build.config_flags(cfg), _build.config_flags(art_cfg), _build.config_flags(cfg, (256, 256))])
+    _build.build([_build.config_spec(cfg), _build.config_spec(art_cfg), _build.config_spec(cfg, (256, 256))])
     T, N = cfg.steps_per_day, cfg.num_chargers
     params, art_params = make_params(cfg, torch.float32, dev), make_params(art_cfg, torch.float32, dev)
     traces, art_traces = kernel_traces(params, dev), kernel_traces(art_params, dev)
@@ -339,15 +339,15 @@ def main() -> None:
             print(f"  {name}: {result[name]['device_ms']:.4f} device ms per launch (profiler), "
                   f"{result[name]['event_ms']:.4f} ms per bare launch (CUDA events)")
 
-    package = _build.library(cfg, dev)
+    package = _build.load(_build.config_spec(cfg), dev)
 
     def with_library(lib, fn):
-        with mock.patch.object(_build, "library", lambda *a, **k: lib):
+        with mock.patch.object(_build, "load", lambda *a, **k: lib):
             return fn()
 
     if args.ring:
         result["ring"] = {}
-        libs = variants(_build.config_flags(cfg), "ring")
+        libs = variants(_build.config_spec(cfg), "ring")
         for b in (BATCH, FULL_BATCH):
             def k11a(lib):
                 return with_library(lib, lambda: launch_rbc_day(cfg, traces, tables[b]))
@@ -365,7 +365,7 @@ def main() -> None:
             result["ring"][str(b)] = row
     if args.lanes:
         result["lanes"] = {}
-        libs = variants(_build.config_flags(cfg), "lanes")
+        libs = variants(_build.config_spec(cfg), "lanes")
         for b, days in LANE_BATCHES.items():
             def k8(lib):
                 return with_library(lib, lambda: gen_rbc_multiday(cfg, params, days, 5, b))
@@ -392,10 +392,10 @@ def main() -> None:
     if args.stage:
         result["stage"] = {}
         for label, (config, tr, w, hidden, by_state) in k11b.items():
-            flags = _build.config_flags(config, hidden)
-            copy = _build.patched_library(flags, _build.BUILD_DIR.parent / "rbc_variants" / f"stage{hidden[0]}", {
+            spec = _build.config_spec(config, hidden)
+            copy = _build.patched_library(spec, _build.BUILD_DIR.parent / "rbc_variants" / f"stage{hidden[0]}", {
                 "day_step.cuh": lambda code: _build.replace_once(code, STAGE_ANCHOR, STAGE_ASYNC, "day_step.cuh")})
-            libs = {"package": _build.library(config, dev, hidden), "cp.async": copy}
+            libs = {"package": _build.load(spec, dev), "cp.async": copy}
             for kind, st in by_state.items():
                 def k11b_on(lib):
                     return with_library(lib, lambda: launch_policy_day(config, tr, w, st, hidden))

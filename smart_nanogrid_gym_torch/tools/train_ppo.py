@@ -18,8 +18,9 @@ engine and autograd.
 ``--mesh`` trains data-parallel over the ranks of the process's world
 (``PPOLearner(mesh=...)``; world size 1 outside a launcher, where it equals
 the run without it), ``--distributed`` first opens the process group from
-the launcher's variables (a no-op without them) and builds the envs of the
-global batch rank by rank (``PPOLearner.init_distributed``).  With either,
+the launcher's variables (a no-op without them), builds the envs of the
+global batch rank by rank (``PPOLearner.init_distributed``) and closes the
+group it opened at the end.  With either,
 ``--batch`` is the global batch, the kernel path needs world size 1, and
 only rank 0 prints and writes checkpoints and metrics (the full-state
 checkpoint holds the global batch's batteries; with ``--guard`` each rank
@@ -128,6 +129,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     config = build_config(args)
     mesh = None
+    opened = args.distributed and not torch.distributed.is_initialized()
     if args.distributed:
         from ..parallel.distributed import initialize_distributed
 
@@ -229,6 +231,10 @@ def main(argv=None):
         elapsed = time.time() - start
         print(f"Training lasted: {elapsed/3600:.0f} h and {elapsed%3600/60:.1f} min "
               f"({total_steps/elapsed:,.0f} env-steps/s)", flush=True)
+    if opened and torch.distributed.is_initialized():
+        # a rank that exits with its gloo group open can abort in the group's
+        # teardown ("terminate called without an active exception")
+        torch.distributed.destroy_process_group()
     return state
 
 

@@ -24,8 +24,8 @@ from smart_nanogrid_gym_tpu.core import NanogridConfig, make_params as jax_make_
 from smart_nanogrid_gym_tpu.solvers.networks import ActorCritic as FlaxActorCritic
 
 from smart_nanogrid_gym_torch.core.params import make_params
+from smart_nanogrid_gym_torch.ops._build import MAX_SHARED_BYTES
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
-    MAX_SHARED_BYTES,
     actor_weights,
     check_collect_block,
     check_k6_block,

@@ -202,7 +202,7 @@ def test_collect_kernels_refuse_blocks_beyond_shared_memory(cuda):
 
     config = COLLECT_CONFIGS["b-pv-8ch"]
     params = make_params(config, torch.float32, cuda)
-    assert 4 * _build.library(config, cuda, (64, 64)).ngk_collect_smem_floats() < 232448
+    assert 4 * _build.load(_build.config_spec(config, (64, 64)), cuda).ngk_collect_smem_floats() < 232448
     net = ActorCritic(config.obs_dim, config.num_actions, (256, 256)).to(cuda)
     reset_launch_counts()
     with pytest.raises(ValueError, match="collect_impl='plain'"):
@@ -591,7 +591,8 @@ def test_k11b_block_kernel_equals_twin(cuda, name, batch):
     traces = kernel_traces(params, cuda)
     net = k11b_net(config, hidden, 19, cuda)
     weights = actor_weights(config, net, cuda)
-    assert _build.library(config, cuda, hidden).ngk_k11b_smem_floats() == k6_layout(config, hidden, kinds=7)[0]
+    lib = _build.load(_build.config_spec(config, hidden), cuda)
+    assert lib.ngk_k11b_smem_floats() == k6_layout(config, hidden, kinds=7)[0]
     label = "policy_day_rollout" + ("_block" if hidden[0] > 64 else "")
     for state in _day_states(config, params, batch, cuda):
         reset_launch_counts()
@@ -659,7 +660,7 @@ def test_k7_ring_kernel_equals_twin(cuda, name, batch):
 
     config = K7_CONFIGS[name]
     params = make_params(config, torch.float32, cuda)
-    lib = _build.library(config, cuda)
+    lib = _build.load(_build.config_spec(config), cuda)
     assert (lib.ngk_gen_rbc_ring_depth(), lib.ngk_gen_rbc_ring_floats()) == rbc_ring(config.num_chargers, KINDS)[1:]
     u, pv = _inputs(config, 8, batch, cuda)
     batt = torch.rand(batch, generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
@@ -715,7 +716,7 @@ def test_k8_at_every_lane_count_equals_twin(cuda, name, batch):
 
     config = {**RBC_CONFIGS, **RBC_LAYOUT_CONFIGS}[name]
     params = make_params(config, torch.float32, cuda)
-    assert _build.library(config, cuda).ngk_rbc_lanes(batch) == (1 if batch >= 32768 else 8)
+    assert _build.load(_build.config_spec(config), cuda).ngk_rbc_lanes(batch) == (1 if batch >= 32768 else 8)
     reset_launch_counts()
     assert_equal_outputs((gen_rbc_multiday(config, params, 2, 29, batch),),
                          (gen_rbc_multiday_plain(config, kernel_traces(params, cuda), 2, 29, batch),), ("stats",))
@@ -949,7 +950,7 @@ def test_k6_block_kernel_f32_equals_twin(cuda, name, batch):
     traces = kernel_traces(params, cuda)
     net = _block_net(config, actor, hidden, 31, cuda)
     weights = actor_weights(config, net, cuda, actor)
-    lib = _build.library(config, cuda, hidden, actor)
+    lib = _build.load(_build.config_spec(config, hidden, actor), cuda)
     assert lib.ngk_block_actor() == int(name in K5_BLOCK_CASES)
     assert (lib.ngk_k6_pad(1), lib.ngk_k6_pad(2)) == (choose_tiles(hidden[0])[0], choose_tiles(hidden[1])[0])
     label = "gen_policy_multiday" + ("_ddpg" if actor == "ddpg" else ("_block" if name in K5_BLOCK_CASES else ""))

@@ -31,7 +31,8 @@ from smart_nanogrid_gym_torch.ops.ddpg_collect import (
     ddpg_weights,
     k9_block,
 )
-from smart_nanogrid_gym_torch.ops.gen_policy_rollout import MAX_SHARED_BYTES, trace_floats
+from smart_nanogrid_gym_torch.ops._build import MAX_SHARED_BYTES
+from smart_nanogrid_gym_torch.ops.gen_policy_rollout import trace_floats
 from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces, pv_shift_from_uniform
 from smart_nanogrid_gym_torch.ops.philox import collect_day_draws, collect_draws
 from smart_nanogrid_gym_torch.solvers.ddpg import actor_apply

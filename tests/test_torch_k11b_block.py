@@ -29,8 +29,8 @@ import torch
 from smart_nanogrid_gym_torch.core import SmartNanogridTorch, fused_day_rollout
 from smart_nanogrid_gym_torch.core.config import NanogridConfig
 from smart_nanogrid_gym_torch.core.params import make_params
+from smart_nanogrid_gym_torch.ops._build import MAX_SHARED_BYTES
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
-    MAX_SHARED_BYTES,
     actor_weights,
     check_k6_block,
     k6_block,
@@ -93,7 +93,7 @@ def test_k11b_wrapper_hands_the_kernel_k6_block(monkeypatch, name):
     rec = _Recorder(w, block_actor=hidden[0] > 64, smem_floats=k6_layout(config, hidden, kinds=TABLES)[0])
     monkeypatch.setattr(policy_rollout, "kernel_device", lambda t: True)
     monkeypatch.setattr(_build, "check_f32", lambda t, name: t)
-    monkeypatch.setattr(_build, "library", lambda *a, **k: rec.lib)
+    monkeypatch.setattr(_build, "load", lambda *a, **k: rec.lib)
     monkeypatch.setattr(_build, "launch", rec.launch)
     params, states = _states(config, 5, 3)
     rewards, actions, soc_final = policy_rollout.policy_day_rollout(config, params, states["continued"], net)
@@ -122,7 +122,7 @@ def test_k11b_wrapper_checks_shared_memory_before_the_launch(monkeypatch):
     monkeypatch.setattr(_build, "check_f32", lambda t, name: t)
     for floats, launches in ((room + 1, 0), (room, 1)):
         rec = _Recorder(actor_weights(config, net, CPU), block_actor=True, smem_floats=floats)
-        monkeypatch.setattr(_build, "library", lambda *a, **k: rec.lib)
+        monkeypatch.setattr(_build, "load", lambda *a, **k: rec.lib)
         monkeypatch.setattr(_build, "launch", rec.launch)
         if launches == 0:
             with pytest.raises(ValueError, match=f"{MAX_SHARED_BYTES + 4} bytes .* policy_day_rollout"):

@@ -23,8 +23,8 @@ import torch
 
 from smart_nanogrid_gym_torch.core.config import NanogridConfig
 from smart_nanogrid_gym_torch.core.params import make_params
+from smart_nanogrid_gym_torch.ops._build import MAX_SHARED_BYTES
 from smart_nanogrid_gym_torch.ops.gen_policy_rollout import (
-    MAX_SHARED_BYTES,
     actor_weights,
     check_k6_block,
     dense,
@@ -377,7 +377,7 @@ def _record_wrapper(monkeypatch, name, block_actor, smem_floats=1024, mlp_dtype=
     rec = _Recorder(w, block_actor, smem_floats)
     monkeypatch.setattr(gpr, "kernel_device", lambda t: True)
     monkeypatch.setattr(_build, "check_f32", lambda t, name: t)
-    monkeypatch.setattr(_build, "library", lambda *a, **k: rec.lib)
+    monkeypatch.setattr(_build, "load", lambda *a, **k: rec.lib)
     monkeypatch.setattr(_build, "launch", rec.launch)
     params = make_params(config, torch.float32, "cpu")
     return rec, w, config, params, net, actor

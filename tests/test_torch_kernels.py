@@ -10,6 +10,9 @@ fed the same draws.  The CUDA kernels are held against the twins in
 tests/test_torch_cuda.py.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -154,10 +157,114 @@ def test_library_path_reads_the_sources_once_per_process(monkeypatch):
     reads = []
     read_bytes = Path.read_bytes
     monkeypatch.setattr(Path, "read_bytes", lambda self: reads.append(self.name) or read_bytes(self))
-    flags = _build.config_flags(RBC_CONFIGS["b-pv-sparse"])
-    first = _build.library_path(flags)
+    spec = _build.config_spec(RBC_CONFIGS["b-pv-sparse"])
+    first = _build.library_path(spec)
     assert sorted(reads) == sorted(_build.SOURCES)
     reads.clear()
-    assert _build.library_path(flags) == first
-    assert _build.library_path(_build.config_flags(RBC_CONFIGS["basic-ondep"])) != first
+    assert _build.library_path(spec) == first
+    assert _build.library_path(_build.config_spec(RBC_CONFIGS["basic-ondep"])) != first
     assert reads == []
+
+
+def _library_specs():
+    """One spec of each kind of ``_build.KINDS`` (the day kind with each actor)."""
+    from smart_nanogrid_gym_torch.core.config import NanogridConfig as PortConfig
+    from smart_nanogrid_gym_torch.ops import _build
+
+    config = PortConfig(num_chargers=8)
+    return {"kernels-ppo": _build.config_spec(config), "kernels-ddpg": _build.config_spec(config, (400, 300), "ddpg"),
+            "sweep": _build.sweep_spec(25, 9, 64, 64), "ddpg_sweep": _build.ddpg_sweep_spec(25, 9, 400, 300),
+            "engine": _build.engine_spec(config)}
+
+
+def _c_type(decl: str) -> str:
+    """A C parameter's type class: ``pointer`` or its scalar type."""
+    return "pointer" if "*" in decl else decl.replace("const ", "").rsplit(None, 1)[0]
+
+
+def _ctypes_type(t) -> str:
+    if t is ctypes.c_void_p or issubclass(t, ctypes._Pointer):
+        return "pointer"
+    return {ctypes.c_int: "int", ctypes.c_uint: "unsigned int", ctypes.c_float: "float",
+            ctypes.c_double: "double", ctypes.c_longlong: "long long"}[t]
+
+
+@pytest.mark.parametrize("name", list(_library_specs()))
+def test_build_table_matches_the_extern_c_entry_points(name):
+    """Every C name ``_build`` binds for a library is defined, returning
+    ``int``, inside an ``extern "C"`` block of its kind's entry sources, with
+    the parameters of its ctypes signature in number and type class; every
+    ``-D`` value the library is built with is read by those sources."""
+    from smart_nanogrid_gym_torch.ops import _build
+
+    specs = _library_specs()
+    assert {spec.kind for spec in specs.values()} == set(_build.KINDS)
+    spec = specs[name]
+    kind = _build.KINDS[spec.kind]
+    texts = [(_build.CSRC / source).read_text() for source in kind.sources]
+    defined = {}
+    for text in texts:
+        for block in re.findall(r'extern "C" \{(.*?)\}  // extern "C"', text, re.S):
+            for fn, params in re.findall(r"^int (ngk_\w+)\(([^)]*)\)\s*\{", block, re.M):
+                defined[fn] = [_c_type(p) for p in (x.strip() for x in params.split(",")) if p]
+    bound = {**kind.signatures, **(kind.by_actor[spec.flags["NG_ACTOR"]] if kind.by_actor else {})}
+    for fn, argtypes in bound.items():
+        assert fn in defined, f"{fn} is not defined in the extern \"C\" blocks of {kind.sources}"
+        assert [_ctypes_type(t) for t in argtypes] == defined[fn], fn
+    for flag in spec.flags:
+        assert any(re.search(rf"\b{flag}\b", text) for text in texts), f"no source of {kind.sources} reads {flag}"
+
+
+def test_baked_constants_equal_the_kernels_constexpr_block():
+    """``csrc/day_step.cuh``'s reference constants are ``param_guard``'s,
+    each the f32 of the value (or product) the twins compute with."""
+    from smart_nanogrid_gym_torch.ops import _build, param_guard as g
+
+    want = {"kMaxPEff": g.MAX_P * g.EFF, "kBattMaxPEff": g.B_MAXP * g.B_EFF, "kBattCap": g.B_CAP,
+            "kBattDod": g.BATT_DOD, "kBattInit": g.BATT_INIT_SOC, "kMargin": g.MARGIN, "kGain": g.GAIN,
+            "kWBatt": g.W_BATT, "kWVeh": g.W_VEH, "kGridW": g.GRID_W, "kSell": g.SELL,
+            "kArrival": g.ARRIVAL_THRESHOLD, "kSocLow": g.SOC_LOW, "kSocSpan": g.SOC_SPAN, "kCapLow": g.CAP_LOW,
+            "kCapSpan": g.CAP_SPAN, "kDefaultCap": g.DEFAULT_CAP, "kSoon": 24.0 * g.DEPARTURE_SOON_THRESHOLD}
+    code = (_build.CSRC / "day_step.cuh").read_text()
+    block = code[code.index("// reference constants"):code.index("// Static configuration")]
+    got = {}
+    for name, expr in re.findall(r"constexpr float (k\w+) = (.+?);", block):
+        product = re.fullmatch(r"static_cast<float>\(([\d.]+) \* ([\d.]+)\)", expr)
+        literal = re.fullmatch(r"([\d.]+)f", expr)
+        assert product or literal, f"{name} = {expr}: not a literal or a product of two"
+        got[name] = np.float32(float(product[1]) * float(product[2]) if product else float(literal[1]))
+    assert got.keys() == want.keys()
+    for name, value in want.items():
+        assert got[name] == np.float32(value), name
+
+
+
+def test_every_use_of_build_names_what_it_has():
+    """Every ``_build.<name>`` read, and every ``_build`` attribute patched by
+    name (``mock.patch.object(_build, "<name>", ...)``,
+    ``monkeypatch.setattr(_build, "<name>", ...)``), in the port, its tools,
+    the tests, ``nanobench`` and ``chip_smoke.py`` names an attribute that
+    ``ops/_build.py`` has: the profiling tools and the card tests run only on
+    a card, so a stale name would show only there."""
+    import ast
+    from pathlib import Path
+
+    from smart_nanogrid_gym_torch.ops import _build
+
+    repo = Path(__file__).resolve().parents[1]
+    paths = [repo / "chip_smoke.py", *sorted((repo / "smart_nanogrid_gym_torch").rglob("*.py")),
+             *sorted((repo / "nanobench").rglob("*.py")), *sorted((repo / "tests").glob("*.py"))]
+    uses = []
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name) and node.value.id == "_build":
+                uses.append((path, node.lineno, node.attr))
+            elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                  and node.func.attr in ("object", "setattr") and len(node.args) >= 2
+                  and isinstance(node.args[0], ast.Name) and node.args[0].id == "_build"
+                  and isinstance(node.args[1], ast.Constant)):
+                uses.append((path, node.lineno, node.args[1].value))
+    assert len({path for path, _, _ in uses}) > 20
+    stale = [f"{path.relative_to(repo)}:{line}: _build.{name}" for path, line, name in uses
+             if not hasattr(_build, name)]
+    assert not stale, "names _build does not have:\n" + "\n".join(stale)

@@ -10,6 +10,7 @@ seed-replayed day from the native runtime and K8's twin through
 imports them.  The port's copies of the JAX-free tables equal the JAX
 package's."""
 
+import ast
 import os
 import re
 import subprocess
@@ -126,6 +127,52 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     files = sorted(Path(REPO, "smart_nanogrid_gym_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
     offenders = [str(f.relative_to(REPO)) for f in files if IMPORT.search(f.read_text())]
     assert not offenders, offenders
+
+
+def _port_import_graph() -> dict[str, set[str]]:
+    """Each module of the port (package ``__init__``s left out) with the
+    modules of the port it imports anywhere in its body, function-level and
+    type-checking imports included; an import of a package (its
+    ``__init__``) adds no edge."""
+    pkg = Path(REPO, "smart_nanogrid_gym_torch")
+    paths = {".".join(f.relative_to(REPO).with_suffix("").parts): f for f in pkg.rglob("*.py")
+             if f.name != "__init__.py"}
+    graph = {}
+    for name, path in paths.items():
+        package = name.split(".")[:-1]
+        deps = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                targets = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module or ""
+                if node.level:
+                    base = ".".join(package[:len(package) - node.level + 1] + ([base] if base else []))
+                targets = [base] + [f"{base}.{alias.name}" for alias in node.names]
+            else:
+                continue
+            deps.update(t for t in targets if t in paths and t != name)
+        graph[name] = deps
+    return graph
+
+
+def test_the_port_has_no_import_cycle():
+    graph = _port_import_graph()
+    done, stack = set(), []
+
+    def visit(module):
+        if module in stack:
+            raise AssertionError("import cycle: " + " -> ".join(stack[stack.index(module):] + [module]))
+        if module in done:
+            return
+        stack.append(module)
+        for dep in sorted(graph[module]):
+            visit(dep)
+        stack.pop()
+        done.add(module)
+
+    for module in sorted(graph):
+        visit(module)
 
 
 @pytest.mark.parametrize("price_model", [0, 1, 2])

@@ -26,7 +26,7 @@ import torch
 
 from smart_nanogrid_gym_torch.core.config import NanogridConfig
 from smart_nanogrid_gym_torch.core.params import make_params
-from smart_nanogrid_gym_torch.ops.gen_policy_rollout import MAX_SHARED_BYTES
+from smart_nanogrid_gym_torch.ops._build import MAX_SHARED_BYTES
 from smart_nanogrid_gym_torch.ops.gen_rollout import kernel_traces
 from smart_nanogrid_gym_torch.ops.philox import day_uniforms, philox4x32_10, to_uniform
 
@@ -235,13 +235,13 @@ def test_k11a_wrapper_checks_the_ring_before_the_launch(monkeypatch):
     calls = []
     monkeypatch.setattr(_build, "check_f32", lambda t, name: t)
     monkeypatch.setattr(_build, "launch", lambda name, fn, *args, device: calls.append((name, fn, args)))
-    monkeypatch.setattr(_build, "library", lambda *a, **k: _ring_library(8))
+    monkeypatch.setattr(_build, "load", lambda *a, **k: _ring_library(8))
     rewards, soc_final = rollout.launch_rbc_day(config, traces, st)
     (name, fn, args), = calls
     assert (name, fn) == ("rbc_day_rollout", "ngk_rbc_day_rollout")
     assert args[4] is st.tables and rewards.shape == (96, 5) and soc_final.shape == (8, 5)
     room = MAX_SHARED_BYTES // 4 - traces.rad_norm.numel() - 2 * 96
-    monkeypatch.setattr(_build, "library", lambda *a, **k: _ring_library(8, room + 1))
+    monkeypatch.setattr(_build, "load", lambda *a, **k: _ring_library(8, room + 1))
     with pytest.raises(ValueError, match=f"{MAX_SHARED_BYTES + 4} bytes"):
         rollout.launch_rbc_day(config, traces, st)
     assert len(calls) == 1
@@ -282,13 +282,13 @@ def test_k7_wrapper_checks_the_ring_before_the_launch(monkeypatch):
     monkeypatch.setattr(gen_rollout, "kernel_device", lambda t: True)
     monkeypatch.setattr(_build, "check_f32", lambda t, name: t)
     monkeypatch.setattr(_build, "launch", lambda name, fn, *args, device: calls.append((name, fn, args)))
-    monkeypatch.setattr(_build, "library", lambda *a, **k: _ring_library(8))
+    monkeypatch.setattr(_build, "load", lambda *a, **k: _ring_library(8))
     rewards, soc_final = gen_rollout.gen_rbc_day(config, params, u, pv)
     (name, fn, args), = calls
     assert (name, fn) == ("gen_rbc_day", "ngk_gen_rbc_day")
     assert args[4] is u and rewards.shape == (96, 5) and soc_final.shape == (8, 5)
     room = MAX_SHARED_BYTES // 4 - traces.rad_norm.numel() - 2 * 96
-    monkeypatch.setattr(_build, "library", lambda *a, **k: _ring_library(8, room + 1))
+    monkeypatch.setattr(_build, "load", lambda *a, **k: _ring_library(8, room + 1))
     with pytest.raises(ValueError, match=f"{MAX_SHARED_BYTES + 4} bytes of shared memory per block in gen_rbc_day"):
         gen_rollout.gen_rbc_day(config, params, u, pv)
     assert len(calls) == 1
