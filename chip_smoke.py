@@ -776,8 +776,9 @@ def training_main_path(cfg, params, u, pv, device, card):
     counts = dict(_build.launch_counts)
     print(f"phase 11 train: {TRAIN_UPDATES} updates x B={BENCH_BATCH} (G={G}) in {seconds:.4f} s = "
           f"{seconds / TRAIN_UPDATES * 1e3:.3f} ms/update on {card}; launches {counts}")
-    check(counts == {"ppo_collect_day_seeded": TRAIN_UPDATES, "ppo_sweep_streamed": TRAIN_UPDATES},
-          f"launch counts {counts} are not 1 collection + 1 sweep launch per update")
+    check(counts == {"ppo_collect_day_seeded": TRAIN_UPDATES, "gae": TRAIN_UPDATES,
+                     "ppo_sweep_streamed": TRAIN_UPDATES},
+          f"launch counts {counts} are not 1 collection + 1 GAE + 1 sweep launch per update")
     returns = metrics.mean_return.double().cpu()
     check(bool(torch.isfinite(returns).all()), "non-finite mean return")
     first, last = float(returns[0]), float(returns[-5:].mean())
@@ -912,6 +913,16 @@ def training_timings(learner, cfg, params, state, featlane, gathered, u, pv, nor
                 sums[i] += ev[i].elapsed_time(ev[i + 1]) / reps
     print(f"phase 12 one update (B={BENCH_BATCH}, G=40): collection {sums[0]:.4f} ms, GAE {sums[1]:.4f} ms, "
           f"sweep {sums[2]:.4f} ms (CUDA events, mean of {reps}) on {card}")
+
+    # GAE at the update's shape: the kernel bit for bit its eager twin, and both timed
+    from smart_nanogrid_gym_torch.ops.gae import gae, gae_plain
+
+    args = (rew, val, dones, torch.zeros(BENCH_BATCH, device=device), learner.ppo.gamma, learner.ppo.gae_lambda)
+    check_equal("phase 12 gae", gae(*args), gae_plain(*args), ("advantages", "returns"))
+    moved = T * BENCH_BATCH * (4 * 4 + 1) + 4 * BENCH_BATCH  # rewards, values, dones, last value; two outputs
+    print(f"phase 12 gae (B={BENCH_BATCH}, T={T}, f32): kernel {cuda_ms(lambda: gae(*args), 50):.4f} ms, plain twin "
+          f"{cuda_ms(lambda: gae_plain(*args), 5):.4f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"({moved / 1e6:.2f} MB) on {card}")
 
 
 def ddpg_twin_checks(art_cfg, art_params, ddpg_art, u4, pv4, cfg, params, u, pv, device, errors):
@@ -1843,8 +1854,9 @@ def bf16_training_main_path(cfg, params, device, card):
     print(f"phase 26 bf16 PPO train: {TRAIN_UPDATES} updates x B={BENCH_BATCH} (G={G}) in {seconds:.4f} s = "
           f"{seconds / TRAIN_UPDATES * 1e3:.3f} ms/update on {card}; launches {counts}; mean day return first "
           f"{first:.4f}, mean of the last 5 {last:.4f}")
-    check(counts == {"ppo_collect_day_seeded": TRAIN_UPDATES, "ppo_sweep_streamed_bf16": TRAIN_UPDATES},
-          f"launch counts {counts} are not 1 collection + 1 bf16 sweep launch per update")
+    check(counts == {"ppo_collect_day_seeded": TRAIN_UPDATES, "gae": TRAIN_UPDATES,
+                     "ppo_sweep_streamed_bf16": TRAIN_UPDATES},
+          f"launch counts {counts} are not 1 collection + 1 GAE + 1 bf16 sweep launch per update")
     check(bool(torch.isfinite(returns).all()) and last > first, "bf16 training did not raise the mean day return")
     check(all(x.dtype == torch.float32 for x in state.params), "bf16 training left f32 master params")
     env_learner = PPOLearner(cfg, PPOConfig(sweep_impl="kernel", minibatch_scheme="env", update_matmul_dtype=BF16),
@@ -2029,8 +2041,8 @@ def cli_train_ppo_path(root, card):
         (straight, out), counts = cli_launches("phase 29 train_ppo (3 epochs)",
                                                lambda: run_cli(train_ppo.main, argv("runs", 3, "--guard")))
         updates = 3 * CLI_UPDATES
-        check(counts == {"ppo_collect_day_seeded": updates, "ppo_sweep_streamed": updates},
-              f"phase 29: launch counts {counts} are not 1 K2 + 1 K3 launch per update ({updates} updates)")
+        check(counts == {"ppo_collect_day_seeded": updates, "gae": updates, "ppo_sweep_streamed": updates},
+              f"phase 29: launch counts {counts} are not 1 K2 + 1 GAE + 1 K3 launch per update ({updates} updates)")
         check(len(guards) == 1 and guards[0].recoveries == 0, "phase 29: the NaN guard recovered")
         (_, _), first = cli_launches("phase 29 train_ppo (2 epochs)",
                                      lambda: run_cli(train_ppo.main, argv("resume", 2, "--guard")))
@@ -2618,7 +2630,7 @@ def main() -> None:
                          + [_build.sweep_spec(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64)]
                          + [_build.config_spec(c, DDPG_HIDDEN, "ddpg") for c in (rbc_cfg, art_cfg)]
                          + [_build.ddpg_sweep_spec(rbc_cfg.obs_dim, rbc_cfg.num_actions, *DDPG_HIDDEN)]
-                         + [_build.engine_spec(rbc_cfg)])
+                         + [_build.engine_spec(rbc_cfg), _build.gae_spec()])
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall; "
           + ", ".join(f"{p.name} {s:.2f} s" for p, s in built))
     sweeps = (_build.load(_build.sweep_spec(rbc_cfg.obs_dim, rbc_cfg.num_actions, 64, 64), device),

@@ -8,7 +8,8 @@ holds K5/K6, K1/K2 and K11b, the DDPG actor's K5/K6 ``actor="ddpg"`` and K9,
 both K7/K8 and K11a), ``sweep`` (``sweep.cu``: the PPO update sweep K3/K4)
 and ``ddpg_sweep`` (``ddpg_sweep.cu``: the DDPG update sweep K10) once per
 network shape, ``engine`` (``generate.cu`` with ``engine_step.cu``: the
-plain engine's day generation and step) once per static configuration.  A
+plain engine's day generation and step) once per static configuration, and
+``gae`` (``gae.cu``: the PPO learner's advantage estimation) once.  A
 library is named by a :class:`Spec`, its kind and ``-D`` values, which the
 ``*_spec`` functions make.  The bf16 operand options (K6's ``mlp_dtype``,
 the sweeps' ``matmul_dtype``) are launch arguments of the same libraries.
@@ -50,7 +51,7 @@ from ..utils.profiling import span
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("operand.cuh", "day_step.cuh", "kernels.cu", "ppo_sweep.cuh", "sweep.cu", "ddpg_sweep.cuh",
-           "ddpg_sweep.cu", "generate.cu", "engine_step.cu")
+           "ddpg_sweep.cu", "generate.cu", "engine_step.cu", "gae.cu")
 # --fmad=false: no FMA contraction, so the kernels round like their twins;
 # IEEE division stays on (no --use_fast_math).
 NVCC_FLAGS = (
@@ -136,6 +137,10 @@ KINDS = {
         # operands, their strides, rows, soc, obs, ints, done, B, T, L, price_len, rad_len, dt, f64, drawn, stream
         "ngk_engine_step": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _D, _I, _I, _P),
     }),
+    "gae": Kind(("gae.cu",), {
+        # rewards, values, dones, last value, advantages, returns, strides, B, T, gamma, gamma * lam, f64, stream
+        "ngk_gae": (_P, _P, _P, _P, _P, _P, _LLP, _LL, _I, _D, _D, _I, _P),
+    }),
 }
 
 
@@ -197,6 +202,12 @@ def engine_spec(config: NanogridConfig) -> Spec:
     })
 
 
+def gae_spec() -> Spec:
+    """The advantage-estimation library: it depends on no static
+    configuration."""
+    return Spec("gae", {})
+
+
 def _nvcc() -> str:
     candidates = [shutil.which("nvcc")]
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -247,8 +258,8 @@ def source_digest() -> str:
 
 
 def library_path(spec: Spec) -> Path:
-    tag = "_".join(f"{k[3:].lower()}{v}" for k, v in spec.flags.items())
-    return BUILD_DIR / f"libngk_{spec.kind}_{tag}_{source_digest()}.so"
+    tags = (f"{k[3:].lower()}{v}" for k, v in spec.flags.items())
+    return BUILD_DIR / ("_".join(["libngk", spec.kind, *tags, source_digest()]) + ".so")
 
 
 def compile_library(spec: Spec) -> tuple[Path, float]:

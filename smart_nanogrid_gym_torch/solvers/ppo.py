@@ -70,6 +70,7 @@ from ..core.rollout import fused_day_rollout
 from ..core.transition import draw_pv_shift, reset
 from ..ops.collect import ppo_collect_day_seeded
 from ..ops._build import bf16_operands
+from ..ops.gae import gae
 from ..ops.param_guard import check_baked_params
 from ..ops.ppo_sweep import (
     AdamState,
@@ -229,6 +230,7 @@ class PPOLearner:
         self._action_low = torch.as_tensor(low, dtype=F32, device=self.device)
         self._action_high = torch.as_tensor(high, dtype=F32, device=self.device)
         self.nanogrid_params = None
+        self._day_ends: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
     # ------------------------------------------------------------------ init --
 
@@ -305,19 +307,19 @@ class PPOLearner:
         return x.to(self.device)
 
     def _gae(self, rewards, values, dones, last_value):
-        """Generalised advantage estimation over the ``(T, B)`` rollout."""
-        gamma, lam = self.ppo.gamma, self.ppo.gae_lambda
-        gae = torch.zeros_like(last_value)
-        next_value = last_value
-        out = []
-        for t in range(rewards.shape[0] - 1, -1, -1):
-            nonterminal = 1.0 - dones[t].to(values.dtype)
-            delta = rewards[t] + gamma * next_value * nonterminal - values[t]
-            gae = delta + gamma * lam * nonterminal * gae
-            next_value = values[t]
-            out.append(gae)
-        advantages = torch.stack(out[::-1])
-        return advantages, advantages + values
+        """Generalised advantage estimation over the ``(T, B)`` rollout: one
+        launch of ``ops/gae.py``'s kernel on the card, its twin on the CPU."""
+        return gae(rewards, values, dones, last_value, self.ppo.gamma, self.ppo.gae_lambda)
+
+    def _day_end(self, T: int, B: int, device: torch.device):
+        """The kernel path's dones, the day ending at t = T-1, and its zero
+        bootstrap values: built once per shape and device, read only."""
+        key = (T, B, device)
+        if key not in self._day_ends:
+            dones = torch.zeros((T, B), dtype=torch.bool, device=device)
+            dones[-1] = True
+            self._day_ends[key] = dones, torch.zeros(B, device=device)
+        return self._day_ends[key]
 
     def _loss(self, params, obs, actions, old_logp, old_values, advantages, returns):
         apply = apply_actor_critic_bf16 if self._bf16 else apply_actor_critic
@@ -508,9 +510,7 @@ class PPOLearner:
             self.env_config, env_params, state.params, seed, state.batt_soc, B, check_params=False)
         with span("ppo.gae"):
             # the day ends at t = T-1: GAE's bootstrap is multiplied by 0 there
-            dones = torch.zeros((T, B), dtype=torch.bool, device=rew_tb.device)
-            dones[-1] = True
-            advantages, returns = self._gae(rew_tb, val_tb, dones, torch.zeros(B, device=rew_tb.device))
+            advantages, returns = self._gae(rew_tb, val_tb, *self._day_end(T, B, rew_tb.device))
         E, K = self.ppo.num_epochs, n_bl // num_mb
         block_perm = perms.reshape(E * num_mb, K)
         params, opt, metrics_g = ppo_sweep_streamed(

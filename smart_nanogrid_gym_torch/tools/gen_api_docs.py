@@ -53,6 +53,7 @@ SURFACE: list[tuple[str, list[str] | None]] = [
     (f"{PACKAGE}.ops.policy_rollout", ["policy_day_rollout"]),
     (f"{PACKAGE}.ops.param_guard", None),
     (f"{PACKAGE}.ops.engine_step", ["engine_step"]),
+    (f"{PACKAGE}.ops.gae", ["gae"]),
     (f"{PACKAGE}.native", ["NativeEngine", "NativeBatchEngine", "generate_schedule_native"]),
     (f"{PACKAGE}.utils.checkpoint", None),
     (f"{PACKAGE}.utils.guard", None),

@@ -29,6 +29,7 @@ import torch
 
 KERNELS = {  # substring of the CUDA kernel's name -> the port's kernel
     "ppo_collect_day_kernel": "K2 ppo_collect_day_seeded",
+    "gae_kernel": "GAE gae_kernel",
     "ppo_sweep_kernel": "K3 ppo_sweep_kernel",
     "ddpg_collect_day_kernel": "K9 ddpg_collect_day_seeded",
     "ddpg_sweep_kernel": "K10 ddpg_sweep_kernel",

@@ -10,7 +10,8 @@ are also held at 1, 33 and 8192 envs, bit for bit, K8 and K11a at 1 and
 300 envs off the 1 h grid, K11b at 300 and 4096 envs at 0.25-1 h, and K7
 and K5's 64x64 torso at 1 to 4133 envs at 0.25-2 h, the day generation at
 1 to 4133 envs at 0.25-2 h in f32 and f64, and the step at 1 to 4133 envs
-through a day end in f32 and f64, under each penalty mode.
+through a day end in f32 and f64, under each penalty mode, and GAE at 1 to
+4096 envs of 1 to 48 steps in f32 and f64.
 """
 
 import re
@@ -250,6 +251,7 @@ def test_sweep_kernels_match_twin(cuda):
 
 
 def test_kernel_learner_launches_one_collection_and_two_per_step(cuda):
+    """A kernel-path update launches K2 once, GAE once and K3 once."""
     config = COLLECT_CONFIGS["b-pv-8ch"]
     params = make_params(config, torch.float32, cuda)
     learner = PPOLearner(config, PPOConfig(num_epochs=2, num_minibatches=4, collect_impl="kernel",
@@ -259,7 +261,7 @@ def test_kernel_learner_launches_one_collection_and_two_per_step(cuda):
     reset_launch_counts()
     state, metrics = step(state, params)
     torch.cuda.synchronize()
-    assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "ppo_sweep_streamed": 1}
+    assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "gae": 1, "ppo_sweep_streamed": 1}
     assert all(bool(torch.isfinite(x)) for x in metrics)
 
 
@@ -298,7 +300,7 @@ def test_kernel_learner_launches_inside_its_spans(cuda):
     for a, b in zip(plain.params + plain.opt_state.mu + [plain.batt_soc],
                     traced.params + traced.opt_state.mu + [traced.batt_soc]):
         assert torch.equal(a, b)
-    assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "ppo_sweep_streamed": 1}
+    assert dict(launch_counts) == {"ppo_collect_day_seeded": 1, "gae": 1, "ppo_sweep_streamed": 1}
     on_device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
     annotations = [e for e in on_device if e.name().startswith("ng.")]
     assert {e.name() for e in annotations} >= {"ng.ppo.update", "ng.collect", "ng.sweep", "ng.launch"}
@@ -313,7 +315,26 @@ def test_kernel_learner_launches_inside_its_spans(cuda):
         return sorted(name for s, e, name in spans if s <= t <= e)
 
     assert [around(launches[e.correlation_id()]) for e in sorted(hand, key=lambda e: e.start_ns())] == [
-        ["ng.collect", "ng.launch", "ng.ppo.update"], ["ng.launch", "ng.ppo.update", "ng.sweep"]]
+        ["ng.collect", "ng.launch", "ng.ppo.update"], ["ng.launch", "ng.ppo.gae", "ng.ppo.update"],
+        ["ng.launch", "ng.ppo.update", "ng.sweep"]]
+
+
+def test_kernel_learner_gae_is_one_launch(cuda):
+    """Past the learner's first update, a kernel-path update launches one
+    kernel under ``ng.ppo.gae``, ``ngk::gae_kernel``, counted once as
+    ``launch_counts["gae"]``: the day-end dones and bootstrap values are
+    built at the first update and kept."""
+    _, _, events, _ = _profiled_kernel_update(cuda)
+    assert launch_counts["gae"] == 1
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+             if e.device_type() != torch.autograd.DeviceType.CUDA and e.name() == "ng.ppo.gae"]
+    assert len(spans) == 1
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != torch.autograd.DeviceType.CUDA and e.name().startswith("cu")}
+    under_gae = [e.name() for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation() and e.correlation_id() in launches
+                 and spans[0][0] <= launches[e.correlation_id()] <= spans[0][1]]
+    assert len(under_gae) == 1 and re.search(r"\bngk::gae_kernel<float>", under_gae[0]), under_gae
 
 
 def test_profile_train_device_time_leaves_out_the_spans(cuda):
@@ -332,6 +353,7 @@ def test_profile_train_device_time_leaves_out_the_spans(cuda):
     assert device_total == pytest.approx(sum(e.duration_ns() for e in ops) / 1e3, rel=1e-6)
     assert not any(name.startswith("other: ng.") for name in per_kernel)
     assert per_kernel["K2 ppo_collect_day_seeded"][0] == per_kernel["K3 ppo_sweep_kernel"][0] == 1
+    assert per_kernel["GAE gae_kernel"][0] == 1
 
 
 # ---------------------------------------------------------------- DDPG ---
@@ -1363,6 +1385,66 @@ def test_engine_step_refuses_what_it_does_not_take(cuda):
     assert_same_step(step(config, params, state, action.double(), next_pv_shift=shift),
                      step_plain(config, params, state, action.double(), next_pv_shift=shift))
     assert dict(launch_counts) == {"engine_step": 1}
+
+
+# -------------------------------------------------------------------- GAE ---
+
+
+@pytest.mark.parametrize("T", [1, 24, 48])
+@pytest.mark.parametrize("batch", [1, 37, 1024, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_gae_equals_twin(cuda, dtype, batch, T):
+    """``ops/gae.py`` on the card launches ``csrc/gae.cu`` once, and its
+    advantages and returns equal the eager twin's bit for bit, on random
+    dones and a nonzero bootstrap value: from contiguous ``(T, B)`` inputs,
+    and from strided ones (env-major views, an expanded bootstrap)."""
+    from smart_nanogrid_gym_torch.ops.gae import LAUNCH_NAME, gae, gae_plain
+
+    g = torch.Generator(device=cuda).manual_seed(batch * 100 + T)
+    rewards, values = 3.0 * torch.randn((2, T, batch), generator=g, dtype=dtype, device=cuda)
+    dones = torch.rand((T, batch), generator=g, device=cuda) < 0.15
+    last_value = torch.randn(batch, generator=g, dtype=dtype, device=cuda)
+    strided = (rewards.T.contiguous().T, values.T.contiguous().T, dones.T.contiguous().T,
+               last_value[:1].expand(batch))
+    for inputs in ((rewards, values, dones, last_value), strided):
+        reset_launch_counts()
+        got = gae(*inputs, 0.99, 0.95)
+        assert dict(launch_counts) == {LAUNCH_NAME: 1}
+        want = gae_plain(*inputs, 0.99, 0.95)
+        for g_, w in zip(got, want):
+            assert g_.dtype == w.dtype and g_.shape == w.shape and g_.is_contiguous()
+            assert torch.equal(g_, w)
+
+
+def test_gae_refuses_what_it_does_not_take(cuda):
+    """The wrapper raises, before it launches, on values that are not f32 or
+    f64, on operands of another dtype, shape or device than the values',
+    on dones that are not bool and on operands that require grad."""
+    from smart_nanogrid_gym_torch.ops.gae import gae
+
+    T, B = 24, 64
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rewards, values = torch.randn((2, T, B), generator=g, device=cuda)
+    dones, last_value = torch.rand((T, B), generator=g, device=cuda) < 0.1, torch.zeros(B, device=cuda)
+    reset_launch_counts()
+    refused = {
+        "float32 or float64": lambda: gae(rewards.bfloat16(), values.bfloat16(), dones, last_value.bfloat16(),
+                                          0.99, 0.95),
+        "int64": lambda: gae(rewards, values.long(), dones, last_value, 0.99, 0.95),
+        r"values must be \(T, B\)": lambda: gae(rewards[0], values[0], dones[0], last_value, 0.99, 0.95),
+        "rewards is torch.int32": lambda: gae(rewards.int(), values, dones, last_value, 0.99, 0.95),
+        "rewards must be": lambda: gae(rewards[:-1], values, dones, last_value, 0.99, 0.95),
+        "dones is torch.float32": lambda: gae(rewards, values, dones.float(), last_value, 0.99, 0.95),
+        "dones must be": lambda: gae(rewards, values, dones[:, :-1], last_value, 0.99, 0.95),
+        "last_value must be": lambda: gae(rewards, values, dones, last_value[None], 0.99, 0.95),
+        "last_value is torch.float64": lambda: gae(rewards, values, dones, last_value.double(), 0.99, 0.95),
+        "rewards is on cpu": lambda: gae(rewards.cpu(), values, dones, last_value, 0.99, 0.95),
+        "requires grad": lambda: gae(rewards, values.clone().requires_grad_(), dones, last_value, 0.99, 0.95),
+    }
+    for message, call in refused.items():
+        with pytest.raises(ValueError, match=message):
+            call()
+    assert not launch_counts
 
 
 def test_vector_env_day_launches_one_step_kernel_a_step(cuda):

@@ -146,6 +146,27 @@ def test_cpu_tensors_take_the_plain_path():
     assert sum(launch_counts.values()) == 0
 
 
+def test_gae_routes_cpu_tensors_to_the_twin(monkeypatch):
+    """``ops/gae.py`` runs CPU tensors through the eager twin: it loads no
+    library and launches nothing, and gives the twin's results."""
+    from smart_nanogrid_gym_torch.ops import _build
+    from smart_nanogrid_gym_torch.ops.gae import gae, gae_plain
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU call loaded or launched a kernel")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "launch", refuse)
+    g = torch.Generator().manual_seed(5)
+    rewards, values = torch.randn((2, 24, 37), generator=g)
+    dones, last_value = torch.rand((24, 37), generator=g) < 0.2, torch.randn(37, generator=g)
+    reset_launch_counts()
+    got = gae(rewards, values, dones, last_value, 0.99, 0.95)
+    assert not launch_counts
+    for g_, w in zip(got, gae_plain(rewards, values, dones, last_value, 0.99, 0.95)):
+        assert torch.equal(g_, w)
+
+
 def test_library_path_reads_the_sources_once_per_process(monkeypatch):
     """Every launch names its library through ``library_path``: the digest of
     the sources is read on a process's first call and never again."""
@@ -174,7 +195,7 @@ def _library_specs():
     config = PortConfig(num_chargers=8)
     return {"kernels-ppo": _build.config_spec(config), "kernels-ddpg": _build.config_spec(config, (400, 300), "ddpg"),
             "sweep": _build.sweep_spec(25, 9, 64, 64), "ddpg_sweep": _build.ddpg_sweep_spec(25, 9, 400, 300),
-            "engine": _build.engine_spec(config)}
+            "engine": _build.engine_spec(config), "gae": _build.gae_spec()}
 
 
 def _c_type(decl: str) -> str:

@@ -28,6 +28,7 @@ from smart_nanogrid_gym_tpu.solvers.networks import ActorCritic as FlaxActorCrit
 from smart_nanogrid_gym_tpu.solvers.ppo import PPOConfig as JaxPPOConfig, PPOLearner as JaxPPOLearner
 
 from smart_nanogrid_gym_torch.core.params import NanogridParams, make_params
+from smart_nanogrid_gym_torch.ops import launch_counts, reset_launch_counts
 from smart_nanogrid_gym_torch.ops.gen_rollout import pv_shift_from_uniform
 from smart_nanogrid_gym_torch.ops.philox import collect_draws
 from smart_nanogrid_gym_torch.parallel import EnvMesh
@@ -190,6 +191,48 @@ def test_kernel_path_update_matches_jax_kernel_composition():
     np.testing.assert_allclose(new.batt_soc.numpy(), np.asarray(batt), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(float(met.mean_return), float(rew.sum(axis=0).mean()), rtol=1e-5)
     np.testing.assert_allclose(float(met.approx_kl), float(met_g[:, 3].mean()), rtol=1e-3, atol=1e-7)
+
+
+@pytest.mark.parametrize("seed, T, B", [(0, 24, 37), (1, 1, 5), (2, 48, 128), (3, 24, 1)])
+def test_gae_twin_matches_jax_learner_gae(seed, T, B):
+    """The learner's GAE on the CPU (``ops/gae.py``'s eager twin, no launch)
+    against the JAX learner's ``_gae`` (a ``lax.scan``) in f32, on random
+    dones and a nonzero bootstrap value: XLA's CPU loop rounds some steps
+    otherwise (one or two f32 ulps of the advantages, about 5e-7), so the
+    bar adds an absolute 1e-6 to rtol 1e-6."""
+    rng = np.random.default_rng(seed)
+    rewards, values = rng.normal(size=(2, T, B)).astype(np.float32)
+    dones, last_value = rng.random((T, B)) < 0.2, rng.normal(size=B).astype(np.float32)
+    reset_launch_counts()
+    adv, ret = PPOLearner(CFG, device="cpu")._gae(*map(torch.from_numpy, (rewards, values, dones, last_value)))
+    assert not launch_counts
+    with jax.enable_x64(False):
+        jadv, jret = JaxPPOLearner(CFG)._gae(*map(jnp.asarray, (rewards, values, dones, last_value)))
+    np.testing.assert_allclose(adv.numpy(), np.asarray(jadv), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ret.numpy(), np.asarray(jret), rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_path_builds_its_day_end_once():
+    """The kernel path hands GAE the day-end dones (only t = T-1 set) and the
+    zero bootstrap values it built at its first update, the same tensors at
+    every later update."""
+    B = 32
+    learner = PPOLearner(CFG, PPOConfig(num_epochs=1, num_minibatches=2, collect_impl="kernel",
+                                        sweep_impl="kernel"), device="cpu")
+    params = make_params(CFG, torch.float32, "cpu")
+    seen = []
+    gae_of = learner._gae
+    learner._gae = lambda rewards, values, dones, last_value: seen.append((dones, last_value)) or gae_of(
+        rewards, values, dones, last_value)
+    step = learner.build_train_step()
+    state = learner.init(0, params, B)
+    for _ in range(2):
+        state, _ = step(state, params)
+    (dones, last_value), again = seen
+    assert again[0] is dones and again[1] is last_value
+    T = CFG.steps_per_day
+    assert dones.shape == (T, B) and bool(dones[-1].all()) and not bool(dones[:-1].any())
+    assert torch.equal(last_value, torch.zeros(B))
 
 
 def test_orthogonal_init_has_the_flax_gains():
